@@ -1,0 +1,21 @@
+"""paddlebox_tpu_torch — the PyTorch and CUDA port of the JAX package.
+
+The same system, for an NVIDIA H100: slot samples, a pass working-set
+table on the device, the sparse pull, fused seqpool+CVM, CTR models,
+online AUC and a batched scoring server. Subpackages mirror the JAX
+package's names so each counterpart is easy to find:
+
+- ``data``     slot schema, parser, columnar batches, the batch packer
+- ``table``    value layouts, the pass working set, replica cache
+- ``ops``      sparse pull (hand-written CUDA row gather), seqpool+CVM
+- ``metrics``  online AUC
+- ``models``   DeepFM as an ``nn.Module``; weight conversion from JAX
+- ``train``    the step (eval mode so far)
+- ``serve``    atomic-swap scoring table, scorer and batching server
+
+Entry points take an explicit ``device`` and default to ``"cuda"``; they
+raise when no GPU is present unless the caller asks for ``device="cpu"``.
+The package imports neither ``jax`` nor the JAX package.
+"""
+
+__version__ = "0.1.0"

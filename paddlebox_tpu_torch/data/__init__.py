@@ -1,0 +1,16 @@
+from paddlebox_tpu_torch.data.slot_schema import SlotInfo, SlotSchema
+from paddlebox_tpu_torch.data.slot_record import SlotBatch, SlotRecord, build_batch
+from paddlebox_tpu_torch.data.parser import parse_line, parse_logkey
+from paddlebox_tpu_torch.data.device_pack import DeviceBatch, pack_batch
+
+__all__ = [
+    "SlotSchema",
+    "SlotInfo",
+    "SlotRecord",
+    "SlotBatch",
+    "build_batch",
+    "parse_line",
+    "parse_logkey",
+    "DeviceBatch",
+    "pack_batch",
+]

@@ -1,0 +1,12 @@
+from paddlebox_tpu_torch.models.convert import deepfm_params_from_jax
+from paddlebox_tpu_torch.models.deepfm import DeepFM
+from paddlebox_tpu_torch.models.layers import linear_apply, linear_init, mlp_apply, mlp_init
+
+__all__ = [
+    "mlp_init",
+    "mlp_apply",
+    "linear_init",
+    "linear_apply",
+    "DeepFM",
+    "deepfm_params_from_jax",
+]

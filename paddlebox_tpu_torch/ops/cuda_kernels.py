@@ -1,0 +1,195 @@
+"""Hand-written CUDA kernels for the sparse pull/push hot path.
+
+The counterpart of the JAX package's ``ops/pallas_kernels.py``. Each kernel
+lives in ``ops/csrc/*.cu`` with a plain C launcher, is compiled with
+``nvcc`` for ``sm_90a`` on first use into ``paddlebox_tpu_torch/_build/``,
+and is loaded with ``ctypes`` (no PyTorch headers, so the build takes
+seconds). Beside each kernel sits its plain PyTorch version, which the CPU
+path and the tests use.
+
+Kernels:
+
+- :func:`pull_rows_cuda` — row gather ``table[rows]``; replaces
+  ``pull_rows_pallas``. Plain version :func:`pull_rows_ref`.
+
+Every wrapper adds one to :data:`launch_counts` where it launches its
+kernel, and nowhere else, so a run can show that its main path went
+through the kernel. A failed build or launch raises; nothing falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict
+
+import torch
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_CSRC = os.path.join(_PKG, "ops", "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = (
+    "-O3",
+    "-std=c++17",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-gencode",
+    "arch=compute_90a,code=sm_90a",
+)
+
+# kernel name -> launches since the last reset_launch_counts()
+launch_counts: Dict[str, int] = {"pull_rows_cuda": 0}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    found = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(found):
+        raise RuntimeError(
+            "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+            "the CUDA kernels cannot be built"
+        )
+    return found
+
+
+def _build(source: str) -> str:
+    """Compile ``ops/csrc/<source>`` to a shared library; return its path.
+
+    The library's name carries a hash of the source and flags, so an edited
+    source never loads a stale build. It is compiled to a temporary path and
+    renamed into place, so a concurrent loader sees the old file or the new
+    one, never half of one."""
+    src = os.path.join(_CSRC, source)
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    stem = os.path.splitext(source)[0]
+    lib = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
+    try:
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+            capture_output=True,
+            text=True,
+            timeout=600,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {source} (rc {proc.returncode}):\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib
+
+
+# source -> (exported launcher, its ctypes argtypes); every source builds
+# into its own library
+_LAUNCHERS = {
+    "gather_rows.cu": (
+        "pbx_gather_rows_f32",
+        [
+            ctypes.c_void_p,  # table
+            ctypes.c_longlong,  # R
+            ctypes.c_int,  # W
+            ctypes.c_void_p,  # rows
+            ctypes.c_int,  # rows are int64
+            ctypes.c_longlong,  # U
+            ctypes.c_void_p,  # out
+            ctypes.c_void_p,  # cudaStream_t
+        ],
+    ),
+}
+
+
+def load_library(source: str) -> ctypes.CDLL:
+    """Build (once per process and source) and load a kernel library, with
+    its launcher's argtypes declared."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(_build(source))
+            name, argtypes = _LAUNCHERS[source]
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _libs[source] = lib
+        return lib
+
+
+def build_all() -> None:
+    """Build and load every kernel of the port (set-up, before timing)."""
+    for source in _LAUNCHERS:
+        load_library(source)
+
+
+# ---- row gather -------------------------------------------------------------
+
+
+def pull_rows_ref(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Plain version of the row gather: ``table[rows]`` -> [U, W]."""
+    return table.index_select(0, rows.long())
+
+
+def pull_rows_cuda(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Row gather ``table[rows]`` on the GPU -> [U, W] f32, bit for bit.
+
+    ``table`` is a contiguous f32 [R, W] CUDA tensor, ``rows`` a 1-D int32
+    or int64 tensor on the same device; duplicates are fine. Launches on the
+    current stream of the table's device and does not synchronise."""
+    if not table.is_cuda:
+        raise ValueError(f"pull_rows_cuda needs a CUDA table, got {table.device}")
+    if rows.device != table.device:
+        raise ValueError(
+            f"rows on {rows.device} but table on {table.device}: same device needed"
+        )
+    if table.dtype != torch.float32 or table.dim() != 2 or not table.is_contiguous():
+        raise ValueError(
+            f"table must be a contiguous 2-D float32 tensor, got {table.dtype} "
+            f"shape {tuple(table.shape)} contiguous={table.is_contiguous()}"
+        )
+    if rows.dtype not in (torch.int32, torch.int64) or rows.dim() != 1:
+        raise ValueError(
+            f"rows must be a 1-D int32/int64 tensor, got {rows.dtype} "
+            f"shape {tuple(rows.shape)}"
+        )
+    rows = rows.contiguous()
+    R, W = table.shape
+    U = rows.shape[0]
+    out = torch.empty((U, W), dtype=torch.float32, device=table.device)
+    fn = load_library("gather_rows.cu").pbx_gather_rows_f32
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    with torch.cuda.device(table.device):
+        rc = fn(
+            table.data_ptr(),
+            R,
+            W,
+            rows.data_ptr(),
+            int(rows.dtype == torch.int64),
+            U,
+            out.data_ptr(),
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"pull_rows_cuda launch failed: cudaError {rc}")
+    if U * W:
+        launch_counts["pull_rows_cuda"] += 1
+    return out
+

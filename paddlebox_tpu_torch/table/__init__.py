@@ -1,0 +1,12 @@
+from paddlebox_tpu_torch.table.value_layout import FeatureType, ValueLayout
+from paddlebox_tpu_torch.table.sparse_table import PassWorkingSet
+from paddlebox_tpu_torch.table.optimizers import SparseOptimizerConfig
+from paddlebox_tpu_torch.table.replica_cache import ReplicaCache
+
+__all__ = [
+    "ValueLayout",
+    "FeatureType",
+    "PassWorkingSet",
+    "SparseOptimizerConfig",
+    "ReplicaCache",
+]

@@ -1,0 +1,65 @@
+"""The port stands alone: it imports neither ``jax`` nor ``paddlebox_tpu``,
+and its entry points refuse to fall back to the CPU quietly."""
+
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from paddlebox_tpu_torch.serve import Scorer
+from paddlebox_tpu_torch.table import ValueLayout
+from paddlebox_tpu_torch.train import TrainStepConfig
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+had_jax = "jax" in sys.modules
+import paddlebox_tpu_torch
+for m in pkgutil.walk_packages(paddlebox_tpu_torch.__path__, "paddlebox_tpu_torch."):
+    importlib.import_module(m.name)
+new = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "paddlebox_tpu"))
+print("NEW=" + ("" if had_jax else ",".join(new)))
+print("PBT=" + ",".join(n for n in new if n.split(".")[0] == "paddlebox_tpu"))
+"""
+
+
+def test_import_pulls_in_neither_jax_nor_the_jax_package():
+    r = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL],
+        cwd=REPO, capture_output=True, text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    out = dict(line.split("=", 1) for line in r.stdout.splitlines() if "=" in line)
+    assert out["NEW"] == "", out
+    assert out["PBT"] == "", out
+
+
+def test_no_file_names_the_jax_package():
+    pat = re.compile(r"paddlebox_tpu(?!_torch)")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "paddlebox_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith((".py", ".cu"))]
+    # the one sanctioned mention: chip_smoke.py's kernels line names the
+    # file:line of the TPU kernel each CUDA kernel replaces
+    replaces = re.compile(r'^GATHER_REPLACES = "paddlebox_tpu/ops/pallas_kernels\.py:\d+"$')
+    offenders = []
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            for i, line in enumerate(f, 1):
+                if pat.search(line) and not replaces.match(line.rstrip("\n")):
+                    offenders.append(f"{os.path.relpath(path, REPO)}:{i}")
+    assert offenders == []
+
+
+def test_scorer_without_device_raises_on_a_host_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid here")
+    cfg = TrainStepConfig(num_slots=2, batch_size=4, layout=ValueLayout(embedx_dim=4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Scorer(torch.nn.Linear(1, 1), cfg)

@@ -1,0 +1,75 @@
+"""The port's row gather and sparse pull against the JAX package.
+
+On the CPU the gather takes its plain version, ``pull_rows_ref``; it is
+held exactly against the TPU kernel ``pull_rows_pallas`` run in interpret
+mode. The CUDA kernel itself runs only on a card: ``chip_smoke.py`` holds
+it bitwise against ``pull_rows_ref`` there (this suite imports jax, which
+the card's machine does not have).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddlebox_tpu.ops.pallas_kernels import pull_rows_pallas
+from paddlebox_tpu.ops.pull_push import pull_sparse_rows as jpull_sparse_rows
+from paddlebox_tpu.table.value_layout import FeatureType as JFeatureType
+from paddlebox_tpu.table.value_layout import ValueLayout as JValueLayout
+from paddlebox_tpu_torch.ops import cuda_kernels as ck
+from paddlebox_tpu_torch.ops.pull_push import pull_sparse_rows
+from paddlebox_tpu_torch.table.value_layout import FeatureType, ValueLayout
+
+torch.set_num_threads(2)
+
+
+@pytest.mark.parametrize("width", [22, 21])
+def test_gather_ref_matches_pallas_exactly(width):
+    rng = np.random.default_rng(width)
+    table = rng.normal(size=(128, width)).astype(np.float32)
+    rows = rng.integers(0, 128, 64).astype(np.int32)
+    rows[::7] = rows[0]  # duplicates
+    want = np.asarray(pull_rows_pallas(jnp.asarray(table), jnp.asarray(rows), interpret=True))
+    got = ck.pull_rows_ref(torch.from_numpy(table), torch.from_numpy(rows)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_gather_kernel_refuses_cpu_tensors():
+    table = torch.zeros((4, 3))
+    before = ck.launch_counts["pull_rows_cuda"]
+    with pytest.raises(ValueError, match="CUDA table"):
+        ck.pull_rows_cuda(table, torch.zeros(2, dtype=torch.int32))
+    assert ck.launch_counts["pull_rows_cuda"] == before
+
+
+def _table(rng, layout, n):
+    table = rng.normal(size=(n, layout.width)).astype(np.float32)
+    table[:, layout.SHOW] = rng.integers(0, 100, n).astype(np.float32)
+    return table
+
+
+@pytest.mark.parametrize(
+    "feature_type,threshold,scale",
+    [
+        (FeatureType.PLAIN, 0.0, 1.0),
+        (FeatureType.PLAIN, 10.0, 1.0),  # row-level threshold gate
+        (FeatureType.VARIABLE, 8.0, 1.0),  # graded per-column unlock
+        (FeatureType.PLAIN, 10.0, 0.37),
+        (FeatureType.VARIABLE, 5.0, 2.5),
+    ],
+)
+def test_pull_sparse_rows_matches_jax_exactly(feature_type, threshold, scale):
+    rng = np.random.default_rng(7)
+    lay = ValueLayout(embedx_dim=8, feature_type=feature_type)
+    jlay = JValueLayout(embedx_dim=8, feature_type=JFeatureType(feature_type.value))
+    table = _table(rng, lay, 96)
+    rows = rng.integers(0, 96, 40).astype(np.int32)
+    want = np.asarray(
+        jpull_sparse_rows(jnp.asarray(table), jnp.asarray(rows), jlay, threshold, scale)
+    )
+    got = pull_sparse_rows(
+        torch.from_numpy(table), torch.from_numpy(rows), lay, threshold, scale
+    ).numpy()
+    assert got.shape == (40, lay.pull_width)
+    np.testing.assert_array_equal(got, want)
+

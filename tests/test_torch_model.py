@@ -1,0 +1,119 @@
+"""The port's DeepFM and eval step against the JAX package.
+
+Weights are carried across with ``deepfm_params_from_jax``. In fp32 the
+MLPs agree to 1e-5 (a check on the weight transpose). With the bf16
+activation recipe both packages round each layer's matmul and bias add to
+bf16, at places that differ between XLA's and torch's CPU dots: the
+logits then agree within LOGIT_ATOL (the measured max |diff| was 9.5e-7
+on logits of magnitude ~11 at these sizes; the bound leaves room for a
+bf16 ulp flip in a hidden unit, which moves a logit by up to ~1e-2).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddlebox_tpu.metrics.auc import auc_init as jauc_init
+from paddlebox_tpu.models import DeepFM as JDeepFM
+from paddlebox_tpu.models.layers import mlp_apply as jmlp_apply
+from paddlebox_tpu.table.value_layout import ValueLayout as JValueLayout
+from paddlebox_tpu.train.train_step import TrainState as JTrainState
+from paddlebox_tpu.train.train_step import TrainStepConfig as JTrainStepConfig
+from paddlebox_tpu.train.train_step import make_train_step as jmake_train_step
+from paddlebox_tpu_torch.metrics.auc import auc_init
+from paddlebox_tpu_torch.models import DeepFM, deepfm_params_from_jax
+from paddlebox_tpu_torch.models.layers import mlp_apply
+from paddlebox_tpu_torch.table.value_layout import ValueLayout
+from paddlebox_tpu_torch.train.train_step import TrainState, TrainStepConfig, make_train_step
+
+torch.set_num_threads(2)
+
+S, B, D = 5, 8, 4
+HIDDEN = (32, 16)
+LOGIT_ATOL = 1e-2
+
+
+def _models(dense_dim=0):
+    lay = ValueLayout(embedx_dim=D)
+    jmodel = JDeepFM(S, lay.pull_width, D, dense_dim=dense_dim, hidden=HIDDEN)
+    jparams = jax.tree.map(lambda a: a + 0.03, jmodel.init(jax.random.PRNGKey(1)))
+    model = DeepFM(
+        S, lay.pull_width, D, dense_dim=dense_dim, hidden=HIDDEN,
+        generator=torch.Generator().manual_seed(1),
+    )
+    model.load_state_dict(deepfm_params_from_jax(jax.tree.map(np.asarray, jparams)))
+    return jmodel, jparams, model
+
+
+def test_mlp_fp32_matches_jax():
+    _, jparams, model = _models()
+    x = np.random.default_rng(0).normal(size=(B, S * 7)).astype(np.float32)
+    want = np.asarray(jmlp_apply(jparams["mlp"], jnp.asarray(x), True, jnp.float32))
+    got = mlp_apply(model.mlp, torch.from_numpy(x), True, torch.float32).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dense_dim", [0, 3])
+def test_deepfm_logits_match_jax(dense_dim):
+    jmodel, jparams, model = _models(dense_dim)
+    rng = np.random.default_rng(2)
+    feats = rng.normal(size=(B, S, 7)).astype(np.float32)
+    dense = rng.normal(size=(B, dense_dim)).astype(np.float32) if dense_dim else None
+    want = np.asarray(
+        jmodel.apply(jparams, jnp.asarray(feats), None if dense is None else jnp.asarray(dense))
+    )
+    with torch.no_grad():
+        got = model(
+            torch.from_numpy(feats), None if dense is None else torch.from_numpy(dense)
+        ).numpy()
+    assert got.shape == (B,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=LOGIT_ATOL)
+
+
+def test_eval_step_matches_jax():
+    jmodel, jparams, model = _models()
+    lay, jlay = ValueLayout(embedx_dim=D), JValueLayout(embedx_dim=D)
+    rng = np.random.default_rng(4)
+    table = (0.3 * rng.normal(size=(64, lay.width))).astype(np.float32)
+    table[:, 0] = rng.integers(0, 30, 64)
+    table[:, 1] = np.floor(table[:, 0] * 0.5)
+    lens = rng.integers(1, 3, S * B)
+    segments = np.repeat(np.arange(S * B, dtype=np.int32), lens)
+    L = len(segments)
+    batch = {
+        "uniq_rows": np.concatenate([rng.permutation(63)[:30], [63, 63]]).astype(np.int32),
+        "inverse": np.concatenate([rng.integers(0, 30, L), [31, 31]]).astype(np.int32),
+        "segments": np.concatenate([segments, [S * B, S * B]]).astype(np.int32),
+        "labels": (rng.random(B) < 0.5).astype(np.float32),
+    }
+    jcfg = JTrainStepConfig(num_slots=S, batch_size=B, layout=jlay, auc_buckets=200)
+    cfg = TrainStepConfig(num_slots=S, batch_size=B, layout=lay, auc_buckets=200)
+    jstep = jax.jit(jmake_train_step(jmodel.apply, None, jcfg, eval_mode=True))
+    jstate = JTrainState(
+        jnp.asarray(table), jparams, None, jauc_init(200), jnp.zeros((), jnp.int32)
+    )
+    jnew, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()})
+
+    step = make_train_step(
+        lambda p, x, d: torch.func.functional_call(model, p, (x, d)), cfg, eval_mode=True
+    )
+    state = TrainState(
+        torch.from_numpy(table), dict(model.state_dict()), None,
+        auc_init(200, device="cpu"), torch.zeros((), dtype=torch.int32),
+    )
+    new, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(m["preds"].numpy(), np.asarray(jm["preds"]), rtol=0, atol=LOGIT_ATOL / 4)
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
+    np.testing.assert_array_equal(m["labels"].numpy(), np.asarray(jm["labels"]))
+    assert int(m["step"]) == int(jm["step"]) == 1
+    np.testing.assert_array_equal(new.auc.pos.numpy(), np.asarray(jnew.auc.pos))
+    np.testing.assert_array_equal(new.auc.neg.numpy(), np.asarray(jnew.auc.neg))
+    assert new.table is state.table and new.params is state.params
+
+
+def test_train_mode_is_not_ported_yet():
+    cfg = TrainStepConfig(num_slots=S, batch_size=B, layout=ValueLayout(embedx_dim=D))
+    with pytest.raises(NotImplementedError):
+        make_train_step(lambda p, x, d: x, cfg, eval_mode=False)
