@@ -8,12 +8,15 @@ Run from the repository root on a machine with a CUDA card:
 Phases (any failure exits non-zero; nothing is caught and swallowed):
 
 1. the card's name and power limit, torch and CUDA versions;
-2. build every CUDA kernel of the serving path from ``paddlebox_tpu_torch/
-   ops/csrc`` with nvcc for sm_90a;
-3. kernel check: ``pull_rows_cuda`` against its plain version
-   ``pull_rows_ref`` on the card, bitwise, at the serving shape and at
-   W = 128 and W = 1 (U = 0 and U = 7);
-4. the main path at full width — DeepFM, 39 slots, embedx 16, hidden
+2. build every CUDA kernel from ``paddlebox_tpu_torch/ops/csrc`` with nvcc
+   for sm_90a, one nvcc per source, all started together;
+3. kernel checks on the card, bitwise against the plain versions:
+   ``pull_rows_cuda`` against ``pull_rows_ref`` and ``write_rows_cuda``
+   against ``write_rows_ref`` at W = 21, W = 128 and W = 1 (U = 0 and
+   U = 7), with repeated padding rows and int32 and int64 row ids; the
+   writeback with out-of-range row ids must leave every other table row
+   bitwise as it was, and int32 and int64 ids must give the same table;
+4. the serving path at full width — DeepFM, 39 slots, embedx 16, hidden
    (512, 256, 128), batch 4096 — served by ``ScoreServer(device="cuda")``
    from a ``ScoringTable`` of 1 << 22 keys of width 21 made from ``--seed``:
    a few requests (full batches, smaller ones, some concurrent, keys drawn
@@ -22,22 +25,44 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    request with the gather forced to ``pull_rows_ref`` bitwise equal, and a
    small request within PRED_ATOL of the port's CPU path. Every kernel of
    the path must have launched during the served run;
-5. numbers: the kernel's time at the main path's own shape (CUDA events,
+5. serving numbers: the gather's time at the serving shape (CUDA events,
    median of ``TIMING_REPS``, with the L2 flushed and warm), the plain
-   version's and ``torch.index_select``'s times, the HBM bound, launches per
-   scored batch and request latency p50/p99 — each beside the card's name
-   and power limit — then the ``kernels`` line, the nvidia-smi line, and
-   last ``{"ok": true, "device": {...}}``.
+   version's and ``torch.index_select``'s times, the HBM bound, launches
+   per scored batch and request latency p50/p99;
+6. the training path at the same width: bench.py's data (16 files x 8192
+   records, 39 one-key slots, a quarter from a 4096-key hot head, the rest
+   uniform over 1 << 22, 20% positive) written from ``--seed``, then
+   ``HostSparseTable(n_shards=64)`` -> ``BoxPSDataset(batch_size=4096)`` ->
+   ``begin_pass`` -> ``CTRTrainer(device="cuda").train_pass`` over 32
+   batches (one epoch, about 2.5 M unique keys) -> ``end_pass``. Every
+   step must launch ``pull_rows_cuda`` twice and ``write_rows_cuda`` once,
+   every loss must be finite, and the host table after ``end_pass`` must
+   hold the pass's keys less those ``decay_and_shrink`` dropped, each with
+   its trained row decayed. Then: 4 steps run twice from one state give
+   bitwise-equal tables, params and Adam moments (no float atomics
+   anywhere on the path); the same 4 steps with the writeback forced to
+   ``write_rows_ref`` give a bitwise-equal table; the push without dedup
+   is bitwise repeatable; and a few steps at a small config on the card
+   and on the port's CPU path agree within the stated tolerances;
+7. training numbers: ``write_rows_cuda`` and ``pull_rows_cuda`` at the
+   training path's own shape (cold and warm L2) beside their plain
+   versions, ``index_copy_`` / ``index_select`` and the HBM bound, launches
+   per step, and train samples/s with the host-clock split of a step.
 
-It exits non-zero without a result when no CUDA device is present.
+Every number is printed beside the card's name and power limit; then the
+``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
+{...}}``. It exits non-zero without a result when no CUDA device is
+present.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -57,6 +82,22 @@ TIMING_REPS = 30
 # different places; preds are sigmoids, so a logit gap d moves them <= d/4
 PRED_ATOL = 2e-2
 GATHER_REPLACES = "paddlebox_tpu/ops/pallas_kernels.py:75"
+WRITE_REPLACES = "paddlebox_tpu/ops/pallas_kernels.py:114"
+# the training path (bench.py's shape)
+N_FILES = 16
+RECORDS_PER_FILE = 8192  # 131072 records = 32 batches per epoch
+POS_FRAC = 0.2
+TWIN_STEPS = 4
+# card vs the port's CPU path, a few training steps at a small config. The
+# bf16 MLP may round at other places in cuBLAS and the CPU backend, and a
+# dense weight whose grad is near zero can then take another Adam step of
+# up to lr = 1e-3. Measured on an H100 at 700 W: table max |diff| 7.5e-9,
+# params 2.3e-10, loss relative 7.2e-8; the bounds leave 10x-1000x room
+# and stay under one Adam step
+SMALL_STEPS = 3
+SMALL_TABLE_RTOL, SMALL_TABLE_ATOL = 1e-4, 1e-6
+SMALL_PARAMS_ATOL = 1e-5
+SMALL_LOSS_RTOL = 1e-5
 
 
 def smi_line() -> str:
@@ -134,6 +175,189 @@ def check_gather(ck, table, rows, what):
     return err
 
 
+def check_write(ck, table, rows, new_rows, what):
+    """``write_rows_cuda`` against ``write_rows_ref`` on copies of ``table``."""
+    got = ck.write_rows_cuda(table.clone(), rows, new_rows)
+    torch.cuda.synchronize()
+    want = ck.write_rows_ref(table.clone(), rows, new_rows)
+    if not torch.equal(got, want):
+        raise AssertionError(f"write_rows_cuda != write_rows_ref at {what}")
+    print(f"kernel check write_rows_cuda {what}: bitwise equal", flush=True)
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def write_case(dev, g, R, W, U):
+    """A table, U row ids unique but for padding-row repeats at the tail
+    (R - 1), and new rows whose repeats carry identical contents."""
+    table = torch.randn((R, W), device=dev, generator=g)
+    rows = torch.randperm(R - 1, device=dev, generator=g)[:U].to(torch.int32)
+    n_pad = max(U // 64, min(U, 3))
+    rows[U - n_pad :] = R - 1
+    new_rows = torch.randn((U, W), device=dev, generator=g)
+    new_rows[U - n_pad :] = new_rows[U - 1] if U else new_rows[:0]
+    return table, rows, new_rows
+
+
+def check_write_kernel(ck, dev, g):
+    """Phase 3's writeback checks; returns the max abs error seen."""
+    err = 0.0
+    for R, W, U in ((160_000, 21, 122_624), (65_536, 128, 16_384), (100, 1, 0), (100, 1, 7)):
+        table, rows, new_rows = write_case(dev, g, R, W, U)
+        for r in (rows, rows.long()):
+            err = max(err, check_write(ck, table, r, new_rows, f"R={R} W={W} U={U} {r.dtype}"))
+        a = ck.write_rows_cuda(table.clone(), rows, new_rows)
+        b = ck.write_rows_cuda(table.clone(), rows.long(), new_rows)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(f"int32 and int64 row ids give different tables at R={R} W={W}")
+    print("kernel check write_rows_cuda: int32 and int64 row ids give the same table", flush=True)
+    # out-of-range ids write nothing; every row outside the written set keeps its bytes
+    R, W = 4096, 21
+    table, rows, new_rows = write_case(dev, g, R, W, 512)
+    bad = torch.tensor([-1, R, R + 5, 2**31 - 1], device=dev, dtype=torch.int64)
+    rows64 = torch.cat([rows.long(), bad])
+    new64 = torch.cat([new_rows, torch.randn((len(bad), W), device=dev, generator=g)])
+    got = ck.write_rows_cuda(table.clone(), rows64, new64)
+    got32 = ck.write_rows_cuda(table.clone(), rows64.clamp(max=2**31 - 1).to(torch.int32), new64)
+    torch.cuda.synchronize()
+    want = ck.write_rows_ref(table.clone(), rows, new_rows)
+    if not (torch.equal(got, want) and torch.equal(got32, want)):
+        raise AssertionError("write_rows_cuda with out-of-range row ids touched other rows")
+    print("kernel check write_rows_cuda: out-of-range row ids write nothing, other rows bitwise unchanged", flush=True)
+    return err
+
+
+def time_fns(fns, flush, restore=None):
+    """Median device ms of each fn, L2 flushed (cold) and warm, in turns.
+
+    ``restore`` runs before each cold call, outside the timed region (the
+    flush evicts what it touched). The writeback is idempotent (the same
+    bytes land on every call), so warm calls need no restore."""
+    for fn in fns.values():
+        fn()
+    cold = {k: [] for k in fns}
+    warm = {k: [] for k in fns}
+    for rep in range(TIMING_REPS):
+        order = list(fns) if rep % 2 == 0 else list(fns)[::-1]
+        for k in order:
+            if restore is not None:
+                restore()
+            cold[k].append(cuda_ms(fns[k], flush))
+            warm[k].append(cuda_ms(fns[k], None))
+    return (
+        {k: float(np.median(v)) for k, v in cold.items()},
+        {k: float(np.median(v)) for k, v in warm.items()},
+    )
+
+
+def write_bench_files(tmpdir, rng):
+    """bench.py's data: N_FILES x RECORDS_PER_FILE slot lines, one key per
+    slot, a quarter from the hot head, the rest uniform, POS_FRAC positive."""
+    files = []
+    for fi in range(N_FILES):
+        n = RECORDS_PER_FILE
+        hot = rng.integers(1, HOT_KEYS, (n, NUM_SLOTS))
+        cold = rng.integers(1, KEY_SPACE, (n, NUM_SLOTS))
+        keys = np.where(rng.random((n, NUM_SLOTS)) < HOT_FRAC, hot, cold)
+        labels = (rng.random(n) < POS_FRAC).astype(np.int32)
+        path = os.path.join(tmpdir, f"part-{fi:03d}.txt")
+        with open(path, "w") as f:
+            for i in range(n):
+                f.write(f"1 {labels[i]}.0 " + " ".join(f"1 {k}" for k in keys[i]) + "\n")
+        files.append(path)
+    return files
+
+
+def run_steps(step, table0, params0, opt0, feeds, dev):
+    """``len(feeds)`` training steps from copies of one state."""
+    from paddlebox_tpu_torch.metrics import auc_init
+    from paddlebox_tpu_torch.train import AdamState, TrainState
+
+    st = TrainState(
+        table=torch.from_numpy(table0).to(dev, copy=True),
+        params={k: v.clone() for k, v in params0.items()},
+        opt_state=AdamState(
+            opt0.count.clone(),
+            {k: v.clone() for k, v in opt0.mu.items()},
+            {k: v.clone() for k, v in opt0.nu.items()},
+        ),
+        auc=auc_init(1000, device=dev),
+        step=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    losses = []
+    for f in feeds:
+        st, m = step(st, f)
+        losses.append(m["loss"])
+    return st, losses
+
+
+def same_state(a, b) -> bool:
+    return (
+        torch.equal(a.table, b.table)
+        and all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+        and all(torch.equal(a.opt_state.mu[k], b.opt_state.mu[k]) for k in a.params)
+        and all(torch.equal(a.opt_state.nu[k], b.opt_state.nu[k]) for k in a.params)
+    )
+
+
+def small_card_vs_cpu(seed):
+    """A few training steps at a small config on the card and on the port's
+    CPU path, from one state; raises if they disagree."""
+    from torch.func import functional_call
+
+    from paddlebox_tpu_torch.models import DeepFM
+    from paddlebox_tpu_torch.table import SparseOptimizerConfig, ValueLayout
+    from paddlebox_tpu_torch.train import Adam, TrainStepConfig, make_train_step
+
+    S, B, D, R, lr = 5, 64, 4, 512, 1e-3
+    lay = ValueLayout(embedx_dim=D)
+    rng = np.random.default_rng(seed)
+    table0 = (0.1 * rng.standard_normal((R, lay.width))).astype(np.float32)
+    table0[:, lay.SHOW] = rng.integers(0, 30, R)
+    table0[:, lay.CLK] = np.floor(table0[:, lay.SHOW] * rng.random(R))
+    table0[:, lay.embed_g2_col :] = 0.0
+    table0[R - 1] = 0.0
+    batches = []
+    for _ in range(SMALL_STEPS):
+        lens = rng.integers(1, 3, S * B)
+        seg = np.repeat(np.arange(S * B, dtype=np.int32), lens)
+        n_u, L = 200, len(seg)
+        batches.append({
+            "uniq_rows": np.concatenate([rng.permutation(R - 1)[:n_u], np.full(8, R - 1)]).astype(np.int32),
+            "inverse": np.concatenate([rng.integers(0, n_u, L), np.full(8, n_u + 7)]).astype(np.int32),
+            "segments": np.concatenate([seg, np.full(8, S * B)]).astype(np.int32),
+            "labels": (rng.random(B) < 0.3).astype(np.float32),
+        })
+    cfg = TrainStepConfig(
+        num_slots=S, batch_size=B, layout=lay,
+        sparse_opt=SparseOptimizerConfig(embedx_threshold=5.0), auc_buckets=1000,
+    )
+    out = {}
+    for name in ("cuda", "cpu"):
+        dev = torch.device(name)
+        model = DeepFM(S, lay.pull_width, D, hidden=(32, 16), generator=torch.Generator().manual_seed(seed)).to(dev)
+        step = make_train_step(lambda p, x, d, m=model: functional_call(m, p, (x, d)), cfg, Adam(lr))
+        params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        feeds = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in batches]
+        st, losses = run_steps(step, table0, params, Adam(lr).init(params), feeds, dev)
+        out[name] = (st, torch.stack(losses).cpu())
+    (g, gl), (c, cl) = out["cuda"], out["cpu"]
+    gt, ct = g.table.cpu(), c.table
+    tab_err = float((gt - ct).abs().max())
+    tab_ok = bool(torch.allclose(gt, ct, rtol=SMALL_TABLE_RTOL, atol=SMALL_TABLE_ATOL))
+    par_err = max(float((g.params[k].cpu() - c.params[k]).abs().max()) for k in c.params)
+    par_atol = SMALL_PARAMS_ATOL
+    loss_err = float(((gl - cl).abs() / cl.abs()).max())
+    print(
+        f"training card vs CPU ({SMALL_STEPS} steps, S={S} B={B} D={D}): table max |diff| {tab_err:.3e} "
+        f"(rtol {SMALL_TABLE_RTOL}, atol {SMALL_TABLE_ATOL}), params max |diff| {par_err:.3e} "
+        f"(atol {par_atol}), loss max rel diff {loss_err:.3e} (rtol {SMALL_LOSS_RTOL})",
+        flush=True,
+    )
+    if not (tab_ok and par_err <= par_atol and loss_err <= SMALL_LOSS_RTOL):
+        raise AssertionError("training on the card and on the CPU path disagree")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -177,8 +401,9 @@ def main() -> int:
         rows[U - U // 64 :] = R - 1  # the padding row, repeated at the tail
         for r in (rows, rows.long()):
             max_err = max(max_err, check_gather(ck, table, r, f"R={R} W={W} U={U} {r.dtype}"))
+    write_err = check_write_kernel(ck, dev, g)
 
-    # ---- 4. main path ----------------------------------------------------
+    # ---- 4. the serving path ----------------------------------------------
     rng = np.random.default_rng(args.seed)
     lay = ValueLayout(embedx_dim=EMBEDX_DIM)
     t0 = time.perf_counter()
@@ -235,9 +460,10 @@ def main() -> int:
     n_batches = STAT_GET("serve.batches") - batches0
     lat = srv.latency_percentiles()
     print(f"served {lat['n']} requests in {n_batches} batches; kernel launches {counts}", flush=True)
-    for name, n in counts.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was never launched on the main path")
+    if counts["pull_rows_cuda"] == 0:
+        raise AssertionError("kernel pull_rows_cuda was never launched on the serving path")
+    if counts["write_rows_cuda"] != 0:
+        raise AssertionError("the serving path wrote rows: scoring must not push")
     if counts["pull_rows_cuda"] != n_batches:
         raise AssertionError(f"{counts['pull_rows_cuda']} gather launches for {n_batches} batches")
 
@@ -276,7 +502,7 @@ def main() -> int:
     if not cpu_err <= PRED_ATOL:
         raise AssertionError(f"GPU preds differ from the CPU path by {cpu_err}")
 
-    # ---- 5. numbers at the main path's own gather shape ------------------
+    # ---- 5. numbers at the serving path's own gather shape ---------------
     # the full request's stages on the host clock, then the whole call
     t0 = time.perf_counter()
     batch = build_batch(full, schema)
@@ -304,26 +530,15 @@ def main() -> int:
     U = uniq.shape[0]
     max_err = max(max_err, check_gather(ck, table, uniq, f"main path R={R} W={W} U={U} int32"))
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
-    fns = {
+    med, med_warm = time_fns({
         "kernel": lambda: ck.pull_rows_cuda(table, uniq),
         "plain": lambda: ck.pull_rows_ref(table, uniq),
         "library": lambda: torch.index_select(table, 0, uniq),
-    }
-    for fn in fns.values():
-        fn()
-    cold = {k: [] for k in fns}
-    warm = {k: [] for k in fns}
-    for rep in range(TIMING_REPS):
-        order = list(fns) if rep % 2 == 0 else list(fns)[::-1]
-        for k in order:
-            cold[k].append(cuda_ms(fns[k], flush))
-            warm[k].append(cuda_ms(fns[k], None))
-    med = {k: float(np.median(v)) for k, v in cold.items()}
-    med_warm = {k: float(np.median(v)) for k, v in warm.items()}
+    }, flush)
     bytes_moved = 2 * U * W * 4 + 4 * U
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     emit({
-        "card": card, "kernel": "pull_rows_cuda", "R": R, "W": W, "U": U,
+        "card": card, "kernel": "pull_rows_cuda", "path": "serve", "R": R, "W": W, "U": U,
         "n_uniq": db.n_uniq, "ms": med["kernel"], "plain_ms": med["plain"],
         "index_select_ms": med["library"], "bound_ms": bound_ms, "bytes": bytes_moved,
         "reps": TIMING_REPS, "l2": "cold", "warm_l2_ms": med_warm["kernel"],
@@ -334,19 +549,44 @@ def main() -> int:
         "requests": lat["n"], "batches": n_batches, "request_p50_ms": lat["p50_ms"],
         "request_p99_ms": lat["p99_ms"], "request_max_ms": lat["max_ms"],
     })
-    emit({"kernels": [{
-        "name": "pull_rows_cuda",
-        "route": "cuda",
-        "source": "paddlebox_tpu_torch/ops/csrc/gather_rows.cu",
-        "replaces": GATHER_REPLACES,
-        "launches": counts["pull_rows_cuda"],
-        "max_abs_err": max_err,
-        "ms": med["kernel"],
-        "plain_ms": med["plain"],
-        "bound_ms": bound_ms,
-        "bound_by": "bytes",
-        "library_ms": med["library"],
-    }]})
+    serve_counts = counts
+    train = train_phase(args, dev, card, ck, pull_push, lay, schema)
+
+    emit({"kernels": [
+        {
+            "name": "pull_rows_cuda",
+            "route": "cuda",
+            "source": "paddlebox_tpu_torch/ops/csrc/gather_rows.cu",
+            "replaces": GATHER_REPLACES,
+            # both main paths, each counted from 0: serving then training
+            "launches": serve_counts["pull_rows_cuda"] + train["counts"]["pull_rows_cuda"],
+            "launches_by_path": {
+                "serve": serve_counts["pull_rows_cuda"], "train": train["counts"]["pull_rows_cuda"],
+            },
+            "max_abs_err": max(max_err, train["gather_err"]),
+            "ms": train["gather"]["ms"],
+            "plain_ms": train["gather"]["plain_ms"],
+            "bound_ms": train["gather"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": train["gather"]["library_ms"],
+        },
+        {
+            "name": "write_rows_cuda",
+            "route": "cuda",
+            "source": "paddlebox_tpu_torch/ops/csrc/write_rows.cu",
+            "replaces": WRITE_REPLACES,
+            "launches": serve_counts["write_rows_cuda"] + train["counts"]["write_rows_cuda"],
+            "launches_by_path": {
+                "serve": serve_counts["write_rows_cuda"], "train": train["counts"]["write_rows_cuda"],
+            },
+            "max_abs_err": max(write_err, train["write_err"]),
+            "ms": train["write"]["ms"],
+            "plain_ms": train["write"]["plain_ms"],
+            "bound_ms": train["write"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": train["write"]["library_ms"],
+        },
+    ]})
     print(card, flush=True)
     emit({
         "ok": True,
@@ -357,6 +597,210 @@ def main() -> int:
         },
     })
     return 0
+
+
+def train_phase(args, dev, card, ck, pull_push, lay, schema):
+    """Phases 6 and 7: the training main path at full width, its checks
+    and its numbers. Returns the counts and kernel numbers for the
+    ``kernels`` line."""
+    from torch.func import functional_call
+
+    from paddlebox_tpu_torch import config
+    from paddlebox_tpu_torch.data import BoxPSDataset, pack_batch
+    from paddlebox_tpu_torch.models import DeepFM
+    from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig
+    from paddlebox_tpu_torch.train import Adam, CTRTrainer, TrainStepConfig, make_train_step
+
+    rng = np.random.default_rng(args.seed + 1)
+    sparse_opt = SparseOptimizerConfig(embedx_threshold=0.0)
+    table = HostSparseTable(lay, sparse_opt, n_shards=64, seed=args.seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
+        t0 = time.perf_counter()
+        files = write_bench_files(tmpdir, rng)
+        t1 = time.perf_counter()
+        ds = BoxPSDataset(schema, table, batch_size=BATCH, shuffle_mode="local", seed=args.seed)
+        ds.set_filelist(files)
+        ds.load_into_memory()
+        t2 = time.perf_counter()
+    dev_table = ds.begin_pass(round_to=512)
+    t3 = time.perf_counter()
+    n_keys = ds.ws.n_keys
+    print(
+        f"training data: {N_FILES} files x {RECORDS_PER_FILE} records written in {t1 - t0:.3f} s, "
+        f"loaded in {t2 - t1:.3f} s; begin_pass over {n_keys} unique keys "
+        f"(table {dev_table.shape}) in {t3 - t2:.3f} s",
+        flush=True,
+    )
+    cfg = TrainStepConfig(
+        num_slots=NUM_SLOTS, batch_size=BATCH, layout=lay, sparse_opt=sparse_opt, auc_buckets=100_000,
+    )
+    model = DeepFM(
+        NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
+        generator=torch.Generator().manual_seed(args.seed),
+    )
+    trainer = CTRTrainer(model, cfg, dense_opt=Adam(1e-3), device="cuda")
+    trainer.init_params()
+    table0 = dev_table.reshape(-1, lay.width).copy()
+    params0 = {k: v.clone() for k, v in trainer.params.items()}
+    opt0 = trainer.dense_opt.init(params0)
+
+    # ---- 6. the training main path ----------------------------------------
+    stamps = []
+    step_losses = []
+
+    def on_batch(i, m):
+        step_losses.append(m["loss"])
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = trainer.train_pass(ds, on_batch=on_batch, profile=True)
+    torch.cuda.synchronize()
+    t_pass = time.perf_counter() - t0
+    counts = dict(ck.launch_counts)
+    n_steps = int(out["batches"])
+    print(f"trained {n_steps} steps in {t_pass:.3f} s; kernel launches {counts}", flush=True)
+    if n_steps != N_FILES * RECORDS_PER_FILE // BATCH:
+        raise AssertionError(f"{n_steps} steps, want one epoch")
+    if counts["pull_rows_cuda"] != 2 * n_steps or counts["write_rows_cuda"] != n_steps:
+        raise AssertionError(f"launches {counts} for {n_steps} steps: want 2 gathers and 1 writeback a step")
+    losses = torch.stack(step_losses).cpu()
+    if not bool(torch.isfinite(losses).all()) or not np.isfinite(out["loss"]):
+        raise AssertionError(f"non-finite training loss: {losses.tolist()}")
+    print(f"training main path: losses finite, first {float(losses[0]):.5f} last {float(losses[-1]):.5f}; "
+          f"auc {out['auc']:.5f}", flush=True)
+
+    # the same steps from one state: twin, forced plain writeback, no dedup
+    dbs = [pack_batch(b, ds.ws, schema) for b in ds.batches(TWIN_STEPS)]
+    feeds = [{k: torch.from_numpy(v).to(dev) for k, v in db.as_dict().items()} for db in dbs]
+    step = make_train_step(
+        lambda p, x, d: functional_call(trainer.model, p, (x, d)), cfg, trainer.dense_opt
+    )
+    a, la = run_steps(step, table0, params0, opt0, feeds, dev)
+    # the twin runs under the profiler: the card's busy time per step
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof_dev:
+        b, lb = run_steps(step, table0, params0, opt0, feeds, dev)
+        torch.cuda.synchronize()
+    if not same_state(a, b) or not torch.equal(torch.stack(la), torch.stack(lb)):
+        raise AssertionError("two runs of the same training steps differ")
+    print(f"training twin: {TWIN_STEPS} steps twice from one state give bitwise-equal "
+          "tables, params and Adam moments", flush=True)
+    pull_push.write_rows_cuda = ck.write_rows_ref
+    try:
+        c, _ = run_steps(step, table0, params0, opt0, feeds, dev)
+    finally:
+        pull_push.write_rows_cuda = ck.write_rows_cuda
+    torch.cuda.synchronize()
+    if not torch.equal(c.table, a.table):
+        raise AssertionError("the table with write_rows_ref differs from the table with write_rows_cuda")
+    print("training: bitwise-equal table with the writeback forced to write_rows_ref", flush=True)
+    first = next(iter(ds.batches(1)))
+    flat_rows = torch.from_numpy(ds.ws.lookup(first.keys)).to(dev)  # duplicates kept
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    grads = torch.randn((len(flat_rows), lay.pull_width), device=dev, generator=g)
+    ones = torch.ones(len(flat_rows), device=dev)
+    config.set_flag("enable_pullpush_dedup_keys", False)
+    try:
+        t_nd = [
+            pull_push.push_sparse_rows(
+                torch.from_numpy(table0).to(dev, copy=True), flat_rows, grads, ones, ones * 0.2,
+                lay, sparse_opt,
+            )
+            for _ in range(2)
+        ]
+    finally:
+        config.set_flag("enable_pullpush_dedup_keys", True)
+    torch.cuda.synchronize()
+    if not torch.equal(t_nd[0], t_nd[1]):
+        raise AssertionError("the push without dedup is not bitwise repeatable")
+    print(f"training: push without dedup ({len(flat_rows)} rows with duplicates) bitwise repeatable", flush=True)
+    small_card_vs_cpu(args.seed)
+
+    # end_pass: writeback, then decay and shrink
+    trained = trainer.trained_table()
+    pass_keys, row_of = ds.ws.sorted_keys.copy(), ds.ws.row_of_sorted.copy()
+    t0 = time.perf_counter()
+    ended = ds.end_pass(trained)
+    t_end = time.perf_counter() - t0
+    kept = np.sort(table.keys())
+    if len(kept) != n_keys - ended["dropped"] or not np.all(np.isin(kept, pass_keys)):
+        raise AssertionError(
+            f"host table holds {len(kept)} keys; want the pass's {n_keys} less {ended['dropped']} dropped"
+        )
+    want = trained[row_of[np.searchsorted(pass_keys, kept)]]
+    want[:, lay.SHOW] *= sparse_opt.show_clk_decay
+    want[:, lay.CLK] *= sparse_opt.show_clk_decay
+    if not np.array_equal(table.pull_or_create(kept), want) or len(table) != len(kept):
+        raise AssertionError("host rows after end_pass are not the trained rows, decayed")
+    print(f"end_pass in {t_end:.3f} s: host table holds {len(kept)} keys = {n_keys} pass keys "
+          f"- {ended['dropped']} dropped, each its trained row decayed", flush=True)
+
+    # ---- 7. numbers at the training path's own shape ----------------------
+    # device ms per step by kernel name (cut to 60 characters, summed)
+    by_kernel: dict = {}
+    n_device_ops = 0
+    for e in prof_dev.key_averages():
+        if "HtoD" not in e.key:  # the state's table upload is set-up, not step work
+            name = e.key[:60]
+            by_kernel[name] = by_kernel.get(name, 0.0) + e.self_device_time_total / 1e3 / TWIN_STEPS
+            n_device_ops += e.count
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    emit({
+        "card": card, "device_busy_ms_per_step": sum(by_kernel.values()), "steps": TWIN_STEPS,
+        "device_ops_per_step": n_device_ops / TWIN_STEPS, "top_device_ms_per_step": dict(top),
+    })
+    prof = out["profile"]
+    timed = np.diff(stamps)  # steps after the first: warm-up excluded
+    emit({
+        "card": card, "train_samples_per_s": BATCH * len(timed) / float(np.sum(timed)),
+        "steps_timed": len(timed), "batch": BATCH, "pass_s": t_pass,
+        "host_clock_s": prof, "per_step_ms": {k: v / n_steps * 1e3 for k, v in prof.items()},
+        "launches_per_step": {k: v / n_steps for k, v in counts.items()},
+        "loss": out["loss"], "auc": out["auc"], "unique_keys": n_keys,
+    })
+    tab = torch.from_numpy(table0).to(dev)
+    rows = feeds[0]["uniq_rows"]
+    new_rows = ck.pull_rows_ref(tab, rows) + 0.5  # padding-row repeats stay identical
+    R, W = tab.shape
+    U = rows.shape[0]
+    write_err = check_write(ck, tab, rows, new_rows, f"training path R={R} W={W} U={U} int32")
+    gather_err = check_gather(ck, tab, rows, f"training path R={R} W={W} U={U} int32")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    rows64 = rows.long()
+    pristine = tab.clone()
+    bound_ms = (2 * U * W * 4 + 4 * U) / HBM_BYTES_PER_S * 1e3
+    res = {}
+    for name, fns, restore in (
+        ("write_rows_cuda", {
+            "kernel": lambda: ck.write_rows_cuda(tab, rows, new_rows),
+            "plain": lambda: ck.write_rows_ref(tab, rows, new_rows),
+            "library": lambda: tab.index_copy_(0, rows64, new_rows),
+        }, lambda: tab.copy_(pristine)),
+        ("pull_rows_cuda", {
+            "kernel": lambda: ck.pull_rows_cuda(tab, rows),
+            "plain": lambda: ck.pull_rows_ref(tab, rows),
+            "library": lambda: torch.index_select(tab, 0, rows),
+        }, None),
+    ):
+        med, med_warm = time_fns(fns, flush, restore)
+        res[name] = {
+            "ms": med["kernel"], "plain_ms": med["plain"], "library_ms": med["library"],
+            "bound_ms": bound_ms,
+        }
+        emit({
+            "card": card, "kernel": name, "path": "train",
+            "R": R, "W": W, "U": U, "n_uniq": dbs[0].n_uniq,
+            "ms": med["kernel"], "plain_ms": med["plain"],
+            ("index_copy_ms" if name == "write_rows_cuda" else "index_select_ms"): med["library"],
+            "bound_ms": bound_ms, "bytes": 2 * U * W * 4 + 4 * U, "reps": TIMING_REPS, "l2": "cold",
+            "warm_l2_ms": med_warm["kernel"], "warm_l2_plain_ms": med_warm["plain"],
+            "warm_l2_library_ms": med_warm["library"],
+        })
+    return {
+        "counts": counts, "write": res["write_rows_cuda"], "gather": res["pull_rows_cuda"],
+        "write_err": write_err, "gather_err": gather_err,
+    }
 
 
 if __name__ == "__main__":

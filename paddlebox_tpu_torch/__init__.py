@@ -1,16 +1,20 @@
 """paddlebox_tpu_torch — the PyTorch and CUDA port of the JAX package.
 
 The same system, for an NVIDIA H100: slot samples, a pass working-set
-table on the device, the sparse pull, fused seqpool+CVM, CTR models,
+table on the device, the sparse pull and push, fused seqpool+CVM, CTR models,
 online AUC and a batched scoring server. Subpackages mirror the JAX
 package's names so each counterpart is easy to find:
 
-- ``data``     slot schema, parser, columnar batches, the batch packer
-- ``table``    value layouts, the pass working set, replica cache
-- ``ops``      sparse pull (hand-written CUDA row gather), seqpool+CVM
+- ``data``     slot schema, parser, columnar batches, the batch packer,
+               the pass dataset
+- ``table``    value layouts, the host store, the pass working set,
+               replica cache
+- ``ops``      sparse pull and push (hand-written CUDA row gather and
+               row writeback), seqpool+CVM
 - ``metrics``  online AUC
-- ``models``   DeepFM as an ``nn.Module``; weight conversion from JAX
-- ``train``    the step (eval mode so far)
+- ``models``   DeepFM as an ``nn.Module``; weight and Adam-state
+               conversion from and to JAX
+- ``train``    the training and eval step, Adam, the pass trainer
 - ``serve``    atomic-swap scoring table, scorer and batching server
 
 Entry points take an explicit ``device`` and default to ``"cuda"``; they

@@ -2,6 +2,7 @@ from paddlebox_tpu_torch.data.slot_schema import SlotInfo, SlotSchema
 from paddlebox_tpu_torch.data.slot_record import SlotBatch, SlotRecord, build_batch
 from paddlebox_tpu_torch.data.parser import parse_line, parse_logkey
 from paddlebox_tpu_torch.data.device_pack import DeviceBatch, pack_batch
+from paddlebox_tpu_torch.data.dataset import BoxPSDataset, PassStats
 
 __all__ = [
     "SlotSchema",
@@ -13,4 +14,6 @@ __all__ = [
     "parse_logkey",
     "DeviceBatch",
     "pack_batch",
+    "BoxPSDataset",
+    "PassStats",
 ]

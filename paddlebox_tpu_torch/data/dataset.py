@@ -1,0 +1,205 @@
+"""BoxPSDataset: one node's pass data pipeline, its Python tier.
+
+Port of the JAX package's ``data/dataset.py`` for a single process:
+
+    set_date -> set_filelist -> load_into_memory -> begin_pass
+    -> batches() / train -> end_pass(trained_table)
+
+- ``load_into_memory`` reads the part files in a thread pool, parses each
+  line with ``parse_line`` (a bad line raises: strict mode), shuffles
+  ("none", or "local" with the JAX package's permutation for the same seed
+  and pass) and feeds every feasign into a fresh ``PassWorkingSet``.
+- ``begin_pass`` finalizes the working set against the host table and
+  returns the pass table for the device.
+- ``batches`` serves equal-size ``SlotBatch``es, wrapping around past the
+  tail.
+- ``end_pass`` writes the trained rows back, then decays and shrinks the
+  host table, synchronously.
+
+Not ported: the native columnar parser, quarantine, pipe converters,
+preload threads, global shuffles across nodes, pv merge, the carried
+boundary, the asynchronous end pass and delta saves.
+"""
+
+from __future__ import annotations
+
+import glob
+import time
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+from typing import Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from paddlebox_tpu_torch.data.parser import parse_line
+from paddlebox_tpu_torch.data.slot_record import SlotBatch, SlotRecord, build_batch
+from paddlebox_tpu_torch.data.slot_schema import SlotSchema
+from paddlebox_tpu_torch.table.sparse_table import HostSparseTable, PassWorkingSet
+
+_SHUFFLE_MODES = ("none", "local")
+
+
+@dataclass
+class PassStats:
+    """Counts of one pass's load."""
+
+    files: int = 0
+    records: int = 0  # records kept for the pass
+    keys: int = 0  # unique feasigns in the working set (set at begin_pass)
+
+
+class BoxPSDataset:
+    """One node's view of the pass data pipeline (Python tier)."""
+
+    def __init__(
+        self,
+        schema: SlotSchema,
+        table: HostSparseTable,
+        batch_size: int,
+        read_threads: int = 8,
+        shuffle_mode: str = "none",
+        seed: int = 0,
+    ):
+        if shuffle_mode not in _SHUFFLE_MODES:
+            raise NotImplementedError(
+                f"shuffle_mode {shuffle_mode!r}: only {_SHUFFLE_MODES} are ported"
+            )
+        self.schema = schema
+        self.table = table
+        self.batch_size = batch_size
+        self.read_threads = read_threads
+        self.shuffle_mode = shuffle_mode
+        self.seed = seed
+
+        self.date: Optional[str] = None
+        self.pass_id = 0
+        self._filelist: List[str] = []
+        self.records: List[SlotRecord] = []
+        self.ws: Optional[PassWorkingSet] = None
+        self.device_table: Optional[np.ndarray] = None
+        self.stats = PassStats()
+        self._in_pass = False
+        # (records, ws, stats) loaded but not yet begun
+        self._staged = None
+
+    # ---- pass config -----------------------------------------------------
+
+    def set_date(self, date: str) -> None:
+        """New day/pass id (BoxHelper::SetDate parity)."""
+        self.date = date
+        self.pass_id += 1
+
+    def set_filelist(self, files: Sequence[str]) -> None:
+        """The part files of the pass; glob patterns expand in sorted order."""
+        expanded: List[str] = []
+        for f in files:
+            expanded.extend(sorted(glob.glob(f)) if any(c in f for c in "*?[") else [f])
+        self._filelist = expanded
+
+    # ---- load ------------------------------------------------------------
+
+    def _read_one(self, path: str) -> List[SlotRecord]:
+        """Parse every non-empty line of one part file; the first bad line
+        raises. A record the parser returns None for (no feasigns) is
+        skipped."""
+        out = []
+        with open(path, encoding="utf-8") as f:
+            for line in f:
+                line = line.rstrip("\n")
+                rec = parse_line(line, self.schema) if line else None
+                if rec is not None:
+                    out.append(rec)
+        return out
+
+    def _shuffle_records(self, records: List[SlotRecord]) -> List[SlotRecord]:
+        if self.shuffle_mode == "none":
+            return records
+        rng = np.random.default_rng(self.seed + self.pass_id)
+        order = rng.permutation(len(records))
+        return [records[i] for i in order]
+
+    def load_into_memory(self) -> None:
+        """Threaded read -> shuffle -> staged records + working-set keys.
+
+        Loads into a staging slot; ``begin_pass`` consumes it. When no pass
+        is open the load is published at once, so ``memory_data_size`` and
+        ``records`` show it."""
+        if self._staged is not None:
+            raise RuntimeError("staged pass not yet consumed by begin_pass")
+        stats = PassStats(files=len(self._filelist))
+        parts: List[List[SlotRecord]] = []
+        if self._filelist:
+            with ThreadPoolExecutor(max_workers=max(1, self.read_threads)) as pool:
+                parts = list(pool.map(self._read_one, self._filelist))
+        records = self._shuffle_records([r for p in parts for r in p])
+        ws = PassWorkingSet()
+        # MergeInsKeys parity: every feasign of the pass feeds the working set
+        chunk = 4096
+        for i in range(0, len(records), chunk):
+            ws.add_keys(np.concatenate([r.u64_values for r in records[i : i + chunk]]))
+        stats.records = len(records)
+        self._staged = (records, ws, stats)
+        if not self._in_pass:
+            self._publish(self._staged)
+
+    def _publish(self, staged) -> None:
+        self.records, self.ws, self.stats = staged
+
+    # ---- pass lifecycle --------------------------------------------------
+
+    def begin_pass(self, round_to: int = 512) -> np.ndarray:
+        """Consume the staged load, finalize the working set against the
+        host table, and return the pass table [1, cap, width] for the
+        device (BeginFeedPass + EndFeedPass + BeginPass)."""
+        if self._in_pass:
+            raise RuntimeError("previous pass is still open: call end_pass first")
+        if self._staged is not None:
+            self._publish(self._staged)
+            self._staged = None
+        if self.ws is None:
+            raise RuntimeError("load_into_memory first")
+        if not self.ws._finalized:
+            self.device_table = self.ws.finalize(self.table, round_to=round_to)
+        self.stats.keys = self.ws.n_keys
+        self._in_pass = True
+        return self.device_table
+
+    def end_pass(self, trained_table: Optional[np.ndarray] = None, shrink: bool = True) -> dict:
+        """Write the trained rows back to the host table, then decay and
+        shrink it (EndPass parity). ``trained_table`` is the pass table on
+        the host, as ``CTRTrainer.trained_table()`` returns it; None skips
+        the writeback. Returns {"dropped", "secs"}."""
+        if not self._in_pass:
+            raise RuntimeError("begin_pass first")
+        t0 = time.perf_counter()
+        if trained_table is not None:
+            self.ws.writeback(np.asarray(trained_table))
+        dropped = self.table.decay_and_shrink() if shrink else 0
+        self.records = []
+        self.ws = None
+        self.device_table = None
+        self._in_pass = False
+        return {"dropped": dropped, "secs": time.perf_counter() - t0}
+
+    # ---- batch serving ---------------------------------------------------
+
+    def memory_data_size(self) -> int:
+        return len(self.records)
+
+    def num_batches(self) -> int:
+        """Full minibatches in this pass (the remainder is dropped)."""
+        return self.memory_data_size() // self.batch_size
+
+    def batches(self, n_batches: Optional[int] = None) -> Iterator[SlotBatch]:
+        """Yield equal-size SlotBatches; wraps around if asked for more than
+        the pass holds."""
+        n = self.num_batches() if n_batches is None else n_batches
+        if self.memory_data_size() == 0:
+            if n > 0:
+                raise RuntimeError(f"asked for {n} batches but the pass holds 0 records")
+            return
+        B = self.batch_size
+        recs = self.records
+        for i in range(n):
+            batch = [recs[(i * B + j) % len(recs)] for j in range(B)]
+            yield build_batch(batch, self.schema)

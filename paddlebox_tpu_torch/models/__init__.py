@@ -1,4 +1,9 @@
-from paddlebox_tpu_torch.models.convert import deepfm_params_from_jax
+from paddlebox_tpu_torch.models.convert import (
+    adam_state_from_optax,
+    adam_state_to_optax,
+    deepfm_params_from_jax,
+    deepfm_params_to_jax,
+)
 from paddlebox_tpu_torch.models.deepfm import DeepFM
 from paddlebox_tpu_torch.models.layers import linear_apply, linear_init, mlp_apply, mlp_init
 
@@ -9,4 +14,7 @@ __all__ = [
     "linear_apply",
     "DeepFM",
     "deepfm_params_from_jax",
+    "deepfm_params_to_jax",
+    "adam_state_from_optax",
+    "adam_state_to_optax",
 ]

@@ -11,6 +11,8 @@ Kernels:
 
 - :func:`pull_rows_cuda` — row gather ``table[rows]``; replaces
   ``pull_rows_pallas``. Plain version :func:`pull_rows_ref`.
+- :func:`write_rows_cuda` — in-place row set ``table[rows] = new_rows``;
+  replaces ``write_rows_pallas``. Plain version :func:`write_rows_ref`.
 
 Every wrapper adds one to :data:`launch_counts` where it launches its
 kernel, and nowhere else, so a run can show that its main path went
@@ -25,6 +27,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict
 
 import torch
@@ -43,7 +46,7 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset_launch_counts()
-launch_counts: Dict[str, int] = {"pull_rows_cuda": 0}
+launch_counts: Dict[str, int] = {"pull_rows_cuda": 0, "write_rows_cuda": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
@@ -116,6 +119,19 @@ _LAUNCHERS = {
             ctypes.c_void_p,  # cudaStream_t
         ],
     ),
+    "write_rows.cu": (
+        "pbx_write_rows_f32",
+        [
+            ctypes.c_void_p,  # table (written in place)
+            ctypes.c_longlong,  # R
+            ctypes.c_int,  # W
+            ctypes.c_void_p,  # rows
+            ctypes.c_int,  # rows are int64
+            ctypes.c_longlong,  # U
+            ctypes.c_void_p,  # new_rows
+            ctypes.c_void_p,  # cudaStream_t
+        ],
+    ),
 }
 
 
@@ -135,7 +151,12 @@ def load_library(source: str) -> ctypes.CDLL:
 
 
 def build_all() -> None:
-    """Build and load every kernel of the port (set-up, before timing)."""
+    """Build and load every kernel of the port (set-up, before timing).
+
+    One nvcc per source, all started together; then each library loads."""
+    with ThreadPoolExecutor(max_workers=len(_LAUNCHERS)) as ex:
+        for f in [ex.submit(_build, source) for source in _LAUNCHERS]:
+            f.result()
     for source in _LAUNCHERS:
         load_library(source)
 
@@ -148,14 +169,11 @@ def pull_rows_ref(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return table.index_select(0, rows.long())
 
 
-def pull_rows_cuda(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """Row gather ``table[rows]`` on the GPU -> [U, W] f32, bit for bit.
-
-    ``table`` is a contiguous f32 [R, W] CUDA tensor, ``rows`` a 1-D int32
-    or int64 tensor on the same device; duplicates are fine. Launches on the
-    current stream of the table's device and does not synchronise."""
+def _check_table_rows(kernel: str, table: torch.Tensor, rows: torch.Tensor) -> None:
+    """The checks both kernels share: a contiguous f32 [R, W] CUDA table and
+    1-D int32/int64 row ids on its device."""
     if not table.is_cuda:
-        raise ValueError(f"pull_rows_cuda needs a CUDA table, got {table.device}")
+        raise ValueError(f"{kernel} needs a CUDA table, got {table.device}")
     if rows.device != table.device:
         raise ValueError(
             f"rows on {rows.device} but table on {table.device}: same device needed"
@@ -170,6 +188,15 @@ def pull_rows_cuda(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
             f"rows must be a 1-D int32/int64 tensor, got {rows.dtype} "
             f"shape {tuple(rows.shape)}"
         )
+
+
+def pull_rows_cuda(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Row gather ``table[rows]`` on the GPU -> [U, W] f32, bit for bit.
+
+    ``table`` is a contiguous f32 [R, W] CUDA tensor, ``rows`` a 1-D int32
+    or int64 tensor on the same device; duplicates are fine. Launches on the
+    current stream of the table's device and does not synchronise."""
+    _check_table_rows("pull_rows_cuda", table, rows)
     rows = rows.contiguous()
     R, W = table.shape
     U = rows.shape[0]
@@ -193,3 +220,60 @@ def pull_rows_cuda(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         launch_counts["pull_rows_cuda"] += 1
     return out
 
+
+
+# ---- row writeback ------------------------------------------------------------
+
+
+def write_rows_ref(
+    table: torch.Tensor, rows: torch.Tensor, new_rows: torch.Tensor
+) -> torch.Tensor:
+    """Plain version of the row writeback: ``table[rows] = new_rows`` in
+    place, returns ``table``. Exact because repeated rows (the padding row)
+    carry identical contents."""
+    return table.index_copy_(0, rows.long(), new_rows)
+
+
+def write_rows_cuda(
+    table: torch.Tensor, rows: torch.Tensor, new_rows: torch.Tensor
+) -> torch.Tensor:
+    """Row writeback ``table[rows[i]] = new_rows[i]`` on the GPU, in place;
+    returns ``table``.
+
+    ``table`` is a contiguous f32 [R, W] CUDA tensor, ``rows`` a 1-D int32
+    or int64 tensor and ``new_rows`` an f32 [U, W] tensor, both on the
+    table's device. Rows must be unique except for repeats carrying
+    identical contents (the padding row). A row id outside [0, R) writes
+    nothing. Launches on the current stream and does not synchronise."""
+    _check_table_rows("write_rows_cuda", table, rows)
+    R, W = table.shape
+    U = rows.shape[0]
+    if new_rows.device != table.device or new_rows.dtype != torch.float32:
+        raise ValueError(
+            f"new_rows must be float32 on {table.device}, got {new_rows.dtype} "
+            f"on {new_rows.device}"
+        )
+    if tuple(new_rows.shape) != (U, W):
+        raise ValueError(
+            f"new_rows has shape {tuple(new_rows.shape)}, want ({U}, {W})"
+        )
+    rows = rows.contiguous()
+    new_rows = new_rows.contiguous()
+    fn = load_library("write_rows.cu").pbx_write_rows_f32
+    stream = torch.cuda.current_stream(table.device).cuda_stream
+    with torch.cuda.device(table.device):
+        rc = fn(
+            table.data_ptr(),
+            R,
+            W,
+            rows.data_ptr(),
+            int(rows.dtype == torch.int64),
+            U,
+            new_rows.data_ptr(),
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"write_rows_cuda launch failed: cudaError {rc}")
+    if U * W:
+        launch_counts["write_rows_cuda"] += 1
+    return table

@@ -40,7 +40,7 @@ def cvm_transform(pooled: torch.Tensor, use_cvm: bool = True) -> torch.Tensor:
     return pooled[..., 2:]
 
 
-def _segment_lengths(segments: torch.Tensor, num_segments: int) -> torch.Tensor:
+def segment_lengths(segments: torch.Tensor, num_segments: int) -> torch.Tensor:
     """Key counts of segments 0..num_segments for non-decreasing ``segments``
     whose values lie in [0, num_segments]; [num_segments + 1] int64."""
     bounds = torch.arange(num_segments + 1, dtype=segments.dtype, device=segments.device)
@@ -77,7 +77,7 @@ def _seqpool(
         vals = torch.cat([head, tail], dim=1)
 
     num_segments = num_slots * batch_size
-    lengths = _segment_lengths(segments, num_segments)
+    lengths = segment_lengths(segments, num_segments)
     pooled = torch.segment_reduce(vals, "sum", lengths=lengths, axis=0)
     pooled = pooled[:num_segments].reshape(num_slots, batch_size, -1)
     if pad_value != 0.0:

@@ -1,13 +1,19 @@
-"""Pass-scoped device working set over a host row source.
+"""Host key -> row store and the pass-scoped device working set.
 
-Port of the serving half of the JAX package's ``table/sparse_table.py``:
+Port of the JAX package's ``table/sparse_table.py``, its Python tier:
 
+- ``HostSparseTable``: the host store, sharded by key hash across
+  ``n_shards`` lock-protected dict shards (the JAX package's pure-Python
+  store, what it runs with ``PBOX_NATIVE_TABLE=0``): pull-or-create with
+  the same seeded initial rows, full-row push, and the pass-boundary decay
+  and shrink.
 - ``PassWorkingSet``: every feasign of a batch (or a pass) is fed in with
   :meth:`~PassWorkingSet.add_keys`; :meth:`~PassWorkingSet.finalize` dedups,
   pulls the rows from a host row source and lays them out as one dense
   ``[n_mesh_shards, capacity, width]`` fp32 array, which the caller copies
   to the device in one transfer. Keys map to (mesh_shard, row) by hash, so
-  the device-side pull is a static-shape gather.
+  the device-side pull/push is a static-shape gather/scatter.
+  :meth:`~PassWorkingSet.writeback` pushes the trained rows back.
 - lookup: batch keys -> dense row ids happens host-side at pack time
   (vectorized searchsorted over the sorted key table), so no hash table ever
   lives on the device.
@@ -15,8 +21,8 @@ Port of the serving half of the JAX package's ``table/sparse_table.py``:
 Each mesh shard reserves its last row as the padding row (zero, never
 written back): batch padding targets it.
 
-``HostSparseTable``, the native store and the device-carried boundary
-splice come with the training slice.
+The native store, the disk tier, saves and the device-carried boundary
+splice are not ported.
 """
 
 from __future__ import annotations
@@ -24,11 +30,13 @@ from __future__ import annotations
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from paddlebox_tpu_torch import config
+from paddlebox_tpu_torch.table.optimizers import SparseOptimizerConfig
+from paddlebox_tpu_torch.table.value_layout import ValueLayout
 from paddlebox_tpu_torch.utils.monitor import STAT_SET
 
 config.define_flag(
@@ -103,12 +111,188 @@ def key_to_shard(keys: np.ndarray, n_shards: int) -> np.ndarray:
     return (mixed >> np.uint64(33)).astype(np.int64) % n_shards
 
 
+class _Shard:
+    """One lock-protected hash shard of the host store."""
+
+    __slots__ = ("index", "values", "lock", "width")
+
+    def __init__(self, width: int):
+        self.index: Dict[int, int] = {}  # guarded-by: lock
+        self.values = np.zeros((0, width), dtype=np.float32)  # guarded-by: lock
+        self.lock = threading.Lock()
+        self.width = width
+
+    def _grow(self, need: int) -> None:
+        cap = len(self.values)
+        if need <= cap:
+            return
+        new_cap = max(1024, cap * 2, need)
+        nv = np.zeros((new_cap, self.width), dtype=np.float32)
+        nv[:cap] = self.values
+        self.values = nv
+
+
+class HostSparseTable:
+    """Host sharded key -> fp32 row store (the mem tier of BoxPS).
+
+    New keys get rows with embed_w and the embedx block drawn uniform in
+    ``[-initial_range, initial_range)`` from ``np.random.default_rng(seed)``
+    and zero counters and g2 sums: the same draws, in the same order, as
+    the JAX package's Python store.
+    """
+
+    def __init__(
+        self,
+        layout: ValueLayout,
+        opt: SparseOptimizerConfig = SparseOptimizerConfig(),
+        n_shards: Optional[int] = None,
+        seed: int = 0,
+    ):
+        if n_shards is None:
+            n_shards = 1 << config.get_flag("sparse_table_shard_bits")
+        self.layout = layout
+        self.opt = opt
+        self.n_shards = n_shards
+        self._shards = [_Shard(layout.width) for _ in range(n_shards)]
+        # initial-row draws, in shard order within a pull_or_create call; the
+        # draws are reproducible when one such call runs at a time
+        self._rng = np.random.default_rng(seed)
+        self._size = 0  # guarded-by: _size_lock
+        self._size_lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return self._size
+
+    def keys(self) -> np.ndarray:
+        """All keys currently stored, unsorted."""
+        parts = []
+        for sh in self._shards:
+            with sh.lock:
+                parts.append(np.fromiter(sh.index.keys(), dtype=np.uint64, count=len(sh.index)))
+        return np.concatenate(parts) if parts else np.zeros(0, np.uint64)
+
+    def _init_rows(self, n: int) -> np.ndarray:
+        lay = self.layout
+        rows = np.zeros((n, lay.width), dtype=np.float32)
+        r = self.opt.initial_range
+        rows[:, lay.embed_w_col] = self._rng.uniform(-r, r, size=n)
+        n_emb = lay.embedx_dim + lay.expand_dim  # expand block trails embedx
+        rows[:, lay.embedx_col : lay.embedx_col + n_emb] = self._rng.uniform(
+            -r, r, size=(n, n_emb)
+        )
+        return rows
+
+    def pull_or_create(self, keys: np.ndarray) -> np.ndarray:
+        """Rows for unique ``keys`` (creating missing ones). [n, width]."""
+        out = np.empty((len(keys), self.layout.width), dtype=np.float32)
+        shard_ids = key_to_shard(keys, self.n_shards)
+        created = 0
+        for s in range(self.n_shards):
+            sel = np.nonzero(shard_ids == s)[0]
+            if len(sel) == 0:
+                continue
+            shard = self._shards[s]
+            with shard.lock:
+                idx = shard.index
+                # .tolist() converts uint64 -> int in C, so the dict lookups
+                # stay as cheap as the interpreter allows
+                klist = keys[sel].tolist()
+                get = idx.get
+                rows = np.fromiter(
+                    (get(k, -1) for k in klist), dtype=np.int64, count=len(klist)
+                )
+                miss = np.nonzero(rows < 0)[0]
+                if len(miss):
+                    base = len(idx)
+                    shard._grow(base + len(miss))
+                    init = self._init_rows(len(miss))
+                    new_rows = base + np.arange(len(miss))
+                    for mj, j in zip(new_rows, miss):
+                        idx[klist[j]] = int(mj)
+                    shard.values[new_rows] = init
+                    rows[miss] = new_rows
+                    created += len(miss)
+                out[sel] = shard.values[rows]
+        if created:
+            with self._size_lock:
+                self._size += created
+        return out
+
+    def push(self, keys: np.ndarray, rows: np.ndarray) -> None:
+        """Write back full rows for ``keys`` (end-of-pass flush); a key not
+        yet stored is added."""
+        shard_ids = key_to_shard(keys, self.n_shards)
+        created = 0
+        for s in range(self.n_shards):
+            sel = np.nonzero(shard_ids == s)[0]
+            if len(sel) == 0:
+                continue
+            shard = self._shards[s]
+            with shard.lock:
+                idx = shard.index
+                klist = keys[sel].tolist()
+                get = idx.get
+                trows = np.fromiter(
+                    (get(k, -1) for k in klist), dtype=np.int64, count=len(klist)
+                )
+                miss = np.nonzero(trows < 0)[0]
+                if len(miss):
+                    base = len(idx)
+                    shard._grow(base + len(miss))
+                    new_rows = base + np.arange(len(miss))
+                    for mj, j in zip(new_rows, miss):
+                        idx[klist[j]] = int(mj)
+                    trows[miss] = new_rows
+                    created += len(miss)
+                shard.values[trows] = rows[sel]
+        if created:
+            with self._size_lock:
+                self._size += created
+
+    def decay_and_shrink(self) -> int:
+        """Pass-boundary maintenance: decay show/clk by ``show_clk_decay``,
+        drop keys whose decayed show falls under ``shrink_threshold``.
+        Returns the number of keys dropped (pslib show_click_decay_rate +
+        shrink threshold, fleet_wrapper.h:258-310)."""
+        lay, opt = self.layout, self.opt
+        dropped = 0
+        for shard in self._shards:
+            with shard.lock:
+                n = len(shard.index)
+                if n == 0:
+                    continue
+                vals = shard.values[:n]
+                vals[:, lay.SHOW] *= opt.show_clk_decay
+                vals[:, lay.CLK] *= opt.show_clk_decay
+                keep = vals[:, lay.SHOW] >= opt.shrink_threshold
+                if keep.all():
+                    continue
+                keys_arr = np.empty(n, dtype=np.uint64)
+                rows_arr = np.empty(n, dtype=np.int64)
+                for i, (k, r) in enumerate(shard.index.items()):
+                    keys_arr[i] = k
+                    rows_arr[i] = r
+                order = np.argsort(rows_arr)
+                keys_arr, rows_arr = keys_arr[order], rows_arr[order]
+                kept = keep[rows_arr]
+                new_vals = vals[rows_arr[kept]]
+                dropped += int((~kept).sum())
+                shard.index = {int(k): i for i, k in enumerate(keys_arr[kept])}
+                shard.values = np.zeros(
+                    (max(1024, len(shard.index)), lay.width), dtype=np.float32
+                )
+                shard.values[: len(shard.index)] = new_vals
+        with self._size_lock:
+            self._size -= dropped
+        return dropped
+
+
 class PassWorkingSet:
     """The device tier: dense pass-local table built from the unique keys.
 
     Life cycle: add_keys (many threads) -> finalize() -> one host->device
-    copy of the returned array -> steps gather rows by the ids that
-    :meth:`lookup` hands the packer.
+    copy of the returned array -> steps gather and scatter rows by the ids
+    that :meth:`lookup` hands the packer -> writeback(trained array).
     """
 
     def __init__(self, n_mesh_shards: int = 1):
@@ -121,6 +305,7 @@ class PassWorkingSet:
         self.row_of_sorted: Optional[np.ndarray] = None  # int64 [n] global rows
         self.capacity = 0  # rows per mesh shard (incl. padding row)
         self.n_keys = 0
+        self._table = None  # the row source finalize pulled from
 
     def add_keys(self, keys: np.ndarray) -> None:
         """Feed feasigns seen in loaded records (PSAgent::AddKeys parity)."""
@@ -165,6 +350,7 @@ class PassWorkingSet:
         self.sorted_keys = all_keys  # np.unique output is sorted
         self.row_of_sorted = global_rows
         self._finalized = True
+        self._table = table
 
         t0 = time.perf_counter()
         rows = (
@@ -193,6 +379,16 @@ class PassWorkingSet:
                 f"{len(missing)} batch keys not in pass working set (e.g. {missing[:5]})"
             )
         return self.row_of_sorted[pos].astype(np.int32)
+
+    def writeback(self, device_array: np.ndarray) -> None:
+        """Push the trained rows of the pass's keys back to the table that
+        :meth:`finalize` pulled them from (EndPass parity). ``device_array``
+        is the trained table on the host, [n_mesh_shards, cap, width] or
+        flat [rows, width]."""
+        if self.n_keys == 0:
+            return
+        flat = np.asarray(device_array).reshape(-1, device_array.shape[-1])
+        self._table.push(self.sorted_keys, flat[self.row_of_sorted])
 
     @property
     def padding_row(self) -> int:

@@ -11,7 +11,7 @@ import torch
 
 from paddlebox_tpu_torch.serve import Scorer
 from paddlebox_tpu_torch.table import ValueLayout
-from paddlebox_tpu_torch.train import TrainStepConfig
+from paddlebox_tpu_torch.train import CTRTrainer, TrainStepConfig
 
 torch.set_num_threads(2)
 
@@ -45,9 +45,11 @@ def test_no_file_names_the_jax_package():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "paddlebox_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith((".py", ".cu"))]
-    # the one sanctioned mention: chip_smoke.py's kernels line names the
+    # the sanctioned mentions: chip_smoke.py's kernels line names the
     # file:line of the TPU kernel each CUDA kernel replaces
-    replaces = re.compile(r'^GATHER_REPLACES = "paddlebox_tpu/ops/pallas_kernels\.py:\d+"$')
+    replaces = re.compile(
+        r'^(GATHER|WRITE)_REPLACES = "paddlebox_tpu/ops/pallas_kernels\.py:\d+"$'
+    )
     offenders = []
     for path in files:
         with open(path, encoding="utf-8") as f:
@@ -63,3 +65,11 @@ def test_scorer_without_device_raises_on_a_host_without_gpu():
     cfg = TrainStepConfig(num_slots=2, batch_size=4, layout=ValueLayout(embedx_dim=4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Scorer(torch.nn.Linear(1, 1), cfg)
+
+
+def test_trainer_without_device_raises_on_a_host_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid here")
+    cfg = TrainStepConfig(num_slots=2, batch_size=4, layout=ValueLayout(embedx_dim=4))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CTRTrainer(torch.nn.Linear(1, 1), cfg)

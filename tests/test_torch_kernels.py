@@ -1,10 +1,12 @@
-"""The port's row gather and sparse pull against the JAX package.
+"""The port's row gather, row writeback and sparse pull against the JAX
+package.
 
-On the CPU the gather takes its plain version, ``pull_rows_ref``; it is
-held exactly against the TPU kernel ``pull_rows_pallas`` run in interpret
-mode. The CUDA kernel itself runs only on a card: ``chip_smoke.py`` holds
-it bitwise against ``pull_rows_ref`` there (this suite imports jax, which
-the card's machine does not have).
+On the CPU the gather and the writeback take their plain versions,
+``pull_rows_ref`` and ``write_rows_ref``; each is held exactly against its
+TPU kernel (``pull_rows_pallas``, ``write_rows_pallas``) run in interpret
+mode. The CUDA kernels themselves run only on a card: ``chip_smoke.py``
+holds them bitwise against their plain versions there (this suite imports
+jax, which the card's machine does not have).
 """
 
 import jax.numpy as jnp
@@ -12,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from paddlebox_tpu.ops.pallas_kernels import pull_rows_pallas
+from paddlebox_tpu.ops.pallas_kernels import pull_rows_pallas, write_rows_pallas
 from paddlebox_tpu.ops.pull_push import pull_sparse_rows as jpull_sparse_rows
 from paddlebox_tpu.table.value_layout import FeatureType as JFeatureType
 from paddlebox_tpu.table.value_layout import ValueLayout as JValueLayout
@@ -40,6 +42,53 @@ def test_gather_kernel_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA table"):
         ck.pull_rows_cuda(table, torch.zeros(2, dtype=torch.int32))
     assert ck.launch_counts["pull_rows_cuda"] == before
+
+
+@pytest.mark.parametrize("width", [1, 20, 21])
+def test_writeback_ref_matches_pallas_exactly(width):
+    rng = np.random.default_rng(width)
+    table = rng.normal(size=(96, width)).astype(np.float32)
+    uniq = rng.permutation(95)[:24].astype(np.int32)
+    new = rng.normal(size=(24, width)).astype(np.float32)
+    want = np.asarray(
+        write_rows_pallas(jnp.asarray(table), jnp.asarray(uniq), jnp.asarray(new), interpret=True)
+    )
+    got_t = torch.from_numpy(table.copy())
+    out = ck.write_rows_ref(got_t, torch.from_numpy(uniq), torch.from_numpy(new))
+    assert out is got_t  # in place
+    np.testing.assert_array_equal(got_t.numpy(), want)
+
+
+@pytest.mark.parametrize("width", [1, 20, 21])
+def test_writeback_ref_repeated_pad_row_matches_pallas(width):
+    """The packer repeats the padding row with identical contents."""
+    rng = np.random.default_rng(2 + width)
+    table = rng.normal(size=(32, width)).astype(np.float32)
+    pad = 31
+    rows = np.array([3, pad, 7, pad, pad, pad, pad, pad], np.int32)
+    pad_content = rng.normal(size=(width,)).astype(np.float32)
+    new = np.stack(
+        [np.full(width, 1.0, np.float32), pad_content, np.full(width, 2.0, np.float32)]
+        + [pad_content] * 5
+    )
+    want = np.asarray(
+        write_rows_pallas(jnp.asarray(table), jnp.asarray(rows), jnp.asarray(new), interpret=True)
+    )
+    got = ck.write_rows_ref(
+        torch.from_numpy(table.copy()), torch.from_numpy(rows), torch.from_numpy(new)
+    ).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[pad], pad_content)
+
+
+def test_writeback_kernel_refuses_bad_inputs():
+    before = ck.launch_counts["write_rows_cuda"]
+    with pytest.raises(ValueError, match="CUDA table"):
+        ck.write_rows_cuda(
+            torch.zeros((4, 3)), torch.zeros(2, dtype=torch.int32), torch.zeros((2, 3))
+        )
+    assert ck.launch_counts["write_rows_cuda"] == before
+    assert set(ck.launch_counts) == {"pull_rows_cuda", "write_rows_cuda"}
 
 
 def _table(rng, layout, n):

@@ -26,6 +26,7 @@ from paddlebox_tpu_torch.metrics.auc import auc_init
 from paddlebox_tpu_torch.models import DeepFM, deepfm_params_from_jax
 from paddlebox_tpu_torch.models.layers import mlp_apply
 from paddlebox_tpu_torch.table.value_layout import ValueLayout
+from paddlebox_tpu_torch.train.dense_opt import Adam
 from paddlebox_tpu_torch.train.train_step import TrainState, TrainStepConfig, make_train_step
 
 torch.set_num_threads(2)
@@ -114,6 +115,13 @@ def test_eval_step_matches_jax():
 
 
 def test_train_mode_is_not_ported_yet():
-    cfg = TrainStepConfig(num_slots=S, batch_size=B, layout=ValueLayout(embedx_dim=D))
-    with pytest.raises(NotImplementedError):
+    """Training is ported; its async dense mode and the expand, rank-offset
+    and mesh variants are not, and say so."""
+    lay = ValueLayout(embedx_dim=D)
+    for kw in ({"dense_sync_mode": "async"}, {"use_expand": True}, {"axis_name": "dp"}):
+        cfg = TrainStepConfig(num_slots=S, batch_size=B, layout=lay, **kw)
+        with pytest.raises(NotImplementedError):
+            make_train_step(lambda p, x, d: x, cfg, Adam(1e-3), eval_mode=False)
+    cfg = TrainStepConfig(num_slots=S, batch_size=B, layout=lay)
+    with pytest.raises(ValueError, match="dense optimizer"):
         make_train_step(lambda p, x, d: x, cfg, eval_mode=False)

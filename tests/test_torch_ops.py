@@ -112,3 +112,114 @@ def test_auc_saturates_at_cap_like_jax():
     assert int(state.pos[2]) == int(AUC_BUCKET_CAP)
     assert auc_compute(state) == jauc_compute(jstate)
     assert auc_compute(state)["saturated"] == 1.0
+
+
+# ---- sparse push ----------------------------------------------------------
+#
+# sparse_update_rows: rtol 1e-6, atol 1e-7. Both packages run the same f32
+# formulas elementwise; XLA fuses and reorders some of them, so a few
+# elements round differently (measured max |diff| 6.0e-8 at these sizes).
+# push_sparse_rows: the JAX package's push off the TPU adds each row's delta
+# (table.at[rows].add(new - old)); the port writes the new rows when keys
+# are deduplicated, so old + (new - old) and new may differ by one rounding
+# (same tolerance); without dedup both add the deltas in row order.
+
+from paddlebox_tpu.ops.pull_push import push_sparse_rows as jpush_sparse_rows  # noqa: E402
+from paddlebox_tpu.ops.pull_push import sparse_update_rows as jsparse_update_rows  # noqa: E402
+from paddlebox_tpu.table.optimizers import SparseOptimizerConfig as JSparseOptimizerConfig  # noqa: E402
+from paddlebox_tpu.table.value_layout import FeatureType as JFeatureType  # noqa: E402
+from paddlebox_tpu.table.value_layout import ValueLayout as JValueLayout  # noqa: E402
+from paddlebox_tpu_torch import config  # noqa: E402
+from paddlebox_tpu_torch.ops.pull_push import push_sparse_rows, sparse_update_rows  # noqa: E402
+from paddlebox_tpu_torch.table.optimizers import SparseOptimizerConfig  # noqa: E402
+from paddlebox_tpu_torch.table.value_layout import FeatureType, ValueLayout  # noqa: E402
+
+PUSH_RTOL, PUSH_ATOL = 1e-6, 1e-7
+
+
+def _push_inputs(seed, lay, n_rows, U, unique=True):
+    rng = np.random.default_rng(seed)
+    table = (0.5 * rng.normal(size=(n_rows, lay.width))).astype(np.float32)
+    table[:, lay.SHOW] = rng.integers(0, 60, n_rows)
+    table[:, lay.CLK] = np.floor(table[:, lay.SHOW] * 0.3)
+    table[:, lay.embed_g2_col :] = rng.random((n_rows, lay.width - lay.embed_g2_col))
+    table[:, 2] = 9.99  # near the weight bound: the clip bites
+    if unique:
+        rows = rng.permutation(n_rows - 1)[:U].astype(np.int32)
+        rows[-3:] = n_rows - 1  # padding-row repeats carry zero records
+    else:
+        rows = rng.integers(0, n_rows, U).astype(np.int32)
+        rows[::4] = rows[0]  # a key occurring in several slots
+    grads = rng.normal(size=(U, lay.pull_width)).astype(np.float32)
+    show = rng.integers(1, 4, U).astype(np.float32)
+    clk = np.floor(show * rng.random(U)).astype(np.float32)
+    if unique:
+        grads[-3:] = 0.0
+        show[-3:] = 0.0
+        clk[-3:] = 0.0
+    lr_scale = rng.uniform(0.5, 2.0, U).astype(np.float32)
+    return table, rows, grads, show, clk, lr_scale
+
+
+def _layouts(feature_type):
+    return (
+        ValueLayout(embedx_dim=8, feature_type=feature_type),
+        JValueLayout(embedx_dim=8, feature_type=JFeatureType(feature_type.value)),
+    )
+
+
+@pytest.mark.parametrize("feature_type", [FeatureType.PLAIN, FeatureType.VARIABLE])
+@pytest.mark.parametrize("per_row_lr", [False, True])
+def test_sparse_update_rows_matches_jax(feature_type, per_row_lr):
+    lay, jlay = _layouts(feature_type)
+    opt = SparseOptimizerConfig(embedx_threshold=8.0, weight_bounds=10.0)
+    jopt = JSparseOptimizerConfig(embedx_threshold=8.0, weight_bounds=10.0)
+    table, rows, grads, show, clk, lr = _push_inputs(3, lay, 80, 40)
+    old = table[rows]
+    lr_j = jnp.asarray(lr) if per_row_lr else 0.7
+    lr_t = torch.from_numpy(lr) if per_row_lr else 0.7
+    want = np.asarray(
+        jsparse_update_rows(
+            jnp.asarray(old), jnp.asarray(grads), jnp.asarray(show), jnp.asarray(clk),
+            jlay, jopt, lr_j,
+        )
+    )
+    got = sparse_update_rows(
+        torch.from_numpy(old), torch.from_numpy(grads), torch.from_numpy(show),
+        torch.from_numpy(clk), lay, opt, lr_t,
+    ).numpy()
+    assert got.shape == (40, lay.width)
+    np.testing.assert_allclose(got, want, rtol=PUSH_RTOL, atol=PUSH_ATOL)
+
+
+@pytest.mark.parametrize("dedup", [True, False])
+@pytest.mark.parametrize("feature_type", [FeatureType.PLAIN, FeatureType.VARIABLE])
+@pytest.mark.parametrize("per_row_lr", [False, True])
+def test_push_sparse_rows_matches_jax(dedup, feature_type, per_row_lr):
+    lay, jlay = _layouts(feature_type)
+    opt = SparseOptimizerConfig(embedx_threshold=8.0)
+    jopt = JSparseOptimizerConfig(embedx_threshold=8.0)
+    table, rows, grads, show, clk, lr = _push_inputs(5, lay, 64, 32, unique=dedup)
+    lr_j = jnp.asarray(lr) if per_row_lr else 1.3
+    lr_t = torch.from_numpy(lr) if per_row_lr else 1.3
+    want = np.asarray(
+        jpush_sparse_rows(
+            jnp.asarray(table), jnp.asarray(rows), jnp.asarray(grads), jnp.asarray(show),
+            jnp.asarray(clk), jlay, jopt, lr_j,
+        )
+    )
+    t = torch.from_numpy(table.copy())
+    config.set_flag("enable_pullpush_dedup_keys", dedup)
+    try:
+        out = push_sparse_rows(
+            t, torch.from_numpy(rows), torch.from_numpy(grads), torch.from_numpy(show),
+            torch.from_numpy(clk), lay, opt, lr_t,
+        )
+    finally:
+        config.set_flag("enable_pullpush_dedup_keys", True)
+    assert out is t  # in place
+    np.testing.assert_allclose(t.numpy(), want, rtol=PUSH_RTOL, atol=PUSH_ATOL)
+    untouched = np.setdiff1d(np.arange(64), rows)
+    np.testing.assert_array_equal(t.numpy()[untouched], table[untouched])
+    if dedup:  # zero records leave the padding row as it was
+        np.testing.assert_array_equal(t.numpy()[63], table[63])
