@@ -9,13 +9,20 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA kernel from ``paddlebox_tpu_torch/ops/csrc`` with nvcc
-   for sm_90a, one nvcc per source, all started together;
+   for sm_90a, one nvcc per source, all started together, and print what
+   ptxas reports on each kernel (registers, shared memory, spills);
 3. kernel checks on the card, bitwise against the plain versions:
    ``pull_rows_cuda`` against ``pull_rows_ref`` and ``write_rows_cuda``
    against ``write_rows_ref`` at W = 21, W = 128 and W = 1 (U = 0 and
    U = 7), with repeated padding rows and int32 and int64 row ids; the
    writeback with out-of-range row ids must leave every other table row
    bitwise as it was, and int32 and int64 ids must give the same table;
+   the gather with out-of-range row ids (-1, R, R+5, 2**31-1) mixed into
+   valid ones must give NaN rows exactly there and the plain rows elsewhere.
+   At the tile edges: U in (1, T-1, T, T+1, 2T+3) for each width's tile
+   of T rows, W in (1, 4, 21, 128, 4100); the writeback from a
+   ``new_rows`` view with ``data_ptr() % 16 == 4``; and both kernels on a
+   table of 2**21 + 8 rows of 1024 (more than 2**31 elements);
 4. the serving path at full width — DeepFM, 39 slots, embedx 16, hidden
    (512, 256, 128), batch 4096 — served by ``ScoreServer(device="cuda")``
    from a ``ScoringTable`` of 1 << 22 keys of width 21 made from ``--seed``:
@@ -27,8 +34,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    the path must have launched during the served run;
 5. serving numbers: the gather's time at the serving shape (CUDA events,
    median of ``TIMING_REPS``, with the L2 flushed and warm), the plain
-   version's and ``torch.index_select``'s times, the HBM bound, launches
-   per scored batch and request latency p50/p99;
+   version's and ``torch.index_select``'s times, the HBM bound, the
+   32-byte-sector floor of this batch's row ids, launches per scored batch
+   and request latency p50/p99;
 6. the training path at the same width: bench.py's data (16 files x 8192
    records, 39 one-key slots, a quarter from a 4096-key hot head, the rest
    uniform over 1 << 22, 20% positive) written from ``--seed``, then
@@ -46,8 +54,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    and on the port's CPU path agree within the stated tolerances;
 7. training numbers: ``write_rows_cuda`` and ``pull_rows_cuda`` at the
    training path's own shape (cold and warm L2) beside their plain
-   versions, ``index_copy_`` / ``index_select`` and the HBM bound, launches
-   per step, and train samples/s with the host-clock split of a step.
+   versions, ``index_copy_`` / ``index_select``, the HBM bound and the
+   sector floor, launches per step, and train samples/s with the
+   host-clock split of a step.
 
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -98,6 +107,10 @@ SMALL_STEPS = 3
 SMALL_TABLE_RTOL, SMALL_TABLE_ATOL = 1e-4, 1e-6
 SMALL_PARAMS_ATOL = 1e-5
 SMALL_LOSS_RTOL = 1e-5
+# phase 3's tile-edge widths: the kernels' tile is TILE_FLOATS floats, so
+# 4100 is past it and is cut into column slabs
+EDGE_WIDTHS = (1, 4, 21, 128, 4100)
+BIG_TABLE = (2**21 + 8, 1024)  # 2**31 + 8192 f32 elements, 8.6 GB
 
 
 def smi_line() -> str:
@@ -194,7 +207,7 @@ def write_case(dev, g, R, W, U):
     n_pad = max(U // 64, min(U, 3))
     rows[U - n_pad :] = R - 1
     new_rows = torch.randn((U, W), device=dev, generator=g)
-    new_rows[U - n_pad :] = new_rows[U - 1] if U else new_rows[:0]
+    new_rows[U - n_pad :] = new_rows[U - 1].clone() if U else new_rows[:0]
     return table, rows, new_rows
 
 
@@ -225,6 +238,123 @@ def check_write_kernel(ck, dev, g):
         raise AssertionError("write_rows_cuda with out-of-range row ids touched other rows")
     print("kernel check write_rows_cuda: out-of-range row ids write nothing, other rows bitwise unchanged", flush=True)
     return err
+
+
+def check_tile_edges(ck, dev, g):
+    """Phase 3's checks at the kernels' tile edges; returns the max abs
+    error seen.
+
+    U at and around each width's tile of T rows (a width past the tile
+    budget is cut into column slabs: W = 4100) and a ``new_rows`` view that
+    is not 16-byte aligned, with int32 and int64 row ids."""
+    cases = []  # (what, the kernel's result, the plain version's)
+    for W in EDGE_WIDTHS:
+        T = ck.tile_geometry(1, W).tile_rows
+        for U in (1, T - 1, T, T + 1, 2 * T + 3):
+            R = 2 * U + 64
+            table = torch.randn((R, W), device=dev, generator=g)
+            rows = torch.randint(0, R - 1, (U,), device=dev, generator=g, dtype=torch.int32)
+            rows[U - max(U // 64, 1) :] = R - 1
+            wt, wrows, new_rows = write_case(dev, g, R, W, U)
+            for dt in (torch.int32, torch.int64):
+                r, wr = rows.to(dt), wrows.to(dt)
+                what = f"T={T} R={R} W={W} U={U} {dt}"
+                cases.append((f"pull_rows_cuda {what}", ck.pull_rows_cuda(table, r), ck.pull_rows_ref(table, r)))
+                cases.append((f"write_rows_cuda {what}", ck.write_rows_cuda(wt.clone(), wr, new_rows),
+                              ck.write_rows_ref(wt.clone(), wr, new_rows)))
+    # new_rows as a view 4 bytes past a 16-byte boundary
+    for W in (4, 21, 128):
+        U = 2 * ck.tile_geometry(1, W).tile_rows + 3
+        table, rows, aligned = write_case(dev, g, 2 * U + 64, W, U)
+        view = torch.empty(U * W + 1, device=dev)[1:].view(U, W)
+        view.copy_(aligned)
+        if view.data_ptr() % 16 == 0:
+            raise AssertionError("the misaligned view is aligned")
+        for dt in (torch.int32, torch.int64):
+            r = rows.to(dt)
+            cases.append((f"write_rows_cuda misaligned new_rows W={W} U={U} {dt}",
+                          ck.write_rows_cuda(table.clone(), r, view), ck.write_rows_ref(table.clone(), r, view)))
+    torch.cuda.synchronize()
+    err = 0.0
+    for what, got, want in cases:
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"kernel != plain version at {what}")
+        err = max(err, float((got - want).abs().max()) if got.numel() else 0.0)
+    print(f"kernel check tile edges: {len(cases)} cases bitwise equal (U in (1, T-1, T, T+1, 2T+3) "
+          f"at W in {EDGE_WIDTHS}; new_rows view at data_ptr % 16 == 4 at W in (4, 21, 128); "
+          "int32 and int64 ids)", flush=True)
+    return err
+
+
+def check_gather_out_of_range(ck, dev, g):
+    """The gather with out-of-range row ids mixed into valid ones: NaN rows
+    exactly at those positions, the plain version's rows everywhere else."""
+    R, W = 4096, 21
+    table = torch.randn((R, W), device=dev, generator=g)
+    bad_ids = torch.tensor([-1, R, R + 5, 2**31 - 1], device=dev).repeat(8)
+    rows = torch.cat([torch.randint(0, R, (1000,), device=dev, generator=g), bad_ids])
+    rows = rows[torch.randperm(len(rows), device=dev, generator=g)]
+    bad = (rows < 0) | (rows >= R)
+    for dt in (torch.int32, torch.int64):
+        got = ck.pull_rows_cuda(table, rows.to(dt))
+        torch.cuda.synchronize()
+        if not (bool(torch.isnan(got[bad]).all()) and not bool(torch.isnan(got[~bad]).any())
+                and torch.equal(got[~bad], ck.pull_rows_ref(table, rows[~bad]))):
+            raise AssertionError(f"pull_rows_cuda with out-of-range {dt} row ids")
+    print(f"kernel check pull_rows_cuda: {int(bad.sum())} out-of-range row ids (-1, R, R+5, 2**31-1) "
+          "give NaN rows exactly there, the other rows bitwise equal, int32 and int64", flush=True)
+
+
+def check_big_table(ck, dev, g):
+    """Both kernels on a table of more than 2**31 elements (8.6 GB), with
+    only the touched rows and their neighbours filled."""
+    R, W = BIG_TABLE
+    table = torch.empty((R, W), device=dev)
+    rows = torch.cat([
+        torch.tensor([0, R - 1, R - 2, R - 5, R // 2, min((1 << 31) // W, R - 3)], device=dev),
+        torch.randperm(R - 8, device=dev, generator=g)[:250] + 4,
+    ]).unique()
+    rows = rows[torch.randperm(len(rows), device=dev, generator=g)]
+    nbr = torch.cat([rows - 1, rows + 1]).clamp(0, R - 1).unique()
+    nbr = nbr[~torch.isin(nbr, rows)]
+    filled = torch.cat([rows, nbr])
+    ck.write_rows_ref(table, filled, torch.randn((len(filled), W), device=dev, generator=g))
+    for dt in (torch.int32, torch.int64):
+        r = rows.to(dt)
+        got = ck.pull_rows_cuda(table, r)
+        torch.cuda.synchronize()
+        if not torch.equal(got, ck.pull_rows_ref(table, r)):
+            raise AssertionError(f"pull_rows_cuda on a table of {R * W} elements, {dt} ids")
+        before = ck.pull_rows_ref(table, nbr)
+        new_rows = torch.randn((len(rows), W), device=dev, generator=g)
+        ck.write_rows_cuda(table, r, new_rows)
+        torch.cuda.synchronize()
+        if not (torch.equal(ck.pull_rows_ref(table, rows), new_rows)
+                and torch.equal(ck.pull_rows_ref(table, nbr), before)):
+            raise AssertionError(f"write_rows_cuda on a table of {R * W} elements, {dt} ids")
+    print(f"kernel check table of {R} x {W} = {R * W} elements (> 2**31), rows up to {R - 1}, "
+          "int32 and int64: gather bitwise equal, writeback sets exactly its rows", flush=True)
+    del table
+    torch.cuda.empty_cache()
+
+
+def sector_floor_ms(rows, R, W, write):
+    """Least time of a row copy at these row ids when memory moves in
+    32-byte sectors: every distinct table sector the rows touch, the
+    contiguous [U, W] side and the ids once, over the HBM rate. The
+    writeback also reads each sector that its rows cover only in part,
+    since the L2 must merge it before writing it back."""
+    rows = rows.long()
+    uniq = torch.unique(rows[(rows >= 0) & (rows < R)])
+    start = (uniq * (W * 4))[:, None]
+    sec = start // 32 + torch.arange((W * 4 + 31) // 32 + 1, device=rows.device)[None, :]
+    cover = (torch.minimum(start + W * 4, sec * 32 + 32) - torch.maximum(start, sec * 32)).clamp(min=0)
+    hit = cover > 0
+    ids, inv = torch.unique(sec[hit], return_inverse=True)
+    covered = torch.zeros(len(ids), dtype=torch.long, device=rows.device).index_add_(0, inv, cover[hit])
+    table_bytes = 32 * len(ids) + (32 * int((covered < 32).sum()) if write else 0)
+    U = rows.numel()
+    return (table_bytes + U * W * 4 + 4 * U) / HBM_BYTES_PER_S * 1e3
 
 
 def time_fns(fns, flush, restore=None):
@@ -389,8 +519,10 @@ def main() -> int:
 
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    ck.build_all()
+    reports = ck.build_all()
     print(f"build: {time.perf_counter() - t0:.3f} s", flush=True)
+    for source, report in reports.items():
+        print(f"{source}:\n{report}", flush=True)
 
     # ---- 3. kernel check -------------------------------------------------
     g = torch.Generator(device=dev).manual_seed(args.seed)
@@ -402,6 +534,10 @@ def main() -> int:
         for r in (rows, rows.long()):
             max_err = max(max_err, check_gather(ck, table, r, f"R={R} W={W} U={U} {r.dtype}"))
     write_err = check_write_kernel(ck, dev, g)
+    check_gather_out_of_range(ck, dev, g)
+    edge_err = check_tile_edges(ck, dev, g)
+    check_big_table(ck, dev, g)
+    max_err, write_err = max(max_err, edge_err), max(write_err, edge_err)
 
     # ---- 4. the serving path ----------------------------------------------
     rng = np.random.default_rng(args.seed)
@@ -530,17 +666,19 @@ def main() -> int:
     U = uniq.shape[0]
     max_err = max(max_err, check_gather(ck, table, uniq, f"main path R={R} W={W} U={U} int32"))
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
-    med, med_warm = time_fns({
+    fns = {
         "kernel": lambda: ck.pull_rows_cuda(table, uniq),
         "plain": lambda: ck.pull_rows_ref(table, uniq),
         "library": lambda: torch.index_select(table, 0, uniq),
-    }, flush)
+    }
+    med, med_warm = time_fns(fns, flush)
     bytes_moved = 2 * U * W * 4 + 4 * U
     bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     emit({
         "card": card, "kernel": "pull_rows_cuda", "path": "serve", "R": R, "W": W, "U": U,
         "n_uniq": db.n_uniq, "ms": med["kernel"], "plain_ms": med["plain"],
         "index_select_ms": med["library"], "bound_ms": bound_ms, "bytes": bytes_moved,
+        "bound_share": bound_ms / med["kernel"], "sector_floor_ms": sector_floor_ms(uniq, R, W, False),
         "reps": TIMING_REPS, "l2": "cold", "warm_l2_ms": med_warm["kernel"],
         "warm_l2_plain_ms": med_warm["plain"], "warm_l2_index_select_ms": med_warm["library"],
     })
@@ -569,6 +707,8 @@ def main() -> int:
             "bound_ms": train["gather"]["bound_ms"],
             "bound_by": "bytes",
             "library_ms": train["gather"]["library_ms"],
+            "bound_share": train["gather"]["bound_ms"] / train["gather"]["ms"],
+            "sector_floor_ms": train["gather"]["sector_floor_ms"],
         },
         {
             "name": "write_rows_cuda",
@@ -585,6 +725,8 @@ def main() -> int:
             "bound_ms": train["write"]["bound_ms"],
             "bound_by": "bytes",
             "library_ms": train["write"]["library_ms"],
+            "bound_share": train["write"]["bound_ms"] / train["write"]["ms"],
+            "sector_floor_ms": train["write"]["sector_floor_ms"],
         },
     ]})
     print(card, flush=True)
@@ -770,30 +912,34 @@ def train_phase(args, dev, card, ck, pull_push, lay, schema):
     rows64 = rows.long()
     pristine = tab.clone()
     bound_ms = (2 * U * W * 4 + 4 * U) / HBM_BYTES_PER_S * 1e3
+    write_fns = {
+        "kernel": lambda: ck.write_rows_cuda(tab, rows, new_rows),
+        "plain": lambda: ck.write_rows_ref(tab, rows, new_rows),
+        "library": lambda: tab.index_copy_(0, rows64, new_rows),
+    }
+    gather_fns = {
+        "kernel": lambda: ck.pull_rows_cuda(tab, rows),
+        "plain": lambda: ck.pull_rows_ref(tab, rows),
+        "library": lambda: torch.index_select(tab, 0, rows),
+    }
     res = {}
     for name, fns, restore in (
-        ("write_rows_cuda", {
-            "kernel": lambda: ck.write_rows_cuda(tab, rows, new_rows),
-            "plain": lambda: ck.write_rows_ref(tab, rows, new_rows),
-            "library": lambda: tab.index_copy_(0, rows64, new_rows),
-        }, lambda: tab.copy_(pristine)),
-        ("pull_rows_cuda", {
-            "kernel": lambda: ck.pull_rows_cuda(tab, rows),
-            "plain": lambda: ck.pull_rows_ref(tab, rows),
-            "library": lambda: torch.index_select(tab, 0, rows),
-        }, None),
+        ("write_rows_cuda", write_fns, lambda: tab.copy_(pristine)),
+        ("pull_rows_cuda", gather_fns, None),
     ):
         med, med_warm = time_fns(fns, flush, restore)
+        floor_ms = sector_floor_ms(rows, R, W, name == "write_rows_cuda")
         res[name] = {
             "ms": med["kernel"], "plain_ms": med["plain"], "library_ms": med["library"],
-            "bound_ms": bound_ms,
+            "bound_ms": bound_ms, "sector_floor_ms": floor_ms,
         }
         emit({
             "card": card, "kernel": name, "path": "train",
             "R": R, "W": W, "U": U, "n_uniq": dbs[0].n_uniq,
             "ms": med["kernel"], "plain_ms": med["plain"],
             ("index_copy_ms" if name == "write_rows_cuda" else "index_select_ms"): med["library"],
-            "bound_ms": bound_ms, "bytes": 2 * U * W * 4 + 4 * U, "reps": TIMING_REPS, "l2": "cold",
+            "bound_ms": bound_ms, "bytes": 2 * U * W * 4 + 4 * U, "bound_share": bound_ms / med["kernel"],
+            "sector_floor_ms": floor_ms, "reps": TIMING_REPS, "l2": "cold",
             "warm_l2_ms": med_warm["kernel"], "warm_l2_plain_ms": med_warm["plain"],
             "warm_l2_library_ms": med_warm["library"],
         })

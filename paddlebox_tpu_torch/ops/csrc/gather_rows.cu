@@ -1,79 +1,100 @@
 // Row gather over the pass working-set table: out[i, :] = table[rows[i], :].
 //
-// Replaces the TPU kernel pull_rows_pallas (the JAX package's ops/pallas_kernels.py,
-// body _gather_kernel), which scalar-prefetches the row ids and issues 8
-// concurrent per-row HBM DMAs per grid step. On Hopper the same function is a
-// plain memory-bound copy: every output element is read once from the table
-// and written once, so the bound is (2 * U * W * 4 + U * sizeof(row id)) bytes
-// over the HBM rate. No arithmetic to speak of.
+// Replaces the TPU kernel pull_rows_pallas (the JAX package's
+// ops/pallas_kernels.py, body _gather_kernel), which scalar-prefetches the
+// row ids and keeps 8 per-row HBM DMAs in flight per grid step.
 //
-// Design: the output is treated as one flat array of U * W floats and each
-// thread copies elements of it in a grid-stride loop. Neighbouring threads
-// write neighbouring addresses (fully coalesced stores) and read neighbouring
-// columns of one table row (coalesced within a row), whatever W is. That
-// handles the serving width W = 21 (84-byte rows, not 16-byte aligned, so no
-// float4 loads) as well as W = 1 or W = 128, and any U including 0. Offsets
-// are 64-bit: training tables pass 2^31 elements. A row id outside [0, R)
-// yields NaN in its output row rather than a read of foreign memory.
+// What bounds it on the H100: bytes. Each output element is read once from
+// the table and written once, so the byte bound is (2 * U * W * 4 + U * id
+// bytes) over 3.35 TB/s: 6.31 us at the training shape (U = 122,880,
+// W = 21). The 84-byte rows raise the real floor: a row at a random row id
+// starts at one of 8 offsets mod 32 and touches 3.5 sectors of 32 bytes on
+// average, 112 bytes read for 84 used, so the sector floor is about 24.6 MB,
+// 7.3 us, at that shape. No design that keeps the table's layout reads less.
+//
+// Design, one block per tile of tile_rows rows (row_tile.cuh):
+// - The row ids are loaded once per tile, coalesced, into shared memory and
+//   range-checked there; an id outside [0, R) gives a NaN row. No thread
+//   loads a row id from device memory per element, and the (row, column)
+//   walk steps without a division, so no table read waits on an id load.
+// - Every table read of the tile is issued as a 4-byte cp.async into shared
+//   memory before any store: an SM holds the reads of all its resident
+//   tiles in flight (tens of KB), not one 4-byte load per thread.
+// - The tile is then stored to `out` from shared memory with coalesced
+//   16-byte stores: out's tile is contiguous and starts 16-byte aligned
+//   (tile_rows % 4 == 0, out from torch.empty). A last partial tile ends
+//   with scalar stores. Only the reads pay the rows' partial sectors.
+// - The caller sizes the tile to about 16 KB of floats (192 rows at
+//   W = 21), so U = 122,880 is 640 blocks of 256 threads: one wave of the
+//   132 SMs, no grid-stride loop and no tail of small waves.
+// Table offsets are 64-bit; int32 and int64 row ids both work, any W >= 1.
 //
 // Built with nvcc for sm_90a into a shared library with a plain C interface,
-// loaded by paddlebox_tpu_torch/ops/cuda_kernels.py through ctypes.
+// loaded by paddlebox_tpu_torch/ops/cuda_kernels.py through ctypes, which
+// also computes the launch geometry (tile_geometry there).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "row_tile.cuh"
 
 namespace {
 
-// OffT is the type of the flat output index: 32-bit while U * W fits, so
-// the per-element division by W is a cheap 32-bit one; 64-bit past that.
-template <typename IdxT, typename OffT>
-__global__ void gather_rows_kernel(const float* __restrict__ table, int64_t R,
-                                   OffT W, const IdxT* __restrict__ rows,
-                                   OffT total, float* __restrict__ out) {
-  const OffT stride = (OffT)gridDim.x * blockDim.x;
-  for (OffT e = (OffT)blockIdx.x * blockDim.x + threadIdx.x; e < total;
-       e += stride) {
-    const OffT i = e / W;
-    const OffT c = e - i * W;
-    const int64_t r = (int64_t)__ldg(rows + i);
-    out[e] = (r >= 0 && r < R) ? __ldg(table + r * W + c) : __int_as_float(0x7fc00000);
-  }
-}
-
 template <typename IdxT>
-void launch(const float* table, int64_t R, int64_t W, const IdxT* rows,
-            int64_t total, float* out, unsigned blocks, int threads,
-            cudaStream_t stream) {
-  // total + stride must not wrap the 32-bit index in the grid-stride loop
-  if (total + (int64_t)blocks * threads < ((int64_t)1 << 31)) {
-    gather_rows_kernel<IdxT, int32_t><<<blocks, threads, 0, stream>>>(
-        table, R, (int32_t)W, rows, (int32_t)total, out);
-  } else {
-    gather_rows_kernel<IdxT, int64_t><<<blocks, threads, 0, stream>>>(
-        table, R, W, rows, total, out);
+__global__ void gather_rows_kernel(const float* __restrict__ table, int64_t R, int W,
+                                   const IdxT* __restrict__ rows, int64_t U, int tile_rows,
+                                   int tile_cols, float* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int64_t* s_rows = reinterpret_cast<int64_t*>(smem);
+  float* s_tile = reinterpret_cast<float*>(smem + (size_t)tile_rows * sizeof(int64_t));
+
+  const int64_t t0 = (int64_t)blockIdx.x * tile_rows;
+  const int n_rows = U - t0 < tile_rows ? (int)(U - t0) : tile_rows;
+  const int c0 = blockIdx.y * tile_cols;
+  const int cols = min(tile_cols, W - c0);
+
+  pbx::stage_row_ids(rows, t0, n_rows, R, s_rows);
+  __syncthreads();
+
+  pbx::for_each_element(n_rows, cols, [&](int e, int i, int c) {
+    const int64_t r = s_rows[i];
+    if (r >= 0) {
+      pbx::cp_async4(s_tile + e, table + r * W + c0 + c);
+    } else {
+      s_tile[e] = __int_as_float(0x7fc00000);
+    }
+  });
+  pbx::cp_async_wait_all();
+  __syncthreads();
+
+  float* dst = out + t0 * W + c0;
+  if (cols == W) {  // the whole rows: out's tile is one contiguous run
+    const int n = n_rows * W;
+    const int n4 = n >> 2;
+    float4* dst4 = reinterpret_cast<float4*>(dst);
+    const float4* src4 = reinterpret_cast<const float4*>(s_tile);
+    for (int k = threadIdx.x; k < n4; k += blockDim.x) dst4[k] = src4[k];
+    for (int e = (n4 << 2) + threadIdx.x; e < n; e += blockDim.x) dst[e] = s_tile[e];
+  } else {  // a slab of rows wider than the tile budget
+    pbx::for_each_element(n_rows, cols, [&](int e, int i, int c) {
+      dst[(int64_t)i * W + c] = s_tile[e];
+    });
   }
 }
 
 }  // namespace
 
-extern "C" int pbx_gather_rows_f32(const float* table, long long R, int W,
-                                   const void* rows, int rows_is_64,
-                                   long long U, float* out,
-                                   cudaStream_t stream) {
-  const int64_t total = (int64_t)U * (int64_t)W;
-  if (total <= 0) return (int)cudaSuccess;
-  const int threads = 256;
-  int64_t blocks = (total + threads - 1) / threads;
-  // a grid-stride loop covers the rest: 132 SMs hold 8 resident blocks of
-  // 256 threads each, so this cap is 8 full waves of the card
-  const int64_t max_blocks = 132 * 64;
-  if (blocks > max_blocks) blocks = max_blocks;
+// grid_rows x grid_cols blocks of `threads` threads with smem_bytes of
+// dynamic shared memory (at most 48 KB), as tile_geometry computes them.
+extern "C" int pbx_gather_rows_f32(const float* table, long long R, int W, const void* rows,
+                                   int rows_is_64, long long U, float* out, int tile_rows,
+                                   int tile_cols, long long grid_rows, int grid_cols,
+                                   int threads, int smem_bytes, cudaStream_t stream) {
+  if (U <= 0 || W <= 0 || grid_rows <= 0) return (int)cudaSuccess;
+  const dim3 grid((unsigned)grid_rows, (unsigned)grid_cols);
   if (rows_is_64) {
-    launch<int64_t>(table, (int64_t)R, (int64_t)W, (const int64_t*)rows, total,
-                    out, (unsigned)blocks, threads, stream);
+    gather_rows_kernel<int64_t><<<grid, threads, smem_bytes, stream>>>(
+        table, (int64_t)R, W, (const int64_t*)rows, (int64_t)U, tile_rows, tile_cols, out);
   } else {
-    launch<int32_t>(table, (int64_t)R, (int64_t)W, (const int32_t*)rows, total,
-                    out, (unsigned)blocks, threads, stream);
+    gather_rows_kernel<int32_t><<<grid, threads, smem_bytes, stream>>>(
+        table, (int64_t)R, W, (const int32_t*)rows, (int64_t)U, tile_rows, tile_cols, out);
   }
   return (int)cudaGetLastError();
 }

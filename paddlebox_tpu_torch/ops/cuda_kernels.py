@@ -14,6 +14,11 @@ Kernels:
 - :func:`write_rows_cuda` — in-place row set ``table[rows] = new_rows``;
   replaces ``write_rows_pallas``. Plain version :func:`write_rows_ref`.
 
+Both kernels are tiled the same way (``ops/csrc/row_tile.cuh``: a block
+per tile of rows, the tile's row ids staged in shared memory once, the
+tile moved with ``cp.async``); :func:`tile_geometry` computes their launch
+geometry.
+
 Every wrapper adds one to :data:`launch_counts` where it launches its
 kernel, and nowhere else, so a run can show that its main path went
 through the kernel. A failed build or launch raises; nothing falls back.
@@ -28,7 +33,7 @@ import shutil
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -43,6 +48,7 @@ NVCC_FLAGS = (
     "-fPIC",
     "-gencode",
     "arch=compute_90a,code=sm_90a",
+    "-Xptxas=-v",  # registers, shared memory and spills of each kernel
 )
 
 # kernel name -> launches since the last reset_launch_counts()
@@ -68,20 +74,24 @@ def _nvcc() -> str:
     return found
 
 
-def _build(source: str) -> str:
-    """Compile ``ops/csrc/<source>`` to a shared library; return its path.
+def _build(source: str) -> Tuple[str, str]:
+    """Compile ``ops/csrc/<source>`` to a shared library; return its path
+    and what ptxas reported on each kernel ("" when the library was built
+    before).
 
-    The library's name carries a hash of the source and flags, so an edited
-    source never loads a stale build. It is compiled to a temporary path and
-    renamed into place, so a concurrent loader sees the old file or the new
-    one, never half of one."""
+    The library's name carries a hash of the source, the headers beside it
+    and the flags, so an edited source never loads a stale build. It is
+    compiled to a temporary path and renamed into place, so a concurrent
+    loader sees the old file or the new one, never half of one."""
     src = os.path.join(_CSRC, source)
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in [source] + sorted(n for n in os.listdir(_CSRC) if n.endswith(".cuh")):
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(f.read())
     stem = os.path.splitext(source)[0]
-    lib = os.path.join(BUILD_DIR, f"lib{stem}-{digest}.so")
+    lib = os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
     if os.path.exists(lib):
-        return lib
+        return lib, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
     try:
@@ -100,8 +110,22 @@ def _build(source: str) -> str:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    return lib
+    report = "\n".join(
+        l.strip() for l in proc.stderr.splitlines() if l.startswith("ptxas info") or "spill" in l
+    )
+    return lib, report
 
+
+# the launch geometry of both kernels, the last arguments before the stream
+_GEOMETRY_ARGTYPES = [
+    ctypes.c_int,  # tile_rows
+    ctypes.c_int,  # tile_cols
+    ctypes.c_longlong,  # grid_rows
+    ctypes.c_int,  # grid_cols
+    ctypes.c_int,  # threads
+    ctypes.c_int,  # smem_bytes
+    ctypes.c_void_p,  # cudaStream_t
+]
 
 # source -> (exported launcher, its ctypes argtypes); every source builds
 # into its own library
@@ -116,7 +140,7 @@ _LAUNCHERS = {
             ctypes.c_int,  # rows are int64
             ctypes.c_longlong,  # U
             ctypes.c_void_p,  # out
-            ctypes.c_void_p,  # cudaStream_t
+            *_GEOMETRY_ARGTYPES,
         ],
     ),
     "write_rows.cu": (
@@ -129,10 +153,51 @@ _LAUNCHERS = {
             ctypes.c_int,  # rows are int64
             ctypes.c_longlong,  # U
             ctypes.c_void_p,  # new_rows
-            ctypes.c_void_p,  # cudaStream_t
+            *_GEOMETRY_ARGTYPES,
         ],
     ),
 }
+
+
+# A block's tile: at most TILE_FLOATS f32 (16 KB) of shared memory, plus the
+# tile's row ids as int64. Several such blocks fit on an SM, and at the
+# flagship width (W = 21: 192 rows a tile) U = 122,880 rows are one wave.
+TILE_FLOATS = 4096
+TILE_MAX_ROWS = 1024  # narrow rows: ids would outgrow the tile
+THREADS = 256
+MAX_SMEM_BYTES = 48 * 1024  # dynamic shared memory without an opt-in
+MAX_GRID_Y = 65535
+
+
+class TileGeometry(NamedTuple):
+    tile_rows: int  # T, rows a block owns; a multiple of 4
+    tile_cols: int  # columns a block owns: W, or a slab of a wider row
+    grid_rows: int  # blocks along the rows, ceil(U / T)
+    grid_cols: int  # blocks along the columns, ceil(W / tile_cols)
+    threads: int  # threads a block, a multiple of 32
+    smem_bytes: int  # T int64 row ids, then the T x tile_cols f32 tile
+
+
+def tile_geometry(U: int, W: int) -> TileGeometry:
+    """Launch geometry of both kernels for U rows of width W.
+
+    T % 4 == 0 keeps every tile of ``out`` and of an aligned ``new_rows``
+    16-byte aligned, so whole tiles move as float4. U = 0 gives no block."""
+    if W < 1:
+        raise ValueError(f"row width W={W}: the kernels need W >= 1")
+    tile_rows = min(TILE_MAX_ROWS, max(4, TILE_FLOATS // W // 4 * 4))
+    tile_cols = min(W, TILE_FLOATS // tile_rows)
+    grid_cols = -(-W // tile_cols)
+    if grid_cols > MAX_GRID_Y:
+        raise ValueError(f"row width W={W} needs {grid_cols} > {MAX_GRID_Y} column blocks")
+    return TileGeometry(
+        tile_rows=tile_rows,
+        tile_cols=tile_cols,
+        grid_rows=-(-U // tile_rows),
+        grid_cols=grid_cols,
+        threads=THREADS,
+        smem_bytes=8 * tile_rows + 4 * tile_rows * tile_cols,
+    )
 
 
 def load_library(source: str) -> ctypes.CDLL:
@@ -141,7 +206,7 @@ def load_library(source: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(source)
         if lib is None:
-            lib = ctypes.CDLL(_build(source))
+            lib = ctypes.CDLL(_build(source)[0])
             name, argtypes = _LAUNCHERS[source]
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -150,15 +215,17 @@ def load_library(source: str) -> ctypes.CDLL:
         return lib
 
 
-def build_all() -> None:
-    """Build and load every kernel of the port (set-up, before timing).
+def build_all() -> Dict[str, str]:
+    """Build and load every kernel of the port (set-up, before timing);
+    return each source's ptxas report ("" where it was built before).
 
     One nvcc per source, all started together; then each library loads."""
     with ThreadPoolExecutor(max_workers=len(_LAUNCHERS)) as ex:
-        for f in [ex.submit(_build, source) for source in _LAUNCHERS]:
-            f.result()
+        futures = {source: ex.submit(_build, source) for source in _LAUNCHERS}
+        reports = {source: f.result()[1] for source, f in futures.items()}
     for source in _LAUNCHERS:
         load_library(source)
+    return reports
 
 
 # ---- row gather -------------------------------------------------------------
@@ -201,6 +268,8 @@ def pull_rows_cuda(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     R, W = table.shape
     U = rows.shape[0]
     out = torch.empty((U, W), dtype=torch.float32, device=table.device)
+    if U * W == 0:
+        return out
     fn = load_library("gather_rows.cu").pbx_gather_rows_f32
     stream = torch.cuda.current_stream(table.device).cuda_stream
     with torch.cuda.device(table.device):
@@ -212,14 +281,13 @@ def pull_rows_cuda(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
             int(rows.dtype == torch.int64),
             U,
             out.data_ptr(),
+            *tile_geometry(U, W),
             stream,
         )
     if rc != 0:
         raise RuntimeError(f"pull_rows_cuda launch failed: cudaError {rc}")
-    if U * W:
-        launch_counts["pull_rows_cuda"] += 1
+    launch_counts["pull_rows_cuda"] += 1
     return out
-
 
 
 # ---- row writeback ------------------------------------------------------------
@@ -259,6 +327,8 @@ def write_rows_cuda(
         )
     rows = rows.contiguous()
     new_rows = new_rows.contiguous()
+    if U * W == 0:
+        return table
     fn = load_library("write_rows.cu").pbx_write_rows_f32
     stream = torch.cuda.current_stream(table.device).cuda_stream
     with torch.cuda.device(table.device):
@@ -270,10 +340,10 @@ def write_rows_cuda(
             int(rows.dtype == torch.int64),
             U,
             new_rows.data_ptr(),
+            *tile_geometry(U, W),
             stream,
         )
     if rc != 0:
         raise RuntimeError(f"write_rows_cuda launch failed: cudaError {rc}")
-    if U * W:
-        launch_counts["write_rows_cuda"] += 1
+    launch_counts["write_rows_cuda"] += 1
     return table
