@@ -10,7 +10,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 1. the card's name and power limit, torch and CUDA versions;
 2. build every CUDA kernel from ``paddlebox_tpu_torch/ops/csrc`` with nvcc
    for sm_90a, one nvcc per source, all started together, and print what
-   ptxas reports on each kernel (registers, shared memory, spills);
+   ptxas reports on each kernel (registers, shared memory, spills); beside
+   them g++ builds the native host library from ``csrc/*.cc`` (the store,
+   the parser, the packer) and its build time is printed;
 3. kernel checks on the card, bitwise against the plain versions:
    ``pull_rows_cuda`` against ``pull_rows_ref`` and ``write_rows_cuda``
    against ``write_rows_ref`` at W = 21, W = 128 and W = 1 (U = 0 and
@@ -37,26 +39,40 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    version's and ``torch.index_select``'s times, the HBM bound, the
    32-byte-sector floor of this batch's row ids, launches per scored batch
    and request latency p50/p99;
-6. the training path at the same width: bench.py's data (16 files x 8192
-   records, 39 one-key slots, a quarter from a 4096-key hot head, the rest
-   uniform over 1 << 22, 20% positive) written from ``--seed``, then
-   ``HostSparseTable(n_shards=64)`` -> ``BoxPSDataset(batch_size=4096)`` ->
-   ``begin_pass`` -> ``CTRTrainer(device="cuda").train_pass`` over 32
-   batches (one epoch, about 2.5 M unique keys) -> ``end_pass``. Every
-   step must launch ``pull_rows_cuda`` twice and ``write_rows_cuda`` once,
-   every loss must be finite, and the host table after ``end_pass`` must
-   hold the pass's keys less those ``decay_and_shrink`` dropped, each with
-   its trained row decayed. Then: 4 steps run twice from one state give
-   bitwise-equal tables, params and Adam moments (no float atomics
-   anywhere on the path); the same 4 steps with the writeback forced to
-   ``write_rows_ref`` give a bitwise-equal table; the push without dedup
-   is bitwise repeatable; and a few steps at a small config on the card
-   and on the port's CPU path agree within the stated tolerances;
-7. training numbers: ``write_rows_cuda`` and ``pull_rows_cuda`` at the
-   training path's own shape (cold and warm L2) beside their plain
-   versions, ``index_copy_`` / ``index_select``, the HBM bound and the
-   sector floor, launches per step, and train samples/s with the
-   host-clock split of a step.
+6. the training path at the same width, as bench.py drives it: bench.py's
+   data (16 files x 8192 records, 39 one-key slots, a quarter from a
+   4096-key hot head, the rest uniform over 1 << 22, 20% positive) written
+   from ``--seed``, then the native ``HostSparseTable(n_shards=64)`` ->
+   ``BoxPSDataset(batch_size=4096, shuffle_mode="local")`` through the
+   native parser -> ``begin_pass(round_to=512)`` ->
+   ``CTRTrainer.prepare_pass(n_batches=96)`` -> a warm-up
+   ``train_pass(n_batches=8)`` -> the timed ``train_pass(n_batches=96)``
+   (three epochs, about 2.5 M unique keys) on the resident feed, K = 8
+   steps a dispatch. The same 96 steps run on the packer feed, and 8 on
+   the slow feed over the Python tier (Python store, ``parse_line``) with
+   its own end_pass. Every step of each feed must launch
+   ``pull_rows_cuda`` twice and ``write_rows_cuda`` once and every loss
+   must be finite. Then: 4 steps from one state through the resident feed
+   (K = 4 and K = 1), the packer feed and the slow feed give bitwise-equal
+   tables, params, Adam moments and losses; 4 packed steps run twice give
+   bitwise-equal state (no float atomics anywhere on the path); the same
+   steps with the writeback forced to ``write_rows_ref`` give a
+   bitwise-equal table; the push without dedup is bitwise repeatable; a
+   few steps at a small config on the card and on the port's CPU path
+   agree within the stated tolerances; one resident superstep runs under
+   ``torch.cuda.set_sync_debug_mode("warn")``, counting its host syncs and
+   where they come from, and under the profiler for the card's busy time.
+   Last, ``end_pass`` and the native host table must hold the pass's keys
+   less those ``decay_and_shrink`` dropped, each its trained row decayed;
+7. training numbers: samples/s of each feed (the resident and packer
+   feeds over the timed pass, the slow feed over its steps after the
+   first), each feed's host-clock split over 8 profiled steps, each
+   feed's own device busy ms a step (the profiler over a train_pass of
+   that feed: kernels, copies and fills) and the idle share it leaves in
+   that feed's step, the pass boundaries' seconds, and
+   ``write_rows_cuda`` and ``pull_rows_cuda`` at the resident feed's own
+   batch shape (cold and warm L2) beside their plain versions,
+   ``index_copy_`` / ``index_select``, the HBM bound and the sector floor.
 
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -67,12 +83,17 @@ present.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import traceback
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -96,7 +117,15 @@ WRITE_REPLACES = "paddlebox_tpu/ops/pallas_kernels.py:114"
 N_FILES = 16
 RECORDS_PER_FILE = 8192  # 131072 records = 32 batches per epoch
 POS_FRAC = 0.2
+TRAIN_BATCHES = 96  # bench.py's TRAIN_BATCHES: three epochs
+WARM_BATCHES = 8
+RESIDENT_K = 8  # resident_scan_batches: steps a superstep
+PROFILE_BATCHES = 8  # steps of the host-clock split, one batch a dispatch
+SLOW_BATCHES = 8  # the Python tier's slow feed, cut from 32 for time
+SLOW_BUSY_STEPS = 4  # slow-feed steps under the profiler for its busy time
+FEED_STEPS = 4
 TWIN_STEPS = 4
+REPO = os.path.dirname(os.path.abspath(__file__))
 # card vs the port's CPU path, a few training steps at a small config. The
 # bf16 MLP may round at other places in cuBLAS and the CPU backend, and a
 # dense weight whose grad is near zero can then take another Adam step of
@@ -398,12 +427,13 @@ def write_bench_files(tmpdir, rng):
     return files
 
 
-def run_steps(step, table0, params0, opt0, feeds, dev):
-    """``len(feeds)`` training steps from copies of one state."""
+def fresh_state(table0, params0, opt0, dev):
+    """A training state on ``dev`` from copies of a host table, params and
+    Adam state."""
     from paddlebox_tpu_torch.metrics import auc_init
     from paddlebox_tpu_torch.train import AdamState, TrainState
 
-    st = TrainState(
+    return TrainState(
         table=torch.from_numpy(table0).to(dev, copy=True),
         params={k: v.clone() for k, v in params0.items()},
         opt_state=AdamState(
@@ -414,6 +444,11 @@ def run_steps(step, table0, params0, opt0, feeds, dev):
         auc=auc_init(1000, device=dev),
         step=torch.zeros((), dtype=torch.int32, device=dev),
     )
+
+
+def run_steps(step, table0, params0, opt0, feeds, dev):
+    """``len(feeds)`` calls of ``step`` from a fresh copy of one state."""
+    st = fresh_state(table0, params0, opt0, dev)
     losses = []
     for f in feeds:
         st, m = step(st, f)
@@ -518,11 +553,22 @@ def main() -> int:
     )
 
     # ---- 2. build --------------------------------------------------------
+    # the native host library (g++) builds beside the kernels (one nvcc a
+    # source); any failed build raises here
+    from paddlebox_tpu_torch.utils import native
+
     t0 = time.perf_counter()
-    reports = ck.build_all()
-    print(f"build: {time.perf_counter() - t0:.3f} s", flush=True)
+    with ThreadPoolExecutor(max_workers=1) as ex:
+        host_build = ex.submit(native.build)
+        reports = ck.build_all()
+        lib_path, host_s = host_build.result()
+    native.load()
+    print(f"build: {time.perf_counter() - t0:.3f} s; native host library {os.path.relpath(lib_path, REPO)} "
+          f"built by g++ in {host_s:.3f} s", flush=True)
     for source, report in reports.items():
         print(f"{source}:\n{report}", flush=True)
+    if config.get_flag("resident_scan_batches") != RESIDENT_K:
+        raise AssertionError("resident_scan_batches is not bench.py's default")
 
     # ---- 3. kernel check -------------------------------------------------
     g = torch.Generator(device=dev).manual_seed(args.seed)
@@ -690,44 +736,32 @@ def main() -> int:
     serve_counts = counts
     train = train_phase(args, dev, card, ck, pull_push, lay, schema)
 
+    by_path = {"serve": serve_counts, **train["counts"]}
     emit({"kernels": [
         {
-            "name": "pull_rows_cuda",
+            "name": name,
             "route": "cuda",
-            "source": "paddlebox_tpu_torch/ops/csrc/gather_rows.cu",
-            "replaces": GATHER_REPLACES,
-            # both main paths, each counted from 0: serving then training
-            "launches": serve_counts["pull_rows_cuda"] + train["counts"]["pull_rows_cuda"],
-            "launches_by_path": {
-                "serve": serve_counts["pull_rows_cuda"], "train": train["counts"]["pull_rows_cuda"],
-            },
-            "max_abs_err": max(max_err, train["gather_err"]),
-            "ms": train["gather"]["ms"],
-            "plain_ms": train["gather"]["plain_ms"],
-            "bound_ms": train["gather"]["bound_ms"],
+            "source": source,
+            "replaces": replaces,
+            # every main path, each counted from 0: serving, then training on
+            # the resident, the packer and the slow feed
+            "launches": sum(c[name] for c in by_path.values()),
+            "launches_by_path": {p: c[name] for p, c in by_path.items()},
+            "max_abs_err": err,
+            "ms": train[key]["ms"],
+            "plain_ms": train[key]["plain_ms"],
+            "bound_ms": train[key]["bound_ms"],
             "bound_by": "bytes",
-            "library_ms": train["gather"]["library_ms"],
-            "bound_share": train["gather"]["bound_ms"] / train["gather"]["ms"],
-            "sector_floor_ms": train["gather"]["sector_floor_ms"],
-        },
-        {
-            "name": "write_rows_cuda",
-            "route": "cuda",
-            "source": "paddlebox_tpu_torch/ops/csrc/write_rows.cu",
-            "replaces": WRITE_REPLACES,
-            "launches": serve_counts["write_rows_cuda"] + train["counts"]["write_rows_cuda"],
-            "launches_by_path": {
-                "serve": serve_counts["write_rows_cuda"], "train": train["counts"]["write_rows_cuda"],
-            },
-            "max_abs_err": max(write_err, train["write_err"]),
-            "ms": train["write"]["ms"],
-            "plain_ms": train["write"]["plain_ms"],
-            "bound_ms": train["write"]["bound_ms"],
-            "bound_by": "bytes",
-            "library_ms": train["write"]["library_ms"],
-            "bound_share": train["write"]["bound_ms"] / train["write"]["ms"],
-            "sector_floor_ms": train["write"]["sector_floor_ms"],
-        },
+            "library_ms": train[key]["library_ms"],
+            "bound_share": train[key]["bound_ms"] / train[key]["ms"],
+            "sector_floor_ms": train[key]["sector_floor_ms"],
+        }
+        for name, source, replaces, key, err in (
+            ("pull_rows_cuda", "paddlebox_tpu_torch/ops/csrc/gather_rows.cu", GATHER_REPLACES, "gather",
+             max(max_err, train["gather_err"])),
+            ("write_rows_cuda", "paddlebox_tpu_torch/ops/csrc/write_rows.cu", WRITE_REPLACES, "write",
+             max(write_err, train["write_err"])),
+        )
     ]})
     print(card, flush=True)
     emit({
@@ -741,89 +775,318 @@ def main() -> int:
     return 0
 
 
-def train_phase(args, dev, card, ck, pull_push, lay, schema):
-    """Phases 6 and 7: the training main path at full width, its checks
-    and its numbers. Returns the counts and kernel numbers for the
-    ``kernels`` line."""
-    from torch.func import functional_call
-
+@contextlib.contextmanager
+def flags(**kw):
+    """Port flags set for the block, restored after."""
     from paddlebox_tpu_torch import config
-    from paddlebox_tpu_torch.data import BoxPSDataset, pack_batch
-    from paddlebox_tpu_torch.models import DeepFM
-    from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig
-    from paddlebox_tpu_torch.train import Adam, CTRTrainer, TrainStepConfig, make_train_step
 
-    rng = np.random.default_rng(args.seed + 1)
-    sparse_opt = SparseOptimizerConfig(embedx_threshold=0.0)
-    table = HostSparseTable(lay, sparse_opt, n_shards=64, seed=args.seed)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
-        t0 = time.perf_counter()
-        files = write_bench_files(tmpdir, rng)
-        t1 = time.perf_counter()
-        ds = BoxPSDataset(schema, table, batch_size=BATCH, shuffle_mode="local", seed=args.seed)
-        ds.set_filelist(files)
-        ds.load_into_memory()
-        t2 = time.perf_counter()
-    dev_table = ds.begin_pass(round_to=512)
-    t3 = time.perf_counter()
-    n_keys = ds.ws.n_keys
-    print(
-        f"training data: {N_FILES} files x {RECORDS_PER_FILE} records written in {t1 - t0:.3f} s, "
-        f"loaded in {t2 - t1:.3f} s; begin_pass over {n_keys} unique keys "
-        f"(table {dev_table.shape}) in {t3 - t2:.3f} s",
-        flush=True,
-    )
-    cfg = TrainStepConfig(
-        num_slots=NUM_SLOTS, batch_size=BATCH, layout=lay, sparse_opt=sparse_opt, auc_buckets=100_000,
-    )
+    before = {k: config.get_flag(k) for k in kw}
+    for k, v in kw.items():
+        config.set_flag(k, v)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            config.set_flag(k, v)
+
+
+def records_view(ds, n_batches):
+    """The dataset as the slow feed sees it: a shallow copy whose pass is
+    the SlotRecord views of its first ``n_batches`` batches, in order (the
+    same working set and pass table)."""
+    view = copy.copy(ds)
+    idx = np.concatenate(list(ds.batch_indices(n_batches)))
+    view.records = [ds.store.record(int(i)) for i in idx]
+    return view
+
+
+def new_trainer(args, cfg, lay):
+    from paddlebox_tpu_torch.models import DeepFM
+    from paddlebox_tpu_torch.train import Adam, CTRTrainer
+
     model = DeepFM(
         NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
         generator=torch.Generator().manual_seed(args.seed),
     )
-    trainer = CTRTrainer(model, cfg, dense_opt=Adam(1e-3), device="cuda")
-    trainer.init_params()
+    tr = CTRTrainer(model, cfg, dense_opt=Adam(1e-3), device="cuda")
+    tr.init_params()
+    return tr
+
+
+def timed_pass(trainer, ds, n_batches, ck):
+    """One train_pass from launch counts of 0: (out, losses, wall s, counts)."""
+    losses = []
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = trainer.train_pass(ds, n_batches=n_batches, on_batch=lambda i, m: losses.append(m["loss"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, torch.stack(losses).cpu(), wall, dict(ck.launch_counts)
+
+
+def check_path(name, out, losses, counts, n_steps):
+    if out["batches"] != n_steps or len(losses) != n_steps:
+        raise AssertionError(f"{name}: {out['batches']} steps, want {n_steps}")
+    if counts["pull_rows_cuda"] != 2 * n_steps or counts["write_rows_cuda"] != n_steps:
+        raise AssertionError(f"{name}: launches {counts} for {n_steps} steps: want 2 gathers and 1 writeback a step")
+    if not bool(torch.isfinite(losses).all()) or not np.isfinite(out["loss"]):
+        raise AssertionError(f"{name}: non-finite training loss: {losses.tolist()}")
+    print(f"{name}: {n_steps} steps, launches {counts} (2 gathers and 1 writeback a step), losses finite, "
+          f"first {float(losses[0]):.5f} last {float(losses[-1]):.5f}, auc {out['auc']:.5f}", flush=True)
+
+
+def four_feeds_bitwise(args, cfg, lay, ds, slow_view):
+    """FEED_STEPS steps from one state through the resident feed (K =
+    FEED_STEPS and K = 1), the packer feed and the slow feed: tables,
+    params, Adam moments and losses must be bitwise equal."""
+    feeds = {
+        f"resident K={FEED_STEPS}": (dict(enable_resident_feed=1, resident_scan_batches=FEED_STEPS), ds),
+        "resident K=1": (dict(enable_resident_feed=1, resident_scan_batches=1), ds),
+        "packer": (dict(enable_resident_feed=0), ds),
+        "slow": (dict(enable_resident_feed=0), slow_view),
+    }
+    got = {}
+    for name, (kw, dataset) in feeds.items():
+        with flags(**kw):
+            tr = new_trainer(args, cfg, lay)
+            losses = []
+            tr.train_pass(dataset, n_batches=FEED_STEPS, on_batch=lambda i, m: losses.append(m["loss"]))
+            got[name] = (
+                tr.trained_table(), {k: v.cpu() for k, v in tr.params.items()},
+                {k: v.cpu() for k, v in tr.opt_state.mu.items()}, {k: v.cpu() for k, v in tr.opt_state.nu.items()},
+                torch.stack(losses).cpu(),
+            )
+    ref_name, ref = next(iter(got.items()))
+    for name, g in got.items():
+        same = (
+            g[0].tobytes() == ref[0].tobytes()
+            and all(torch.equal(g[i][k], ref[i][k]) for i in (1, 2, 3) for k in ref[1])
+            and g[4].numpy().tobytes() == ref[4].numpy().tobytes()
+        )
+        if not same:
+            raise AssertionError(f"{FEED_STEPS} steps through the {name} feed differ from the {ref_name} feed")
+    print(f"four feeds: {FEED_STEPS} steps from one state through {', '.join(got)} give bitwise-equal "
+          "tables, params, Adam moments and losses", flush=True)
+
+
+def busy_ms_per_step(fn, n_steps) -> float:
+    """Device ms a step of ``fn`` (``n_steps`` steps) under the profiler:
+    every kernel, copy and fill the card ran, summed."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / n_steps
+
+
+def superstep_probe(args, cfg, lay, ds, table0, params0, opt0, dev):
+    """One resident superstep of RESIDENT_K steps outside the trainer, at
+    the pads of the timed partition: run once warm, once under
+    ``torch.cuda.set_sync_debug_mode("warn")`` counting the host syncs it
+    makes (and where), once under the profiler for the card's busy time.
+    Returns (the ResidentPass, its first batch's record indices on the
+    card, sync count, sync sites, busy ms a step, device ops a step, the
+    largest device ms a step by kernel)."""
+    from torch.func import functional_call
+
+    from paddlebox_tpu_torch.models import DeepFM
+    from paddlebox_tpu_torch.train import Adam, ResidentPass, make_resident_superstep
+
+    rp = ResidentPass(ds.store, ds.ws, ds.schema, dev)
+    blocks = [np.asarray(b, dtype=np.int32) for b in ds.batch_indices(TRAIN_BATCHES)]
+    rp.ensure(blocks)
+    idx = torch.from_numpy(np.stack(blocks[:RESIDENT_K])).to(dev)
+    model = DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
+                   generator=torch.Generator().manual_seed(args.seed)).to(dev)
+    sstep = make_resident_superstep(lambda p, x, d: functional_call(model, p, (x, d)), Adam(1e-3), cfg, rp)
+    run_steps(sstep, table0, params0, opt0, [idx], dev)  # warm
+    st0 = fresh_state(table0, params0, opt0, dev)  # the state's upload is not the superstep's
+    torch.cuda.synchronize()
+    sites: dict = {}
+    inside = [False]  # counting only while the superstep runs, not the mode switches
+
+    def on_warning(message, category, filename, lineno, file=None, line=None):
+        # a sync is named by the innermost frame of this repo that led to
+        # it, then the frame the warning came from
+        if not inside[0] or "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(REPO)]
+        where = f"{os.path.relpath(ours[-1].filename, REPO)}:{ours[-1].lineno}" if ours else "?"
+        site = f"{where} via {os.path.basename(filename)}:{lineno}"
+        sites[site] = sites.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        inside[0] = True
+        try:
+            sstep(st0, idx)
+        finally:
+            inside[0] = False
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    n_syncs = sum(sites.values())
+    st0 = fresh_state(table0, params0, opt0, dev)  # set-up outside the trace
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        sstep(st0, idx)
+        torch.cuda.synchronize()
+    by_kernel: dict = {}
+    n_ops = 0
+    for e in prof.key_averages():
+        name = e.key[:60]
+        by_kernel[name] = by_kernel.get(name, 0.0) + e.self_device_time_total / 1e3 / RESIDENT_K
+        n_ops += e.count
+    top = dict(sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8])
+    return rp, idx[0], n_syncs, sites, sum(by_kernel.values()), n_ops / RESIDENT_K, top
+
+
+def python_tier_dataset(args, lay, sparse_opt, schema, files):
+    """The Python tier over the same files: the pure-Python host store,
+    ``parse_line``, the SlotRecord pass. Returns (dataset, table, load s,
+    begin_pass s)."""
+    from paddlebox_tpu_torch.data import BoxPSDataset
+    from paddlebox_tpu_torch.table import HostSparseTable
+
+    before = os.environ.get("PBOX_NATIVE_TABLE")
+    os.environ["PBOX_NATIVE_TABLE"] = "0"
+    try:
+        table = HostSparseTable(lay, sparse_opt, n_shards=64, seed=args.seed)
+    finally:
+        if before is None:
+            del os.environ["PBOX_NATIVE_TABLE"]
+        else:
+            os.environ["PBOX_NATIVE_TABLE"] = before
+    if table.native:
+        raise AssertionError("the Python-tier table is native")
+    ds = BoxPSDataset(schema, table, batch_size=BATCH, shuffle_mode="local", seed=args.seed)
+    ds.set_filelist(files)
+    with flags(enable_native_parser=False):
+        t0 = time.perf_counter()
+        ds.load_into_memory()
+        t1 = time.perf_counter()
+    if ds.store is not None:
+        raise AssertionError("the Python-tier dataset holds a columnar store")
+    ds.begin_pass(round_to=512)
+    return ds, table, t1 - t0, time.perf_counter() - t1
+
+
+def train_phase(args, dev, card, ck, pull_push, lay, schema):
+    """Phases 6 and 7: the training main path at full width on its three
+    feeds, their checks and their numbers. Returns the launch counts by
+    path and the kernel numbers for the ``kernels`` line."""
+    from torch.func import functional_call
+
+    from paddlebox_tpu_torch.data import BoxPSDataset, pack_batch
+    from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig
+    from paddlebox_tpu_torch.train import TrainStepConfig, build_device_batch, make_train_step
+
+    rng = np.random.default_rng(args.seed + 1)
+    sparse_opt = SparseOptimizerConfig(embedx_threshold=0.0)
+    cfg = TrainStepConfig(
+        num_slots=NUM_SLOTS, batch_size=BATCH, layout=lay, sparse_opt=sparse_opt, auc_buckets=100_000,
+    )
+    bounds = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
+        t0 = time.perf_counter()
+        files = write_bench_files(tmpdir, rng)
+        write_s = time.perf_counter() - t0
+        # bench.py's tier: the native store, the native parser
+        table = HostSparseTable(lay, sparse_opt, n_shards=64, seed=args.seed)
+        if not table.native:
+            raise AssertionError("HostSparseTable is not on the native store")
+        ds = BoxPSDataset(schema, table, batch_size=BATCH, shuffle_mode="local", seed=args.seed)
+        ds.set_filelist(files)
+        t0 = time.perf_counter()
+        ds.load_into_memory()
+        bounds["load_into_memory_s"] = time.perf_counter() - t0
+        if ds.store is None:
+            raise AssertionError("the native parser did not load the pass into a columnar store")
+        t0 = time.perf_counter()
+        dev_table = ds.begin_pass(round_to=512)
+        bounds["begin_pass_s"] = time.perf_counter() - t0
+        slow_ds, slow_table, py_load_s, py_begin_s = python_tier_dataset(args, lay, sparse_opt, schema, files)
+    n_keys = ds.ws.n_keys
+    print(
+        f"training data: {N_FILES} files x {RECORDS_PER_FILE} records written in {write_s:.3f} s; native tier: "
+        f"load_into_memory {bounds['load_into_memory_s']:.3f} s, begin_pass over {n_keys} unique keys "
+        f"(table {dev_table.shape}) {bounds['begin_pass_s']:.3f} s; Python tier: load {py_load_s:.3f} s, "
+        f"begin_pass {py_begin_s:.3f} s",
+        flush=True,
+    )
+    if slow_ds.ws.n_keys != n_keys:
+        raise AssertionError("the two tiers loaded different key sets")
+    trainer = new_trainer(args, cfg, lay)
     table0 = dev_table.reshape(-1, lay.width).copy()
     params0 = {k: v.clone() for k, v in trainer.params.items()}
     opt0 = trainer.dense_opt.init(params0)
+    counts, paths, busy = {}, {}, {}
 
-    # ---- 6. the training main path ----------------------------------------
-    stamps = []
-    step_losses = []
+    # ---- 6. bench.py's path: prepare_pass, warm-up, the timed resident pass
+    trainer.prepare_pass(ds, n_batches=TRAIN_BATCHES)
+    bounds["prepare_pass_s"] = trainer.last_prepare_s
+    t0 = time.perf_counter()
+    trainer.train_pass(ds, n_batches=WARM_BATCHES)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    out, losses, wall, counts["train_resident"] = timed_pass(trainer, ds, TRAIN_BATCHES, ck)
+    check_path(f"resident feed (K = {RESIDENT_K}), after prepare_pass and a {WARM_BATCHES}-step warm-up "
+               f"of {warm_s:.3f} s", out, losses, counts["train_resident"], TRAIN_BATCHES)
+    prof = trainer.train_pass(ds, n_batches=PROFILE_BATCHES, profile=True)["profile"]
+    paths["resident"] = (wall, TRAIN_BATCHES, prof)
+    busy["resident"] = busy_ms_per_step(lambda: trainer.train_pass(ds, n_batches=RESIDENT_K), RESIDENT_K)
 
-    def on_batch(i, m):
-        step_losses.append(m["loss"])
+    # the packer feed over the same pass, from the pass-open table
+    with flags(enable_resident_feed=0):
+        ptrainer = new_trainer(args, cfg, lay)
+        ptrainer.prepare_pass(ds, n_batches=TRAIN_BATCHES)
+        ptrainer.train_pass(ds, n_batches=WARM_BATCHES)
+        pout, plosses, pwall, counts["train_packer"] = timed_pass(ptrainer, ds, TRAIN_BATCHES, ck)
+        check_path("packer feed", pout, plosses, counts["train_packer"], TRAIN_BATCHES)
+        paths["packer"] = (pwall, TRAIN_BATCHES, ptrainer.train_pass(ds, n_batches=PROFILE_BATCHES,
+                                                                     profile=True)["profile"])
+        busy["packer"] = busy_ms_per_step(lambda: ptrainer.train_pass(ds, n_batches=RESIDENT_K), RESIDENT_K)
+        del ptrainer
+
+    # the Python tier on the slow feed, one batch a step waited for
+    strainer = new_trainer(args, cfg, lay)
+    stamps, slosses = [], []
+
+    def on_slow(i, m):
+        slosses.append(m["loss"])
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
 
     ck.reset_launch_counts()
+    sout = strainer.train_pass(slow_ds, n_batches=SLOW_BATCHES, on_batch=on_slow, profile=True)
+    counts["train_slow"] = dict(ck.launch_counts)
+    check_path("slow feed (Python tier)", sout, torch.stack(slosses).cpu(), counts["train_slow"], SLOW_BATCHES)
+    timed = np.diff(stamps)  # steps after the first
+    paths["slow"] = (float(np.sum(timed)), len(timed), sout["profile"])
+    busy["slow"] = busy_ms_per_step(
+        lambda: strainer.train_pass(slow_ds, n_batches=SLOW_BUSY_STEPS), SLOW_BUSY_STEPS
+    )
     t0 = time.perf_counter()
-    out = trainer.train_pass(ds, on_batch=on_batch, profile=True)
-    torch.cuda.synchronize()
-    t_pass = time.perf_counter() - t0
-    counts = dict(ck.launch_counts)
-    n_steps = int(out["batches"])
-    print(f"trained {n_steps} steps in {t_pass:.3f} s; kernel launches {counts}", flush=True)
-    if n_steps != N_FILES * RECORDS_PER_FILE // BATCH:
-        raise AssertionError(f"{n_steps} steps, want one epoch")
-    if counts["pull_rows_cuda"] != 2 * n_steps or counts["write_rows_cuda"] != n_steps:
-        raise AssertionError(f"launches {counts} for {n_steps} steps: want 2 gathers and 1 writeback a step")
-    losses = torch.stack(step_losses).cpu()
-    if not bool(torch.isfinite(losses).all()) or not np.isfinite(out["loss"]):
-        raise AssertionError(f"non-finite training loss: {losses.tolist()}")
-    print(f"training main path: losses finite, first {float(losses[0]):.5f} last {float(losses[-1]):.5f}; "
-          f"auc {out['auc']:.5f}", flush=True)
+    sended = slow_ds.end_pass(strainer.trained_table())
+    py_end_s = time.perf_counter() - t0
+    if len(slow_table) != n_keys - sended["dropped"]:
+        raise AssertionError("the Python-tier host table after end_pass lost keys")
+    print(f"slow feed end_pass (Python store) in {py_end_s:.3f} s: {len(slow_table)} keys kept", flush=True)
+    del strainer, slow_ds, slow_table
 
-    # the same steps from one state: twin, forced plain writeback, no dedup
-    dbs = [pack_batch(b, ds.ws, schema) for b in ds.batches(TWIN_STEPS)]
+    # ---- the same steps from one state: four feeds, twin, plain writeback, no dedup
+    view = records_view(ds, max(FEED_STEPS, TWIN_STEPS))
+    four_feeds_bitwise(args, cfg, lay, ds, view)
+    dbs = [pack_batch(b, ds.ws, schema) for b in view.batches(TWIN_STEPS)]
     feeds = [{k: torch.from_numpy(v).to(dev) for k, v in db.as_dict().items()} for db in dbs]
     step = make_train_step(
         lambda p, x, d: functional_call(trainer.model, p, (x, d)), cfg, trainer.dense_opt
     )
     a, la = run_steps(step, table0, params0, opt0, feeds, dev)
-    # the twin runs under the profiler: the card's busy time per step
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof_dev:
-        b, lb = run_steps(step, table0, params0, opt0, feeds, dev)
-        torch.cuda.synchronize()
+    b, lb = run_steps(step, table0, params0, opt0, feeds, dev)
+    torch.cuda.synchronize()
     if not same_state(a, b) or not torch.equal(torch.stack(la), torch.stack(lb)):
         raise AssertionError("two runs of the same training steps differ")
     print(f"training twin: {TWIN_STEPS} steps twice from one state give bitwise-equal "
@@ -837,13 +1100,12 @@ def train_phase(args, dev, card, ck, pull_push, lay, schema):
     if not torch.equal(c.table, a.table):
         raise AssertionError("the table with write_rows_ref differs from the table with write_rows_cuda")
     print("training: bitwise-equal table with the writeback forced to write_rows_ref", flush=True)
-    first = next(iter(ds.batches(1)))
+    first = next(iter(view.batches(1)))
     flat_rows = torch.from_numpy(ds.ws.lookup(first.keys)).to(dev)  # duplicates kept
     g = torch.Generator(device=dev).manual_seed(args.seed)
     grads = torch.randn((len(flat_rows), lay.pull_width), device=dev, generator=g)
     ones = torch.ones(len(flat_rows), device=dev)
-    config.set_flag("enable_pullpush_dedup_keys", False)
-    try:
+    with flags(enable_pullpush_dedup_keys=False):
         t_nd = [
             pull_push.push_sparse_rows(
                 torch.from_numpy(table0).to(dev, copy=True), flat_rows, grads, ones, ones * 0.2,
@@ -851,20 +1113,23 @@ def train_phase(args, dev, card, ck, pull_push, lay, schema):
             )
             for _ in range(2)
         ]
-    finally:
-        config.set_flag("enable_pullpush_dedup_keys", True)
     torch.cuda.synchronize()
     if not torch.equal(t_nd[0], t_nd[1]):
         raise AssertionError("the push without dedup is not bitwise repeatable")
     print(f"training: push without dedup ({len(flat_rows)} rows with duplicates) bitwise repeatable", flush=True)
     small_card_vs_cpu(args.seed)
+    rp, first_idx, n_syncs, sync_sites, busy_ms, ops_per_step, top = superstep_probe(
+        args, cfg, lay, ds, table0, params0, opt0, dev
+    )
+    print(f"resident superstep of {RESIDENT_K} steps under set_sync_debug_mode('warn'): {n_syncs} host syncs "
+          f"({n_syncs / RESIDENT_K:g} a step) at {sync_sites}", flush=True)
 
-    # end_pass: writeback, then decay and shrink
+    # end_pass of bench.py's path: writeback into the native store, decay and shrink
     trained = trainer.trained_table()
     pass_keys, row_of = ds.ws.sorted_keys.copy(), ds.ws.row_of_sorted.copy()
     t0 = time.perf_counter()
     ended = ds.end_pass(trained)
-    t_end = time.perf_counter() - t0
+    bounds["end_pass_s"] = time.perf_counter() - t0
     kept = np.sort(table.keys())
     if len(kept) != n_keys - ended["dropped"] or not np.all(np.isin(kept, pass_keys)):
         raise AssertionError(
@@ -875,34 +1140,32 @@ def train_phase(args, dev, card, ck, pull_push, lay, schema):
     want[:, lay.CLK] *= sparse_opt.show_clk_decay
     if not np.array_equal(table.pull_or_create(kept), want) or len(table) != len(kept):
         raise AssertionError("host rows after end_pass are not the trained rows, decayed")
-    print(f"end_pass in {t_end:.3f} s: host table holds {len(kept)} keys = {n_keys} pass keys "
-          f"- {ended['dropped']} dropped, each its trained row decayed", flush=True)
+    print(f"end_pass in {bounds['end_pass_s']:.3f} s: the native host table holds {len(kept)} keys = {n_keys} "
+          f"pass keys - {ended['dropped']} dropped, each its trained row decayed", flush=True)
 
-    # ---- 7. numbers at the training path's own shape ----------------------
-    # device ms per step by kernel name (cut to 60 characters, summed)
-    by_kernel: dict = {}
-    n_device_ops = 0
-    for e in prof_dev.key_averages():
-        if "HtoD" not in e.key:  # the state's table upload is set-up, not step work
-            name = e.key[:60]
-            by_kernel[name] = by_kernel.get(name, 0.0) + e.self_device_time_total / 1e3 / TWIN_STEPS
-            n_device_ops += e.count
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    # ---- 7. numbers -----------------------------------------------------------
     emit({
-        "card": card, "device_busy_ms_per_step": sum(by_kernel.values()), "steps": TWIN_STEPS,
-        "device_ops_per_step": n_device_ops / TWIN_STEPS, "top_device_ms_per_step": dict(top),
+        "card": card, "superstep_busy_ms_per_step": busy_ms, "steps": RESIDENT_K, "path": "train_resident",
+        "device_ops_per_step": ops_per_step, "top_device_ms_per_step": top,
+        "host_syncs_per_superstep": n_syncs, "host_sync_sites": sync_sites,
     })
-    prof = out["profile"]
-    timed = np.diff(stamps)  # steps after the first: warm-up excluded
-    emit({
-        "card": card, "train_samples_per_s": BATCH * len(timed) / float(np.sum(timed)),
-        "steps_timed": len(timed), "batch": BATCH, "pass_s": t_pass,
-        "host_clock_s": prof, "per_step_ms": {k: v / n_steps * 1e3 for k, v in prof.items()},
-        "launches_per_step": {k: v / n_steps for k, v in counts.items()},
-        "loss": out["loss"], "auc": out["auc"], "unique_keys": n_keys,
-    })
+    emit({"card": card, "pass_boundary_s": bounds, "python_tier_s": {
+        "load_into_memory_s": py_load_s, "begin_pass_s": py_begin_s, "end_pass_s": py_end_s,
+    }})
+    for name, (secs, n, prof) in paths.items():
+        step_ms = secs / n * 1e3
+        n_prof = SLOW_BATCHES if name == "slow" else PROFILE_BATCHES
+        # no clamp: a busy time longer than the step would show as negative
+        emit({
+            "card": card, "path": f"train_{name}", "train_samples_per_s": BATCH * n / secs, "steps_timed": n,
+            "batch": BATCH, "ms_per_step": step_ms, "device_busy_ms_per_step": busy[name],
+            "device_idle_share": 1.0 - busy[name] / step_ms,
+            "host_clock_ms_per_step_profiled": {k: v / n_prof * 1e3 for k, v in prof.items()},
+            "profiled_steps": n_prof,
+        })
+    # the kernels at the resident path's own batch shape
     tab = torch.from_numpy(table0).to(dev)
-    rows = feeds[0]["uniq_rows"]
+    rows = build_device_batch(rp, cfg, first_idx)["uniq_rows"]
     new_rows = ck.pull_rows_ref(tab, rows) + 0.5  # padding-row repeats stay identical
     R, W = tab.shape
     U = rows.shape[0]
@@ -922,6 +1185,7 @@ def train_phase(args, dev, card, ck, pull_push, lay, schema):
         "plain": lambda: ck.pull_rows_ref(tab, rows),
         "library": lambda: torch.index_select(tab, 0, rows),
     }
+    n_uniq = int((rows != rp.pad_row).sum())
     res = {}
     for name, fns, restore in (
         ("write_rows_cuda", write_fns, lambda: tab.copy_(pristine)),
@@ -934,8 +1198,8 @@ def train_phase(args, dev, card, ck, pull_push, lay, schema):
             "bound_ms": bound_ms, "sector_floor_ms": floor_ms,
         }
         emit({
-            "card": card, "kernel": name, "path": "train",
-            "R": R, "W": W, "U": U, "n_uniq": dbs[0].n_uniq,
+            "card": card, "kernel": name, "path": "train_resident",
+            "R": R, "W": W, "U": U, "n_uniq": n_uniq,
             "ms": med["kernel"], "plain_ms": med["plain"],
             ("index_copy_ms" if name == "write_rows_cuda" else "index_select_ms"): med["library"],
             "bound_ms": bound_ms, "bytes": 2 * U * W * 4 + 4 * U, "bound_share": bound_ms / med["kernel"],

@@ -5,16 +5,20 @@ table on the device, the sparse pull and push, fused seqpool+CVM, CTR models,
 online AUC and a batched scoring server. Subpackages mirror the JAX
 package's names so each counterpart is easy to find:
 
-- ``data``     slot schema, parser, columnar batches, the batch packer,
-               the pass dataset
-- ``table``    value layouts, the host store, the pass working set,
-               replica cache
+- ``data``     slot schema, parsers (Python and native), the columnar
+               record store, batch packers, the prefetch pipeline, the
+               pass dataset
+- ``table``    value layouts, the host store (native or Python), the pass
+               working set, replica cache
 - ``ops``      sparse pull and push (hand-written CUDA row gather and
                row writeback), seqpool+CVM
 - ``metrics``  online AUC
 - ``models``   DeepFM as an ``nn.Module``; weight and Adam-state
                conversion from and to JAX
-- ``train``    the training and eval step, Adam, the pass trainer
+- ``train``    the training and eval step, the resident K-step feed,
+               Adam, the pass trainer
+- ``utils``    stats, fault injection, device selection, the ctypes
+               binding of the native host tier (``csrc/*.cc``)
 - ``serve``    atomic-swap scoring table, scorer and batching server
 
 Entry points take an explicit ``device`` and default to ``"cuda"``; they

@@ -1,24 +1,30 @@
-"""BoxPSDataset: one node's pass data pipeline, its Python tier.
+"""BoxPSDataset: one node's pass data pipeline.
 
 Port of the JAX package's ``data/dataset.py`` for a single process:
 
     set_date -> set_filelist -> load_into_memory -> begin_pass
-    -> batches() / train -> end_pass(trained_table)
+    -> batch_indices() / batches() / train -> end_pass(trained_table)
 
-- ``load_into_memory`` reads the part files in a thread pool, parses each
-  line with ``parse_line`` (a bad line raises: strict mode), shuffles
-  ("none", or "local" with the JAX package's permutation for the same seed
-  and pass) and feeds every feasign into a fresh ``PassWorkingSet``.
+- ``load_into_memory`` reads the part files in a thread pool. With the
+  flag ``enable_native_parser`` (the default) each file is parsed in one
+  native call (``csrc/slot_parser.cc``) into a ``ColumnarRecords`` chunk;
+  the chunks concatenate into ``store`` and a shuffle is a permutation
+  ``_order`` over it. With the flag off, each line goes through
+  ``parse_line`` into a ``SlotRecord`` list. A bad line raises either way
+  (strict mode). Shuffle modes are "none" and "local" (the JAX package's
+  permutation for the same seed and pass); every feasign feeds a fresh
+  ``PassWorkingSet``.
 - ``begin_pass`` finalizes the working set against the host table and
   returns the pass table for the device.
-- ``batches`` serves equal-size ``SlotBatch``es, wrapping around past the
-  tail.
+- ``batch_indices`` serves the store-record indices of each minibatch (the
+  fast feeds); ``batches`` serves ``SlotBatch``es (the slow feed). Both
+  wrap around past the tail.
 - ``end_pass`` writes the trained rows back, then decays and shrinks the
   host table, synchronously.
 
-Not ported: the native columnar parser, quarantine, pipe converters,
-preload threads, global shuffles across nodes, pv merge, the carried
-boundary, the asynchronous end pass and delta saves.
+Not ported: quarantine, pipe converters, preload threads, global shuffles
+across nodes, pv merge, the carried boundary, the asynchronous end pass and
+delta saves.
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from paddlebox_tpu_torch import config
 from paddlebox_tpu_torch.data.parser import parse_line
+from paddlebox_tpu_torch.data.record_store import ColumnarRecords
 from paddlebox_tpu_torch.data.slot_record import SlotBatch, SlotRecord, build_batch
 from paddlebox_tpu_torch.data.slot_schema import SlotSchema
 from paddlebox_tpu_torch.table.sparse_table import HostSparseTable, PassWorkingSet
@@ -49,7 +57,7 @@ class PassStats:
 
 
 class BoxPSDataset:
-    """One node's view of the pass data pipeline (Python tier)."""
+    """One node's view of the pass data pipeline."""
 
     def __init__(
         self,
@@ -74,13 +82,37 @@ class BoxPSDataset:
         self.date: Optional[str] = None
         self.pass_id = 0
         self._filelist: List[str] = []
-        self.records: List[SlotRecord] = []
+        # pass data lives EITHER columnar (store + shuffle order, the native
+        # tier) or as a SlotRecord list (the Python tier); the `records`
+        # property materializes a view list of a store on demand
+        self.store: Optional[ColumnarRecords] = None
+        self._order: Optional[np.ndarray] = None
+        self._records: List[SlotRecord] = []
         self.ws: Optional[PassWorkingSet] = None
         self.device_table: Optional[np.ndarray] = None
         self.stats = PassStats()
         self._in_pass = False
-        # (records, ws, stats) loaded but not yet begun
+        # (store, order, records, ws, stats) loaded but not yet begun
         self._staged = None
+
+    # ---- record access ---------------------------------------------------
+
+    @property
+    def records(self) -> List[SlotRecord]:
+        """The pass as SlotRecords, in shuffle order. A store-backed pass
+        materializes views of its store once, on first access."""
+        if not self._records and self.store is not None and len(self.store):
+            order = self._order if self._order is not None else range(len(self.store))
+            self._records = [self.store.record(int(i)) for i in order]
+        return self._records
+
+    @records.setter
+    def records(self, value) -> None:
+        # an assigned list becomes the source of truth: the store would be
+        # stale, so it goes
+        self._records = list(value)
+        self.store = None
+        self._order = None
 
     # ---- pass config -----------------------------------------------------
 
@@ -98,10 +130,22 @@ class BoxPSDataset:
 
     # ---- load ------------------------------------------------------------
 
-    def _read_one(self, path: str) -> List[SlotRecord]:
-        """Parse every non-empty line of one part file; the first bad line
-        raises. A record the parser returns None for (no feasigns) is
-        skipped."""
+    def _native_eligible(self) -> bool:
+        # the native parser reads every line; line sampling needs the
+        # line-by-line reader
+        return bool(config.get_flag("enable_native_parser")) and (
+            config.get_flag("sample_rate") >= 1.0
+        )
+
+    def _read_one(self, path: str):
+        """One part file -> a ColumnarRecords chunk (native tier) or a
+        SlotRecord list (Python tier). The first bad line raises; a record
+        without feasigns is skipped."""
+        if self._native_eligible():
+            from paddlebox_tpu_torch.utils import native
+
+            with open(path, "rb") as f:
+                return native.parse_buffer_columnar(f.read(), self.schema)
         out = []
         with open(path, encoding="utf-8") as f:
             for line in f:
@@ -118,8 +162,28 @@ class BoxPSDataset:
         order = rng.permutation(len(records))
         return [records[i] for i in order]
 
+    def _shuffle_store(self, store: ColumnarRecords):
+        """Columnar shuffle: a permutation of the store, no data moved. The
+        same permutation ``_shuffle_records`` applies to a record list."""
+        if self.shuffle_mode == "none":
+            return store, None, []
+        rng = np.random.default_rng(self.seed + self.pass_id)
+        return store, rng.permutation(len(store)), []
+
+    def _normalize_and_shuffle(self, parts: list):
+        """File chunks -> (store, order, records): columnar when every part
+        is columnar and one holds records, a SlotRecord list otherwise."""
+        if parts and all(isinstance(p, ColumnarRecords) for p in parts):
+            non_empty = [p for p in parts if len(p)]
+            if non_empty:
+                return self._shuffle_store(ColumnarRecords.concat(non_empty))
+        records: List[SlotRecord] = []
+        for p in parts:
+            records.extend(p.records() if isinstance(p, ColumnarRecords) else p)
+        return None, None, self._shuffle_records(records)
+
     def load_into_memory(self) -> None:
-        """Threaded read -> shuffle -> staged records + working-set keys.
+        """Threaded read -> shuffle -> staged pass data + working-set keys.
 
         Loads into a staging slot; ``begin_pass`` consumes it. When no pass
         is open the load is published at once, so ``memory_data_size`` and
@@ -127,23 +191,27 @@ class BoxPSDataset:
         if self._staged is not None:
             raise RuntimeError("staged pass not yet consumed by begin_pass")
         stats = PassStats(files=len(self._filelist))
-        parts: List[List[SlotRecord]] = []
+        parts: list = []
         if self._filelist:
             with ThreadPoolExecutor(max_workers=max(1, self.read_threads)) as pool:
                 parts = list(pool.map(self._read_one, self._filelist))
-        records = self._shuffle_records([r for p in parts for r in p])
+        store, order, records = self._normalize_and_shuffle(parts)
         ws = PassWorkingSet()
         # MergeInsKeys parity: every feasign of the pass feeds the working set
-        chunk = 4096
-        for i in range(0, len(records), chunk):
-            ws.add_keys(np.concatenate([r.u64_values for r in records[i : i + chunk]]))
-        stats.records = len(records)
-        self._staged = (records, ws, stats)
+        if store is not None:
+            ws.add_keys(store.u64_values)
+            stats.records = len(store)
+        else:
+            chunk = 4096
+            for i in range(0, len(records), chunk):
+                ws.add_keys(np.concatenate([r.u64_values for r in records[i : i + chunk]]))
+            stats.records = len(records)
+        self._staged = (store, order, records, ws, stats)
         if not self._in_pass:
             self._publish(self._staged)
 
     def _publish(self, staged) -> None:
-        self.records, self.ws, self.stats = staged
+        self.store, self._order, self._records, self.ws, self.stats = staged
 
     # ---- pass lifecycle --------------------------------------------------
 
@@ -175,7 +243,9 @@ class BoxPSDataset:
         if trained_table is not None:
             self.ws.writeback(np.asarray(trained_table))
         dropped = self.table.decay_and_shrink() if shrink else 0
-        self.records = []
+        self.store = None
+        self._order = None
+        self._records = []
         self.ws = None
         self.device_table = None
         self._in_pass = False
@@ -184,19 +254,37 @@ class BoxPSDataset:
     # ---- batch serving ---------------------------------------------------
 
     def memory_data_size(self) -> int:
-        return len(self.records)
+        if self.store is not None:
+            return len(self.store)
+        return len(self._records)
 
     def num_batches(self) -> int:
         """Full minibatches in this pass (the remainder is dropped)."""
         return self.memory_data_size() // self.batch_size
 
+    def _check_nonempty(self, n: int) -> bool:
+        if self.memory_data_size() == 0:
+            if n > 0:
+                raise RuntimeError(f"asked for {n} batches but the pass holds 0 records")
+            return False
+        return True
+
+    def batch_indices(self, n_batches: Optional[int] = None) -> Iterator[np.ndarray]:
+        """Store-record indices of each minibatch, int64 [batch_size], the
+        shuffle order applied; wraps around past the tail."""
+        n = self.num_batches() if n_batches is None else n_batches
+        if not self._check_nonempty(n):
+            return
+        B, N = self.batch_size, self.memory_data_size()
+        for i in range(n):
+            idx = np.arange(i * B, (i + 1) * B, dtype=np.int64) % N
+            yield self._order[idx] if self._order is not None else idx
+
     def batches(self, n_batches: Optional[int] = None) -> Iterator[SlotBatch]:
         """Yield equal-size SlotBatches; wraps around if asked for more than
         the pass holds."""
         n = self.num_batches() if n_batches is None else n_batches
-        if self.memory_data_size() == 0:
-            if n > 0:
-                raise RuntimeError(f"asked for {n} batches but the pass holds 0 records")
+        if not self._check_nonempty(n):
             return
         B = self.batch_size
         recs = self.records

@@ -1,0 +1,288 @@
+"""Columnar record store: the whole pass as a handful of flat arrays.
+
+Port of the JAX package's ``data/record_store.py``. The pass IS the arrays:
+``u64_values``/``f_values`` flats plus per-record offset tables, so every
+pass-wide operation (working-set key collection, key->row resolution,
+label extraction, shuffling, batch packing) is one vectorized or native
+call over them. ``record(i)`` materializes a ``SlotRecord`` view for the
+record-level paths (the slow feed).
+
+Key->row resolution is pass-scoped: once ``PassWorkingSet.finalize`` has
+run, ``resolve_rows`` translates the whole store once (a vectorized
+searchsorted), and batches then gather int32 rows and never touch uint64
+keys again.
+
+The wire format (``to_bytes``/``from_bytes``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from paddlebox_tpu_torch import config
+from paddlebox_tpu_torch.data.slot_record import SlotRecord
+from paddlebox_tpu_torch.data.slot_schema import SlotSchema
+
+
+class ColumnarRecords:
+    """Immutable columnar batch-of-all-records for one pass (one node)."""
+
+    __slots__ = (
+        "u64_values", "u64_offsets", "u64_base",
+        "f_values", "f_offsets", "f_base",
+        "search_ids", "cmatch", "rank",
+        "ins_id_off", "ins_id_chars",
+        "_rows", "_rows_ws_id",
+    )
+
+    def __init__(
+        self,
+        u64_values: np.ndarray,   # uint64 [total_u64]
+        u64_offsets: np.ndarray,  # uint32 [n, n_sparse+1] record-local
+        u64_base: np.ndarray,     # int64 [n]
+        f_values: np.ndarray,     # float32 [total_f]
+        f_offsets: np.ndarray,    # uint32 [n, n_float+1]
+        f_base: np.ndarray,       # int64 [n]
+        search_ids: Optional[np.ndarray] = None,  # uint64 [n]
+        cmatch: Optional[np.ndarray] = None,      # int32 [n]
+        rank: Optional[np.ndarray] = None,        # int32 [n]
+        ins_id_off: Optional[np.ndarray] = None,  # int64 [n+1] byte offsets
+        ins_id_chars: bytes = b"",
+    ):
+        self.u64_values = u64_values
+        self.u64_offsets = u64_offsets
+        self.u64_base = u64_base
+        self.f_values = f_values
+        self.f_offsets = f_offsets
+        self.f_base = f_base
+        n = len(u64_base)
+        self.search_ids = search_ids if search_ids is not None else np.zeros(n, np.uint64)
+        self.cmatch = cmatch if cmatch is not None else np.zeros(n, np.int32)
+        self.rank = rank if rank is not None else np.zeros(n, np.int32)
+        self.ins_id_off = ins_id_off
+        self.ins_id_chars = ins_id_chars
+        self._rows: Optional[np.ndarray] = None  # int32 [total_u64]
+        self._rows_ws_id: Optional[int] = None
+
+    # ---- basics ----------------------------------------------------------
+
+    def __len__(self) -> int:
+        return len(self.u64_base)
+
+    @property
+    def n_sparse(self) -> int:
+        return self.u64_offsets.shape[1] - 1
+
+    @property
+    def n_float(self) -> int:
+        return self.f_offsets.shape[1] - 1
+
+    def key_counts(self) -> np.ndarray:
+        """int64 [n]: total feasign count per record."""
+        return self.u64_offsets[:, -1].astype(np.int64)
+
+    def ins_id(self, i: int) -> str:
+        if self.ins_id_off is None:
+            return ""
+        a, b = int(self.ins_id_off[i]), int(self.ins_id_off[i + 1])
+        return self.ins_id_chars[a:b].decode(errors="replace")
+
+    def record(self, i: int) -> SlotRecord:
+        """One record as a view-backed SlotRecord."""
+        ub, fb = int(self.u64_base[i]), int(self.f_base[i])
+        return SlotRecord(
+            u64_values=self.u64_values[ub : ub + int(self.u64_offsets[i, -1])],
+            u64_offsets=self.u64_offsets[i],
+            f_values=self.f_values[fb : fb + int(self.f_offsets[i, -1])],
+            f_offsets=self.f_offsets[i],
+            ins_id=self.ins_id(i),
+            search_id=int(self.search_ids[i]),
+            cmatch=int(self.cmatch[i]),
+            rank=int(self.rank[i]),
+        )
+
+    def records(self) -> List[SlotRecord]:
+        return [self.record(i) for i in range(len(self))]
+
+    # ---- construction ----------------------------------------------------
+
+    @classmethod
+    def empty(cls, n_sparse: int, n_float: int) -> "ColumnarRecords":
+        return cls(
+            np.zeros(0, np.uint64), np.zeros((0, n_sparse + 1), np.uint32),
+            np.zeros(0, np.int64), np.zeros(0, np.float32),
+            np.zeros((0, n_float + 1), np.uint32), np.zeros(0, np.int64),
+            ins_id_off=np.zeros(1, np.int64),
+        )
+
+    @classmethod
+    def from_records(
+        cls, records: Sequence[SlotRecord], schema: SlotSchema
+    ) -> "ColumnarRecords":
+        """Vectorized concat of SlotRecords."""
+        n = len(records)
+        Su, Sf = schema.num_sparse, schema.num_float
+        if n == 0:
+            return cls.empty(Su, Sf)
+        u_off = np.stack([r.u64_offsets for r in records]).astype(np.uint32)
+        f_off = np.stack([r.f_offsets for r in records]).astype(np.uint32)
+        u_base = np.concatenate([[0], np.cumsum(u_off[:, -1])]).astype(np.int64)
+        f_base = np.concatenate([[0], np.cumsum(f_off[:, -1])]).astype(np.int64)
+        u_vals = (
+            np.concatenate([r.u64_values for r in records])
+            if u_base[-1]
+            else np.zeros(0, np.uint64)
+        )
+        f_vals = (
+            np.concatenate([r.f_values for r in records])
+            if f_base[-1]
+            else np.zeros(0, np.float32)
+        )
+        ins_off = None
+        chars = b""
+        if schema.parse_ins_id or schema.parse_logkey:
+            ids = [r.ins_id.encode() for r in records]
+            lens = np.array([len(b) for b in ids], np.int64)
+            ins_off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+            chars = b"".join(ids)
+        return cls(
+            u_vals.astype(np.uint64), u_off, u_base[:-1],
+            f_vals.astype(np.float32), f_off, f_base[:-1],
+            search_ids=np.array([r.search_id for r in records], np.uint64),
+            cmatch=np.array([r.cmatch for r in records], np.int32),
+            rank=np.array([r.rank for r in records], np.int32),
+            ins_id_off=ins_off, ins_id_chars=chars,
+        )
+
+    @classmethod
+    def concat(cls, parts: Sequence["ColumnarRecords"]) -> "ColumnarRecords":
+        parts = [p for p in parts if len(p)]
+        if not parts:
+            raise ValueError("concat of zero non-empty parts (use empty())")
+        if len(parts) == 1:
+            return parts[0]
+        u_vals = np.concatenate([p.u64_values for p in parts])
+        f_vals = np.concatenate([p.f_values for p in parts])
+        u_off = np.concatenate([p.u64_offsets for p in parts])
+        f_off = np.concatenate([p.f_offsets for p in parts])
+        ub, fb, off_u, off_f = [], [], 0, 0
+        for p in parts:
+            ub.append(p.u64_base + off_u)
+            fb.append(p.f_base + off_f)
+            off_u += len(p.u64_values)
+            off_f += len(p.f_values)
+        ins_off = None
+        chars = b""
+        if all(p.ins_id_off is not None for p in parts):
+            io, base = [np.zeros(1, np.int64)], 0
+            pieces = []
+            for p in parts:
+                io.append(p.ins_id_off[1:] + base)
+                base += p.ins_id_off[-1]
+                pieces.append(p.ins_id_chars)
+            chars = b"".join(pieces)
+            ins_off = np.concatenate(io)
+        return cls(
+            u_vals, u_off, np.concatenate(ub), f_vals, f_off, np.concatenate(fb),
+            search_ids=np.concatenate([p.search_ids for p in parts]),
+            cmatch=np.concatenate([p.cmatch for p in parts]),
+            rank=np.concatenate([p.rank for p in parts]),
+            ins_id_off=ins_off, ins_id_chars=bytes(chars),
+        )
+
+    def select(self, indices: np.ndarray) -> "ColumnarRecords":
+        """New store holding ``indices``' records (one ragged gather per
+        array)."""
+        indices = np.asarray(indices, dtype=np.int64)
+        u_lens = self.u64_offsets[indices, -1].astype(np.int64)
+        f_lens = self.f_offsets[indices, -1].astype(np.int64)
+        u_idx = _ragged_indices(self.u64_base[indices], u_lens)
+        f_idx = _ragged_indices(self.f_base[indices], f_lens)
+        ins_off = None
+        chars = b""
+        if self.ins_id_off is not None:
+            starts = self.ins_id_off[indices]
+            lens = (self.ins_id_off[indices + 1] - starts).astype(np.int64)
+            cidx = _ragged_indices(starts, lens)
+            chars = np.frombuffer(self.ins_id_chars, np.uint8)[cidx].tobytes()
+            ins_off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+        return ColumnarRecords(
+            self.u64_values[u_idx], self.u64_offsets[indices],
+            np.concatenate([[0], np.cumsum(u_lens[:-1])]).astype(np.int64)
+            if len(indices) else np.zeros(0, np.int64),
+            self.f_values[f_idx], self.f_offsets[indices],
+            np.concatenate([[0], np.cumsum(f_lens[:-1])]).astype(np.int64)
+            if len(indices) else np.zeros(0, np.int64),
+            search_ids=self.search_ids[indices],
+            cmatch=self.cmatch[indices],
+            rank=self.rank[indices],
+            ins_id_off=ins_off, ins_id_chars=chars,
+        )
+
+    # ---- pass-scoped precomputation -------------------------------------
+
+    def resolve_rows(self, ws) -> np.ndarray:
+        """int32 pass-local row per key, whole store at once (cached per
+        working set)."""
+        if self._rows is not None and self._rows_ws_id == id(ws):
+            return self._rows
+        self._rows = (
+            ws.lookup(self.u64_values)
+            if len(self.u64_values)
+            else np.zeros(0, np.int32)
+        )
+        self._rows_ws_id = id(ws)
+        return self._rows
+
+    def invalidate_rows(self) -> None:
+        """Call after mutating keys in place."""
+        self._rows = None
+        self._rows_ws_id = None
+
+    def float_slot_matrix(
+        self, slot_idx: int, dim: int, indices: Optional[np.ndarray] = None
+    ) -> np.ndarray:
+        """[n, dim] dense view of a float slot (labels / dense features).
+
+        Ragged rows (short ones zero-padded, long ones cut) go through the
+        native gather when ``enable_native_parser`` is on, else a Python
+        loop; both give the same bits."""
+        if indices is None:
+            indices = np.arange(len(self), dtype=np.int64)
+        starts = self.f_base[indices] + self.f_offsets[indices, slot_idx].astype(np.int64)
+        lens = (
+            self.f_offsets[indices, slot_idx + 1] - self.f_offsets[indices, slot_idx]
+        ).astype(np.int64)
+        if np.all(lens == dim):
+            idx = starts[:, None] + np.arange(dim, dtype=np.int64)[None, :]
+            return self.f_values[idx].astype(np.float32, copy=False)
+        if config.get_flag("enable_native_parser"):
+            from paddlebox_tpu_torch.utils import native
+
+            return native.gather_f32_slot(
+                self.f_values, self.f_base, self.f_offsets, indices, slot_idx, dim
+            )
+        out = np.zeros((len(indices), dim), np.float32)
+        for i in range(len(indices)):
+            c = min(int(lens[i]), dim)
+            out[i, :c] = self.f_values[starts[i] : starts[i] + c]
+        return out
+
+
+def _ragged_indices(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """Flat gather indices for variable-length runs [starts[i], +lens[i])."""
+    total = int(lens.sum())
+    if total == 0:
+        return np.zeros(0, np.int64)
+    idx = np.ones(total, dtype=np.int64)
+    nz = lens > 0
+    # positions where a new run begins get start - (prev_start + prev_len) + 1
+    run_starts = starts[nz]
+    run_lens = lens[nz]
+    run_ends = np.cumsum(run_lens)[:-1]
+    idx[0] = run_starts[0]
+    idx[run_ends] = run_starts[1:] - (run_starts[:-1] + run_lens[:-1]) + 1
+    np.cumsum(idx, out=idx)
+    return idx

@@ -78,12 +78,15 @@ def _seqpool(
 
     num_segments = num_slots * batch_size
     lengths = segment_lengths(segments, num_segments)
-    pooled = torch.segment_reduce(vals, "sum", lengths=lengths, axis=0)
+    # the lengths are counts and sum to the key count by construction:
+    # unsafe=True skips segment_reduce's check of that, which reads two
+    # values back to the host
+    pooled = torch.segment_reduce(vals, "sum", lengths=lengths, axis=0, unsafe=True)
     pooled = pooled[:num_segments].reshape(num_slots, batch_size, -1)
     if pad_value != 0.0:
         # slots with zero keys for an instance pool to pad_value, not 0
         empty = (lengths[:num_segments] == 0).reshape(num_slots, batch_size)
-        pad = torch.tensor(pad_value, dtype=pooled.dtype, device=pooled.device)
+        pad = torch.full((), pad_value, dtype=pooled.dtype, device=pooled.device)
         pooled = torch.where(empty[..., None], pad, pooled)
     return pooled
 

@@ -1,19 +1,24 @@
 """Host key -> row store and the pass-scoped device working set.
 
-Port of the JAX package's ``table/sparse_table.py``, its Python tier:
+Port of the JAX package's ``table/sparse_table.py``, its memory tier:
 
 - ``HostSparseTable``: the host store, sharded by key hash across
-  ``n_shards`` lock-protected dict shards (the JAX package's pure-Python
-  store, what it runs with ``PBOX_NATIVE_TABLE=0``): pull-or-create with
-  the same seeded initial rows, full-row push, and the pass-boundary decay
-  and shrink.
+  ``n_shards``. By default it is the native C++ store
+  (``csrc/host_table.cc`` through ``utils/native.py``), whose new rows are
+  a pure function of (seed, key); with ``PBOX_NATIVE_TABLE=0`` it is the
+  pure-Python store of lock-protected dict shards, whose new rows come
+  from ``np.random.default_rng(seed)`` in pull order. Either gives the
+  same bits as the JAX package's store of the same kind: pull-or-create,
+  full-row push, and the pass-boundary decay and shrink. When the native
+  store is asked for and cannot be built, construction raises.
 - ``PassWorkingSet``: every feasign of a batch (or a pass) is fed in with
   :meth:`~PassWorkingSet.add_keys`; :meth:`~PassWorkingSet.finalize` dedups,
   pulls the rows from a host row source and lays them out as one dense
   ``[n_mesh_shards, capacity, width]`` fp32 array, which the caller copies
   to the device in one transfer. Keys map to (mesh_shard, row) by hash, so
   the device-side pull/push is a static-shape gather/scatter.
-  :meth:`~PassWorkingSet.writeback` pushes the trained rows back.
+  :meth:`~PassWorkingSet.writeback` pushes the trained rows back, in
+  chunks through the native store's writer pool.
 - lookup: batch keys -> dense row ids happens host-side at pack time
   (vectorized searchsorted over the sorted key table), so no hash table ever
   lives on the device.
@@ -21,12 +26,13 @@ Port of the JAX package's ``table/sparse_table.py``, its Python tier:
 Each mesh shard reserves its last row as the padding row (zero, never
 written back): batch padding targets it.
 
-The native store, the disk tier, saves and the device-carried boundary
+The disk (spill) tier, tier stats, saves and the device-carried boundary
 splice are not ported.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -37,12 +43,24 @@ import numpy as np
 from paddlebox_tpu_torch import config
 from paddlebox_tpu_torch.table.optimizers import SparseOptimizerConfig
 from paddlebox_tpu_torch.table.value_layout import ValueLayout
-from paddlebox_tpu_torch.utils.monitor import STAT_SET
+from paddlebox_tpu_torch.utils.monitor import STAT_OBSERVE, STAT_SET
 
 config.define_flag(
     "boundary_merge_threads", 4,
     "threads for the chunked pass-boundary key merge; <=1 falls back to "
     "the serial np.unique(np.concatenate(...))",
+)
+config.define_flag(
+    "writeback_threads", 4,
+    "writer-pool size for the end-of-pass host-table writeback "
+    "(PassWorkingSet.writeback -> pbx_table_push_mt): each worker owns a "
+    "disjoint set of shards, bitwise-equal to the serial path; <=1 is the "
+    "serial path (plain table.push)",
+)
+config.define_flag(
+    "writeback_chunk_keys", 2_000_000,
+    "keys per writeback chunk: the trained rows are gathered and pushed "
+    "chunk by chunk so the next chunk's gather overlaps the push in flight",
 )
 
 _HASH_MULT = np.uint64(0x9E3779B97F4A7C15)
@@ -135,10 +153,12 @@ class _Shard:
 class HostSparseTable:
     """Host sharded key -> fp32 row store (the mem tier of BoxPS).
 
-    New keys get rows with embed_w and the embedx block drawn uniform in
-    ``[-initial_range, initial_range)`` from ``np.random.default_rng(seed)``
-    and zero counters and g2 sums: the same draws, in the same order, as
-    the JAX package's Python store.
+    Backed by the native C++ store unless ``PBOX_NATIVE_TABLE=0``; then by
+    the pure-Python store, whose new keys get rows with embed_w and the
+    embedx block drawn uniform in ``[-initial_range, initial_range)`` from
+    ``np.random.default_rng(seed)`` and zero counters and g2 sums: the same
+    draws, in the same order, as the JAX package's Python store. The native
+    store draws the same columns from (seed, key) alone.
     """
 
     def __init__(
@@ -147,24 +167,48 @@ class HostSparseTable:
         opt: SparseOptimizerConfig = SparseOptimizerConfig(),
         n_shards: Optional[int] = None,
         seed: int = 0,
+        spill_dir: Optional[str] = None,
     ):
         if n_shards is None:
             n_shards = 1 << config.get_flag("sparse_table_shard_bits")
+        if spill_dir is not None:
+            raise NotImplementedError("the disk spill tier is not ported yet")
         self.layout = layout
         self.opt = opt
         self.n_shards = n_shards
-        self._shards = [_Shard(layout.width) for _ in range(n_shards)]
+        self._native = None
+        if os.environ.get("PBOX_NATIVE_TABLE", "1") != "0":
+            from paddlebox_tpu_torch.utils import native
+
+            n_emb = layout.embedx_dim + layout.expand_dim  # expand trails embedx
+            init_cols = np.concatenate(
+                [[layout.embed_w_col], np.arange(layout.embedx_col, layout.embedx_col + n_emb)]
+            ).astype(np.int32)
+            self._native = native.NativeHostStore(
+                n_shards, layout.width, layout.SHOW, layout.CLK, seed,
+                init_cols, opt.initial_range,
+            )
+        self._shards = [] if self._native else [_Shard(layout.width) for _ in range(n_shards)]
         # initial-row draws, in shard order within a pull_or_create call; the
         # draws are reproducible when one such call runs at a time
         self._rng = np.random.default_rng(seed)
         self._size = 0  # guarded-by: _size_lock
         self._size_lock = threading.Lock()
 
+    @property
+    def native(self) -> bool:
+        return self._native is not None
+
     def __len__(self) -> int:
+        if self._native is not None:
+            return len(self._native)
         return self._size
 
     def keys(self) -> np.ndarray:
         """All keys currently stored, unsorted."""
+        if self._native is not None:
+            parts = [self._native.shard_keys(s) for s in range(self.n_shards)]
+            return np.concatenate(parts) if parts else np.zeros(0, np.uint64)
         parts = []
         for sh in self._shards:
             with sh.lock:
@@ -184,6 +228,8 @@ class HostSparseTable:
 
     def pull_or_create(self, keys: np.ndarray) -> np.ndarray:
         """Rows for unique ``keys`` (creating missing ones). [n, width]."""
+        if self._native is not None:
+            return self._native.pull_or_create(keys)
         out = np.empty((len(keys), self.layout.width), dtype=np.float32)
         shard_ids = key_to_shard(keys, self.n_shards)
         created = 0
@@ -221,6 +267,9 @@ class HostSparseTable:
     def push(self, keys: np.ndarray, rows: np.ndarray) -> None:
         """Write back full rows for ``keys`` (end-of-pass flush); a key not
         yet stored is added."""
+        if self._native is not None:
+            self._native.push(keys, rows)
+            return
         shard_ids = key_to_shard(keys, self.n_shards)
         created = 0
         for s in range(self.n_shards):
@@ -249,12 +298,25 @@ class HostSparseTable:
             with self._size_lock:
                 self._size += created
 
+    def push_writeback(self, keys: np.ndarray, rows: np.ndarray, threads: int) -> None:
+        """One chunk of the end-of-pass writeback: through the native
+        store's pool of ``threads`` writers (bitwise-equal to :meth:`push`),
+        each shard's wall seconds observed into ``table.writeback.shard_s``;
+        the Python store takes :meth:`push`."""
+        if self._native is None:
+            self.push(keys, rows)
+            return
+        for v in self._native.push_mt(keys, rows, threads):
+            STAT_OBSERVE("table.writeback.shard_s", float(v))
+
     def decay_and_shrink(self) -> int:
         """Pass-boundary maintenance: decay show/clk by ``show_clk_decay``,
         drop keys whose decayed show falls under ``shrink_threshold``.
         Returns the number of keys dropped (pslib show_click_decay_rate +
         shrink threshold, fleet_wrapper.h:258-310)."""
         lay, opt = self.layout, self.opt
+        if self._native is not None:
+            return self._native.decay_and_shrink(opt.show_clk_decay, opt.shrink_threshold)
         dropped = 0
         for shard in self._shards:
             with shard.lock:
@@ -384,11 +446,54 @@ class PassWorkingSet:
         """Push the trained rows of the pass's keys back to the table that
         :meth:`finalize` pulled them from (EndPass parity). ``device_array``
         is the trained table on the host, [n_mesh_shards, cap, width] or
-        flat [rows, width]."""
+        flat [rows, width].
+
+        With ``writeback_threads`` > 1 and the native store, the push goes
+        in chunks of ``writeback_chunk_keys`` through the writer pool, chunk
+        k+1's row gather running while chunk k's push is in flight; else it
+        is one ``push``. The host table ends bitwise the same either way:
+        the chunks split a sorted unique key batch, so every shard sees its
+        keys in the same order. Sets the ``table.writeback.*`` stats."""
         if self.n_keys == 0:
             return
         flat = np.asarray(device_array).reshape(-1, device_array.shape[-1])
-        self._table.push(self.sorted_keys, flat[self.row_of_sorted])
+        threads = int(config.get_flag("writeback_threads"))
+        if threads <= 1 or not getattr(self._table, "native", False):
+            self._table.push(self.sorted_keys, flat[self.row_of_sorted])
+            return
+        chunk = max(1, int(config.get_flag("writeback_chunk_keys")))
+        n = len(self.sorted_keys)
+        t_all = time.perf_counter()
+        wait_s = busy_s = 0.0
+        n_chunks = 0
+        pending = None
+
+        def _push_chunk(ck: np.ndarray, cr: np.ndarray) -> float:
+            t0 = time.perf_counter()
+            self._table.push_writeback(ck, cr, threads)
+            return time.perf_counter() - t0
+
+        with ThreadPoolExecutor(max_workers=1, thread_name_prefix="writeback") as ex:
+            for lo in range(0, n, chunk):
+                hi = min(n, lo + chunk)
+                t0 = time.perf_counter()
+                cr = np.ascontiguousarray(flat[self.row_of_sorted[lo:hi]])
+                STAT_OBSERVE("table.writeback.gather_s", time.perf_counter() - t0)
+                if pending is not None:
+                    t0 = time.perf_counter()
+                    busy_s += pending.result()
+                    wait_s += time.perf_counter() - t0
+                pending = ex.submit(_push_chunk, self.sorted_keys[lo:hi], cr)
+                n_chunks += 1
+            t0 = time.perf_counter()
+            busy_s += pending.result()
+            wait_s += time.perf_counter() - t0
+        STAT_SET("table.writeback.threads", threads)
+        STAT_SET("table.writeback.chunks", n_chunks)
+        STAT_SET("table.writeback.wait_s", wait_s)
+        STAT_SET("table.writeback.push_s", time.perf_counter() - t_all)
+        # push busy time the one-slot pipeline hid behind row gathers
+        STAT_SET("table.writeback.hidden_s", max(0.0, busy_s - wait_s))
 
     @property
     def padding_row(self) -> int:

@@ -57,8 +57,10 @@ class Adam:
         nu = {k: (1 - b2) * (g * g) + b2 * state.nu[k] for k, g in grads.items()}
         count = state.count + 1
         c = count.to(torch.float32)
-        bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=c.device), c)
-        bc2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32, device=c.device), c)
+        # torch.full fills on the device; torch.tensor would copy the
+        # scalar from the host and wait for the card
+        bc1 = 1 - torch.pow(torch.full((), b1, dtype=torch.float32, device=c.device), c)
+        bc2 = 1 - torch.pow(torch.full((), b2, dtype=torch.float32, device=c.device), c)
         updates = {
             k: -self.learning_rate * ((mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + self.eps))
             for k in grads

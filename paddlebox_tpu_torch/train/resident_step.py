@@ -1,0 +1,264 @@
+"""Device-resident pass feed: upload the pass once, feed only indices.
+
+Port of the JAX package's ``train/resident_step.py``, single device. The
+pass is immutable once ``begin_pass`` has run (PadBoxSlotDataset keeps
+``input_records_`` frozen for the pass, data_set.cc:1628-1683), so its
+row-resolved key stream lives on the device for the pass:
+
+- **Upload once per pass** (:class:`ResidentPass`): the flat row id of
+  every key of every record (``rows``, int32), per-record per-slot key
+  counts (``counts``, uint8) and each record's first key (``base``), or
+  the full offset matrix ``off`` when a slot holds more than 255 keys; the
+  labels and optional dense features.
+- **Per batch**: the feed is one [B] record-index vector, sliced on the
+  device from the pass's index partition, itself uploaded once.
+  :func:`build_device_batch` rebuilds the batch there: a ragged gather by
+  cumsum + searchsorted, then the cross-slot dedup by a stable sort and a
+  first-occurrence scan (DedupKeysAndFillIdx parity,
+  box_wrapper_impl.h:103). Every shape is fixed by the pass's ``L_pad``
+  and ``U_pad``, and nothing in it reads a value back to the host: no
+  ``.item()``, no ``nonzero``, no boolean-mask indexing, no
+  ``torch.unique``.
+- **Superstep** (:func:`make_resident_superstep`): K batches per call, a
+  plain loop over the ported ``make_train_step`` where the JAX package
+  runs ``lax.scan``; the metrics come back stacked along a leading K axis.
+
+The arrays a batch gets are those ``BatchPacker.pack`` ships from the host
+(slot-major flat order, pads -> padding row / ``U_pad - 1`` / the ``S*B``
+trash segment) but for the order of the unique rows: sorted here, first
+occurrence there. The step's merge sorts by ``inverse`` stably, so each
+row's gradient sums the same keys in the same flat order either way, and
+the trained state is the same bits.
+
+Mesh and pv variants are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from paddlebox_tpu_torch import config
+from paddlebox_tpu_torch.data.device_pack import _round_bucket
+from paddlebox_tpu_torch.train.train_step import TrainStepConfig, make_train_step
+
+config.define_flag(
+    "enable_resident_feed",
+    1,
+    "keep the pass's row stream resident on the device and feed only "
+    "record indices per batch (0 = host-packed batches)",
+)
+config.define_flag(
+    "resident_scan_batches",
+    8,
+    "minibatches per dispatched superstep; higher amortizes the dispatch, "
+    "lower returns metrics sooner",
+)
+
+
+class ResidentPass:
+    """Pass-scoped device arrays + frozen pad shapes for the resident feed.
+
+    Built once per (store, working set), about 8 bytes per key on the
+    device. ``ensure`` grows the frozen pads to cover a batch partition
+    (sticky, like ``BatchPacker.freeze_shapes``)."""
+
+    def __init__(
+        self,
+        store,  # ColumnarRecords
+        ws,  # PassWorkingSet (finalized)
+        schema,
+        device: torch.device,
+        dense_slot: Optional[str] = None,
+        dense_dim: int = 0,
+        label_slot: Optional[str] = None,
+        bucket: Optional[int] = None,
+    ):
+        self.store = store
+        self.ws = ws
+        self.device = device
+        self.num_slots = store.n_sparse
+        self.bucket = bucket or config.get_flag("batch_bucket_rounding")
+        self.n_table_rows = ws.n_mesh_shards * ws.capacity
+        self.pad_row = self.n_table_rows - 1
+        if len(store.u64_values) >= (1 << 31):  # int32 offsets into the stream
+            raise ValueError("pass too large for the resident feed (>= 2^31 keys)")
+        rows = store.resolve_rows(ws)
+        self._host_rows = rows
+        self._key_counts = store.key_counts()
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        self.rows = put(rows.astype(np.int32))
+        # per-slot counts fit uint8 in CTR data: [N, S] bytes + an [N] int32
+        # base instead of an [N, S+1] int32 offset matrix, rebuilt per batch
+        # by a cumsum on the device
+        slot_counts = np.diff(store.u64_offsets.astype(np.int64), axis=1)
+        if slot_counts.size and slot_counts.max() <= 255:
+            self.base = put(store.u64_base.astype(np.int32))
+            self.counts = put(slot_counts.astype(np.uint8))
+            self.off = None
+        else:
+            off = store.u64_base[:, None] + store.u64_offsets.astype(np.int64)
+            self.base = self.counts = None
+            self.off = put(off.astype(np.int32))  # [N, S+1]
+        label_name = label_slot or schema.label_slot
+        if label_name is not None:
+            labels = store.float_slot_matrix(schema.float_slot_index(label_name), 1)[:, 0]
+        else:
+            labels = np.zeros(len(store), np.float32)
+        self.labels = put(labels.astype(np.float32))
+        self.dense = None
+        if dense_slot is not None and dense_dim:
+            di = schema.float_slot_index(dense_slot)
+            self.dense = put(np.asarray(store.float_slot_matrix(di, dense_dim), np.float32))
+        self.L_pad = 0
+        self.U_pad = 0
+        # unique-row count per index block, keyed by the block's bytes (a
+        # hash collision would freeze U_pad too small)
+        self._uniq_cache: Dict[bytes, int] = {}
+
+    def ensure(self, batch_indices) -> None:
+        """Freeze/grow L_pad and U_pad to cover every batch of the
+        partition: exact per-batch key and unique-row counts, cached per
+        index block. Uncached blocks go through one native sweep
+        (``pbx_block_stats``) when ``enable_native_parser`` is on and the
+        blocks are of one length, else numpy."""
+        blocks = [np.asarray(idx) for idx in batch_indices]
+        fps = [b.tobytes() for b in blocks]
+        pending, seen = [], set()
+        for b, fp in zip(blocks, fps):
+            if fp not in self._uniq_cache and fp not in seen:
+                pending.append((fp, b))
+                seen.add(fp)
+        if pending:
+            stats = _native_pad_stats(self, [b for _, b in pending], self.n_table_rows, 1)
+            if stats is not None:
+                for (fp, _), U in zip(pending, stats[1]):
+                    self._uniq_cache[fp] = max(int(U), 1)
+            else:
+                from paddlebox_tpu_torch.data.record_store import _ragged_indices
+
+                for fp, idx in pending:
+                    rows = self._host_rows[
+                        _ragged_indices(self.store.u64_base[idx], self._key_counts[idx])
+                    ]
+                    self._uniq_cache[fp] = len(np.unique(rows)) if len(rows) else 1
+        max_L, max_U = 1, 1
+        for b, fp in zip(blocks, fps):
+            max_L = max(max_L, int(self._key_counts[b].sum()))
+            max_U = max(max_U, self._uniq_cache[fp])
+        self.L_pad = max(self.L_pad, _round_bucket(max_L, self.bucket))
+        # +1 keeps a slot for the invalid tail even at the unique maximum
+        self.U_pad = max(self.U_pad, _round_bucket(max_U + 1, self.bucket))
+
+
+def _native_pad_stats(rp: ResidentPass, slices, cap: int, ns: int):
+    """One native ``pbx_block_stats`` sweep over equal-length index slices
+    -> (L[n], bmax[n]); None when ``enable_native_parser`` is off or the
+    slices are ragged (the caller then sweeps in numpy)."""
+    if not config.get_flag("enable_native_parser") or not slices:
+        return None
+    if len({len(s) for s in slices}) != 1:
+        return None
+    from paddlebox_tpu_torch.utils import native
+
+    blocks = np.stack([np.asarray(s, dtype=np.int64) for s in slices])
+    return native.block_stats(rp._host_rows, rp.store.u64_base, rp._key_counts, blocks, cap, ns)
+
+
+def _batch_offsets(rp: ResidentPass, idx: torch.Tensor) -> torch.Tensor:
+    """[B, S+1] int32 absolute offsets into the flat row stream for a
+    batch, from the full matrix or from base + uint8 counts."""
+    if rp.off is not None:
+        return rp.off.index_select(0, idx)
+    c = rp.counts.index_select(0, idx).to(torch.int32)  # [B, S]
+    cum = torch.cumsum(c, dim=1, dtype=torch.int32)
+    zero = torch.zeros((cum.shape[0], 1), dtype=torch.int32, device=cum.device)
+    return rp.base.index_select(0, idx)[:, None] + torch.cat([zero, cum], dim=1)
+
+
+def _ragged_rows(rows_res: torch.Tensor, off_b: torch.Tensor, S: int, B: int, L_pad: int, pad_value: int):
+    """Batch offsets -> (rows_flat, segments, valid), each [L_pad], in
+    slot-major flat order; invalid tail positions hold ``pad_value`` and
+    the trash segment ``S*B``."""
+    lens_flat = (off_b[:, 1:] - off_b[:, :-1]).T.reshape(-1)  # [S*B] slot-major
+    starts_flat = off_b[:, :-1].T.reshape(-1)
+    cum = torch.cumsum(lens_flat, dim=0, dtype=torch.int32)
+    pos = torch.arange(L_pad, dtype=torch.int32, device=off_b.device)
+    seg_c = torch.clamp(torch.searchsorted(cum, pos, right=True, out_int32=True), max=S * B - 1)
+    within = pos - (cum.index_select(0, seg_c) - lens_flat.index_select(0, seg_c))
+    src = torch.clamp(starts_flat.index_select(0, seg_c) + within, 0, rows_res.shape[0] - 1)
+    valid = pos < cum[-1]
+    rows_flat = torch.where(valid, rows_res.index_select(0, src), pad_value)
+    segments = torch.where(valid, seg_c, S * B)  # seg_c IS slot*B + ins
+    return rows_flat, segments, valid
+
+
+def build_device_batch(
+    rp: ResidentPass, cfg: TrainStepConfig, idx: torch.Tensor
+) -> Dict[str, torch.Tensor]:
+    """[B] record indices on the device -> the step's batch dict, built on
+    the device with shapes fixed by ``rp.L_pad`` and ``rp.U_pad``.
+
+    The unique rows are the valid rows sorted (stable ``torch.sort``, the
+    invalid ones keyed ``n_table_rows`` as +inf); a first-occurrence flag
+    and its cumsum number them. ``uniq_rows`` is a scatter of each first
+    occurrence to its number, every other position going to the ``U_pad -
+    1`` slot with the padding row, so all writes to one index carry the
+    same value; ``inverse`` is a scatter over ``perm``, a permutation."""
+    S, B = cfg.num_slots, cfg.batch_size
+    L_pad, U_pad = rp.L_pad, rp.U_pad
+    idx = idx.long()
+    off_b = _batch_offsets(rp, idx)
+    rows_flat, segments, valid = _ragged_rows(rp.rows, off_b, S, B, L_pad, rp.pad_row)
+    sort_keys = torch.where(valid, rows_flat, rp.n_table_rows)
+    sorted_rows, perm = torch.sort(sort_keys, stable=True)
+    real = sorted_rows < rp.n_table_rows
+    first = torch.cat(
+        [torch.ones((1,), dtype=torch.bool, device=idx.device), sorted_rows[1:] != sorted_rows[:-1]]
+    ) & real
+    segid = torch.clamp(torch.cumsum(first.to(torch.int32), dim=0, dtype=torch.int32) - 1, max=U_pad - 1)
+    segid = torch.where(real, segid, U_pad - 1)
+    # U_pad > the most unique rows of any batch, so no first occurrence
+    # lands on U_pad - 1
+    uniq_rows = torch.full((U_pad,), rp.pad_row, dtype=torch.int32, device=idx.device).scatter_(
+        0, torch.where(first, segid, U_pad - 1).long(), torch.where(first, sorted_rows, rp.pad_row)
+    )
+    inverse = torch.empty((L_pad,), dtype=torch.int32, device=idx.device).scatter_(0, perm, segid)
+    batch = {
+        "uniq_rows": uniq_rows,
+        "inverse": inverse,
+        "segments": segments,
+        "labels": rp.labels.index_select(0, idx),
+    }
+    if rp.dense is not None:
+        batch["dense"] = rp.dense.index_select(0, idx)
+    return batch
+
+
+def make_resident_superstep(
+    model_apply: Callable,
+    dense_opt,
+    cfg: TrainStepConfig,
+    rp: ResidentPass,
+) -> Callable:
+    """Build ``superstep(state, idx_block [K, B]) -> (state, metrics)``.
+
+    One call runs K full train steps in order, each on a batch built on the
+    device; every metric comes back stacked along a leading K axis. The
+    per-step body is the classic ``make_train_step``: only the batch
+    assembly is resident."""
+    raw_step = make_train_step(model_apply, cfg, dense_opt)
+
+    def superstep(state, idx_block: torch.Tensor):
+        ms = []
+        for j in range(idx_block.shape[0]):
+            state, m = raw_step(state, build_device_batch(rp, cfg, idx_block[j]))
+            ms.append(m)
+        return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    return superstep

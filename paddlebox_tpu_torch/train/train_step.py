@@ -151,10 +151,11 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor, num_segments: int) -> tor
 
     A stable sort by id, then a lengths-based ``segment_reduce`` that sums
     each segment in key order: no float atomics, the same bits every run.
-    ``ids`` lie in [0, num_segments)."""
+    ``ids`` lie in [0, num_segments), so the lengths sum to the row count
+    and ``unsafe=True`` skips the check of that (a read-back to the host)."""
     order = torch.argsort(ids, stable=True)
     lengths = segment_lengths(ids[order], num_segments)[:num_segments]
-    return torch.segment_reduce(data[order], "sum", lengths=lengths, axis=0)
+    return torch.segment_reduce(data[order], "sum", lengths=lengths, axis=0, unsafe=True)
 
 
 def scale_and_merge_grads(
@@ -202,7 +203,7 @@ def adjusted_loss_weight(
     slot_of_key = segments // b
     ins_of_key = (segments % b).long()
     is_nid = (slot_of_key == nid) & (segments < S * b)
-    neg_inf = torch.tensor(float("-inf"), dtype=flat.dtype, device=flat.device)
+    neg_inf = torch.full((), float("-inf"), dtype=flat.dtype, device=flat.device)
     nid_show = torch.full((b,), float("-inf"), dtype=flat.dtype, device=flat.device)
     # max is order-free: scatter_reduce gives the same bits in any order
     nid_show = nid_show.scatter_reduce(
@@ -214,7 +215,7 @@ def adjusted_loss_weight(
     # weight-0 ghosts stay exactly zero
     loss_w = torch.where(base > 0, loss_w, base)
     denom = (
-        torch.tensor(float(b), dtype=torch.float32, device=flat.device)
+        torch.full((), float(b), dtype=torch.float32, device=flat.device)
         if ins_weight is None
         else torch.clamp(ins_weight.sum(), min=1.0)
     )

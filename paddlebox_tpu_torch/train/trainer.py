@@ -1,44 +1,73 @@
 """Pass-loop trainer: the BoxPSTrainer/BoxPSWorker analog on one device.
 
-Port of the JAX package's ``train/trainer.py``, its classic path: one
+Port of the JAX package's ``train/trainer.py``, single device. One
 ``CTRTrainer`` owns the training step and walks a ``BoxPSDataset`` pass by
-pass, building, packing and copying each batch on the host, then stepping
-on the device:
+pass:
 
     trainer = CTRTrainer(model, cfg, device="cuda")
     dataset.load_into_memory(); dataset.begin_pass()
-    metrics = trainer.train_pass(dataset)
+    trainer.prepare_pass(dataset, n_batches)      # optional: freeze pads
+    metrics = trainer.train_pass(dataset, n_batches)
     dataset.end_pass(trainer.trained_table())
 
-Dense params and the optimizer state persist across passes on the device;
-the sparse working-set table is rebuilt per pass.
+``train_pass`` takes one of three feeds, as the JAX package does:
 
-Not ported: meshes, the resident superstep, the columnar fast feed, the
-pv/join phase, async dense, dumps, eval mode and checkpoints.
+1. the resident feed (``train/resident_step.py``), when the pass is
+   store-backed (native parser) and ``enable_resident_feed`` is on: the
+   pass's row stream and index partition are uploaded once, and each
+   dispatch runs ``resident_scan_batches`` steps on batches built on the
+   device;
+2. the packer feed, store-backed with the resident feed off:
+   ``BatchPacker`` packs each batch natively in prefetch threads, which
+   also pin it; the dispatch thread copies it to the device
+   asynchronously from the pinned memory, so the copy waits for nothing;
+3. the slow feed, for a pass held as SlotRecords (Python parser):
+   ``build_batch`` + ``pack_batch`` + a copy per batch on the dispatch
+   thread.
+
+At most ``max_inflight_steps`` dispatches are in flight (one superstep
+ahead on the resident feed); the wait is on a CUDA event recorded after
+the oldest one, so it never waits for the work queued behind it. Dense
+params and the optimizer state persist across passes on the device; the
+sparse working-set table is rebuilt per pass.
+
+Not ported: dense features, meshes, the pv/join phase, async dense,
+dumps, eval mode and checkpoints.
 """
 
 from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
+from paddlebox_tpu_torch import config
 from paddlebox_tpu_torch.data.dataset import BoxPSDataset
-from paddlebox_tpu_torch.data.device_pack import pack_batch
+from paddlebox_tpu_torch.data.device_pack import BatchPacker, pack_batch
+from paddlebox_tpu_torch.data.pipeline import prefetch
 from paddlebox_tpu_torch.metrics.auc import AucState, auc_compute, auc_init
 from paddlebox_tpu_torch.train.dense_opt import Adam, AdamState
+from paddlebox_tpu_torch.train.resident_step import ResidentPass, make_resident_superstep
 from paddlebox_tpu_torch.train.train_step import TrainState, TrainStepConfig, make_train_step
 from paddlebox_tpu_torch.utils.device import DeviceLike, resolve_device
 
-# cap on dispatched-but-unfinished steps: deep enough to hide the host's
-# next batch behind the device step, shallow enough that work cannot pile up
-MAX_INFLIGHT_STEPS = 4
+config.define_flag(
+    "max_inflight_steps",
+    4,
+    "cap on dispatched-but-unfinished device steps; 0 = unbounded. Deep "
+    "enough to hide the host's next batch behind the device step, shallow "
+    "enough that work cannot pile up",
+)
 
-_PROFILE_KEYS = ("build_batch_s", "pack_batch_s", "h2d_s", "step_s", "host_metrics_s")
+# host seconds of train_pass(profile=True): waiting for the feed, handing
+# work to the device, waiting for the device, and the per-batch consumers
+_PROFILE_KEYS = ("feed_wait_s", "step_dispatch_s", "device_step_s", "host_metrics_s")
+# the slow feed splits its feed wait further
+_SLOW_FEED_KEYS = ("build_batch_s", "pack_batch_s", "h2d_s")
 
 
 def _clone_opt_state(st: AdamState) -> AdamState:
@@ -69,10 +98,16 @@ class CTRTrainer:
         self.opt_state: Optional[AdamState] = None
         self._state: Optional[TrainState] = None
         self._state_ws = None
+        self._packer_cache = None  # (store, ws, BatchPacker)
+        self._resident_cache = None  # (store, ws, ResidentPass)
+        self._sstep = None  # (ResidentPass, superstep)
+        self._idx_cache = None  # (ResidentPass, host [n, B] int32, device copy)
+        self.last_prepare_s = 0.0
 
         def model_apply(params, slot_feats, dense):
             return functional_call(self.model, params, (slot_feats, dense))
 
+        self._model_apply = model_apply
         self._step = make_train_step(model_apply, cfg, self.dense_opt)
 
     # ---- dense param lifecycle ------------------------------------------
@@ -106,13 +141,21 @@ class CTRTrainer:
             step=torch.zeros((), dtype=torch.int32, device=self.device),
         )
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    def _mark(self) -> Optional[torch.cuda.Event]:
+        """An event after the work queued so far (None on the CPU, where
+        every step has finished when it returns)."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return ev
 
-    def _slow_feed_iter(self, dataset: BoxPSDataset, n_batches, prof):
-        """Build, pack and copy each batch on the host. With ``prof`` each
-        stage's host seconds accumulate there (the copy synchronised)."""
+    # ---- feeds -------------------------------------------------------------
+
+    def _slow_feed_iter(self, dataset: BoxPSDataset, n_batches, profile, tm):
+        """Build, pack and copy each batch on the dispatch thread. With
+        ``profile`` each stage's host seconds add up in ``tm`` (the copy
+        waits for the device)."""
         it = iter(dataset.batches(n_batches))
         while True:
             t0 = time.perf_counter()
@@ -124,31 +167,170 @@ class CTRTrainer:
             db = pack_batch(batch, dataset.ws, dataset.schema)
             t2 = time.perf_counter()
             feed = {k: torch.from_numpy(v).to(self.device) for k, v in db.as_dict().items()}
-            if prof is not None:
-                self._sync()
-                prof["build_batch_s"] += t1 - t0
-                prof["pack_batch_s"] += t2 - t1
-                prof["h2d_s"] += time.perf_counter() - t2
+            if profile:
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                tm["build_batch_s"] += t1 - t0
+                tm["pack_batch_s"] += t2 - t1
+                tm["h2d_s"] += time.perf_counter() - t2
             yield feed
 
-    def _classic_stepper(self, iterator, holder, prof):
-        """Per-batch dispatch over the host-packed feed. Yields (i, metrics).
+    def _get_packer(self, dataset: BoxPSDataset) -> BatchPacker:
+        """One BatchPacker per (store, working set): its pad shapes stay
+        frozen across train_pass calls within a pass."""
+        c = self._packer_cache
+        if c is not None and c[0] is dataset.store and c[1] is dataset.ws:
+            return c[2]
+        if c is not None:
+            c[2].close()
+        packer = BatchPacker(dataset.store, dataset.ws, dataset.schema)
+        self._packer_cache = (dataset.store, dataset.ws, packer)
+        return packer
 
-        At most ``MAX_INFLIGHT_STEPS`` steps are in flight: past that the
-        oldest step's loss is read back, which waits for its step. With
-        ``prof`` every step waits for its loss."""
+    def _fast_feed_iter(self, dataset: BoxPSDataset, n_batches):
+        """Native pack in prefetch threads, overlapped with the device step.
+        The workers also pin each batch; the copy to the device is issued
+        here, on the dispatch thread, ``non_blocking`` from the pinned
+        memory, so it is queued behind the steps and the host never waits
+        for it."""
+        packer = self._get_packer(dataset)
+        packer.freeze_shapes(dataset.batch_indices(n_batches))
+        pin = self.device.type == "cuda"
+
+        def prep(idx):
+            host = {k: torch.from_numpy(v) for k, v in packer.pack(idx).as_dict().items()}
+            return {k: v.pin_memory() for k, v in host.items()} if pin else host
+
+        for host in prefetch(dataset.batch_indices(n_batches), prep):
+            yield {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
+
+    def _classic_stepper(self, iterator, holder, profile, tm):
+        """Per-batch dispatch over a host-packed feed. Yields (i, metrics)."""
+        max_inflight = int(config.get_flag("max_inflight_steps"))
         inflight: deque = deque()
-        for i, feed in enumerate(iterator):
+        it = iter(iterator)
+        i = 0
+        while True:
+            t0 = time.perf_counter()
+            try:
+                feed = next(it)
+            except StopIteration:
+                return
+            finally:
+                tm["feed_wait_s"] += time.perf_counter() - t0
             t0 = time.perf_counter()
             holder["state"], m = self._step(holder["state"], feed)
-            if prof is not None:
-                float(m["loss"])
-                prof["step_s"] += time.perf_counter() - t0
-            else:
-                inflight.append(m["loss"])
-                if len(inflight) > MAX_INFLIGHT_STEPS:
-                    float(inflight.popleft())
+            ev = self._mark()
+            tm["step_dispatch_s"] += time.perf_counter() - t0
+            if ev is not None and (profile or max_inflight):
+                inflight.append(ev)
+                if profile or len(inflight) > max_inflight:
+                    t0 = time.perf_counter()
+                    inflight.popleft().synchronize()
+                    tm["device_step_s"] += time.perf_counter() - t0
             yield i, m
+            i += 1
+
+    # ---- the resident feed -------------------------------------------------
+
+    def _use_resident(self, dataset: BoxPSDataset) -> bool:
+        """One predicate for the resident-vs-packer choice, shared by
+        train_pass and prepare_pass."""
+        return (
+            bool(config.get_flag("enable_resident_feed"))
+            and dataset.store is not None
+            and len(dataset.store.u64_values) < (1 << 31)
+        )
+
+    def _get_resident(self, dataset: BoxPSDataset) -> ResidentPass:
+        """Pass-scoped ResidentPass, rebuilt when the store or working set
+        changes. The previous pass's device arrays are released first, so
+        two passes' arrays never sit on the device together."""
+        c = self._resident_cache
+        if c is not None and c[0] is dataset.store and c[1] is dataset.ws:
+            return c[2]
+        # a rebuild over the same store keeps the unique-row counts of its
+        # index blocks: distinct keys map to distinct rows in any working set
+        prev_uniq = c[2]._uniq_cache if c is not None and c[0] is dataset.store else None
+        c = None  # a live reference would keep the old arrays on the device
+        self._resident_cache = self._sstep = self._idx_cache = None
+        rp = ResidentPass(dataset.store, dataset.ws, dataset.schema, self.device)
+        if prev_uniq:
+            rp._uniq_cache.update(prev_uniq)
+        self._resident_cache = (dataset.store, dataset.ws, rp)
+        return rp
+
+    def _resident_superstep(self, rp: ResidentPass):
+        if self._sstep is None or self._sstep[0] is not rp:
+            self._sstep = (rp, make_resident_superstep(self._model_apply, self.dense_opt, self.cfg, rp))
+        return self._sstep[1]
+
+    def _index_partition(self, rp: ResidentPass, blocks: List[np.ndarray]) -> torch.Tensor:
+        """The partition's record indices on the device, [n, B] int32,
+        uploaded once: a later partition that is a prefix of the uploaded
+        one (a warm-up slice of the timed partition) reuses its rows."""
+        host = np.stack(blocks).astype(np.int32) if blocks else np.zeros((0, 0), np.int32)
+        c = self._idx_cache
+        if (
+            c is not None and c[0] is rp and len(host) <= len(c[1])
+            and np.array_equal(c[1][: len(host)], host)
+        ):
+            return c[2][: len(host)]
+        dev = torch.from_numpy(host).to(self.device)
+        self._idx_cache = (rp, host, dev)
+        return dev
+
+    def _resident_stepper(self, dataset: BoxPSDataset, n_batches, holder, profile, tm):
+        """Superstep dispatch: K batches a call, the feed a slice of the
+        resident index partition. Yields (i, metrics) like the classic
+        stepper; each metric is a view of the chunk's stacked output, so
+        nothing is read back unless a consumer reads it. With ``profile``
+        every dispatch is one batch and waits for the device (per-batch
+        attribution, as the JAX package does)."""
+        t0 = time.perf_counter()
+        rp = self._get_resident(dataset)
+        blocks = [np.asarray(b, dtype=np.int32) for b in dataset.batch_indices(n_batches)]
+        rp.ensure(blocks)
+        idx_dev = self._index_partition(rp, blocks)
+        sstep = self._resident_superstep(rp)
+        tm["feed_wait_s"] += time.perf_counter() - t0
+        K = 1 if profile else max(1, int(config.get_flag("resident_scan_batches")))
+        inflight: deque = deque()
+        i = 0
+        for c0 in range(0, len(blocks), K):
+            n = min(K, len(blocks) - c0)
+            t0 = time.perf_counter()
+            holder["state"], mstack = sstep(holder["state"], idx_dev[c0 : c0 + n])
+            ev = self._mark()
+            tm["step_dispatch_s"] += time.perf_counter() - t0
+            if ev is not None:
+                inflight.append(ev)
+                if profile or len(inflight) > 1:  # one superstep ahead
+                    t0 = time.perf_counter()
+                    inflight.popleft().synchronize()
+                    tm["device_step_s"] += time.perf_counter() - t0
+            for j in range(n):
+                yield i, {k: v[j] for k, v in mstack.items()}
+                i += 1
+
+    def prepare_pass(self, dataset: BoxPSDataset, n_batches: Optional[int] = None) -> None:
+        """Freeze this pass's pad shapes for a batch partition before a
+        timed train_pass: the resident feed's L_pad/U_pad (and its index
+        partition's upload), or the packer's L_pad. Its wall time lands in
+        ``last_prepare_s``."""
+        t0 = time.perf_counter()
+        try:
+            if dataset.store is None or dataset.ws is None:
+                return
+            if self._use_resident(dataset):
+                rp = self._get_resident(dataset)
+                blocks = [np.asarray(b, dtype=np.int32) for b in dataset.batch_indices(n_batches)]
+                rp.ensure(blocks)
+                self._index_partition(rp, blocks)
+            else:
+                self._get_packer(dataset).freeze_shapes(dataset.batch_indices(n_batches))
+        finally:
+            self.last_prepare_s = time.perf_counter() - t0
 
     def train_pass(
         self,
@@ -157,26 +339,37 @@ class CTRTrainer:
         on_batch: Optional[Callable[[int, Dict], None]] = None,
         profile: bool = False,
     ) -> Dict[str, float]:
-        """Train every minibatch of the current pass; returns pass metrics.
+        """Train ``n_batches`` minibatches of the current pass (all of them
+        by default, wrapping around past the tail); returns pass metrics.
 
         Call between ``dataset.begin_pass()`` and ``dataset.end_pass(...)``.
-        ``profile=True`` adds ``out["profile"]``: host seconds in
-        build_batch, pack_batch, the host->device copy, the step up to its
-        loss read-back, and the host-side metrics — every stage waits for
-        the device, so nothing overlaps."""
+        ``profile=True`` adds ``out["profile"]``, host seconds in
+        ``feed_wait_s`` (prepare, pack or build not hidden by overlap),
+        ``step_dispatch_s`` (handing work to the device),
+        ``device_step_s`` (waiting for it: every batch waits, one batch a
+        dispatch) and ``host_metrics_s`` (the per-batch consumers); the
+        slow feed adds ``build_batch_s``, ``pack_batch_s`` and ``h2d_s``."""
         if dataset.device_table is None:
             raise RuntimeError("dataset.begin_pass() first")
         state = self._make_state(dataset.device_table, ws_key=dataset.ws)
-        prof = dict.fromkeys(_PROFILE_KEYS, 0.0) if profile else None
+        tm = dict.fromkeys(_PROFILE_KEYS, 0.0)
         # AUC buckets accumulate across train_pass calls within one pass:
         # this call reports the delta
         auc0 = AucState(pos=state.auc.pos.cpu().clone(), neg=state.auc.neg.cpu().clone())
         losses = []
         skip_flags = []
         holder = {"state": state}
-        stepper = self._classic_stepper(
-            self._slow_feed_iter(dataset, n_batches, prof), holder, prof
-        )
+        if self._use_resident(dataset):
+            stepper = self._resident_stepper(dataset, n_batches, holder, profile, tm)
+        elif dataset.store is not None:
+            stepper = self._classic_stepper(
+                self._fast_feed_iter(dataset, n_batches), holder, profile, tm
+            )
+        else:
+            tm.update(dict.fromkeys(_SLOW_FEED_KEYS, 0.0))
+            stepper = self._classic_stepper(
+                self._slow_feed_iter(dataset, n_batches, profile, tm), holder, profile, tm
+            )
         try:
             for i, m in stepper:
                 t0 = time.perf_counter()
@@ -185,8 +378,7 @@ class CTRTrainer:
                 if on_batch is not None:
                     on_batch(i, m)
                 losses.append(m["loss"])
-                if prof is not None:
-                    prof["host_metrics_s"] += time.perf_counter() - t0
+                tm["host_metrics_s"] += time.perf_counter() - t0
         except BaseException:
             # the table was updated in place up to the failing step; keep
             # the last returned state so a retry sees what was trained
@@ -212,8 +404,8 @@ class CTRTrainer:
             out["loss"] = float(torch.stack(losses).mean()) if losses else float("nan")
             out["nan_batches"] = 0.0
         out["batches"] = float(len(losses))
-        if prof is not None:
-            out["profile"] = prof
+        if profile:
+            out["profile"] = tm
         return out
 
     def trained_table(self) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Host-side utilities: stats, fault injection, device selection."""
+"""Host-side utilities: stats, fault injection, device selection, the
+native host tier (``native``)."""
 
 from paddlebox_tpu_torch.utils.faultinject import (  # noqa: F401
     InjectedFault,
@@ -8,4 +9,9 @@ from paddlebox_tpu_torch.utils.faultinject import (  # noqa: F401
     fail_prob,
     inject,
 )
-from paddlebox_tpu_torch.utils.monitor import STAT_ADD, STAT_GET, STAT_RESET  # noqa: F401
+from paddlebox_tpu_torch.utils.monitor import (  # noqa: F401
+    STAT_ADD,
+    STAT_GET,
+    STAT_OBSERVE,
+    STAT_RESET,
+)

@@ -1,11 +1,11 @@
 """One pass through the port's BoxPSDataset + CTRTrainer against the JAX
 package's, over a few slot files, ending in end_pass.
 
-The JAX package runs its Python tier: the pure-Python host store
+Both packages run their Python tier: the pure-Python host store
 (``PBOX_NATIVE_TABLE=0``), the line parser instead of the native columnar
-one (so it takes the slow packed feed), a numpy trained table into
-end_pass (so the carried boundary stays off), and the same local-shuffle
-seed. Both start from the same dense weights. Tolerances follow
+one (``enable_native_parser`` off in each package's flags, so both take
+the slow packed feed), a numpy trained table into end_pass (so the JAX
+package's carried boundary stays off), and the same local-shuffle seed. Both start from the same dense weights. Tolerances follow
 ``test_torch_train_step.py`` (bf16 MLP rounding, Adam): host rows after
 end_pass within rtol 1e-3, atol 2e-5 (measured max |diff| 7.5e-6);
 the kept keys and the show/clk counters exact; pass loss rtol 1e-3.
@@ -29,6 +29,7 @@ from paddlebox_tpu.table import SparseOptimizerConfig as JSparseOptimizerConfig
 from paddlebox_tpu.table import ValueLayout as JValueLayout
 from paddlebox_tpu.train import CTRTrainer as JCTRTrainer
 from paddlebox_tpu.train import TrainStepConfig as JTrainStepConfig
+from paddlebox_tpu_torch import config
 from paddlebox_tpu_torch.data import BoxPSDataset, SlotInfo, SlotSchema
 from paddlebox_tpu_torch.models import DeepFM, deepfm_params_from_jax
 from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig, ValueLayout
@@ -65,13 +66,16 @@ def _slots(info_cls):
 
 @pytest.fixture
 def jax_python_tier(monkeypatch):
+    """Both packages on their Python tier: store, parser, slow feed."""
     monkeypatch.setenv("PBOX_NATIVE_TABLE", "0")
-    before = jconfig.get_flag("enable_native_parser")
+    before = jconfig.get_flag("enable_native_parser"), config.get_flag("enable_native_parser")
     jconfig.set_flag("enable_native_parser", False)
+    config.set_flag("enable_native_parser", False)
     try:
         yield
     finally:
-        jconfig.set_flag("enable_native_parser", before)
+        jconfig.set_flag("enable_native_parser", before[0])
+        config.set_flag("enable_native_parser", before[1])
 
 
 def _run_jax(files, jparams):
@@ -108,6 +112,7 @@ def _run_port(files, jparams, device="cpu"):
     )
     ds.set_filelist(files)
     ds.load_into_memory()
+    assert ds.store is None and not table.native  # the Python tier
     ds.begin_pass(round_to=64)
     cfg = TrainStepConfig(
         num_slots=S, batch_size=B, layout=lay, sparse_opt=SparseOptimizerConfig(**SPARSE),
@@ -138,7 +143,10 @@ def test_one_pass_matches_jax(tmp_path, jax_python_tier):
     assert out["batches"] == jout["batches"] == 7.0
     np.testing.assert_allclose(out["loss"], jout["loss"], rtol=LOSS_RTOL)
     assert out["ins_num"] == jout["ins_num"]
-    assert set(out["profile"]) == {"build_batch_s", "pack_batch_s", "h2d_s", "step_s", "host_metrics_s"}
+    assert set(out["profile"]) == {
+        "feed_wait_s", "step_dispatch_s", "device_step_s", "host_metrics_s",
+        "build_batch_s", "pack_batch_s", "h2d_s",
+    }
     assert ended["dropped"] == jended["dropped"]
     keys, rows = _contents(table)
     jkeys, jrows = _contents(jtable)
