@@ -27,13 +27,15 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    table of 2**21 + 8 rows of 1024 (more than 2**31 elements);
 4. the serving path at full width — DeepFM, 39 slots, embedx 16, hidden
    (512, 256, 128), batch 4096 — served by ``ScoreServer(device="cuda")``
-   from a ``ScoringTable`` of 1 << 22 keys of width 21 made from ``--seed``:
-   a few requests (full batches, smaller ones, some concurrent, keys drawn
-   hot-head + uniform-tail with misses). Preds must be finite in [0, 1],
-   reruns and coalesced requests bitwise equal to direct scoring, the same
-   request with the gather forced to ``pull_rows_ref`` bitwise equal, and a
-   small request within PRED_ATOL of the port's CPU path. Every kernel of
-   the path must have launched during the served run;
+   from phase 8's ``Follower`` once it has applied the published base of
+   the trained table (so phases 4 and 5 run after phase 7). A few requests
+   (full batches, smaller ones, some concurrent, keys drawn hot-head +
+   uniform-tail over the trained keys, with misses). Preds must be finite
+   in [0, 1], reruns and coalesced requests bitwise equal to direct
+   scoring, the same request with the gather forced to ``pull_rows_ref``
+   bitwise equal, and a small request within PRED_ATOL of the port's CPU
+   path. Every kernel of the path must have launched during the served
+   run;
 5. serving numbers: the gather's time at the serving shape (CUDA events,
    median of ``TIMING_REPS``, with the L2 flushed and warm), the plain
    version's and ``torch.index_select``'s times, the HBM bound, the
@@ -72,7 +74,26 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    that feed's step, the pass boundaries' seconds, and
    ``write_rows_cuda`` and ``pull_rows_cuda`` at the resident feed's own
    batch shape (cold and warm L2) beside their plain versions,
-   ``index_copy_`` / ``index_select``, the HBM bound and the sector floor.
+   ``index_copy_`` / ``index_select``, the HBM bound and the sector floor;
+8. publish, follow and resume, at full width after phase 6's
+   ``end_pass``: ``CheckpointManager.save_base`` of the trained native
+   table (about 2.5 M keys) and dense state; a ``Follower`` on the card
+   (64 host shards) applies it, its version bitwise the trainer's table
+   and params, and a ``ScoreServer`` over it answers requests drawn from
+   the trained keys (1% absent) with preds bitwise equal to direct scoring
+   against the trainer's table and params, one ``pull_rows_cuda`` a served
+   batch; phases 4 and 5 run on this follower at the base. A second day (bench.py's generator from ``--seed + 2``, as phase
+   6's data took ``--seed + 1``; 4 files, 16 resident steps) ends with
+   ``end_pass(need_save_delta=False)`` and ``CheckpointManager.save_delta``,
+   whose delta holds exactly the day's keys; the follower reaches delta 1
+   and serves it, bitwise again. A fresh stack (native table with
+   ``spill_dir`` and ``mem_cap_rows`` half the keys, a fresh trainer)
+   ``resume``s bitwise the live table, params and Adam state; both stacks train a third day (``--seed + 3``, 16 steps);
+   the resumed one spills at its ``end_pass`` and promotes at the next
+   ``begin_pass``, after which pass tables, host tables and dense state are
+   bitwise the live stack's. Every step launches 2 gathers and 1 writeback.
+   Printed: the saves' seconds, bytes and keys, the follower's applies,
+   ``resume``, publish to first served batch, spilled and promoted rows.
 
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -108,6 +129,10 @@ HOT_FRAC = 0.25
 MISS_FRAC = 0.01
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 TIMING_REPS = 30
+# phase 8: the training day's publish, follow and resume
+PUB_DATE = "20261017"
+DAY_FILES = 4  # part files of the second and third days (bench.py's generator)
+DAY_STEPS = 16  # resident steps of the second and third passes: two epochs of 4 files
 # bf16 MLP: cuBLAS and the CPU backend round the bf16 products at
 # different places; preds are sigmoids, so a logit gap d moves them <= d/4
 PRED_ATOL = 2e-2
@@ -172,17 +197,6 @@ def cuda_ms(fn, flush) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end)
-
-
-class TableFollower:
-    """The follower a ScoreServer needs: ``version()`` and ``layout``."""
-
-    def __init__(self, table, layout):
-        self.table = table
-        self.layout = layout
-
-    def version(self):
-        return self.table.version()
 
 
 def make_records(rng, keys, n, miss_frac=MISS_FRAC):
@@ -409,17 +423,18 @@ def time_fns(fns, flush, restore=None):
     )
 
 
-def write_bench_files(tmpdir, rng):
-    """bench.py's data: N_FILES x RECORDS_PER_FILE slot lines, one key per
-    slot, a quarter from the hot head, the rest uniform, POS_FRAC positive."""
+def write_bench_files(tmpdir, rng, n_files=N_FILES, tag="part"):
+    """bench.py's data: ``n_files`` x RECORDS_PER_FILE slot lines, one key
+    per slot, a quarter from the hot head, the rest uniform, POS_FRAC
+    positive."""
     files = []
-    for fi in range(N_FILES):
+    for fi in range(n_files):
         n = RECORDS_PER_FILE
         hot = rng.integers(1, HOT_KEYS, (n, NUM_SLOTS))
         cold = rng.integers(1, KEY_SPACE, (n, NUM_SLOTS))
         keys = np.where(rng.random((n, NUM_SLOTS)) < HOT_FRAC, hot, cold)
         labels = (rng.random(n) < POS_FRAC).astype(np.int32)
-        path = os.path.join(tmpdir, f"part-{fi:03d}.txt")
+        path = os.path.join(tmpdir, f"{tag}-{fi:03d}.txt")
         with open(path, "w") as f:
             for i in range(n):
                 f.write(f"1 {labels[i]}.0 " + " ".join(f"1 {k}" for k in keys[i]) + "\n")
@@ -523,6 +538,10 @@ def small_card_vs_cpu(seed):
         raise AssertionError("training on the card and on the CPU path disagree")
 
 
+def dir_bytes(root) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -531,15 +550,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
 
-    from paddlebox_tpu_torch.data import SlotInfo, SlotSchema, build_batch, pack_batch
+    from paddlebox_tpu_torch.data import SlotInfo, SlotSchema
     from paddlebox_tpu_torch.models import DeepFM
     from paddlebox_tpu_torch.ops import cuda_kernels as ck
     from paddlebox_tpu_torch.ops import pull_push
     from paddlebox_tpu_torch import config
-    from paddlebox_tpu_torch.serve import ScoreServer, Scorer, ScoringTable, version_source
-    from paddlebox_tpu_torch.table import PassWorkingSet, ValueLayout
+    from paddlebox_tpu_torch.serve import Scorer
+    from paddlebox_tpu_torch.table import ValueLayout
     from paddlebox_tpu_torch.train import TrainStepConfig
-    from paddlebox_tpu_torch.utils.monitor import STAT_GET
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -585,166 +603,36 @@ def main() -> int:
     check_big_table(ck, dev, g)
     max_err, write_err = max(max_err, edge_err), max(write_err, edge_err)
 
-    # ---- 4. the serving path ----------------------------------------------
-    rng = np.random.default_rng(args.seed)
+    # ---- 6-8. the training day, then its publish, follow and resume; the
+    # serving path (phases 4 and 5) runs on phase 8's follower at the
+    # published base, as a serving replica gets its table
     lay = ValueLayout(embedx_dim=EMBEDX_DIM)
-    t0 = time.perf_counter()
-    keys = np.unique(rng.integers(1, 1 << 63, KEY_SPACE + KEY_SPACE // 16, dtype=np.uint64))[:KEY_SPACE]
-    rows = (0.05 * rng.standard_normal((KEY_SPACE, lay.width), dtype=np.float32))
-    show = rng.integers(0, 40, KEY_SPACE).astype(np.float32)
-    rows[:, lay.SHOW] = show
-    rows[:, lay.CLK] = np.floor(show * 0.3 * rng.random(KEY_SPACE, dtype=np.float32))
-    keys_hot_first = keys[rng.permutation(KEY_SPACE)]  # hot head spread over the key space
-    model = DeepFM(
-        NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
-        generator=torch.Generator().manual_seed(args.seed),
-    )
-    params = {k: v.detach().to(dev) for k, v in model.state_dict().items()}
-    print(f"data made: {time.perf_counter() - t0:.3f} s", flush=True)
-    t0 = time.perf_counter()
-    st = ScoringTable(lay.width)
-    version = st.commit(keys, rows, date="20261016", delta_idx=0, decay_epoch=0, params=params)
-    print(f"commit of {KEY_SPACE} keys: {time.perf_counter() - t0:.3f} s", flush=True)
-    del rows
-
     schema = SlotSchema(
         [SlotInfo("label", type="float", dense=True, dim=1)]
         + [SlotInfo(f"s{i}") for i in range(NUM_SLOTS)],
         label_slot="label",
     )
     cfg = TrainStepConfig(num_slots=NUM_SLOTS, batch_size=BATCH, layout=lay)
-    scorer = Scorer(model, cfg, device="cuda")
-    follower = TableFollower(st, lay)
-    source = version_source(lay, version)
-
-    full = make_records(rng, keys_hot_first, BATCH)
-    small = [make_records(rng, keys_hot_first, n) for n in (1000, 100, 7)]
-    mostly_absent = make_records(rng, keys_hot_first, 64, miss_frac=0.9)
-    concurrent = [make_records(rng, keys_hot_first, 500) for _ in range(6)]
-
-    t0 = time.perf_counter()
-    scorer.score_records(full, schema, source, params)  # warm-up: cuBLAS, allocator
-    torch.cuda.synchronize()
-    print(f"warm-up batch: {time.perf_counter() - t0:.3f} s", flush=True)
-
-    srv = ScoreServer(follower, scorer, schema, device="cuda")
-    batches0 = STAT_GET("serve.batches")
-    ck.reset_launch_counts()
-    srv.start()
-    try:
-        served = [srv.score(r, timeout=300.0) for r in [full, full, *small, mostly_absent]]
-        pend = [srv.submit(r) for r in concurrent]
-        served_conc = [p.result(timeout=300.0) for p in pend]
-    finally:
-        srv.stop()
-    torch.cuda.synchronize()
-    counts = dict(ck.launch_counts)
-    n_batches = STAT_GET("serve.batches") - batches0
-    lat = srv.latency_percentiles()
-    print(f"served {lat['n']} requests in {n_batches} batches; kernel launches {counts}", flush=True)
-    if counts["pull_rows_cuda"] == 0:
-        raise AssertionError("kernel pull_rows_cuda was never launched on the serving path")
-    if counts["write_rows_cuda"] != 0:
-        raise AssertionError("the serving path wrote rows: scoring must not push")
-    if counts["pull_rows_cuda"] != n_batches:
-        raise AssertionError(f"{counts['pull_rows_cuda']} gather launches for {n_batches} batches")
-
-    for preds, recs in zip(served + served_conc, [full, full, *small, mostly_absent, *concurrent]):
-        if preds.shape != (len(recs),) or not np.all(np.isfinite(preds)):
-            raise AssertionError("preds not finite or of the wrong shape")
-        if preds.min() < 0.0 or preds.max() > 1.0:
-            raise AssertionError("preds outside [0, 1]")
-    if not np.array_equal(served[0], served[1]):
-        raise AssertionError("two runs of the same request differ")
-    for preds, recs in zip(served_conc, concurrent):
-        if not np.array_equal(preds, scorer.score_records(recs, schema, source, params)):
-            raise AssertionError("a coalesced request differs from scoring it alone")
-    print("main path: preds finite in [0, 1]; reruns and coalesced requests bitwise equal", flush=True)
-
-    # the same request with the gather forced to the plain version
-    pull_push.pull_rows_cuda = ck.pull_rows_ref
-    try:
-        plain = scorer.score_records(full, schema, source, params)
-    finally:
-        pull_push.pull_rows_cuda = ck.pull_rows_cuda
-    if not np.array_equal(plain, served[0]):
-        raise AssertionError("preds with pull_rows_ref differ from preds with pull_rows_cuda")
-    print("main path: bitwise equal with the gather forced to pull_rows_ref", flush=True)
-
-    # reference on a small input: the port's CPU path on the same version
-    cpu_scorer = Scorer(
+    scorer = Scorer(
         DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
                generator=torch.Generator().manual_seed(args.seed)),
-        cfg, device="cpu",
+        cfg, device="cuda",
     )
-    cpu_params = {k: v.cpu() for k, v in params.items()}
-    cpu_preds = cpu_scorer.score_records(full[:64], schema, source, cpu_params)
-    cpu_err = float(np.abs(cpu_preds - served[0][:64]).max())
-    print(f"main path: CPU vs GPU preds max |diff| {cpu_err:.3e} (atol {PRED_ATOL})", flush=True)
-    if not cpu_err <= PRED_ATOL:
-        raise AssertionError(f"GPU preds differ from the CPU path by {cpu_err}")
-
-    # ---- 5. numbers at the serving path's own gather shape ---------------
-    # the full request's stages on the host clock, then the whole call
-    t0 = time.perf_counter()
-    batch = build_batch(full, schema)
-    t1 = time.perf_counter()
-    ws = PassWorkingSet(n_mesh_shards=1)
-    ws.add_keys(batch.keys)
-    table_np = ws.finalize(source, round_to=config.get_flag("serve_row_bucket"))
-    t2 = time.perf_counter()
-    db = pack_batch(batch, ws, schema, bucket=config.get_flag("serve_key_bucket"))
-    t3 = time.perf_counter()
-    table = torch.from_numpy(table_np.reshape(-1, lay.width)).to(dev)
-    torch.cuda.synchronize()
-    t4 = time.perf_counter()
-    scorer.score_records(full, schema, source, params)
-    t5 = time.perf_counter()
-    emit({
-        "card": card, "host_clock_ms": {
-            "build_batch": (t1 - t0) * 1e3, "working_set_finalize": (t2 - t1) * 1e3,
-            "pack_batch": (t3 - t2) * 1e3, "table_h2d": (t4 - t3) * 1e3,
-            "score_records_total": (t5 - t4) * 1e3,
-        },
-    })
-    uniq = torch.from_numpy(db.uniq_rows).to(dev)
-    R, W = table.shape
-    U = uniq.shape[0]
-    max_err = max(max_err, check_gather(ck, table, uniq, f"main path R={R} W={W} U={U} int32"))
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
-    fns = {
-        "kernel": lambda: ck.pull_rows_cuda(table, uniq),
-        "plain": lambda: ck.pull_rows_ref(table, uniq),
-        "library": lambda: torch.index_select(table, 0, uniq),
-    }
-    med, med_warm = time_fns(fns, flush)
-    bytes_moved = 2 * U * W * 4 + 4 * U
-    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    emit({
-        "card": card, "kernel": "pull_rows_cuda", "path": "serve", "R": R, "W": W, "U": U,
-        "n_uniq": db.n_uniq, "ms": med["kernel"], "plain_ms": med["plain"],
-        "index_select_ms": med["library"], "bound_ms": bound_ms, "bytes": bytes_moved,
-        "bound_share": bound_ms / med["kernel"], "sector_floor_ms": sector_floor_ms(uniq, R, W, False),
-        "reps": TIMING_REPS, "l2": "cold", "warm_l2_ms": med_warm["kernel"],
-        "warm_l2_plain_ms": med_warm["plain"], "warm_l2_index_select_ms": med_warm["library"],
-    })
-    emit({
-        "card": card, "launches_per_batch": counts["pull_rows_cuda"] / n_batches,
-        "requests": lat["n"], "batches": n_batches, "request_p50_ms": lat["p50_ms"],
-        "request_p99_ms": lat["p99_ms"], "request_max_ms": lat["max_ms"],
-    })
-    serve_counts = counts
     train = train_phase(args, dev, card, ck, pull_push, lay, schema)
+    serve_counts, serve_err, published = publish_phase(args, card, ck, pull_push, lay, schema, scorer, train)
+    max_err = max(max_err, serve_err)
 
-    by_path = {"serve": serve_counts, **train["counts"]}
+    by_path = {"serve": serve_counts, **train["counts"], **published}
     emit({"kernels": [
         {
             "name": name,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            # every main path, each counted from 0: serving, then training on
-            # the resident, the packer and the slow feed
+            # every main path, each counted from 0: serving, training on the
+            # resident, the packer and the slow feed, then phase 8's serving
+            # through the Follower and its passes on the live and the
+            # resumed stacks
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": err,
@@ -1210,7 +1098,363 @@ def train_phase(args, dev, card, ck, pull_push, lay, schema):
     return {
         "counts": counts, "write": res["write_rows_cuda"], "gather": res["pull_rows_cuda"],
         "write_err": write_err, "gather_err": gather_err,
+        "table": table, "trainer": trainer, "cfg": cfg, "sparse_opt": sparse_opt,
     }
+
+
+class PeekSource:
+    """Direct scoring rows from a host table: the stored row of a key the
+    table holds, the zero row of one it does not (what a served version
+    gives it), and nothing created."""
+
+    def __init__(self, table):
+        self.table = table
+        self.keys = np.sort(table.keys())
+
+    def pull_or_create(self, keys):
+        out = np.zeros((len(keys), self.table.layout.width), np.float32)
+        pos = np.minimum(np.searchsorted(self.keys, keys), len(self.keys) - 1)
+        hit = self.keys[pos] == keys
+        if hit.any():
+            out[hit] = self.table.pull_or_create(keys[hit])
+        return out
+
+
+def same_dense(a, b) -> bool:
+    """Params and Adam state of two trainers, bitwise."""
+    return (
+        all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+        and torch.equal(a.opt_state.count, b.opt_state.count)
+        and all(torch.equal(a.opt_state.mu[k], b.opt_state.mu[k]) for k in a.params)
+        and all(torch.equal(a.opt_state.nu[k], b.opt_state.nu[k]) for k in a.params)
+    )
+
+
+def same_tables(a, b) -> bool:
+    """Two host tables hold the same keys and bitwise-equal rows (reading a
+    spilled row promotes it)."""
+    ka, kb = np.sort(a.keys()), np.sort(b.keys())
+    return np.array_equal(ka, kb) and np.array_equal(a.pull_or_create(ka), b.pull_or_create(kb))
+
+
+def check_followed(fol, table, trainer, delta_idx, what):
+    """The follower's version is the trainer's table and dense state."""
+    v = fol.version()
+    keys = np.sort(table.keys())
+    if (v.date, v.delta_idx) != (PUB_DATE, delta_idx):
+        raise AssertionError(f"{what}: the follower serves {v.date}/{v.delta_idx}")
+    if not (np.array_equal(v.keys, keys) and np.array_equal(v.rows, table.pull_or_create(keys))):
+        raise AssertionError(f"{what}: the followed keys or rows differ from the trainer's host table")
+    if not all(torch.equal(v.params[k], trainer.params[k]) for k in trainer.params):
+        raise AssertionError(f"{what}: the followed params differ from the trainer's")
+    print(f"{what}: the followed version holds the trainer's {len(keys)} keys, rows and params bitwise",
+          flush=True)
+
+
+def serve_followed(fol, scorer, schema, table, trainer, rng, ck, what):
+    """A few requests through a ScoreServer over the follower (full batches,
+    small ones, some concurrent; keys from the trained table, 1% absent):
+    preds bitwise equal to direct scoring against the trainer's table and
+    params, one gather a served batch. Returns (launch counts, publish to
+    first served seconds)."""
+    from paddlebox_tpu_torch.serve import ScoreServer, table_source
+    from paddlebox_tpu_torch.utils.monitor import STAT_GET
+
+    keys = np.sort(table.keys())
+    spread = keys[rng.permutation(len(keys))]
+    reqs = [make_records(rng, spread, n) for n in (BATCH, BATCH // 4, BATCH // 40, 7)]
+    conc = [make_records(rng, spread, BATCH // 8) for _ in range(4)]  # one coalesced batch
+    srv = ScoreServer(fol, scorer, schema, device="cuda")
+    batches0 = STAT_GET("serve.batches")
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    srv.start()
+    try:
+        served = [srv.score(r, timeout=300.0) for r in reqs]
+        pend = [srv.submit(r) for r in conc]
+        served += [p.result(timeout=300.0) for p in pend]
+    finally:
+        srv.stop()
+    torch.cuda.synchronize()
+    counts = dict(ck.launch_counts)
+    n_batches = STAT_GET("serve.batches") - batches0
+    if counts["pull_rows_cuda"] != n_batches or counts["write_rows_cuda"] != 0:
+        raise AssertionError(f"{what}: launches {counts} for {n_batches} served batches: want one gather a batch")
+    direct = table_source(fol.layout, PeekSource(table))
+    for preds, recs in zip(served, reqs + conc):
+        want = scorer.score_records(recs, schema, direct, trainer.params, trainer.opt_state)
+        if preds.shape != (len(recs),) or not np.array_equal(preds, want):
+            raise AssertionError(f"{what}: served preds differ from direct scoring against the trainer's table")
+    (idx, lag), = srv.staleness
+    print(f"{what}: {len(served)} requests in {n_batches} batches, launches {counts}; preds bitwise equal to "
+          f"direct scoring against the trainer's table and params; publish to first served {lag:.3f} s",
+          flush=True)
+    return counts, lag
+
+
+def day_pass(args, schema, table, trainer, files, ck, what, **end_kw):
+    """One pass of ``files`` on a stack: begin, DAY_STEPS resident steps
+    (2 gathers and 1 writeback each), end_pass. Returns (launch counts,
+    the pass's sorted keys, end_pass's result)."""
+    from paddlebox_tpu_torch.data import BoxPSDataset
+
+    ds = BoxPSDataset(schema, table, batch_size=BATCH, shuffle_mode="local", seed=args.seed)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    ds.begin_pass(round_to=512)
+    keys = ds.ws.sorted_keys.copy()
+    out, losses, _, counts = timed_pass(trainer, ds, DAY_STEPS, ck)
+    check_path(what, out, losses, counts, DAY_STEPS)
+    ended = ds.end_pass(trainer.trained_table(), **end_kw)
+    if ended["dropped"]:
+        raise AssertionError(f"{what}: end_pass dropped {ended['dropped']} keys; a delta records no drops")
+    return counts, keys, ended
+
+
+def serve_phase(args, card, ck, pull_push, fol, scorer, schema, keys):
+    """Phases 4 and 5: the serving main path from ``fol``, a Follower at the
+    published base, over requests drawn from ``keys`` (the trained keys):
+    finite preds in [0, 1], reruns and coalesced requests bitwise equal to
+    direct scoring, bitwise equal with the gather forced to
+    ``pull_rows_ref``, a small request within PRED_ATOL of the port's CPU
+    path; then the gather's numbers at the serving shape and the request
+    latencies. Returns (launch counts, the gather's max abs error)."""
+    from paddlebox_tpu_torch import config
+    from paddlebox_tpu_torch.data import build_batch, pack_batch
+    from paddlebox_tpu_torch.models import DeepFM
+    from paddlebox_tpu_torch.serve import ScoreServer, Scorer, version_source
+    from paddlebox_tpu_torch.table import PassWorkingSet
+    from paddlebox_tpu_torch.utils.monitor import STAT_GET
+
+    dev = scorer.device
+    lay = fol.layout
+    version = fol.version()
+    params = version.params
+    source = version_source(lay, version)
+    rng = np.random.default_rng(args.seed)
+    keys_hot_first = keys[rng.permutation(len(keys))]  # the hot head spread over the trained keys
+
+    full = make_records(rng, keys_hot_first, BATCH)
+    small = [make_records(rng, keys_hot_first, n) for n in (1000, 100, 7)]
+    mostly_absent = make_records(rng, keys_hot_first, 64, miss_frac=0.9)
+    concurrent = [make_records(rng, keys_hot_first, 500) for _ in range(6)]
+
+    t0 = time.perf_counter()
+    scorer.score_records(full, schema, source, params)  # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+    print(f"warm-up batch: {time.perf_counter() - t0:.3f} s", flush=True)
+
+    srv = ScoreServer(fol, scorer, schema, device="cuda")
+    batches0 = STAT_GET("serve.batches")
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    srv.start()
+    try:
+        served = [srv.score(r, timeout=300.0) for r in [full, full, *small, mostly_absent]]
+        pend = [srv.submit(r) for r in concurrent]
+        served_conc = [p.result(timeout=300.0) for p in pend]
+    finally:
+        srv.stop()
+    torch.cuda.synchronize()
+    counts = dict(ck.launch_counts)
+    n_batches = STAT_GET("serve.batches") - batches0
+    lat = srv.latency_percentiles()
+    print(f"served {lat['n']} requests in {n_batches} batches; kernel launches {counts}", flush=True)
+    if counts["pull_rows_cuda"] == 0:
+        raise AssertionError("kernel pull_rows_cuda was never launched on the serving path")
+    if counts["write_rows_cuda"] != 0:
+        raise AssertionError("the serving path wrote rows: scoring must not push")
+    if counts["pull_rows_cuda"] != n_batches:
+        raise AssertionError(f"{counts['pull_rows_cuda']} gather launches for {n_batches} batches")
+
+    for preds, recs in zip(served + served_conc, [full, full, *small, mostly_absent, *concurrent]):
+        if preds.shape != (len(recs),) or not np.all(np.isfinite(preds)):
+            raise AssertionError("preds not finite or of the wrong shape")
+        if preds.min() < 0.0 or preds.max() > 1.0:
+            raise AssertionError("preds outside [0, 1]")
+    if not np.array_equal(served[0], served[1]):
+        raise AssertionError("two runs of the same request differ")
+    for preds, recs in zip(served_conc, concurrent):
+        if not np.array_equal(preds, scorer.score_records(recs, schema, source, params)):
+            raise AssertionError("a coalesced request differs from scoring it alone")
+    print("main path: preds finite in [0, 1]; reruns and coalesced requests bitwise equal", flush=True)
+
+    # the same request with the gather forced to the plain version
+    pull_push.pull_rows_cuda = ck.pull_rows_ref
+    try:
+        plain = scorer.score_records(full, schema, source, params)
+    finally:
+        pull_push.pull_rows_cuda = ck.pull_rows_cuda
+    if not np.array_equal(plain, served[0]):
+        raise AssertionError("preds with pull_rows_ref differ from preds with pull_rows_cuda")
+    print("main path: bitwise equal with the gather forced to pull_rows_ref", flush=True)
+
+    # reference on a small input: the port's CPU path on the same version
+    cpu_scorer = Scorer(
+        DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
+               generator=torch.Generator().manual_seed(args.seed)),
+        scorer.cfg, device="cpu",
+    )
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    cpu_preds = cpu_scorer.score_records(full[:64], schema, source, cpu_params)
+    cpu_err = float(np.abs(cpu_preds - served[0][:64]).max())
+    print(f"main path: CPU vs GPU preds max |diff| {cpu_err:.3e} (atol {PRED_ATOL})", flush=True)
+    if not cpu_err <= PRED_ATOL:
+        raise AssertionError(f"GPU preds differ from the CPU path by {cpu_err}")
+
+    # ---- 5. numbers at the serving path's own gather shape ---------------
+    # the full request's stages on the host clock, then the whole call
+    t0 = time.perf_counter()
+    batch = build_batch(full, schema)
+    t1 = time.perf_counter()
+    ws = PassWorkingSet(n_mesh_shards=1)
+    ws.add_keys(batch.keys)
+    table_np = ws.finalize(source, round_to=config.get_flag("serve_row_bucket"))
+    t2 = time.perf_counter()
+    db = pack_batch(batch, ws, schema, bucket=config.get_flag("serve_key_bucket"))
+    t3 = time.perf_counter()
+    table = torch.from_numpy(table_np.reshape(-1, lay.width)).to(dev)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    scorer.score_records(full, schema, source, params)
+    t5 = time.perf_counter()
+    emit({
+        "card": card, "host_clock_ms": {
+            "build_batch": (t1 - t0) * 1e3, "working_set_finalize": (t2 - t1) * 1e3,
+            "pack_batch": (t3 - t2) * 1e3, "table_h2d": (t4 - t3) * 1e3,
+            "score_records_total": (t5 - t4) * 1e3,
+        },
+    })
+    uniq = torch.from_numpy(db.uniq_rows).to(dev)
+    R, W = table.shape
+    U = uniq.shape[0]
+    max_err = check_gather(ck, table, uniq, f"main path R={R} W={W} U={U} int32")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    fns = {
+        "kernel": lambda: ck.pull_rows_cuda(table, uniq),
+        "plain": lambda: ck.pull_rows_ref(table, uniq),
+        "library": lambda: torch.index_select(table, 0, uniq),
+    }
+    med, med_warm = time_fns(fns, flush)
+    bytes_moved = 2 * U * W * 4 + 4 * U
+    bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    emit({
+        "card": card, "kernel": "pull_rows_cuda", "path": "serve", "R": R, "W": W, "U": U,
+        "n_uniq": db.n_uniq, "ms": med["kernel"], "plain_ms": med["plain"],
+        "index_select_ms": med["library"], "bound_ms": bound_ms, "bytes": bytes_moved,
+        "bound_share": bound_ms / med["kernel"], "sector_floor_ms": sector_floor_ms(uniq, R, W, False),
+        "reps": TIMING_REPS, "l2": "cold", "warm_l2_ms": med_warm["kernel"],
+        "warm_l2_plain_ms": med_warm["plain"], "warm_l2_index_select_ms": med_warm["library"],
+    })
+    emit({
+        "card": card, "launches_per_batch": counts["pull_rows_cuda"] / n_batches,
+        "requests": lat["n"], "batches": n_batches, "request_p50_ms": lat["p50_ms"],
+        "request_p99_ms": lat["p99_ms"], "request_max_ms": lat["max_ms"],
+    })
+    return counts, max_err
+
+
+def publish_phase(args, card, ck, pull_push, lay, schema, scorer, live):
+    """Phase 8: publish, follow and resume the training day at full width,
+    with phases 4 and 5 on the follower at the base. Returns the serving
+    path's launch counts, its gather's max abs error, and phase 8's launch
+    counts by path."""
+    from paddlebox_tpu_torch.data import BoxPSDataset
+    from paddlebox_tpu_torch.serve import Follower
+    from paddlebox_tpu_torch.table import HostSparseTable
+    from paddlebox_tpu_torch.train import CheckpointManager
+
+    table, trainer, cfg, opt = live["table"], live["trainer"], live["cfg"], live["sparse_opt"]
+    t_phase = time.perf_counter()
+    nums, counts = {}, {}
+    rng = np.random.default_rng(args.seed + 4)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_publish_") as tmp:
+        root = os.path.join(tmp, "ckpt")
+        cm = CheckpointManager(root)
+        t0 = time.perf_counter()
+        cm.save_base(PUB_DATE, table, trainer)
+        nums["save_base_s"] = time.perf_counter() - t0
+        nums["save_base_keys"] = len(table)
+        nums["save_base_bytes"] = dir_bytes(os.path.join(root, PUB_DATE, "base"))
+        nums["dense_bytes"] = os.path.getsize(os.path.join(root, PUB_DATE, "dense-0000.npz"))
+        fol = Follower(root, lay, opt, n_host_shards=64, trainer=new_trainer(args, cfg, lay))
+        t0 = time.perf_counter()
+        if not fol.poll_once():
+            raise AssertionError("the follower applied nothing from the published base")
+        nums["follower_base_apply_s"] = time.perf_counter() - t0
+        check_followed(fol, table, trainer, 0, "follower at the base")
+        counts["serve_follower_base"], nums["publish_to_served_base_s"] = serve_followed(
+            fol, scorer, schema, table, trainer, rng, ck, "serving the base")
+        t0 = time.perf_counter()
+        serve_counts, serve_err = serve_phase(args, card, ck, pull_push, fol, scorer, schema, np.sort(table.keys()))
+        serve_s = time.perf_counter() - t0
+
+        # the second day: part of the keys touched, some new, then a delta.
+        # Phase 6's data came from --seed + 1, so each later day takes the
+        # next seed: the same seed would replay phase 6's first files
+        day2 = write_bench_files(tmp, np.random.default_rng(args.seed + 2), DAY_FILES, "day2")
+        counts["train_day2"], pass_keys, _ = day_pass(
+            args, schema, table, trainer, day2, ck, "second day (live stack)", need_save_delta=False)
+        t0 = time.perf_counter()
+        delta_dir = cm.save_delta(PUB_DATE, table, trainer)
+        nums["save_delta_s"] = time.perf_counter() - t0
+        shards = sorted(n for n in os.listdir(delta_dir) if n.startswith("shard-"))
+        delta_keys = np.sort(np.concatenate([np.load(os.path.join(delta_dir, n))["keys"] for n in shards]))
+        if not np.array_equal(delta_keys, pass_keys):
+            raise AssertionError("the delta does not hold exactly the keys the second day touched")
+        nums["save_delta_keys"] = len(delta_keys)
+        nums["save_delta_bytes"] = dir_bytes(delta_dir)
+        t0 = time.perf_counter()
+        if not fol.poll_once():
+            raise AssertionError("the follower applied nothing from delta 1")
+        nums["follower_delta_apply_s"] = time.perf_counter() - t0
+        check_followed(fol, table, trainer, 1, "follower at delta 1")
+        counts["serve_follower_delta1"], nums["publish_to_served_delta1_s"] = serve_followed(
+            fol, scorer, schema, table, trainer, rng, ck, "serving delta 1")
+        del fol
+        print(f"delta 1 holds exactly the second day's {len(delta_keys)} touched keys of {len(table)}", flush=True)
+
+        # resume into a fresh process's stack whose memory tier holds half the keys
+        rtable = HostSparseTable(lay, opt, n_shards=64, seed=args.seed, spill_dir=os.path.join(tmp, "spill"),
+                                 mem_cap_rows=len(table) // 2)
+        rtrainer = new_trainer(args, cfg, lay)
+        t0 = time.perf_counter()
+        st = CheckpointManager(root).resume(rtable, rtrainer)
+        nums["resume_s"] = time.perf_counter() - t0
+        if (st["date"], st["delta_idx"]) != (PUB_DATE, 1):
+            raise AssertionError(f"resume landed on {st}")
+        if not (same_tables(table, rtable) and same_dense(trainer, rtrainer)):
+            raise AssertionError("the resumed table or dense state differs from the live one")
+        print(f"resume in {nums['resume_s']:.3f} s: table, params and Adam state bitwise the live ones", flush=True)
+
+        # the third day on both stacks; the resumed one spills at its end_pass
+        day3 = write_bench_files(tmp, np.random.default_rng(args.seed + 3), DAY_FILES, "day3")
+        counts["train_live"], _, _ = day_pass(args, schema, table, trainer, day3, ck, "third day (live stack)")
+        counts["train_resumed"], _, _ = day_pass(args, schema, rtable, rtrainer, day3, ck,
+                                                 "third day (resumed stack)")
+        tier = rtable.tier_stats()
+        if rtable.disk_rows == 0 or tier["spilled_total"] == 0:
+            raise AssertionError("the resumed stack did not spill at its end_pass")
+        nums["spilled_rows"], nums["disk_rows_after_end_pass"] = tier["spilled_total"], rtable.disk_rows
+        nums["mem_cap_rows"] = rtable.mem_cap_rows
+        devs = []
+        for tab in (table, rtable):
+            ds = BoxPSDataset(schema, tab, batch_size=BATCH, shuffle_mode="local", seed=args.seed)
+            ds.set_filelist(day2)
+            ds.load_into_memory()
+            devs.append(ds.begin_pass(round_to=512))
+        nums["promoted_rows"] = rtable.tier_stats()["promoted_total"]
+        if nums["promoted_rows"] == 0:
+            raise AssertionError("the next begin_pass promoted nothing")
+        if not (np.array_equal(devs[0], devs[1]) and same_tables(table, rtable) and same_dense(trainer, rtrainer)):
+            raise AssertionError("after the third day the resumed stack differs from the live one")
+        print(f"third day: the resumed stack spilled {nums['spilled_rows']} rows at its end_pass and promoted "
+              f"{nums['promoted_rows']} at the next begin_pass; pass tables, host tables and dense state bitwise "
+              "the live stack's", flush=True)
+    nums["phases_4_5_s"] = serve_s
+    nums["phase_s"] = time.perf_counter() - t_phase - serve_s  # phase 8's own seconds
+    emit({"card": card, "phase": "publish_follow_resume", **nums})
+    return serve_counts, serve_err, counts
 
 
 if __name__ == "__main__":

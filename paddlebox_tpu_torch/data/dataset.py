@@ -20,11 +20,17 @@ Port of the JAX package's ``data/dataset.py`` for a single process:
   fast feeds); ``batches`` serves ``SlotBatch``es (the slow feed). Both
   wrap around past the tail.
 - ``end_pass`` writes the trained rows back, then decays and shrinks the
-  host table, synchronously.
+  host table, saves a delta when asked, enforces the table's memory cap
+  (the disk tier) and publishes its tier gauges, synchronously, in the JAX
+  package's order. A failed end_pass leaves the pass open, to be retried
+  or reverted.
+- ``begin_pass(enable_revert=True, trainer=...)`` arms a ``PassGuard``;
+  ``revert_pass`` restores the pass keys' host rows and the trainer's
+  dense state and re-arms the same records for a retrain.
 
 Not ported: quarantine, pipe converters, preload threads, global shuffles
-across nodes, pv merge, the carried boundary, the asynchronous end pass and
-delta saves.
+across nodes, pv merge, the carried boundary, the overlapped writeback and
+the asynchronous end pass.
 """
 
 from __future__ import annotations
@@ -54,6 +60,19 @@ class PassStats:
     files: int = 0
     records: int = 0  # records kept for the pass
     keys: int = 0  # unique feasigns in the working set (set at begin_pass)
+
+
+def _working_set(store: Optional[ColumnarRecords], records: List[SlotRecord]) -> PassWorkingSet:
+    """A fresh working set fed every feasign of the pass (MergeInsKeys
+    parity), from the columnar store or else the record list."""
+    ws = PassWorkingSet()
+    if store is not None:
+        ws.add_keys(store.u64_values)
+    else:
+        chunk = 4096
+        for i in range(0, len(records), chunk):
+            ws.add_keys(np.concatenate([r.u64_values for r in records[i : i + chunk]]))
+    return ws
 
 
 class BoxPSDataset:
@@ -94,6 +113,7 @@ class BoxPSDataset:
         self._in_pass = False
         # (store, order, records, ws, stats) loaded but not yet begun
         self._staged = None
+        self._guard = None  # the armed PassGuard of the open pass, if any
 
     # ---- record access ---------------------------------------------------
 
@@ -196,16 +216,8 @@ class BoxPSDataset:
             with ThreadPoolExecutor(max_workers=max(1, self.read_threads)) as pool:
                 parts = list(pool.map(self._read_one, self._filelist))
         store, order, records = self._normalize_and_shuffle(parts)
-        ws = PassWorkingSet()
-        # MergeInsKeys parity: every feasign of the pass feeds the working set
-        if store is not None:
-            ws.add_keys(store.u64_values)
-            stats.records = len(store)
-        else:
-            chunk = 4096
-            for i in range(0, len(records), chunk):
-                ws.add_keys(np.concatenate([r.u64_values for r in records[i : i + chunk]]))
-            stats.records = len(records)
+        ws = _working_set(store, records)
+        stats.records = len(store) if store is not None else len(records)
         self._staged = (store, order, records, ws, stats)
         if not self._in_pass:
             self._publish(self._staged)
@@ -215,12 +227,23 @@ class BoxPSDataset:
 
     # ---- pass lifecycle --------------------------------------------------
 
-    def begin_pass(self, round_to: int = 512) -> np.ndarray:
+    def begin_pass(
+        self, round_to: int = 512, enable_revert: bool = False, trainer=None
+    ) -> np.ndarray:
         """Consume the staged load, finalize the working set against the
         host table, and return the pass table [1, cap, width] for the
-        device (BeginFeedPass + EndFeedPass + BeginPass)."""
+        device (BeginFeedPass + EndFeedPass + BeginPass).
+
+        ``enable_revert=True`` arms a PassGuard (Confirm/Revert parity,
+        fleet_wrapper.h:319-321): the pass keys' pre-train rows and, with
+        ``trainer``, its dense params and optimizer state are snapshotted so
+        :meth:`revert_pass` can reject everything the pass publishes;
+        end_pass confirms."""
         if self._in_pass:
-            raise RuntimeError("previous pass is still open: call end_pass first")
+            raise RuntimeError(
+                "previous pass is still open: call end_pass (or, after a failed "
+                "end_pass, retry it or revert_pass) first"
+            )
         if self._staged is not None:
             self._publish(self._staged)
             self._staged = None
@@ -230,26 +253,71 @@ class BoxPSDataset:
             self.device_table = self.ws.finalize(self.table, round_to=round_to)
         self.stats.keys = self.ws.n_keys
         self._in_pass = True
+        self._guard = None
+        if enable_revert:
+            from paddlebox_tpu_torch.train.rollback import PassGuard
+
+            self._guard = PassGuard(self.table, trainer)
+            self._guard.begin(self.ws.sorted_keys)
         return self.device_table
 
-    def end_pass(self, trained_table: Optional[np.ndarray] = None, shrink: bool = True) -> dict:
-        """Write the trained rows back to the host table, then decay and
-        shrink it (EndPass parity). ``trained_table`` is the pass table on
-        the host, as ``CTRTrainer.trained_table()`` returns it; None skips
-        the writeback. Returns {"dropped", "secs"}."""
+    def revert_pass(self) -> None:
+        """Reject the open pass (Revert parity, fleet_wrapper.h:319-321):
+        every pass key's host row returns to its pre-pass value (undoing a
+        partial or complete writeback), the trainer's dense state is
+        restored, any staged next pass is dropped, and the same records are
+        re-armed with a fresh working set so ``begin_pass`` retrains them."""
+        guard = self._guard
+        if guard is None or not guard.armed:
+            raise RuntimeError("no armed rollback — begin_pass(enable_revert=True) first")
+        guard.revert()
+        self._guard = None
+        self._staged = None
+        self.ws = _working_set(self.store, self._records)
+        if self.store is not None:
+            self.store.invalidate_rows()  # its rows resolved against the old set
+        self.device_table = None
+        self._in_pass = False
+
+    def end_pass(
+        self,
+        trained_table: Optional[np.ndarray] = None,
+        need_save_delta: bool = False,
+        delta_dir: Optional[str] = None,
+        shrink: bool = True,
+    ) -> dict:
+        """EndPass parity (box_wrapper.cc:627, SaveDelta :1316), in the JAX
+        package's order: write the trained rows back to the host table,
+        decay and shrink it, save a delta of the touched keys to
+        ``delta_dir`` when ``need_save_delta``, spill cold rows past the
+        table's ``mem_cap_rows`` to its disk tier, publish the tier gauges,
+        and confirm an armed PassGuard. ``trained_table`` is the pass table
+        on the host, as ``CTRTrainer.trained_table()`` returns it; None
+        skips the writeback. A failure leaves the pass open, so end_pass
+        can be retried or the pass reverted. Returns {"dropped",
+        "delta_keys", "secs"}."""
         if not self._in_pass:
             raise RuntimeError("begin_pass first")
+        if need_save_delta and delta_dir is None:
+            raise ValueError("need_save_delta requires delta_dir")
         t0 = time.perf_counter()
+        table = self.table
         if trained_table is not None:
             self.ws.writeback(np.asarray(trained_table))
-        dropped = self.table.decay_and_shrink() if shrink else 0
+        dropped = table.decay_and_shrink() if shrink else 0
+        saved = table.save_delta(delta_dir) if need_save_delta else 0
+        table.maybe_spill()
+        table.publish_tier_stats()
+        if self._guard is not None:
+            self._guard.confirm()  # the pass is published
+            self._guard = None
         self.store = None
         self._order = None
         self._records = []
         self.ws = None
         self.device_table = None
         self._in_pass = False
-        return {"dropped": dropped, "secs": time.perf_counter() - t0}
+        return {"dropped": dropped, "delta_keys": saved, "secs": time.perf_counter() - t0}
 
     # ---- batch serving ---------------------------------------------------
 

@@ -3,6 +3,9 @@ from paddlebox_tpu_torch.models.convert import (
     adam_state_to_optax,
     deepfm_params_from_jax,
     deepfm_params_to_jax,
+    dense_from_jax_leaves,
+    dense_leaf_names,
+    dense_to_jax_leaves,
 )
 from paddlebox_tpu_torch.models.deepfm import DeepFM
 from paddlebox_tpu_torch.models.layers import linear_apply, linear_init, mlp_apply, mlp_init
@@ -17,4 +20,7 @@ __all__ = [
     "deepfm_params_to_jax",
     "adam_state_from_optax",
     "adam_state_to_optax",
+    "dense_leaf_names",
+    "dense_to_jax_leaves",
+    "dense_from_jax_leaves",
 ]

@@ -2,7 +2,10 @@
 
 - scoring_table.py  atomic-swap versions backing the scorers
 - server.py         forward-only scoring + batched front-end
+- follower.py       tails a checkpoint root into a ScoringTable
 """
+
+from paddlebox_tpu_torch.serve.follower import Follower, apply_published_chain, verify_chain_link
 
 from paddlebox_tpu_torch.serve.scoring_table import ScoringTable, TableVersion
 from paddlebox_tpu_torch.serve.server import (
@@ -15,6 +18,9 @@ from paddlebox_tpu_torch.serve.server import (
 )
 
 __all__ = [
+    "Follower",
+    "apply_published_chain",
+    "verify_chain_link",
     "ScoringTable",
     "TableVersion",
     "Scorer",

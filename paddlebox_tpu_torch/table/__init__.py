@@ -1,5 +1,5 @@
 from paddlebox_tpu_torch.table.value_layout import FeatureType, ValueLayout
-from paddlebox_tpu_torch.table.sparse_table import HostSparseTable, PassWorkingSet
+from paddlebox_tpu_torch.table.sparse_table import HostSparseTable, PassWorkingSet, SpillIOError
 from paddlebox_tpu_torch.table.optimizers import SparseOptimizerConfig
 from paddlebox_tpu_torch.table.replica_cache import ReplicaCache
 
@@ -8,6 +8,7 @@ __all__ = [
     "FeatureType",
     "PassWorkingSet",
     "HostSparseTable",
+    "SpillIOError",
     "SparseOptimizerConfig",
     "ReplicaCache",
 ]

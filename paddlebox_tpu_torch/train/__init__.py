@@ -6,6 +6,15 @@ from paddlebox_tpu_torch.train.resident_step import (
     make_resident_superstep,
 )
 from paddlebox_tpu_torch.train.trainer import CTRTrainer
+from paddlebox_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    DeltaLineageError,
+    MembershipEpochError,
+    read_watermark,
+    validate_watermark,
+    verify_snapshot,
+)
+from paddlebox_tpu_torch.train.rollback import PassGuard
 
 __all__ = [
     "TrainState",
@@ -15,6 +24,13 @@ __all__ = [
     "build_device_batch",
     "make_resident_superstep",
     "CTRTrainer",
+    "CheckpointManager",
+    "DeltaLineageError",
+    "MembershipEpochError",
+    "read_watermark",
+    "validate_watermark",
+    "verify_snapshot",
+    "PassGuard",
     "Adam",
     "AdamState",
 ]

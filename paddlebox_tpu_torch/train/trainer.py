@@ -31,12 +31,19 @@ the oldest one, so it never waits for the work queued behind it. Dense
 params and the optimizer state persist across passes on the device; the
 sparse working-set table is rebuilt per pass.
 
+``save_dense`` / ``load_dense`` write and read the JAX package's dense
+file (the leaves of its ``(params, optax.adam state)`` tree, in the order
+``models/convert.py`` spells out), so a checkpoint crosses packages either
+way. ``load_dense`` (and a ``PassGuard`` revert) drop every device-side
+cache, so the next pass trains from the loaded state.
+
 Not ported: dense features, meshes, the pv/join phase, async dense,
-dumps, eval mode and checkpoints.
+dumps and eval mode.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional
@@ -54,6 +61,7 @@ from paddlebox_tpu_torch.train.dense_opt import Adam, AdamState
 from paddlebox_tpu_torch.train.resident_step import ResidentPass, make_resident_superstep
 from paddlebox_tpu_torch.train.train_step import TrainState, TrainStepConfig, make_train_step
 from paddlebox_tpu_torch.utils.device import DeviceLike, resolve_device
+from paddlebox_tpu_torch.utils.fs import atomic_write
 
 config.define_flag(
     "max_inflight_steps",
@@ -118,6 +126,49 @@ class CTRTrainer:
             k: v.detach().clone().to(self.device) for k, v in self.model.state_dict().items()
         }
         self.opt_state = self.dense_opt.init(self.params)
+
+    def drop_device_state(self) -> None:
+        """Forget every device-side cache: the pass state (table, params and
+        optimizer copies), the packer, the resident pass, its superstep and
+        its index partition. The next train_pass starts from
+        ``self.params`` / ``self.opt_state``."""
+        if self._packer_cache is not None:
+            self._packer_cache[2].close()
+        self._state = self._state_ws = None
+        self._packer_cache = self._resident_cache = self._sstep = self._idx_cache = None
+
+    def save_dense(self, path: str) -> None:
+        """Dense checkpoint (boxps_trainer.cc:123-131 parity) in the JAX
+        package's format: ``leaf_0`` .. ``leaf_{n-1}`` of its ``(params,
+        optax.adam state)`` tree, weights as [in, out], plus a ``treedef``
+        string naming each leaf. Written through ``atomic_write``, so a
+        crash cannot tear a file a cursor already names."""
+        from paddlebox_tpu_torch.models.convert import dense_leaf_names, dense_to_jax_leaves
+
+        path = path if path.endswith(".npz") else path + ".npz"
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        leaves = dense_to_jax_leaves(self.params, self.opt_state)
+        with atomic_write(path, "wb") as f:
+            np.savez_compressed(
+                f,
+                treedef=";".join(dense_leaf_names(self.params)),
+                **{f"leaf_{i}": x for i, x in enumerate(leaves)},
+            )
+
+    def load_dense(self, path: str) -> None:
+        """Read a dense checkpoint of either package onto ``self.device``;
+        raises ``ValueError`` on a leaf count or a shape that differs from
+        the current params. Drops the device-side caches."""
+        from paddlebox_tpu_torch.models.convert import dense_from_jax_leaves
+
+        if self.params is None:
+            raise RuntimeError("init_params first (defines the tree structure)")
+        path = path if path.endswith(".npz") else path + ".npz"
+        with np.load(path, allow_pickle=False) as data:
+            n_saved = sum(1 for k in data.files if k.startswith("leaf_"))
+            leaves = [data[f"leaf_{i}"] for i in range(n_saved)]
+        self.params, self.opt_state = dense_from_jax_leaves(leaves, self.params, self.device)
+        self.drop_device_state()
 
     # ---- pass loop -------------------------------------------------------
 

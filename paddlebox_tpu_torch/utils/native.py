@@ -10,7 +10,7 @@ edits them:
   gather (:func:`gather_f32_slot`) and the resident feed's pad sweep
   (:func:`block_stats`);
 - ``csrc/host_table.cc``: the sharded key -> row host store
-  (:class:`NativeHostStore`).
+  (:class:`NativeHostStore`), its memory tier and its disk (spill) tier.
 
 The library is built on first use with ``g++ -O3 -shared -fPIC -std=c++17``
 into ``paddlebox_tpu_torch/_build/``. Its name carries a hash of the
@@ -55,6 +55,24 @@ _u32p = ctypes.POINTER(ctypes.c_uint32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _f32p = ctypes.POINTER(ctypes.c_float)
+
+# spill victim-selection policies (csrc/host_table.cc kSpill*)
+SPILL_FIFO = 0  # creation-order sweep, untouched rows first
+SPILL_FREQ = 1  # coldness-ranked: admission/pin thresholds, then (show, epoch)
+
+# the int64 columns of pbx_table_tier_stats, one row per shard
+TIER_STAT_FIELDS = (
+    "mem_rows", "disk_rows", "spilled_total", "promoted_total",
+    "admitted_disk_first", "lazy_shrunk", "dead_records", "spill_bytes",
+)
+
+# the cumulative int64 slots of pbx_table_io_stats: where the writeback and
+# spill IO time went (the spill writers' gather vs fwrite split, and the
+# push pre-pass header reads)
+IO_STAT_FIELDS = (
+    "spill_gather_ns", "spill_fwrite_ns", "prepass_read_ns",
+    "stage_flushes", "stage_bytes",
+)
 
 
 def library_path() -> str:
@@ -143,12 +161,21 @@ def _declare(lib: ctypes.CDLL) -> None:
         ctypes.c_uint64, _i32p, ctypes.c_int, ctypes.c_float, ctypes.c_char_p,
     ])
     fn("pbx_table_free", None, [ctypes.c_void_p])
-    fn("pbx_table_size", ctypes.c_int64, [ctypes.c_void_p])
+    for name in ("pbx_table_size", "pbx_table_mem_rows", "pbx_table_disk_rows"):
+        fn(name, ctypes.c_int64, [ctypes.c_void_p])
     fn("pbx_table_pull_or_create", ctypes.c_int, [ctypes.c_void_p, _u64p, ctypes.c_int64, _f32p])
     fn("pbx_table_push", ctypes.c_int, [ctypes.c_void_p, _u64p, _f32p, ctypes.c_int64])
     fn("pbx_table_push_mt", ctypes.c_int,
        [ctypes.c_void_p, _u64p, _f32p, ctypes.c_int64, ctypes.c_int, _i64p])
+    fn("pbx_table_io_stats", None, [ctypes.c_void_p, _i64p])
     fn("pbx_table_decay_shrink", ctypes.c_int64, [ctypes.c_void_p, ctypes.c_float, ctypes.c_float])
+    fn("pbx_table_spill_cold_ex", ctypes.c_int64,
+       [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float, ctypes.c_float])
+    fn("pbx_table_tier_stats", ctypes.c_int64, [ctypes.c_void_p, _i64p])
+    fn("pbx_table_compact_spill", ctypes.c_int64, [ctypes.c_void_p])
+    fn("pbx_table_spill_stats", None, [ctypes.c_void_p, _i64p, _i64p, _i64p])
+    fn("pbx_table_shard_shows", ctypes.c_int64, [ctypes.c_void_p, ctypes.c_int, _f32p, ctypes.c_int64])
+    fn("pbx_table_shows_peek", ctypes.c_int, [ctypes.c_void_p, _u64p, ctypes.c_int64, _f32p])
     fn("pbx_table_shard_keys", ctypes.c_int64, [ctypes.c_void_p, ctypes.c_int, _u64p, ctypes.c_int64])
     fn("pbx_table_snapshot_count", ctypes.c_int64, [ctypes.c_void_p, ctypes.c_int, ctypes.c_int])
     fn("pbx_table_snapshot", ctypes.c_int64,
@@ -276,9 +303,11 @@ class NativePacker:
 
 
 class NativeHostStore:
-    """Handle over the C++ sharded key -> row store (``csrc/host_table.cc``),
-    its memory tier: batch ``pull_or_create`` and ``push`` run natively
-    across shards; a new key's row is a pure function of (seed, key)."""
+    """Handle over the C++ sharded key -> row store (``csrc/host_table.cc``):
+    batch ``pull_or_create`` and ``push`` run natively across shards; a new
+    key's row is a pure function of (seed, key). With ``spill_dir`` cold
+    rows can be evicted to per-shard disk files and are promoted lazily,
+    with the decays they missed applied on the way back."""
 
     def __init__(
         self,
@@ -289,6 +318,7 @@ class NativeHostStore:
         seed: int,
         init_cols: np.ndarray,
         init_range: float,
+        spill_dir: Optional[str] = None,
     ):
         lib = load()
         self._lib = lib
@@ -297,13 +327,22 @@ class NativeHostStore:
         ic = np.ascontiguousarray(init_cols, dtype=np.int32)
         self._h = lib.pbx_table_create(
             n_shards, width, show_col, clk_col, ctypes.c_uint64(seed),
-            _as_ptr(ic, ctypes.c_int32), len(ic), float(init_range), None,
+            _as_ptr(ic, ctypes.c_int32), len(ic), float(init_range),
+            spill_dir.encode() if spill_dir else None,
         )
         if not self._h:
             raise RuntimeError("native host tier: pbx_table_create failed")
 
     def __len__(self) -> int:
         return int(self._lib.pbx_table_size(self._h))
+
+    @property
+    def mem_rows(self) -> int:
+        return int(self._lib.pbx_table_mem_rows(self._h))
+
+    @property
+    def disk_rows(self) -> int:
+        return int(self._lib.pbx_table_disk_rows(self._h))
 
     def pull_or_create(self, keys: np.ndarray) -> np.ndarray:
         keys = np.ascontiguousarray(keys, dtype=np.uint64)
@@ -339,8 +378,78 @@ class NativeHostStore:
             raise IOError(f"native table push failed rc={rc}")
         return shard_ns.astype(np.float64) / 1e9
 
+    def io_stats(self) -> dict:
+        """Cumulative writeback and spill IO counters, keyed by
+        ``IO_STAT_FIELDS``."""
+        out = np.zeros(len(IO_STAT_FIELDS), np.int64)
+        self._lib.pbx_table_io_stats(self._h, _as_ptr(out, ctypes.c_int64))
+        return {k: int(v) for k, v in zip(IO_STAT_FIELDS, out)}
+
     def decay_and_shrink(self, decay: float, threshold: float) -> int:
         return int(self._lib.pbx_table_decay_shrink(self._h, decay, threshold))
+
+    def spill_cold(
+        self,
+        max_mem_rows: int,
+        policy: int = SPILL_FIFO,
+        pin_show: float = 0.0,
+        admit_show: float = 0.0,
+    ) -> int:
+        """One cap sweep; returns the rows spilled, or the native code when
+        negative (-1 tier disabled, -2 IO failure), which the table layer
+        turns into its typed error."""
+        return int(self._lib.pbx_table_spill_cold_ex(
+            self._h, int(max_mem_rows), int(policy), float(pin_show), float(admit_show),
+        ))
+
+    def compact_spill(self) -> int:
+        """Rewrite the shard spill files keeping only live records; returns
+        the live count, or the native code when negative (-1 tier disabled,
+        -2 IO failure)."""
+        return int(self._lib.pbx_table_compact_spill(self._h))
+
+    def spill_stats(self) -> tuple:
+        """(live_records, dead_records, file_bytes) of the disk tier."""
+        live, dead, nbytes = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int64()
+        self._lib.pbx_table_spill_stats(
+            self._h, ctypes.byref(live), ctypes.byref(dead), ctypes.byref(nbytes)
+        )
+        return int(live.value), int(dead.value), int(nbytes.value)
+
+    def tier_stats(self) -> np.ndarray:
+        """int64 [n_shards, len(TIER_STAT_FIELDS)]: each shard's occupancy
+        and cumulative spill and promote counters, in shard order."""
+        out = np.zeros((self.n_shards, len(TIER_STAT_FIELDS)), np.int64)
+        if self.n_shards:
+            self._lib.pbx_table_tier_stats(self._h, _as_ptr(out, ctypes.c_int64))
+        return out
+
+    def shard_shows(self, shard: int) -> np.ndarray:
+        """The SHOW column of one shard (memory and disk, the missed decays
+        applied), without copying the rows."""
+        n = int(self._lib.pbx_table_snapshot_count(self._h, shard, 0))
+        out = np.empty(n, np.float32)
+        if n:
+            got = int(self._lib.pbx_table_shard_shows(
+                self._h, shard, _as_ptr(out, ctypes.c_float), n
+            ))
+            if got < 0:
+                raise IOError(f"native shard_shows failed rc={got}")
+            out = out[:got]
+        return out
+
+    def shows_peek(self, keys: np.ndarray) -> np.ndarray:
+        """Decayed shows of a key batch from the memory tier (a key on disk
+        or absent reads 0); creates, promotes and touches nothing."""
+        keys = np.ascontiguousarray(keys, dtype=np.uint64)
+        out = np.zeros(len(keys), np.float32)
+        if len(keys):
+            rc = int(self._lib.pbx_table_shows_peek(
+                self._h, _as_ptr(keys, ctypes.c_uint64), len(keys), _as_ptr(out, ctypes.c_float),
+            ))
+            if rc < 0:
+                raise IOError(f"native shows_peek failed rc={rc}")
+        return out
 
     def shard_keys(self, shard: int) -> np.ndarray:
         """Keys of one shard, no values copied."""

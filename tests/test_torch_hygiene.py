@@ -21,8 +21,10 @@ _IMPORT_ALL = """
 import importlib, pkgutil, sys
 had_jax = "jax" in sys.modules
 import paddlebox_tpu_torch
-for m in pkgutil.walk_packages(paddlebox_tpu_torch.__path__, "paddlebox_tpu_torch."):
-    importlib.import_module(m.name)
+walked = [m.name for m in pkgutil.walk_packages(paddlebox_tpu_torch.__path__, "paddlebox_tpu_torch.")]
+for name in walked:
+    importlib.import_module(name)
+print("WALKED=" + ",".join(walked))
 new = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "paddlebox_tpu"))
 print("NEW=" + ("" if had_jax else ",".join(new)))
 print("PBT=" + ",".join(n for n in new if n.split(".")[0] == "paddlebox_tpu"))
@@ -38,6 +40,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     out = dict(line.split("=", 1) for line in r.stdout.splitlines() if "=" in line)
     assert out["NEW"] == "", out
     assert out["PBT"] == "", out
+    walked = set(out["WALKED"].split(","))
+    for m in ("train.checkpoint", "train.rollback", "serve.follower", "utils.fs"):
+        assert f"paddlebox_tpu_torch.{m}" in walked
 
 
 def test_no_file_names_the_jax_package():

@@ -331,7 +331,3 @@ def test_native_snapshot_and_touched_set_match_jax(native_tables):
     touched = np.concatenate([t._native.snapshot_shard(s, True, False)[0] for s in range(t.n_shards)])
     assert len(touched) == 0  # cleared by the snapshots above
 
-
-def test_spill_dir_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError):
-        HostSparseTable(ValueLayout(embedx_dim=D), n_shards=2, spill_dir=str(tmp_path))
