@@ -93,7 +93,32 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    ``begin_pass``, after which pass tables, host tables and dense state are
    bitwise the live stack's. Every step launches 2 gathers and 1 writeback.
    Printed: the saves' seconds, bytes and keys, the follower's applies,
-   ``resume``, publish to first served batch, spilled and promoted rows.
+   ``resume``, publish to first served batch, spilled and promoted rows;
+9. the pass boundary on bench.py's path ("pass_boundary"), at full width
+   on fresh stacks: bench.py's data (16 files x 8192 records) and its next
+   pass (``reuse_pool``: three quarters of the cold draws from pass 1's
+   keys). Run 1 takes bench.py's flags (bf16 wire, pipelined, carried): the
+   load, ``begin_pass(512)``, the preload of pass 2, ``prepare_pass(96)``,
+   a warm-up, 96 resident steps, then ``end_pass_async(
+   trained_table_device())``, ``wait_preload_done``, ``begin_pass(512)``
+   (the splice: the carried rows through ``pull_rows_cuda`` and
+   ``write_rows_cuda``, the departing rows fetched, the new rows sent),
+   ``end_pass(None)`` and ``drain_pending``. The spliced table must be
+   bitwise what the plain versions build from the carried table and the
+   host rows, and the launch counts of this boundary (from 0 before
+   ``end_pass_async`` to after the drain) must hold both kernels. Run 2
+   is bench.py's sequential ablation (``boundary_pipeline=0``), bitwise
+   equal to run 1 in the pass-2 table and the drained host table. Run 3
+   (4 files, 16 steps a pass, fp32 wire, ``shrink_threshold=0``) trains
+   two passes carried and two classic: pass-2 tables, pass-2 losses and
+   host tables bitwise equal. Printed: bench.py's ``writeback_s``,
+   ``preload_join_s``, ``finalize2_s`` and ``boundary_s``, the
+   ``boundary.*`` gauges, carried, departed and new keys, the wire's bytes
+   each way beside their fp32 size, pass 1's training samples/s with the
+   preload running beside phase 6's, ``load_into_memory`` split into read,
+   shuffle and key collection, and ``prepare_pass`` split into the
+   resident upload, the batch partition, its pad stats and the index
+   partition.
 
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -423,23 +448,30 @@ def time_fns(fns, flush, restore=None):
     )
 
 
-def write_bench_files(tmpdir, rng, n_files=N_FILES, tag="part"):
-    """bench.py's data: ``n_files`` x RECORDS_PER_FILE slot lines, one key
-    per slot, a quarter from the hot head, the rest uniform, POS_FRAC
-    positive."""
-    files = []
+def write_bench_files(tmpdir, rng, n_files=N_FILES, tag="part", reuse_pool=None):
+    """bench.py's ``write_files`` (flat records): ``n_files`` x
+    RECORDS_PER_FILE slot lines, one key a slot, a quarter from the hot
+    head, the rest uniform, POS_FRAC positive; with ``reuse_pool`` three
+    quarters of the cold draws come from it (bench.py's next pass).
+    Returns (files, this pass's cold keys)."""
+    files, pool = [], []
     for fi in range(n_files):
         n = RECORDS_PER_FILE
         hot = rng.integers(1, HOT_KEYS, (n, NUM_SLOTS))
         cold = rng.integers(1, KEY_SPACE, (n, NUM_SLOTS))
-        keys = np.where(rng.random((n, NUM_SLOTS)) < HOT_FRAC, hot, cold)
+        if reuse_pool is not None:
+            recur = reuse_pool[rng.integers(0, len(reuse_pool), (n, NUM_SLOTS))]
+            cold = np.where(rng.random((n, NUM_SLOTS)) < 0.75, recur, cold)
+        take_hot = rng.random((n, NUM_SLOTS)) < HOT_FRAC
+        keys = np.where(take_hot, hot, cold)
+        pool.append(keys[~take_hot])
         labels = (rng.random(n) < POS_FRAC).astype(np.int32)
         path = os.path.join(tmpdir, f"{tag}-{fi:03d}.txt")
         with open(path, "w") as f:
             for i in range(n):
                 f.write(f"1 {labels[i]}.0 " + " ".join(f"1 {k}" for k in keys[i]) + "\n")
         files.append(path)
-    return files
+    return files, np.concatenate(pool)
 
 
 def fresh_state(table0, params0, opt0, dev):
@@ -621,8 +653,9 @@ def main() -> int:
     train = train_phase(args, dev, card, ck, pull_push, lay, schema)
     serve_counts, serve_err, published = publish_phase(args, card, ck, pull_push, lay, schema, scorer, train)
     max_err = max(max_err, serve_err)
+    boundary_counts = boundary_phase(args, card, ck, lay, schema, train)
 
-    by_path = {"serve": serve_counts, **train["counts"], **published}
+    by_path = {"serve": serve_counts, **train["counts"], **published, "boundary": boundary_counts}
     emit({"kernels": [
         {
             "name": name,
@@ -632,7 +665,7 @@ def main() -> int:
             # every main path, each counted from 0: serving, training on the
             # resident, the packer and the slow feed, then phase 8's serving
             # through the Follower and its passes on the live and the
-            # resumed stacks
+            # resumed stacks, then phase 9's pass boundary
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": err,
@@ -879,7 +912,7 @@ def train_phase(args, dev, card, ck, pull_push, lay, schema):
     bounds = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmpdir:
         t0 = time.perf_counter()
-        files = write_bench_files(tmpdir, rng)
+        files, _ = write_bench_files(tmpdir, rng)
         write_s = time.perf_counter() - t0
         # bench.py's tier: the native store, the native parser
         table = HostSparseTable(lay, sparse_opt, n_shards=64, seed=args.seed)
@@ -1099,6 +1132,7 @@ def train_phase(args, dev, card, ck, pull_push, lay, schema):
         "counts": counts, "write": res["write_rows_cuda"], "gather": res["pull_rows_cuda"],
         "write_err": write_err, "gather_err": gather_err,
         "table": table, "trainer": trainer, "cfg": cfg, "sparse_opt": sparse_opt,
+        "resident_samples_per_s": BATCH * TRAIN_BATCHES / paths["resident"][0],
     }
 
 
@@ -1392,7 +1426,7 @@ def publish_phase(args, card, ck, pull_push, lay, schema, scorer, live):
         # the second day: part of the keys touched, some new, then a delta.
         # Phase 6's data came from --seed + 1, so each later day takes the
         # next seed: the same seed would replay phase 6's first files
-        day2 = write_bench_files(tmp, np.random.default_rng(args.seed + 2), DAY_FILES, "day2")
+        day2, _ = write_bench_files(tmp, np.random.default_rng(args.seed + 2), DAY_FILES, "day2")
         counts["train_day2"], pass_keys, _ = day_pass(
             args, schema, table, trainer, day2, ck, "second day (live stack)", need_save_delta=False)
         t0 = time.perf_counter()
@@ -1428,7 +1462,7 @@ def publish_phase(args, card, ck, pull_push, lay, schema, scorer, live):
         print(f"resume in {nums['resume_s']:.3f} s: table, params and Adam state bitwise the live ones", flush=True)
 
         # the third day on both stacks; the resumed one spills at its end_pass
-        day3 = write_bench_files(tmp, np.random.default_rng(args.seed + 3), DAY_FILES, "day3")
+        day3, _ = write_bench_files(tmp, np.random.default_rng(args.seed + 3), DAY_FILES, "day3")
         counts["train_live"], _, _ = day_pass(args, schema, table, trainer, day3, ck, "third day (live stack)")
         counts["train_resumed"], _, _ = day_pass(args, schema, rtable, rtrainer, day3, ck,
                                                  "third day (resumed stack)")
@@ -1455,6 +1489,229 @@ def publish_phase(args, card, ck, pull_push, lay, schema, scorer, live):
     nums["phase_s"] = time.perf_counter() - t_phase - serve_s  # phase 8's own seconds
     emit({"card": card, "phase": "publish_follow_resume", **nums})
     return serve_counts, serve_err, counts
+
+
+BOUNDARY_GAUGES = (
+    "dedup", "premerge", "prefetch_pull", "splice", "pull", "writeback", "writeback_hidden", "overlap_hidden",
+)
+WIRE_STATS = tuple(f"wire.{d}_{k}_total" for d in ("fetch", "send") for k in ("rows", "bytes", "fp32_bytes"))
+
+
+def wire_stats() -> dict:
+    from paddlebox_tpu_torch.utils.monitor import STAT_GET
+
+    return {k: STAT_GET(k) for k in WIRE_STATS}
+
+
+def wire_delta(before: dict) -> dict:
+    now = wire_stats()
+    return {k[len("wire."):-len("_total")]: now[k] - before[k] for k in WIRE_STATS}
+
+
+def plain_splice(ck, lay, ws1, dev1, ws2, table, decay, mode):
+    """The spliced pass-2 table as the plain versions build it: the rows of
+    keys in both passes gathered from the carried table, their show and
+    click decayed once, and the new keys' host rows over the wire."""
+    from paddlebox_tpu_torch.ops.wire_quant import send_rows
+
+    dev = dev1.device
+    k1, k2 = ws1.sorted_keys, ws2.sorted_keys
+    pos = np.minimum(np.searchsorted(k1, k2), len(k1) - 1)
+    common = k1[pos] == k2
+    mult = torch.ones(lay.width, device=dev)
+    mult[[lay.SHOW, lay.CLK]] = float(np.float32(decay))
+    out = torch.zeros((ws2.n_mesh_shards * ws2.capacity, lay.width), device=dev)
+
+    def ids(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    carried = ck.pull_rows_ref(dev1, ids(ws1.row_of_sorted[pos[common]])) * mult[None, :]
+    ck.write_rows_ref(out, ids(ws2.row_of_sorted[common]), carried)
+    new_rows = send_rows(table.pull_or_create(k2[~common]), lay, mode, dev)
+    ck.write_rows_ref(out, ids(ws2.row_of_sorted[~common]), new_rows)
+    return out
+
+
+def bench_boundary_run(args, cfg, lay, schema, files1, files2, pipelined, ck):
+    """One run of bench.py's pass and boundary at bench.py's flags (with
+    ``boundary_pipeline=pipelined``) on a fresh native table and trainer.
+    Returns (numbers, the boundary's launch counts, the pass-2 table on
+    the host, the host table after the drain)."""
+    from paddlebox_tpu_torch.data import BoxPSDataset
+    from paddlebox_tpu_torch.table import HostSparseTable
+    from paddlebox_tpu_torch.utils.monitor import STAT_GET, STAT_RESET
+
+    for k in BOUNDARY_GAUGES:  # a gauge this run does not set reads 0
+        STAT_RESET(f"boundary.{k}_s")
+    opt = cfg.sparse_opt
+    table = HostSparseTable(lay, opt, n_shards=64, seed=args.seed)
+    ds = BoxPSDataset(schema, table, batch_size=BATCH, shuffle_mode="local", seed=args.seed)
+    nums = {}
+    ds.set_filelist(files1)
+    t0 = time.perf_counter()
+    ds.load_into_memory()
+    nums["load_into_memory_s"] = time.perf_counter() - t0
+    nums["load_into_memory_split_s"] = {
+        "read": ds.stats.read_s, "shuffle": ds.stats.shuffle_s, "key_collection": ds.stats.keys_s,
+    }
+    t0 = time.perf_counter()
+    ds.begin_pass(round_to=512)
+    nums["begin_pass_s"] = time.perf_counter() - t0
+    trainer = new_trainer(args, cfg, lay)
+    if pipelined:
+        ds.set_filelist(files2)
+        ds.preload_into_memory()
+    trainer.prepare_pass(ds, n_batches=TRAIN_BATCHES)
+    nums["prepare_pass_s"] = trainer.last_prepare_s
+    nums["prepare_pass_split_s"] = dict(trainer.last_prepare_parts)
+    trainer.train_pass(ds, n_batches=WARM_BATCHES)
+    torch.cuda.synchronize()
+    nums["preload_running_at_train"] = bool(pipelined and ds._preload_thread.is_alive())
+    t0 = time.perf_counter()
+    out = trainer.train_pass(ds, n_batches=TRAIN_BATCHES)
+    torch.cuda.synchronize()
+    nums["train_samples_per_s"] = BATCH * TRAIN_BATCHES / (time.perf_counter() - t0)
+    if out["batches"] != TRAIN_BATCHES or not np.isfinite(out["loss"]):
+        raise AssertionError(f"pass 1 trained {out['batches']} steps, loss {out['loss']}")
+    ws1, dev1 = ds.ws, trainer.trained_table_device()
+
+    # bench.py's boundary, its launch counts from 0
+    wire0 = wire_stats()
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    if pipelined:
+        ds.end_pass_async(dev1)
+        nums["writeback_s"] = time.perf_counter() - t0  # the dispatch
+        t0 = time.perf_counter()
+        ds.wait_preload_done()
+        nums["preload_join_s"] = time.perf_counter() - t0
+    else:
+        ds.end_pass(dev1)
+        nums["writeback_s"] = time.perf_counter() - t0
+        ds.set_filelist(files2)
+        t0 = time.perf_counter()
+        ds.load_into_memory()
+        nums["load2_s"] = time.perf_counter() - t0
+        nums["preload_join_s"] = 0.0
+    t0 = time.perf_counter()
+    dev2 = ds.begin_pass(round_to=512)
+    nums["finalize2_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    nums["finalize2_synced_s"] = time.perf_counter() - t0
+    nums["boundary_s"] = nums["writeback_s"] + nums["finalize2_s"]
+    nums["boundary_gauges_s"] = {k: STAT_GET(f"boundary.{k}_s") for k in BOUNDARY_GAUGES}
+    nums["wire_boundary"] = wire_delta(wire0)
+    ws2 = ds.ws
+    if not isinstance(dev2, torch.Tensor) or dev2.device != dev1.device:
+        raise AssertionError("begin_pass after a carried end_pass did not splice on the trained table's device")
+    k1, k2 = ws1.sorted_keys, ws2.sorted_keys
+    n_carried = len(np.intersect1d(k1, k2, assume_unique=True))
+    nums["keys"] = {"pass1": len(k1), "pass2": len(k2), "carried": n_carried,
+                    "departed": len(k1) - n_carried, "new": len(k2) - n_carried}
+    want = plain_splice(ck, lay, ws1, dev1, ws2, table, opt.show_clk_decay, "bf16")
+    if not torch.equal(want, dev2.reshape(-1, lay.width)):
+        raise AssertionError("the spliced pass-2 table differs from the plain versions' splice")
+    pass2 = dev2.reshape(-1, lay.width).cpu().numpy()
+    wire1 = wire_stats()
+    t0 = time.perf_counter()
+    ended = ds.end_pass(None)
+    nums["end_pass2_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nums["drained_keys"] = table.drain_pending()
+    nums["drain_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = dict(ck.launch_counts)
+    nums["wire_drain"] = wire_delta(wire1)
+    nums["dropped"] = ended["dropped"]
+    if min(counts.values()) == 0:
+        raise AssertionError(f"a kernel of the boundary never launched: {counts}")
+    # the boundary's other gathers against the plain version at their
+    # shapes (these launches are not the path's): the departing rows and
+    # the rows the drain flushed
+    in2 = np.isin(k1, k2, assume_unique=True)
+    for what, rows in (("departures", ws1.row_of_sorted[~in2]), ("drain", ws1.row_of_sorted[in2])):
+        r = torch.from_numpy(np.ascontiguousarray(rows)).to(dev1.device)
+        check_gather(ck, dev1, r, f"boundary {what} R={dev1.shape[0]} W={lay.width} U={len(rows)} int64")
+    return nums, counts, pass2, table
+
+
+def small_boundary_run(args, lay, schema, files1, files2, carried, ck):
+    """Run 3: two passes of 16 resident steps at fp32 wire and
+    ``shrink_threshold=0``, carried or classic. Returns (pass-2 table on
+    the host, pass-2 losses, host table after the drain)."""
+    from paddlebox_tpu_torch.data import BoxPSDataset
+    from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig
+    from paddlebox_tpu_torch.train import TrainStepConfig
+
+    opt = SparseOptimizerConfig(embedx_threshold=0.0, shrink_threshold=0.0)
+    cfg = TrainStepConfig(num_slots=NUM_SLOTS, batch_size=BATCH, layout=lay, sparse_opt=opt, auc_buckets=100_000)
+    table = HostSparseTable(lay, opt, n_shards=64, seed=args.seed)
+    ds = BoxPSDataset(schema, table, batch_size=BATCH, shuffle_mode="local", seed=args.seed)
+    trainer = new_trainer(args, cfg, lay)
+    out = {}
+    with flags(wire_dtype="fp32", boundary_pipeline=0, enable_carried_table=int(carried)):
+        for p, files in enumerate((files1, files2)):
+            ds.set_filelist(files)
+            ds.load_into_memory()
+            dev = ds.begin_pass(round_to=512)
+            if p == 1:
+                if carried != isinstance(dev, torch.Tensor):
+                    raise AssertionError(f"carried={carried} but begin_pass gave a {type(dev)}")
+                out["pass2"] = (dev.cpu().numpy() if carried else dev).reshape(-1, lay.width)
+            losses = []
+            trainer.train_pass(ds, n_batches=DAY_STEPS, on_batch=lambda i, m: losses.append(m["loss"]))
+            ds.end_pass(trainer.trained_table_device() if carried else trainer.trained_table())
+        table.drain_pending()
+    out["losses"] = torch.stack(losses).cpu().numpy()
+    return out, table
+
+
+def boundary_phase(args, card, ck, lay, schema, train):
+    """Phase 9: bench.py's pass boundary at full width, pipelined (run 1),
+    sequential (run 2) and, small, carried against classic (run 3).
+    Returns run 1's boundary launch counts."""
+    from paddlebox_tpu_torch.train import TrainStepConfig
+
+    t_phase = time.perf_counter()
+    cfg = TrainStepConfig(num_slots=NUM_SLOTS, batch_size=BATCH, layout=lay, sparse_opt=train["sparse_opt"],
+                          auc_buckets=100_000)
+    rng = np.random.default_rng(args.seed + 5)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_boundary_") as tmp:
+        t0 = time.perf_counter()
+        files1, pool = write_bench_files(tmp, rng, N_FILES)
+        files2, _ = write_bench_files(tmp, rng, N_FILES, "p2", reuse_pool=pool)
+        write_s = time.perf_counter() - t0
+        for name, pipelined in (("pipelined", 1), ("sequential", 0)):
+            with flags(wire_dtype="bf16", boundary_pipeline=pipelined, enable_carried_table=1):
+                runs[name] = bench_boundary_run(args, cfg, lay, schema, files1, files2, pipelined, ck)
+            nums = runs[name][0]
+            print(f"pass boundary, {name}: writeback_s {nums['writeback_s']:.4f} preload_join_s "
+                  f"{nums['preload_join_s']:.4f} finalize2_s {nums['finalize2_s']:.4f} boundary_s "
+                  f"{nums['boundary_s']:.4f}; keys {nums['keys']}; launches {runs[name][1]}", flush=True)
+        (n1, counts, t1, h1), (n2, _, t2, h2) = runs["pipelined"], runs["sequential"]
+        if not (np.array_equal(t1, t2) and same_tables(h1, h2) and n1["dropped"] == n2["dropped"]):
+            raise AssertionError("the pipelined and the sequential boundary differ")
+        print("pass boundary: pipelined and sequential give bitwise-equal pass-2 tables and drained host tables",
+              flush=True)
+        del runs, h1, h2, t1, t2
+
+        small1, pool = write_bench_files(tmp, rng, 4, "small")
+        small2, _ = write_bench_files(tmp, rng, 4, "small2", reuse_pool=pool)
+        (c, hc), (d, hd) = (small_boundary_run(args, lay, schema, small1, small2, carried, ck)
+                            for carried in (False, True))
+        if not (np.array_equal(c["pass2"], d["pass2"]) and np.array_equal(c["losses"], d["losses"])
+                and same_tables(hc, hd)):
+            raise AssertionError("carried and classic boundaries differ at fp32 and shrink_threshold=0")
+        print(f"pass boundary: carried and classic at fp32, shrink_threshold=0 ({DAY_STEPS} steps a pass) give "
+              "bitwise-equal pass-2 tables, pass-2 losses and host tables", flush=True)
+    emit({
+        "card": card, "phase": "pass_boundary", "data_write_s": write_s, "pipelined": n1, "sequential": n2,
+        "phase6_train_samples_per_s": train["resident_samples_per_s"],
+        "phase_s": time.perf_counter() - t_phase,
+    })
+    return counts
 
 
 if __name__ == "__main__":

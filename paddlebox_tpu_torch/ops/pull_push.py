@@ -33,7 +33,7 @@ from paddlebox_tpu_torch.table.optimizers import SparseOptimizerConfig
 from paddlebox_tpu_torch.table.value_layout import FeatureType, ValueLayout
 
 
-def _gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """Row gather: the CUDA kernel on a GPU table, the plain version on a
     CPU one. Nothing else picks between them."""
     if table.is_cuda:
@@ -43,7 +43,7 @@ def _gather_rows(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return pull_rows_ref(table, rows)
 
 
-def _write_rows(table: torch.Tensor, rows: torch.Tensor, new_rows: torch.Tensor) -> torch.Tensor:
+def write_rows(table: torch.Tensor, rows: torch.Tensor, new_rows: torch.Tensor) -> torch.Tensor:
     """Row writeback in place: the CUDA kernel on a GPU table, the plain
     version on a CPU one. Nothing else picks between them."""
     if table.is_cuda:
@@ -85,7 +85,7 @@ def pull_sparse_rows(
     show count has not reached the activation threshold or, on VARIABLE
     layouts, per column as the graded dims unlock.
     """
-    picked = _gather_rows(table, rows)  # [U, width]
+    picked = gather_rows(table, rows)  # [U, width]
     cvm_block = picked[:, : layout.cvm_offset]
     embedx = picked[:, layout.embedx_col : layout.embedx_col + layout.embedx_dim]
     active = embedx_active_mask(layout, picked[:, layout.SHOW], embedx_threshold)
@@ -115,12 +115,12 @@ def push_sparse_rows(
     sums each run of duplicates in order: the same bits on every run, no
     float atomics.
     """
-    old = _gather_rows(table, rows)  # [U, width]
+    old = gather_rows(table, rows)  # [U, width]
     new_rows = sparse_update_rows(
         old, grads, show_counts, clk_counts, layout, opt, lr_scale
     )
     if config.get_flag("enable_pullpush_dedup_keys"):
-        return _write_rows(table, rows, new_rows)
+        return write_rows(table, rows, new_rows)
     return table.index_put_((rows.long(),), new_rows - old, accumulate=True)
 
 

@@ -252,16 +252,22 @@ def make_train_step(
 
         @torch.no_grad()
         def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+            if "rank_offset" in batch:
+                raise NotImplementedError("rank_offset (the pv/join phase) is not ported yet")
             pulled_u = pull_sparse_rows(
                 state.table, batch["uniq_rows"], lay, opt.embedx_threshold, cfg.pull_scale
             )  # [U, PW]
             flat = pulled_u.index_select(0, batch["inverse"].long())  # [L, PW]
             labels = batch["labels"]
+            # the instance weights weigh the loss and mask the AUC, as in
+            # training; AdjustInsWeight is a training-only rule
+            ins_weight = batch.get("ins_weight")
             loss, preds = local_forward(
                 model_apply, cfg, state.params, flat, batch["segments"], labels,
-                batch.get("dense"),
+                batch.get("dense"), ins_weight=ins_weight,
             )
-            new_auc = auc_update(state.auc, preds, labels)
+            auc_mask = None if ins_weight is None else (ins_weight > 0)
+            new_auc = auc_update(state.auc, preds, labels, auc_mask)
             step_no = state.step + 1
             metrics = {"loss": loss, "step": step_no, "preds": preds, "labels": labels}
             return (

@@ -8,7 +8,8 @@ pass:
     dataset.load_into_memory(); dataset.begin_pass()
     trainer.prepare_pass(dataset, n_batches)      # optional: freeze pads
     metrics = trainer.train_pass(dataset, n_batches)
-    dataset.end_pass(trainer.trained_table())
+    dataset.end_pass(trainer.trained_table())         # classic boundary
+    # or dataset.end_pass(trainer.trained_table_device()): carried
 
 ``train_pass`` takes one of three feeds, as the JAX package does:
 
@@ -29,7 +30,11 @@ At most ``max_inflight_steps`` dispatches are in flight (one superstep
 ahead on the resident feed); the wait is on a CUDA event recorded after
 the oldest one, so it never waits for the work queued behind it. Dense
 params and the optimizer state persist across passes on the device; the
-sparse working-set table is rebuilt per pass.
+sparse working-set table is rebuilt per pass, as a copy of the dataset's
+pass table (a host array, or the spliced device tensor of a carried
+boundary): the step writes the table in place, and a table handed to
+``end_pass`` through :meth:`~CTRTrainer.trained_table_device` stays with
+its carrier untouched.
 
 ``save_dense`` / ``load_dense`` write and read the JAX package's dense
 file (the leaves of its ``(params, optax.adam state)`` tree, in the order
@@ -111,6 +116,10 @@ class CTRTrainer:
         self._sstep = None  # (ResidentPass, superstep)
         self._idx_cache = None  # (ResidentPass, host [n, B] int32, device copy)
         self.last_prepare_s = 0.0
+        # prepare_pass's seconds on the resident feed: the row stream's
+        # resolve and upload (a new ResidentPass), the batch partition, its
+        # pad stats (ResidentPass.ensure) and the index partition's upload
+        self.last_prepare_parts: Dict[str, float] = {}
 
         def model_apply(params, slot_feats, dense):
             return functional_call(self.model, params, (slot_feats, dense))
@@ -172,7 +181,7 @@ class CTRTrainer:
 
     # ---- pass loop -------------------------------------------------------
 
-    def _make_state(self, dev_table: np.ndarray, ws_key=None) -> TrainState:
+    def _make_state(self, dev_table, ws_key=None) -> TrainState:
         # later train_pass calls within one pass (same working set) must see
         # the rows the earlier calls trained: rebuild only when it changes
         if self._state is not None and ws_key is not None and self._state_ws is ws_key:
@@ -180,10 +189,14 @@ class CTRTrainer:
         self._state_ws = ws_key
         if self.params is None:
             self.init_params()
-        # the step updates the table in place: copy, so the dataset's host
-        # array stays the pass-open table. Params and optimizer state are
-        # copies too, so a failed pass leaves self.params as they were.
-        table = torch.from_numpy(dev_table.reshape(-1, dev_table.shape[-1]))
+        # the step updates the table in place: copy, so the dataset's pass
+        # table (a host array or a device tensor: the spliced table, or one
+        # a handoff shares with the trainer before) stays as it is. Params
+        # and optimizer state are copies too, so a failed pass leaves
+        # self.params as they were.
+        if not isinstance(dev_table, torch.Tensor):
+            dev_table = torch.from_numpy(dev_table)
+        table = dev_table.reshape(-1, dev_table.shape[-1])
         return TrainState(
             table=table.to(self.device, copy=True),
             params={k: v.clone() for k, v in self.params.items()},
@@ -374,10 +387,17 @@ class CTRTrainer:
             if dataset.store is None or dataset.ws is None:
                 return
             if self._use_resident(dataset):
+                t = [time.perf_counter()]
                 rp = self._get_resident(dataset)
+                t.append(time.perf_counter())
                 blocks = [np.asarray(b, dtype=np.int32) for b in dataset.batch_indices(n_batches)]
+                t.append(time.perf_counter())
                 rp.ensure(blocks)
+                t.append(time.perf_counter())
                 self._index_partition(rp, blocks)
+                t.append(time.perf_counter())
+                names = ("resident_upload_s", "batch_indices_s", "pad_stats_s", "index_partition_s")
+                self.last_prepare_parts = {k: b - a for k, a, b in zip(names, t, t[1:])}
             else:
                 self._get_packer(dataset).freeze_shapes(dataset.batch_indices(n_batches))
         finally:
@@ -465,3 +485,28 @@ class CTRTrainer:
         if self._state is None:
             raise RuntimeError("no trained pass")
         return self._state.table.to("cpu", copy=True).numpy()
+
+    def trained_table_device(self) -> torch.Tensor:
+        """The live trained table on the device, [rows, width], no copy.
+        Handed to ``dataset.end_pass`` it opts into the carried boundary
+        (``table/carrier.py``): the next begin_pass splices the rows that
+        stay on the device and fetches only the departing ones. The
+        trainer never writes it again: the next pass trains a copy."""
+        if self._state is None:
+            raise RuntimeError("no trained pass")
+        return self._state.table
+
+    def handoff_table(self, dataset: BoxPSDataset) -> None:
+        """Carry this trainer's trained table into another trainer's
+        train_pass over the same working set, on the device: a two-phase
+        pass trains with two trainers (each binds one step config), and
+        the second must start from the first one's rows, not the
+        pass-open table::
+
+            join_tr.train_pass(ds); join_tr.handoff_table(ds)
+            upd_tr.train_pass(ds);  ds.end_pass(upd_tr.trained_table())
+        """
+        if self._state is None:
+            raise RuntimeError("no trained pass")
+        t = self._state.table
+        dataset.device_table = t.reshape(-1, dataset.ws.capacity, t.shape[-1])

@@ -243,6 +243,12 @@ def block_stats(
     rec_base = np.ascontiguousarray(rec_base, dtype=np.int64)
     key_counts = np.ascontiguousarray(key_counts, dtype=np.int64)
     blocks = np.ascontiguousarray(blocks, dtype=np.int64)
+    # the native sweep trusts every record's key span to lie in ``rows``
+    if len(rec_base) != len(key_counts) or (
+        len(rec_base)
+        and ((rec_base < 0).any() or (key_counts < 0).any() or (rec_base + key_counts > len(rows)).any())
+    ):
+        raise ValueError("block_stats: record index or row out of range")
     n_blocks, b = blocks.shape
     L_out = np.empty(n_blocks, np.int64)
     bmax_out = np.empty(n_blocks, np.int64)

@@ -73,7 +73,8 @@ def test_deepfm_logits_match_jax(dense_dim):
     np.testing.assert_allclose(got, want, rtol=0, atol=LOGIT_ATOL)
 
 
-def test_eval_step_matches_jax():
+def _eval_both(ins_weight=None, adjust=None):
+    """One eval step of each package on the same table and batch."""
     jmodel, jparams, model = _models()
     lay, jlay = ValueLayout(embedx_dim=D), JValueLayout(embedx_dim=D)
     rng = np.random.default_rng(4)
@@ -89,8 +90,11 @@ def test_eval_step_matches_jax():
         "segments": np.concatenate([segments, [S * B, S * B]]).astype(np.int32),
         "labels": (rng.random(B) < 0.5).astype(np.float32),
     }
-    jcfg = JTrainStepConfig(num_slots=S, batch_size=B, layout=jlay, auc_buckets=200)
-    cfg = TrainStepConfig(num_slots=S, batch_size=B, layout=lay, auc_buckets=200)
+    if ins_weight is not None:
+        batch["ins_weight"] = np.asarray(ins_weight, np.float32)
+    kw = {} if adjust is None else {"adjust_ins_weight": adjust}
+    jcfg = JTrainStepConfig(num_slots=S, batch_size=B, layout=jlay, auc_buckets=200, **kw)
+    cfg = TrainStepConfig(num_slots=S, batch_size=B, layout=lay, auc_buckets=200, **kw)
     jstep = jax.jit(jmake_train_step(jmodel.apply, None, jcfg, eval_mode=True))
     jstate = JTrainState(
         jnp.asarray(table), jparams, None, jauc_init(200), jnp.zeros((), jnp.int32)
@@ -112,6 +116,26 @@ def test_eval_step_matches_jax():
     np.testing.assert_array_equal(new.auc.pos.numpy(), np.asarray(jnew.auc.pos))
     np.testing.assert_array_equal(new.auc.neg.numpy(), np.asarray(jnew.auc.neg))
     assert new.table is state.table and new.params is state.params
+    return new, m, step, state, batch
+
+
+def test_eval_step_matches_jax():
+    _eval_both()
+
+
+@pytest.mark.parametrize("adjust", [None, (1, 20.0, 2.0)], ids=["plain", "adjust_ins_weight"])
+def test_eval_step_with_ins_weight_matches_jax(adjust):
+    """The eval step weighs the loss by ``ins_weight`` and counts only the
+    weighted instances in its AUC tables, as the JAX step does; the
+    AdjustInsWeight rule stays out of eval. Loss within rtol 1e-5, AUC
+    tables exact."""
+    w = np.array([1, 0, 2, 0, 1, 0.5, 0, 1], np.float32)
+    new, m, step, state, batch = _eval_both(ins_weight=w, adjust=adjust)
+    counted = int(new.auc.pos.sum() + new.auc.neg.sum())
+    assert counted == int((w > 0).sum()) == 5
+    with pytest.raises(NotImplementedError, match="rank_offset"):
+        step(state, {**{k: torch.from_numpy(v) for k, v in batch.items()},
+                     "rank_offset": torch.zeros((B, 3), dtype=torch.int32)})
 
 
 def test_train_mode_is_not_ported_yet():

@@ -331,3 +331,27 @@ def test_native_snapshot_and_touched_set_match_jax(native_tables):
     touched = np.concatenate([t._native.snapshot_shard(s, True, False)[0] for s in range(t.n_shards)])
     assert len(touched) == 0  # cleared by the snapshots above
 
+
+
+@pytest.mark.parametrize(
+    "base, counts",
+    [([0, 3, 6], [3, 3, 5]), ([0, -1, 4], [3, 2, 2]), ([0, 3, 4], [3, -1, 2])],
+    ids=["span_past_rows", "negative_base", "negative_count"],
+)
+def test_block_stats_raises_on_a_record_span_outside_rows(base, counts):
+    """A record whose key span leaves the rows array raises before the
+    native sweep reads it, with the message its own range check gives."""
+    rows = np.arange(10, dtype=np.int32)
+    blocks = np.array([[0, 1]], np.int64)  # the bad record need not be in a block
+    with pytest.raises(ValueError, match="out of range"):
+        native.block_stats(rows, np.array(base, np.int64), np.array(counts, np.int64), blocks, 16, 1)
+
+
+def test_block_stats_counts_in_span_records():
+    rows = np.array([0, 1, 1, 2, 17, 17], np.int32)
+    L, bmax = native.block_stats(
+        rows, np.array([0, 3], np.int64), np.array([3, 3], np.int64),
+        np.array([[0, 1], [1, 1]], np.int64), 16, 2,
+    )
+    assert L.tolist() == [6, 6]
+    assert bmax.tolist() == [3, 1]
