@@ -118,7 +118,39 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    preload running beside phase 6's, ``load_into_memory`` split into read,
    shuffle and key collection, and ``prepare_pass`` split into the
    resident upload, the batch partition, its pad stats and the index
-   partition.
+   partition;
+10. the join/update day ("join_update"), bench.py's ``PBOX_BENCH_PV``
+   shape on a fresh stack: bench.py's pv data (16 files x 8192 records,
+   the logkey column grouping consecutive records into queries of 1-4
+   ads, cmatch 222, ranks 1..n) from ``--seed + 6``, ``parse_logkey``,
+   the native store and parser, local shuffle, ``begin_pass(512)``,
+   ``set_current_phase(1)``, ``preprocess_instance(max_rank=4)``;
+   ``RankDeepFM(DeepFM, 39 * 19, max_rank=4)`` with
+   ``model_takes_rank_offset`` and a ``MetricRegistry`` of a join (phase
+   1), an update (phase 0) and a ``cmatch_rank_auc`` over "222:1,222:2"
+   metric: ``prepare_pass``, a warm-up epoch, two timed epochs and an eval
+   epoch on the resident pv feed (asserted through ``last_feed``, and
+   ``num_pv_batches()`` equal to the plan's), each epoch counting
+   ``memory_data_size()`` real instances, the eval epoch leaving table,
+   params and Adam state bitwise; the join metric 4 x that at the end of
+   the join phase and the update metric 0. Then 4 steps from one state
+   through the resident pv feed (K = 4 and K = 1), the pv packer feed and
+   the record-level feed, bitwise alike; twins and the plain gather and
+   writeback, bitwise; a resident pv superstep of 8 steps through the
+   trainer's stepper and registry feed with 0 host syncs, then that
+   trainer's host-clock split (8 steps, one a dispatch) and the card's
+   busy ms a step (the profiler over 8 steps). Then
+   ``handoff_table``, ``postprocess_instance``, ``set_current_phase(0)``,
+   an update trainer (the join params, a fresh Adam state) for one epoch
+   on the flat resident feed, ``end_pass``; and the day at a small size
+   (2 files, batch 256, dense tower (32, 16)) on the card against the
+   port's CPU path. Both kernels are held against their plain versions at
+   the join and the update batch's shapes. Printed: join samples/s
+   (bench.py's: 2 x ``memory_data_size()`` over the timed epochs'
+   seconds), the warm-up, ``preprocess_instance``, ``pv_plan`` and
+   ``prepare_pass`` seconds, pvs and batches an epoch, a join step's ms,
+   busy ms, idle share and host-clock split, update samples/s and the
+   three metrics' log lines.
 
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -176,6 +208,24 @@ SLOW_BUSY_STEPS = 4  # slow-feed steps under the profiler for its busy time
 FEED_STEPS = 4
 TWIN_STEPS = 4
 REPO = os.path.dirname(os.path.abspath(__file__))
+# phase 10: bench.py's join shape (PBOX_BENCH_PV=1)
+MAX_RANK = 4  # the generator's ranks are 1..4
+JOIN_TIMED_EPOCHS = 2
+JOIN_FEED_STEPS = 4  # steps of the four-feed and twin checks
+JOIN_SYNC_STEPS = 8  # one resident pv superstep at K = RESIDENT_K
+JOIN_SMALL_FILES = 2  # the card against the CPU path
+JOIN_SMALL_BATCH = 256
+JOIN_SMALL_STEPS = 4  # steps of each phase there
+# phase 6's small dense tower there: at full width the bf16 MLP's rounding,
+# which differs between cuBLAS and the CPU, flips a few ReLU units within
+# a few steps, and Adam moves each weight they feed by up to lr a step
+JOIN_SMALL_HIDDEN = (32, 16)
+# there the params differ by ~2e-5 after the update phase's first steps:
+# its fresh Adam state divides each gradient element by its own magnitude,
+# so an element near zero whose bf16 rounding differs moves its weight by
+# up to lr (1e-3) a step; the bound is test_torch_train_step.py's, under
+# that worst case. The table and the loss keep phase 6's bounds.
+JOIN_PARAMS_ATOL = 2e-4
 # card vs the port's CPU path, a few training steps at a small config. The
 # bf16 MLP may round at other places in cuBLAS and the CPU backend, and a
 # dense weight whose grad is near zero can then take another Adam step of
@@ -448,13 +498,22 @@ def time_fns(fns, flush, restore=None):
     )
 
 
-def write_bench_files(tmpdir, rng, n_files=N_FILES, tag="part", reuse_pool=None):
-    """bench.py's ``write_files`` (flat records): ``n_files`` x
-    RECORDS_PER_FILE slot lines, one key a slot, a quarter from the hot
-    head, the rest uniform, POS_FRAC positive; with ``reuse_pool`` three
-    quarters of the cold draws come from it (bench.py's next pass).
-    Returns (files, this pass's cold keys)."""
+def bench_logkey(search_id: int, cmatch: int, rank: int) -> str:
+    """bench.py's logkey: 11 pad chars, 3-hex cmatch, 2-hex rank, 16-hex
+    search id (the reference's SlotRecord layout)."""
+    return "0" * 11 + format(cmatch, "03x") + format(rank, "02x") + format(search_id, "016x")
+
+
+def write_bench_files(tmpdir, rng, n_files=N_FILES, tag="part", reuse_pool=None, pv=False):
+    """bench.py's ``write_files``: ``n_files`` x RECORDS_PER_FILE slot
+    lines, one key a slot, a quarter from the hot head, the rest uniform,
+    POS_FRAC positive; with ``reuse_pool`` three quarters of the cold draws
+    come from it (bench.py's next pass); with ``pv`` a logkey column first
+    groups consecutive records into queries of 1-4 ads, cmatch 222, ranks
+    1..n (bench.py's join-phase data). Returns (files, this pass's cold
+    keys)."""
     files, pool = [], []
+    search_id = 1
     for fi in range(n_files):
         n = RECORDS_PER_FILE
         hot = rng.integers(1, HOT_KEYS, (n, NUM_SLOTS))
@@ -466,10 +525,19 @@ def write_bench_files(tmpdir, rng, n_files=N_FILES, tag="part", reuse_pool=None)
         keys = np.where(take_hot, hot, cold)
         pool.append(keys[~take_hot])
         labels = (rng.random(n) < POS_FRAC).astype(np.int32)
+        heads = [""] * n
+        if pv:
+            i = 0
+            while i < n:
+                n_ads = int(rng.integers(1, 5))
+                for r in range(1, min(n_ads, n - i) + 1):
+                    heads[i + r - 1] = f"1 {bench_logkey(search_id, 222, r)} "
+                search_id += 1
+                i += n_ads
         path = os.path.join(tmpdir, f"{tag}-{fi:03d}.txt")
         with open(path, "w") as f:
             for i in range(n):
-                f.write(f"1 {labels[i]}.0 " + " ".join(f"1 {k}" for k in keys[i]) + "\n")
+                f.write(heads[i] + f"1 {labels[i]}.0 " + " ".join(f"1 {k}" for k in keys[i]) + "\n")
         files.append(path)
     return files, np.concatenate(pool)
 
@@ -654,8 +722,9 @@ def main() -> int:
     serve_counts, serve_err, published = publish_phase(args, card, ck, pull_push, lay, schema, scorer, train)
     max_err = max(max_err, serve_err)
     boundary_counts = boundary_phase(args, card, ck, lay, schema, train)
+    join_counts, join_err = join_update_phase(args, dev, card, ck, pull_push, lay)
 
-    by_path = {"serve": serve_counts, **train["counts"], **published, "boundary": boundary_counts}
+    by_path = {"serve": serve_counts, **train["counts"], **published, "boundary": boundary_counts, **join_counts}
     emit({"kernels": [
         {
             "name": name,
@@ -665,7 +734,8 @@ def main() -> int:
             # every main path, each counted from 0: serving, training on the
             # resident, the packer and the slow feed, then phase 8's serving
             # through the Follower and its passes on the live and the
-            # resumed stacks, then phase 9's pass boundary
+            # resumed stacks, then phase 9's pass boundary, then phase 10's
+            # join and update phases
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": err,
@@ -679,9 +749,9 @@ def main() -> int:
         }
         for name, source, replaces, key, err in (
             ("pull_rows_cuda", "paddlebox_tpu_torch/ops/csrc/gather_rows.cu", GATHER_REPLACES, "gather",
-             max(max_err, train["gather_err"])),
+             max(max_err, train["gather_err"], join_err)),
             ("write_rows_cuda", "paddlebox_tpu_torch/ops/csrc/write_rows.cu", WRITE_REPLACES, "write",
-             max(write_err, train["write_err"])),
+             max(write_err, train["write_err"], join_err)),
         )
     ]})
     print(card, flush=True)
@@ -757,22 +827,19 @@ def check_path(name, out, losses, counts, n_steps):
           f"first {float(losses[0]):.5f} last {float(losses[-1]):.5f}, auc {out['auc']:.5f}", flush=True)
 
 
-def four_feeds_bitwise(args, cfg, lay, ds, slow_view):
-    """FEED_STEPS steps from one state through the resident feed (K =
-    FEED_STEPS and K = 1), the packer feed and the slow feed: tables,
-    params, Adam moments and losses must be bitwise equal."""
-    feeds = {
-        f"resident K={FEED_STEPS}": (dict(enable_resident_feed=1, resident_scan_batches=FEED_STEPS), ds),
-        "resident K=1": (dict(enable_resident_feed=1, resident_scan_batches=1), ds),
-        "packer": (dict(enable_resident_feed=0), ds),
-        "slow": (dict(enable_resident_feed=0), slow_view),
-    }
+def four_feeds_bitwise(make_trainer, feeds, n_steps, what):
+    """``n_steps`` steps from one state through each of ``feeds`` (name ->
+    (flags, dataset, the ``last_feed`` the trainer must take)), each on a
+    fresh trainer from ``make_trainer``: tables, params, Adam moments and
+    losses must be bitwise equal."""
     got = {}
-    for name, (kw, dataset) in feeds.items():
+    for name, (kw, dataset, want_feed) in feeds.items():
         with flags(**kw):
-            tr = new_trainer(args, cfg, lay)
+            tr = make_trainer()
             losses = []
-            tr.train_pass(dataset, n_batches=FEED_STEPS, on_batch=lambda i, m: losses.append(m["loss"]))
+            tr.train_pass(dataset, n_batches=n_steps, on_batch=lambda i, m: losses.append(m["loss"]))
+            if tr.last_feed != want_feed:
+                raise AssertionError(f"{what}: the {name} run took the {tr.last_feed} feed, not {want_feed}")
             got[name] = (
                 tr.trained_table(), {k: v.cpu() for k, v in tr.params.items()},
                 {k: v.cpu() for k, v in tr.opt_state.mu.items()}, {k: v.cpu() for k, v in tr.opt_state.nu.items()},
@@ -786,8 +853,8 @@ def four_feeds_bitwise(args, cfg, lay, ds, slow_view):
             and g[4].numpy().tobytes() == ref[4].numpy().tobytes()
         )
         if not same:
-            raise AssertionError(f"{FEED_STEPS} steps through the {name} feed differ from the {ref_name} feed")
-    print(f"four feeds: {FEED_STEPS} steps from one state through {', '.join(got)} give bitwise-equal "
+            raise AssertionError(f"{what}: {n_steps} steps through the {name} feed differ from the {ref_name} feed")
+    print(f"{what}: {n_steps} steps from one state through {', '.join(got)} give bitwise-equal "
           "tables, params, Adam moments and losses", flush=True)
 
 
@@ -799,6 +866,36 @@ def busy_ms_per_step(fn, n_steps) -> float:
         fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / n_steps
+
+
+def host_syncs(fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``: (the
+    host syncs it made, their sites). A sync is named by the innermost
+    frame of this repo that led to it, then the frame the warning came
+    from."""
+    sites: dict = {}
+    inside = [False]  # counting only while fn runs, not the mode switches
+
+    def on_warning(message, category, filename, lineno, file=None, line=None):
+        if not inside[0] or "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(REPO)]
+        where = f"{os.path.relpath(ours[-1].filename, REPO)}:{ours[-1].lineno}" if ours else "?"
+        site = f"{where} via {os.path.basename(filename)}:{lineno}"
+        sites[site] = sites.get(site, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = on_warning
+        torch.cuda.set_sync_debug_mode("warn")
+        inside[0] = True
+        try:
+            fn()
+        finally:
+            inside[0] = False
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum(sites.values()), sites
 
 
 def superstep_probe(args, cfg, lay, ds, table0, params0, opt0, dev):
@@ -824,31 +921,7 @@ def superstep_probe(args, cfg, lay, ds, table0, params0, opt0, dev):
     run_steps(sstep, table0, params0, opt0, [idx], dev)  # warm
     st0 = fresh_state(table0, params0, opt0, dev)  # the state's upload is not the superstep's
     torch.cuda.synchronize()
-    sites: dict = {}
-    inside = [False]  # counting only while the superstep runs, not the mode switches
-
-    def on_warning(message, category, filename, lineno, file=None, line=None):
-        # a sync is named by the innermost frame of this repo that led to
-        # it, then the frame the warning came from
-        if not inside[0] or "synchroniz" not in str(message):
-            return
-        ours = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(REPO)]
-        where = f"{os.path.relpath(ours[-1].filename, REPO)}:{ours[-1].lineno}" if ours else "?"
-        site = f"{where} via {os.path.basename(filename)}:{lineno}"
-        sites[site] = sites.get(site, 0) + 1
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = on_warning
-        torch.cuda.set_sync_debug_mode("warn")
-        inside[0] = True
-        try:
-            sstep(st0, idx)
-        finally:
-            inside[0] = False
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    n_syncs = sum(sites.values())
+    n_syncs, sites = host_syncs(lambda: sstep(st0, idx))
     st0 = fresh_state(table0, params0, opt0, dev)  # set-up outside the trace
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -999,7 +1072,12 @@ def train_phase(args, dev, card, ck, pull_push, lay, schema):
 
     # ---- the same steps from one state: four feeds, twin, plain writeback, no dedup
     view = records_view(ds, max(FEED_STEPS, TWIN_STEPS))
-    four_feeds_bitwise(args, cfg, lay, ds, view)
+    four_feeds_bitwise(lambda: new_trainer(args, cfg, lay), {
+        f"resident K={FEED_STEPS}": (dict(enable_resident_feed=1, resident_scan_batches=FEED_STEPS), ds, "resident"),
+        "resident K=1": (dict(enable_resident_feed=1, resident_scan_batches=1), ds, "resident"),
+        "packer": (dict(enable_resident_feed=0), ds, "packer"),
+        "slow": (dict(enable_resident_feed=0), view, "slow"),
+    }, FEED_STEPS, "four feeds")
     dbs = [pack_batch(b, ds.ws, schema) for b in view.batches(TWIN_STEPS)]
     feeds = [{k: torch.from_numpy(v).to(dev) for k, v in db.as_dict().items()} for db in dbs]
     step = make_train_step(
@@ -1712,6 +1790,367 @@ def boundary_phase(args, card, ck, lay, schema, train):
         "phase_s": time.perf_counter() - t_phase,
     })
     return counts
+
+
+def pv_schema():
+    from paddlebox_tpu_torch.data import SlotInfo, SlotSchema
+
+    return SlotSchema(
+        [SlotInfo("label", type="float", dense=True, dim=1)] + [SlotInfo(f"s{i}") for i in range(NUM_SLOTS)],
+        label_slot="label", parse_logkey=True,
+    )
+
+
+def new_join_trainer(args, cfg, lay, registry=None, device="cuda", hidden=HIDDEN):
+    """bench.py's join model: RankDeepFM(DeepFM, 39 * 19, max_rank=4),
+    weights from ``--seed``."""
+    from paddlebox_tpu_torch.models import DeepFM, RankDeepFM
+    from paddlebox_tpu_torch.train import Adam, CTRTrainer
+
+    g = torch.Generator().manual_seed(args.seed)
+    model = RankDeepFM(
+        DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=hidden, generator=g),
+        NUM_SLOTS * lay.pull_width, max_rank=MAX_RANK, generator=g,
+    )
+    tr = CTRTrainer(model, cfg, dense_opt=Adam(1e-3), device=device, metric_registry=registry)
+    tr.init_params()
+    return tr
+
+
+def update_trainer(join_tr, cfg, registry=None):
+    """The update phase's trainer: the join trainer's model and params, a
+    fresh Adam state."""
+    from paddlebox_tpu_torch.train import Adam, CTRTrainer
+
+    tr = CTRTrainer(join_tr.model, cfg, dense_opt=Adam(1e-3), device=join_tr.device, metric_registry=registry)
+    tr.params = {k: v.clone() for k, v in join_tr.params.items()}
+    tr.opt_state = tr.dense_opt.init(tr.params)
+    return tr
+
+
+def join_registry(dev):
+    """The three metrics of phase 10: the join phase's, the update
+    phase's, and a cmatch/rank AUC over both."""
+    from paddlebox_tpu_torch.metrics import MetricRegistry
+
+    reg = MetricRegistry(device=dev)
+    reg.init_metric("join_auc", phase=1)
+    reg.init_metric("update_auc", phase=0)
+    reg.init_metric("cmatch_rank_auc", method="cmatch_rank_auc", cmatch_rank_group="222:1,222:2")
+    return reg
+
+
+def counted(reg, name) -> int:
+    st = reg[name].state
+    return int(st.pos.sum() + st.neg.sum())
+
+
+def device_state(tr):
+    """Clones of a trainer's table, params and Adam moments on the card."""
+    return (
+        tr.trained_table_device().clone(), {k: v.clone() for k, v in tr.params.items()},
+        {k: v.clone() for k, v in tr.opt_state.mu.items()}, {k: v.clone() for k, v in tr.opt_state.nu.items()},
+    )
+
+
+def same_device_state(a, b) -> bool:
+    return torch.equal(a[0], b[0]) and all(torch.equal(a[i][k], b[i][k]) for i in (1, 2, 3) for k in a[1])
+
+
+def load_pv_pass(args, lay, sparse_opt, files, batch, n_shards=64):
+    """A native-tier pass over pv files at the join phase: (dataset, host
+    table, {load, begin_pass, preprocess_instance, pv_plan seconds})."""
+    from paddlebox_tpu_torch.data import BoxPSDataset
+    from paddlebox_tpu_torch.table import HostSparseTable
+
+    table = HostSparseTable(lay, sparse_opt, n_shards=n_shards, seed=args.seed)
+    if not table.native:
+        raise AssertionError("HostSparseTable is not on the native store")
+    ds = BoxPSDataset(pv_schema(), table, batch_size=batch, shuffle_mode="local", seed=args.seed)
+    ds.set_filelist(files)
+    t = [time.perf_counter()]
+    ds.load_into_memory()
+    t.append(time.perf_counter())
+    ds.begin_pass(round_to=512)
+    t.append(time.perf_counter())
+    if ds.store is None:
+        raise AssertionError("the native parser did not load the pv pass into a columnar store")
+    ds.set_current_phase(1)
+    ds.preprocess_instance(max_rank=MAX_RANK)
+    t.append(time.perf_counter())
+    if ds.pv_plan() is None:
+        raise AssertionError("a store-backed pass has no pv plan: the join phase would take the record-level feed")
+    t.append(time.perf_counter())
+    names = ("load_into_memory_s", "begin_pass_s", "preprocess_instance_s", "pv_plan_s")
+    return ds, table, {k: b - a for k, a, b in zip(names, t, t[1:])}
+
+
+def join_card_vs_cpu(args, lay, sparse_opt, files, dev):
+    """The join then the update phase, JOIN_SMALL_STEPS steps each, at
+    batch JOIN_SMALL_BATCH over ``files`` with the dense tower
+    JOIN_SMALL_HIDDEN (the rank tower at full width), on the card ``dev``
+    and on the port's CPU path from one state; raises if they disagree."""
+    from paddlebox_tpu_torch.train import TrainStepConfig
+
+    kw = dict(num_slots=NUM_SLOTS, batch_size=JOIN_SMALL_BATCH, layout=lay, sparse_opt=sparse_opt, auc_buckets=1000)
+    out = {}
+    for name, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        ds, _, _ = load_pv_pass(args, lay, sparse_opt, files, JOIN_SMALL_BATCH, n_shards=8)
+        jt = new_join_trainer(args, TrainStepConfig(**kw, model_takes_rank_offset=True), lay, device=device,
+                              hidden=JOIN_SMALL_HIDDEN)
+        losses = []
+        jt.train_pass(ds, n_batches=JOIN_SMALL_STEPS, on_batch=lambda i, m: losses.append(m["loss"]))
+        jt.handoff_table(ds)
+        ds.postprocess_instance()
+        ds.set_current_phase(0)
+        ut = update_trainer(jt, TrainStepConfig(**kw))
+        ut.train_pass(ds, n_batches=JOIN_SMALL_STEPS, on_batch=lambda i, m: losses.append(m["loss"]))
+        if (jt.last_feed, ut.last_feed) != ("resident_pv", "resident"):
+            raise AssertionError(f"join card vs CPU on {name}: feeds {jt.last_feed}, {ut.last_feed}")
+        out[name] = (torch.from_numpy(ut.trained_table()), {k: v.cpu() for k, v in ut.params.items()},
+                    torch.stack(losses).cpu())
+    (gt, gp, gl), (ct, cp, cl) = out["card"], out["cpu"]
+    tab_err = float((gt - ct).abs().max())
+    tab_ok = bool(torch.allclose(gt, ct, rtol=SMALL_TABLE_RTOL, atol=SMALL_TABLE_ATOL))
+    par_err, par_at = max((float((gp[k] - cp[k]).abs().max()), k) for k in cp)
+    loss_err = float(((gl - cl).abs() / cl.abs()).max())
+    print(
+        f"join card vs CPU ({JOIN_SMALL_FILES} files, batch {JOIN_SMALL_BATCH}, hidden {JOIN_SMALL_HIDDEN}, "
+        f"{JOIN_SMALL_STEPS} join + {JOIN_SMALL_STEPS} update steps): table max |diff| {tab_err:.3e} (rtol "
+        f"{SMALL_TABLE_RTOL}, atol {SMALL_TABLE_ATOL}), params max |diff| {par_err:.3e} at {par_at} (atol "
+        f"{JOIN_PARAMS_ATOL}), loss max rel diff {loss_err:.3e} (rtol {SMALL_LOSS_RTOL})",
+        flush=True,
+    )
+    if not (tab_ok and par_err <= JOIN_PARAMS_ATOL and loss_err <= SMALL_LOSS_RTOL):
+        raise AssertionError("the join day on the card and on the CPU path disagree")
+    return {"table_max_abs_diff": tab_err, "params_max_abs_diff": par_err, "params_max_at": par_at,
+            "loss_max_rel_diff": loss_err}
+
+
+def join_twins(args, cfg, lay, ds, ck, pull_push, dev):
+    """JOIN_FEED_STEPS resident join steps from one state, twice, and once
+    with the writeback forced to ``write_rows_ref`` and the gather to
+    ``pull_rows_ref``: tables, params and Adam moments bitwise equal."""
+    runs = []
+    for plain in (False, False, True):
+        if plain:
+            pull_push.write_rows_cuda, pull_push.pull_rows_cuda = ck.write_rows_ref, ck.pull_rows_ref
+        try:
+            tr = new_join_trainer(args, cfg, lay, device=dev)
+            tr.train_pass(ds, n_batches=JOIN_FEED_STEPS)
+            torch.cuda.synchronize()
+        finally:
+            pull_push.write_rows_cuda, pull_push.pull_rows_cuda = ck.write_rows_cuda, ck.pull_rows_cuda
+        runs.append(device_state(tr))
+    if not same_device_state(runs[0], runs[1]):
+        raise AssertionError("two runs of the same join steps differ")
+    if not same_device_state(runs[0], runs[2]):
+        raise AssertionError("join steps with the plain gather and writeback differ from the kernels'")
+    print(f"join twins: {JOIN_FEED_STEPS} steps twice from one state, and with pull_rows_ref and write_rows_ref, "
+          "give bitwise-equal tables, params and Adam moments", flush=True)
+
+
+def join_probe(args, cfg, lay, ds, dev):
+    """A warm join trainer with a registry attached, on the resident pv
+    feed: one superstep of JOIN_SYNC_STEPS steps through the trainer's
+    stepper and its registry feed under ``set_sync_debug_mode("warn")``,
+    then PROFILE_BATCHES steps one a dispatch for the host-clock split,
+    then RESIDENT_K steps under the profiler for the card's busy time.
+    Returns (host syncs, their sites, the split's ms a step, busy ms a
+    step)."""
+    from collections import defaultdict
+
+    tr = new_join_trainer(args, cfg, lay, join_registry(dev), device=dev)
+    with flags(resident_scan_batches=JOIN_SYNC_STEPS):
+        tr.train_pass(ds, n_batches=JOIN_SYNC_STEPS)  # warm: the plan's upload, the logkey columns
+        torch.cuda.synchronize()
+        holder = {"state": tr._state}
+
+        def superstep():
+            losses: list = []
+            for i, m, aux in tr._resident_stepper(ds, JOIN_SYNC_STEPS, holder, False, False, defaultdict(float), True):
+                tr._consume_batch(i, m, aux, ds, None, losses, [])
+            if len(losses) != JOIN_SYNC_STEPS or not aux:
+                raise AssertionError("the probed superstep fed no registry inputs")
+
+        n_syncs, sites = host_syncs(superstep)
+    prof = tr.train_pass(ds, n_batches=PROFILE_BATCHES, profile=True)["profile"]
+    busy = busy_ms_per_step(lambda: tr.train_pass(ds, n_batches=RESIDENT_K), RESIDENT_K)
+    return n_syncs, sites, {k: v / PROFILE_BATCHES * 1e3 for k, v in prof.items()}, busy
+
+
+def join_update_phase(args, dev, card, ck, pull_push, lay):
+    """Phase 10: bench.py's join/update day at full width on its own
+    stack. Returns the launch counts of the paths ``join`` and ``update``
+    and the kernels' max abs error at those paths' shapes."""
+    from paddlebox_tpu_torch.table import SparseOptimizerConfig
+    from paddlebox_tpu_torch.train import ResidentPass, ResidentPvFeed, TrainStepConfig, build_device_batch
+
+    t_phase = time.perf_counter()
+    sparse_opt = SparseOptimizerConfig(embedx_threshold=0.0)
+    kw = dict(num_slots=NUM_SLOTS, batch_size=BATCH, layout=lay, sparse_opt=sparse_opt, auc_buckets=100_000)
+    join_cfg = TrainStepConfig(**kw, model_takes_rank_offset=True)
+    upd_cfg = TrainStepConfig(**kw)
+    rng = np.random.default_rng(args.seed + 6)
+    counts, nums = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_join_") as tmp:
+        t0 = time.perf_counter()
+        files, _ = write_bench_files(tmp, rng, N_FILES, "pv", pv=True)
+        small_files, _ = write_bench_files(tmp, rng, JOIN_SMALL_FILES, "pvsmall", pv=True)
+        nums["data_write_s"] = time.perf_counter() - t0
+        ds, table, setup = load_pv_pass(args, lay, sparse_opt, files, BATCH)
+        nums.update(setup)
+        n_rec, n_keys, n_pvs = ds.memory_data_size(), ds.ws.n_keys, len(ds.pvs)
+        plan = ds.pv_plan()
+        n_b = plan.n_batches
+        if ds.num_pv_batches() != n_b:
+            raise AssertionError(f"num_pv_batches() {ds.num_pv_batches()} != the plan's {n_b}")
+        print(f"join data: {N_FILES} files x {RECORDS_PER_FILE} records, {n_pvs} pvs, {n_b} pv batches an epoch, "
+              f"{n_keys} keys; load_into_memory {setup['load_into_memory_s']:.3f} s, begin_pass "
+              f"{setup['begin_pass_s']:.3f} s, preprocess_instance {setup['preprocess_instance_s']:.3f} s, "
+              f"pv_plan {setup['pv_plan_s']:.3f} s", flush=True)
+        reg = join_registry(dev)
+        jtr = new_join_trainer(args, join_cfg, lay, reg, device=dev)
+
+        # ---- the join phase, bench.py's way: prepare, a warm-up epoch, two
+        # timed epochs; then an eval epoch. Launch counts from 0.
+        outs, feeds = [], []
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        jtr.prepare_pass(ds)
+        t0 = time.perf_counter()
+        outs.append(jtr.train_pass(ds))
+        feeds.append(jtr.last_feed)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(JOIN_TIMED_EPOCHS):
+            outs.append(jtr.train_pass(ds))
+            feeds.append(jtr.last_feed)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        trained = device_state(jtr)
+        jtr.set_test_mode(True)
+        outs.append(jtr.train_pass(ds))
+        feeds.append(jtr.last_feed)
+        jtr.set_test_mode(False)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        counts["join"] = dict(ck.launch_counts)
+        nums.update(prepare_pass_s=jtr.last_prepare_s, prepare_parts=dict(jtr.last_prepare_parts),
+                    warm_up_s=t1 - t0, train_s=t2 - t1, eval_s=t3 - t2)
+        nums["join_samples_per_s"] = JOIN_TIMED_EPOCHS * n_rec / nums["train_s"]
+        if feeds != ["resident_pv"] * len(feeds):
+            raise AssertionError(f"the join epochs took the feeds {feeds}, not the resident pv feed")
+        for i, o in enumerate(outs):
+            if o["batches"] != n_b or o["ins_num"] != n_rec or not np.isfinite(o["loss"]):
+                raise AssertionError(f"join epoch {i}: {o['batches']} batches (want {n_b}), ins_num {o['ins_num']} "
+                                     f"(want memory_data_size() {n_rec}), loss {o['loss']}")
+        n_train = (1 + JOIN_TIMED_EPOCHS) * n_b
+        want = {"pull_rows_cuda": 2 * n_train + n_b, "write_rows_cuda": n_train}
+        if counts["join"] != want:
+            raise AssertionError(f"join path launches {counts['join']}, want {want} (2 gathers and 1 writeback a "
+                                 "training step, 1 gather an eval step)")
+        if not same_device_state(device_state(jtr), trained):
+            raise AssertionError("the join eval epoch changed the table, params or Adam state")
+        n_join = counted(reg, "join_auc")
+        if n_join != 4 * n_rec or counted(reg, "update_auc") != 0:
+            raise AssertionError(f"registry after the join phase: join {n_join} (want 4 x {n_rec}), "
+                                 f"update {counted(reg, 'update_auc')} (want 0)")
+        join_line = reg.get_metric_msg("join_auc")
+        print(f"join phase (resident pv feed, K = {RESIDENT_K}): {n_b} steps an epoch, prepare_pass "
+              f"{nums['prepare_pass_s']:.3f} s {nums['prepare_parts']}, warm-up epoch {nums['warm_up_s']:.3f} s, "
+              f"{JOIN_TIMED_EPOCHS} timed epochs {nums['train_s']:.3f} s = {nums['join_samples_per_s']:.1f} "
+              f"samples/s, eval epoch {nums['eval_s']:.3f} s; launches {counts['join']}; each epoch's ins_num = "
+              f"memory_data_size() = {n_rec}; the eval epoch left the state bitwise; losses "
+              f"{[round(o['loss'], 5) for o in outs]}; {card}", flush=True)
+        print(f"registry, read at the end of the join phase: {join_line}", flush=True)
+
+        # the kernels at the join path's shape, against their plain versions
+        rp = ResidentPass(ds.store, ds.ws, ds.schema, dev)
+        rp.ensure(plan.idx)
+        rows = build_device_batch(rp, join_cfg, ResidentPvFeed(plan, rp.device).idx[0])["uniq_rows"]
+        tab = jtr.trained_table_device().clone()
+        what = f"join path R={tab.shape[0]} W={tab.shape[1]} U={rows.shape[0]} int32"
+        errs = [check_gather(ck, tab, rows, what),
+                check_write(ck, tab, rows, ck.pull_rows_ref(tab, rows) + 0.5, what)]
+        del rp, tab
+
+        # ---- the same steps from one state: four feeds, twins, the superstep's syncs
+        view = copy.copy(ds)
+        view.records = ds.records  # a pass held as SlotRecords: no plan, the record-level feed
+        four_feeds_bitwise(lambda: new_join_trainer(args, join_cfg, lay, device=dev), {
+            f"resident K={JOIN_FEED_STEPS}": (dict(enable_resident_feed=1, resident_scan_batches=JOIN_FEED_STEPS),
+                                              ds, "resident_pv"),
+            "resident K=1": (dict(enable_resident_feed=1, resident_scan_batches=1), ds, "resident_pv"),
+            "pv packer": (dict(enable_resident_feed=0), ds, "pv_packer"),
+            "pv records": (dict(enable_resident_feed=1), view, "pv_records"),
+        }, JOIN_FEED_STEPS, "four join feeds")
+        del view
+        join_twins(args, join_cfg, lay, ds, ck, pull_push, dev)
+        n_syncs, sync_sites, split, busy = join_probe(args, join_cfg, lay, ds, dev)
+        step_ms = nums["train_s"] / (JOIN_TIMED_EPOCHS * n_b) * 1e3
+        nums.update(join_ms_per_step=step_ms, join_host_clock_ms_per_step_profiled=split,
+                    join_device_busy_ms_per_step=busy, join_device_idle_share=1.0 - busy / step_ms)
+        print(f"resident pv superstep of {JOIN_SYNC_STEPS} steps with a registry attached, under "
+              f"set_sync_debug_mode('warn'): {n_syncs} host syncs at {sync_sites}; a join step "
+              f"{step_ms:.3f} ms (timed epochs), the card busy {busy:.3f} ms of it (idle "
+              f"{nums['join_device_idle_share']:.3f}), host clock over {PROFILE_BATCHES} profiled steps "
+              f"{ {k: round(v, 3) for k, v in split.items()} } ms a step; {card}", flush=True)
+        if n_syncs:
+            raise AssertionError(f"the resident pv superstep made {n_syncs} host syncs")
+
+        # ---- the update phase on the flat resident feed, then end_pass
+        jtr.handoff_table(ds)
+        ds.postprocess_instance()
+        ds.set_current_phase(0)
+        utr = update_trainer(jtr, upd_cfg, reg)
+        utr.prepare_pass(ds)
+        n_u = ds.num_batches()
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        uout = utr.train_pass(ds)
+        torch.cuda.synchronize()
+        nums["update_s"] = time.perf_counter() - t0
+        counts["update"] = dict(ck.launch_counts)
+        nums["update_samples_per_s"] = BATCH * n_u / nums["update_s"]
+        if utr.last_feed != "resident" or uout["batches"] != n_u or not np.isfinite(uout["loss"]):
+            raise AssertionError(f"update phase: feed {utr.last_feed}, {uout['batches']} batches (want {n_u}), "
+                                 f"loss {uout['loss']}")
+        if counts["update"] != {"pull_rows_cuda": 2 * n_u, "write_rows_cuda": n_u}:
+            raise AssertionError(f"update path launches {counts['update']} for {n_u} steps")
+        if not torch.equal(jtr.trained_table_device(), trained[0]):
+            raise AssertionError("the update pass wrote the join trainer's table")
+        if counted(reg, "update_auc") != BATCH * n_u or counted(reg, "join_auc") != 0:
+            raise AssertionError(f"registry after the update phase: update {counted(reg, 'update_auc')} "
+                                 f"(want {BATCH * n_u}), join {counted(reg, 'join_auc')} (want 0 after its read)")
+        rp = ResidentPass(ds.store, ds.ws, ds.schema, dev)
+        idx = next(iter(ds.batch_indices(1))).astype(np.int32)
+        rp.ensure([idx])
+        rows = build_device_batch(rp, upd_cfg, torch.from_numpy(idx).to(dev))["uniq_rows"]
+        tab = utr.trained_table_device().clone()
+        what = f"update path R={tab.shape[0]} W={tab.shape[1]} U={rows.shape[0]} int32"
+        errs += [check_gather(ck, tab, rows, what),
+                 check_write(ck, tab, rows, ck.pull_rows_ref(tab, rows) + 0.5, what)]
+        del rp, tab
+        t0 = time.perf_counter()
+        ended = ds.end_pass(utr.trained_table())
+        nums["end_pass_s"] = time.perf_counter() - t0
+        if len(table) != n_keys - ended["dropped"]:
+            raise AssertionError(f"host table holds {len(table)} keys; want {n_keys} less {ended['dropped']}")
+        lines = {k: reg.get_metric_msg(k) for k in ("update_auc", "cmatch_rank_auc")}
+        print(f"update phase (resident feed): {n_u} steps in {nums['update_s']:.3f} s = "
+              f"{nums['update_samples_per_s']:.1f} samples/s; launches {counts['update']}; the join trainer's "
+              f"table intact; end_pass {nums['end_pass_s']:.3f} s, {len(table)} keys kept; {card}", flush=True)
+        for line in lines.values():
+            print(f"registry: {line}", flush=True)
+        nums["card_vs_cpu"] = join_card_vs_cpu(args, lay, sparse_opt, small_files, dev)
+    emit({
+        "card": card, "phase": "join_update", "records": n_rec, "pvs": n_pvs, "pv_batches_per_epoch": n_b,
+        "update_batches": n_u, "keys": n_keys, **nums, "host_syncs_per_pv_superstep": n_syncs,
+        "registry": {"join_auc": join_line, **lines}, "phase_s": time.perf_counter() - t_phase,
+    })
+    return counts, max(errs)
 
 
 if __name__ == "__main__":

@@ -48,13 +48,22 @@ The boundary's gauges are ``boundary.{dedup,premerge,prefetch_pull,splice,
 pull,writeback,writeback_hidden,overlap_hidden}_s``; its fault sites are
 ``boundary.premerge``, ``boundary.stage_pull`` and ``boundary.writeback``.
 
-Not ported: quarantine, pipe converters, global shuffles across nodes, pv
-merge, the multi-host working set and carrier, and trace events.
+The join phase (``current_phase`` 1): ``preprocess_instance`` groups the
+pass into pvs (``data/pv_instance.py``); ``pv_plan`` serves their packing
+as index arrays (cached on the pvs), ``pv_batches`` as ``SlotBatch``es
+with ``rank_offset`` and ghost weights; ``postprocess_instance`` restores
+the flat view, a permutation ``_order`` of the store when every record
+knows its store index (the ``_store_idx`` that ``records`` stamps).
+
+Not ported: quarantine, pipe converters, global shuffles across nodes, the
+multi-host working set and carrier, the transport (``num_pv_batches``
+counts the local pvs) and trace events.
 """
 
 from __future__ import annotations
 
 import glob
+import itertools
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -66,6 +75,14 @@ import torch
 
 from paddlebox_tpu_torch import config
 from paddlebox_tpu_torch.data.parser import parse_line
+from paddlebox_tpu_torch.data.pv_instance import (
+    PvInstance,
+    build_pv_plan,
+    count_pv_batches,
+    flatten_pv_instances,
+    merge_pv_instances,
+    pack_pv_batches,
+)
 from paddlebox_tpu_torch.data.record_store import ColumnarRecords
 from paddlebox_tpu_torch.data.slot_record import SlotBatch, SlotRecord, build_batch
 from paddlebox_tpu_torch.data.slot_schema import SlotSchema
@@ -203,6 +220,14 @@ class BoxPSDataset:
 
         self.date: Optional[str] = None
         self.pass_id = 0
+        self.current_phase = 1  # 1 join, 0 update (data_set.h:291)
+        # the join phase's pvs, between preprocess_instance and
+        # postprocess_instance, and their plans keyed by packing arguments
+        self.pvs: List[PvInstance] = []
+        self._pv_merged = False
+        self._pv_max_rank = 3
+        self._pv_valid_cmatch: tuple = (222, 223)
+        self._pv_plan_cache = None  # (pvs, {(n_devices, min_batches): PvPlan})
         self._filelist: List[str] = []
         # pass data lives EITHER columnar (store + shuffle order, the native
         # tier) or as a SlotRecord list (the Python tier); the `records`
@@ -246,10 +271,17 @@ class BoxPSDataset:
     @property
     def records(self) -> List[SlotRecord]:
         """The pass as SlotRecords, in shuffle order. A store-backed pass
-        materializes views of its store once, on first access."""
+        materializes views of its store once, on first access, each stamped
+        with its store index (``_store_idx``): a pv merge and flatten of
+        them stays a permutation of the store, and the pv plan indexes it."""
         if not self._records and self.store is not None and len(self.store):
             order = self._order if self._order is not None else range(len(self.store))
-            self._records = [self.store.record(int(i)) for i in order]
+            recs = []
+            for i in order:
+                r = self.store.record(int(i))
+                r._store_idx = int(i)
+                recs.append(r)
+            self._records = recs
         return self._records
 
     @records.setter
@@ -273,6 +305,102 @@ class BoxPSDataset:
         for f in files:
             expanded.extend(sorted(glob.glob(f)) if any(c in f for c in "*?[") else [f])
         self._filelist = expanded
+
+    def set_current_phase(self, phase: int) -> None:
+        """1 = the join phase (pv-merged batches), 0 = the update phase."""
+        self.current_phase = phase
+
+    # ---- pv merge (join phase) ------------------------------------------
+
+    def preprocess_instance(self, max_rank: int = 3, valid_cmatch=(222, 223)) -> int:
+        """Group this pass's records into pv instances for join-phase
+        training (PreprocessInstance parity, data_set.cc:1968-2009).
+        Returns the pv count. Needs logkey parsing (the search ids)."""
+        if not self.schema.parse_logkey:
+            raise RuntimeError(
+                "preprocess_instance needs search_ids: build the SlotSchema "
+                "with parse_logkey=True (else every record has search_id=0 "
+                "and the whole pass merges into one pv)"
+            )
+        self.pvs = merge_pv_instances(self.records)
+        self._pv_max_rank = max_rank
+        self._pv_valid_cmatch = tuple(valid_cmatch)
+        self._pv_merged = True
+        return len(self.pvs)
+
+    @property
+    def pv_merged(self) -> bool:
+        """True between preprocess_instance and postprocess_instance."""
+        return self._pv_merged
+
+    def postprocess_instance(self) -> None:
+        """Restore the flat record view for the update phase
+        (PostprocessInstance parity). On a store-backed pass whose records
+        all know their store index, the pv-flattened order becomes a
+        permutation ``_order`` of the store, so the update phase keeps the
+        columnar feeds; otherwise the flattened list becomes the pass."""
+        if not self._pv_merged:
+            return
+        flat = flatten_pv_instances(self.pvs)
+        idx = [getattr(r, "_store_idx", None) for r in flat]
+        if self.store is not None and len(flat) == len(self.store) and all(i is not None for i in idx):
+            self._records = flat
+            self._order = np.asarray(idx, dtype=np.int64)
+        else:
+            self.records = flat  # the setter: the list becomes the pass
+        self.pvs = []
+        self._pv_merged = False
+        self._pv_plan_cache = None
+
+    def _need_pvs(self) -> None:
+        if not self._pv_merged:
+            raise RuntimeError("preprocess_instance first")
+
+    def pv_plan(self, n_devices: int = 1, min_batches: int = 0):
+        """The join phase's packing as index arrays (``PvPlan``), cached on
+        the pvs' identity and the packing arguments, so a warm-up epoch, the
+        timed epochs and an eval pass share one sweep. None when the pass is
+        not store-backed (its consumers take the record-level feed)."""
+        self._need_pvs()
+        if self.store is None:
+            return None
+        c = self._pv_plan_cache
+        if c is None or c[0] is not self.pvs:
+            c = self._pv_plan_cache = (self.pvs, {})
+        key = (n_devices, min_batches)
+        if key not in c[1]:
+            c[1][key] = build_pv_plan(
+                self.pvs, self.batch_size, max_rank=self._pv_max_rank,
+                valid_cmatch=self._pv_valid_cmatch, n_devices=n_devices,
+                min_batches=min_batches,
+            )
+        return c[1][key]
+
+    def num_pv_batches(self, n_devices: int = 1, global_count: bool = False) -> int:
+        """Join-phase batch count. The port has no transport, so
+        ``global_count`` gives the local count, as the JAX package does
+        without one."""
+        self._need_pvs()
+        return count_pv_batches(self.pvs, self.batch_size, n_devices=n_devices)
+
+    def pv_batches(self, n_batches: Optional[int] = None, n_devices: int = 1, min_batches: int = 0):
+        """Join-phase batches: (SlotBatch with ``rank_offset``, ins_weight
+        [B] float32). Whole pvs pack into ``batch_size`` instance slots,
+        ghost-padded (see ``data/pv_instance.py``); the weights mask the
+        ghosts out of the loss, the metrics and the show/clk counts. At
+        most ``n_batches`` (no wrap-around)."""
+        self._need_pvs()
+        packed = pack_pv_batches(
+            self.pvs, self.batch_size, max_rank=self._pv_max_rank,
+            valid_cmatch=self._pv_valid_cmatch, n_devices=n_devices,
+            min_batches=min_batches,
+        )
+        if n_batches is not None:
+            packed = itertools.islice(packed, n_batches)
+        for records, rank_offset, weight in packed:
+            sb = build_batch(records, self.schema)
+            sb.rank_offset = rank_offset
+            yield sb, weight
 
     # ---- load ------------------------------------------------------------
 

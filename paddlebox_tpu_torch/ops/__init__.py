@@ -4,6 +4,7 @@ from paddlebox_tpu_torch.ops.cuda_kernels import (
     write_rows_cuda,
     write_rows_ref,
 )
+from paddlebox_tpu_torch.ops.ctr_ops import rank_attention
 from paddlebox_tpu_torch.ops.pull_push import (
     embedx_active_mask,
     pull_sparse_rows,
@@ -23,4 +24,5 @@ __all__ = [
     "sparse_update_rows",
     "fused_seqpool_cvm",
     "cvm_transform",
+    "rank_attention",
 ]

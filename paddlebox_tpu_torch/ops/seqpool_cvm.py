@@ -49,6 +49,18 @@ def segment_lengths(segments: torch.Tensor, num_segments: int) -> torch.Tensor:
     return ends - starts
 
 
+def segment_sum(data: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """``out[s] = sum(data[ids == s])`` [num_segments, ...], in a fixed order.
+
+    A stable sort by id, then a lengths-based ``segment_reduce`` that sums
+    each segment in key order: no float atomics, the same bits every run.
+    ``ids`` lie in [0, num_segments), so the lengths sum to the row count
+    and ``unsafe=True`` skips the check of that (a read-back to the host)."""
+    order = torch.argsort(ids, stable=True)
+    lengths = segment_lengths(ids[order], num_segments)[:num_segments]
+    return torch.segment_reduce(data[order], "sum", lengths=lengths, axis=0, unsafe=True)
+
+
 def _seqpool(
     records: torch.Tensor,
     segments: torch.Tensor,

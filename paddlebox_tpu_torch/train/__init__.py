@@ -2,7 +2,9 @@ from paddlebox_tpu_torch.train.dense_opt import Adam, AdamState
 from paddlebox_tpu_torch.train.train_step import TrainState, TrainStepConfig, make_train_step
 from paddlebox_tpu_torch.train.resident_step import (
     ResidentPass,
+    ResidentPvFeed,
     build_device_batch,
+    make_resident_pv_superstep,
     make_resident_superstep,
 )
 from paddlebox_tpu_torch.train.trainer import CTRTrainer
@@ -23,6 +25,8 @@ __all__ = [
     "ResidentPass",
     "build_device_batch",
     "make_resident_superstep",
+    "ResidentPvFeed",
+    "make_resident_pv_superstep",
     "CTRTrainer",
     "CheckpointManager",
     "DeltaLineageError",

@@ -20,8 +20,13 @@ row-resolved key stream lives on the device for the pass:
   ``.item()``, no ``nonzero``, no boolean-mask indexing, no
   ``torch.unique``.
 - **Superstep** (:func:`make_resident_superstep`): K batches per call, a
-  plain loop over the ported ``make_train_step`` where the JAX package
-  runs ``lax.scan``; the metrics come back stacked along a leading K axis.
+  plain loop over the ported ``make_train_step`` (or its eval step) where
+  the JAX package runs ``lax.scan``; the metrics come back stacked along a
+  leading K axis.
+- **Join phase** (:class:`ResidentPvFeed`,
+  :func:`make_resident_pv_superstep`): the pass's ``PvPlan`` (record
+  indices, rank matrices, ghost weights) is uploaded once, and a dispatch
+  takes a [K] slice of a device-resident ``arange`` of batch positions.
 
 The arrays a batch gets are those ``BatchPacker.pack`` ships from the host
 (slot-major flat order, pads -> padding row / ``U_pad - 1`` / the ``S*B``
@@ -30,7 +35,8 @@ occurrence there. The step's merge sorts by ``inverse`` stably, so each
 row's gradient sums the same keys in the same flat order either way, and
 the trained state is the same bits.
 
-Mesh and pv variants are not ported.
+The mesh variants (``ensure_sharded``, the mesh supersteps) are not
+ported.
 """
 
 from __future__ import annotations
@@ -115,11 +121,23 @@ class ResidentPass:
         if dense_slot is not None and dense_dim:
             di = schema.float_slot_index(dense_slot)
             self.dense = put(np.asarray(store.float_slot_matrix(di, dense_dim), np.float32))
+        self._logkey_cols = None  # (cmatch, rank) on the device, uploaded on first use
         self.L_pad = 0
         self.U_pad = 0
         # unique-row count per index block, keyed by the block's bytes (a
         # hash collision would freeze U_pad too small)
         self._uniq_cache: Dict[bytes, int] = {}
+
+    def logkey_columns(self):
+        """(cmatch, rank) of every record, int32 [N] each, on the device:
+        uploaded once, so a metric registry's per-batch inputs are device
+        slices and never a host copy."""
+        if self._logkey_cols is None:
+            self._logkey_cols = tuple(
+                torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(self.device)
+                for a in (self.store.cmatch, self.store.rank)
+            )
+        return self._logkey_cols
 
     def ensure(self, batch_indices) -> None:
         """Freeze/grow L_pad and U_pad to cover every batch of the
@@ -245,19 +263,79 @@ def make_resident_superstep(
     dense_opt,
     cfg: TrainStepConfig,
     rp: ResidentPass,
+    eval_mode: bool = False,
 ) -> Callable:
     """Build ``superstep(state, idx_block [K, B]) -> (state, metrics)``.
 
-    One call runs K full train steps in order, each on a batch built on the
-    device; every metric comes back stacked along a leading K axis. The
-    per-step body is the classic ``make_train_step``: only the batch
-    assembly is resident."""
-    raw_step = make_train_step(model_apply, cfg, dense_opt)
+    One call runs K full train steps (``eval_mode``: eval steps) in order,
+    each on a batch built on the device; every metric comes back stacked
+    along a leading K axis. The per-step body is the classic
+    ``make_train_step``: only the batch assembly is resident."""
+    raw_step = make_train_step(model_apply, cfg, dense_opt, eval_mode=eval_mode)
 
     def superstep(state, idx_block: torch.Tensor):
         ms = []
         for j in range(idx_block.shape[0]):
             state, m = raw_step(state, build_device_batch(rp, cfg, idx_block[j]))
+            ms.append(m)
+        return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    return superstep
+
+
+# ---- resident pv (join-phase) tier -----------------------------------------
+
+
+class ResidentPvFeed:
+    """The pass's ``PvPlan`` on the device, uploaded once.
+
+    Join-phase batches are fixed once ``preprocess_instance`` has grouped
+    the pass, so a dispatch's feed is a [K] slice of ``positions`` (an
+    ``arange`` of batch positions, itself on the device): no per-chunk
+    upload, no host sync. ``idx`` [n_b, B] int32 record indices,
+    ``rank_offset`` [n_b, B, 2R+1] int32, ``ins_weight`` [n_b, B] float32
+    (0 on ghosts)."""
+
+    def __init__(self, plan, device: torch.device):
+        if plan.n_devices != 1:
+            raise NotImplementedError(f"a PvPlan blocked for {plan.n_devices} devices (a mesh) is not ported")
+
+        def put(a: np.ndarray, dtype) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
+
+        self.n_batches = plan.n_batches
+        self.idx = put(plan.idx, np.int32)
+        self.rank_offset = put(plan.rank_offset, np.int32)
+        self.ins_weight = put(plan.ins_weight, np.float32)
+        self.positions = torch.arange(self.n_batches, dtype=torch.int64, device=device)
+
+
+def make_resident_pv_superstep(
+    model_apply: Callable,
+    dense_opt,
+    cfg: TrainStepConfig,
+    rp: ResidentPass,
+    feed: ResidentPvFeed,
+    eval_mode: bool = False,
+) -> Callable:
+    """``superstep(state, pos_block [K]) -> (state, metrics)``: the pv
+    analog of :func:`make_resident_superstep`. The K batches' record
+    indices, rank matrices and weights are one ``index_select`` each of the
+    resident plan; batch assembly is ``build_device_batch`` (ghosts are
+    ordinary repeated records whose weight 0 adds no loss, no show/clk and
+    no AUC, as on the host-packed pv feeds)."""
+    raw_step = make_train_step(model_apply, cfg, dense_opt, eval_mode=eval_mode)
+
+    def superstep(state, pos_block: torch.Tensor):
+        idx = feed.idx.index_select(0, pos_block)
+        ro = feed.rank_offset.index_select(0, pos_block)
+        w = feed.ins_weight.index_select(0, pos_block)
+        ms = []
+        for j in range(pos_block.shape[0]):
+            batch = build_device_batch(rp, cfg, idx[j])
+            batch["ins_weight"] = w[j]
+            batch["rank_offset"] = ro[j]
+            state, m = raw_step(state, batch)
             ms.append(m)
         return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 
 from paddlebox_tpu_torch.metrics.auc import AucState, auc_update
 from paddlebox_tpu_torch.ops.pull_push import pull_sparse_rows, push_sparse_rows
-from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm, segment_lengths
+from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm, segment_sum
 from paddlebox_tpu_torch.table.optimizers import SparseOptimizerConfig
 from paddlebox_tpu_torch.table.value_layout import ValueLayout
 from paddlebox_tpu_torch.train.dense_opt import Adam, AdamState
@@ -95,11 +95,14 @@ def local_forward(
     dense: Optional[torch.Tensor],
     ins_weight: Optional[torch.Tensor] = None,  # [b] per-instance loss weight
     loss_denom: Optional[torch.Tensor] = None,  # weighted-loss denominator
+    rank_offset: Optional[torch.Tensor] = None,  # [b, 2R+1] join-phase pv matrix
 ):
     """Forward body: seqpool+CVM -> model -> BCE. Returns (loss, preds).
 
     With ``ins_weight`` the loss is the weighted sum over ``loss_denom``
-    (default: the weight sum, at least 1), else the mean."""
+    (default: the weight sum, at least 1), else the mean. With
+    ``cfg.model_takes_rank_offset`` the model is called as
+    ``model_apply(params, slot_feats, dense, rank_offset)``."""
     slot_feats = fused_seqpool_cvm(
         flat,
         segments,
@@ -108,7 +111,8 @@ def local_forward(
         use_cvm=cfg.use_cvm,
         clk_filter=cfg.clk_filter,
     )
-    logits = model_apply(params, slot_feats, dense)
+    extra = (rank_offset,) if cfg.model_takes_rank_offset else ()
+    logits = model_apply(params, slot_feats, dense, *extra)
     if ins_weight is None:
         loss = F.binary_cross_entropy_with_logits(logits, labels)
     else:
@@ -128,34 +132,29 @@ def local_forward_backward(
     dense: Optional[torch.Tensor],
     ins_weight: Optional[torch.Tensor] = None,
     loss_denom: Optional[torch.Tensor] = None,
+    rank_offset: Optional[torch.Tensor] = None,
 ):
     """Forward + backward: (loss, preds, grads by param name, grad of flat).
 
     ``flat`` enters as a leaf, as JAX takes ``gflat`` with respect to it,
-    so the gather that built it stays out of the backward graph."""
+    so the gather that built it stays out of the backward graph; the rank
+    tower's gradient reaches it through ``slot_feats``. ``rank_offset``
+    stays out of the gradient. A param the forward did not use (a
+    RankDeepFM's ``rank_param`` without a rank matrix) gets a zero
+    gradient, as ``jax.grad`` gives it."""
     names = list(params)
     with torch.enable_grad():
         p = {k: params[k].detach().requires_grad_(True) for k in names}
         flat_leaf = flat.detach().requires_grad_(True)
         loss, preds = local_forward(
             model_apply, cfg, p, flat_leaf, segments, labels, dense,
-            ins_weight=ins_weight, loss_denom=loss_denom,
+            ins_weight=ins_weight, loss_denom=loss_denom, rank_offset=rank_offset,
         )
-        grads = torch.autograd.grad(loss, [p[k] for k in names] + [flat_leaf])
-    gparams = dict(zip(names, grads[:-1]))
+        grads = torch.autograd.grad(loss, [p[k] for k in names] + [flat_leaf], allow_unused=True)
+    gparams = {
+        k: g if g is not None else torch.zeros_like(p[k]) for k, g in zip(names, grads[:-1])
+    }
     return loss.detach(), preds.detach(), gparams, grads[-1]
-
-
-def segment_sum(data: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """``out[s] = sum(data[ids == s])`` [num_segments, ...], in a fixed order.
-
-    A stable sort by id, then a lengths-based ``segment_reduce`` that sums
-    each segment in key order: no float atomics, the same bits every run.
-    ``ids`` lie in [0, num_segments), so the lengths sum to the row count
-    and ``unsafe=True`` skips the check of that (a read-back to the host)."""
-    order = torch.argsort(ids, stable=True)
-    lengths = segment_lengths(ids[order], num_segments)[:num_segments]
-    return torch.segment_reduce(data[order], "sum", lengths=lengths, axis=0, unsafe=True)
 
 
 def scale_and_merge_grads(
@@ -230,30 +229,27 @@ def make_train_step(
 ) -> Callable:
     """Build ``step(state, batch_dict) -> (state, metrics)``.
 
-    ``model_apply(params, slot_feats, dense) -> logits``. ``batch_dict``
-    fields are tensors on the table's device: uniq_rows [U], inverse [L],
-    segments [L], labels [B], optional dense [B, Dd] and ins_weight [B].
-    See data/device_pack.py.
+    ``model_apply(params, slot_feats, dense) -> logits``, or with
+    ``cfg.model_takes_rank_offset`` ``model_apply(params, slot_feats,
+    dense, rank_offset)`` (the join phase's ``models.RankDeepFM``).
+    ``batch_dict`` fields are tensors on the table's device: uniq_rows [U],
+    inverse [L], segments [L], labels [B], optional dense [B, Dd],
+    ins_weight [B] and rank_offset [B, 2R+1]. See data/device_pack.py.
 
     ``eval_mode`` is forward + AUC, with table, params and opt_state
     returned as they came. Training needs ``dense_opt``; it updates the
     table in place and returns new params and optimizer state. Dense sync
     "step" and "kstep" are the same local update on one device; "async",
-    ``use_expand``, ``model_takes_rank_offset`` and ``axis_name`` are not
-    ported.
+    ``use_expand`` and ``axis_name`` (a mesh) are not ported.
     """
-    if cfg.use_expand or cfg.model_takes_rank_offset or cfg.axis_name is not None:
-        raise NotImplementedError(
-            "use_expand, model_takes_rank_offset and axis_name are not ported yet"
-        )
+    if cfg.use_expand or cfg.axis_name is not None:
+        raise NotImplementedError("use_expand and axis_name are not ported yet")
     lay, opt = cfg.layout, cfg.sparse_opt
 
     if eval_mode:
 
         @torch.no_grad()
         def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-            if "rank_offset" in batch:
-                raise NotImplementedError("rank_offset (the pv/join phase) is not ported yet")
             pulled_u = pull_sparse_rows(
                 state.table, batch["uniq_rows"], lay, opt.embedx_threshold, cfg.pull_scale
             )  # [U, PW]
@@ -264,7 +260,7 @@ def make_train_step(
             ins_weight = batch.get("ins_weight")
             loss, preds = local_forward(
                 model_apply, cfg, state.params, flat, batch["segments"], labels,
-                batch.get("dense"), ins_weight=ins_weight,
+                batch.get("dense"), ins_weight=ins_weight, rank_offset=batch.get("rank_offset"),
             )
             auc_mask = None if ins_weight is None else (ins_weight > 0)
             new_auc = auc_update(state.auc, preds, labels, auc_mask)
@@ -311,7 +307,7 @@ def make_train_step(
             loss_w, loss_denom = adjusted_loss_weight(cfg, flat, segments, ins_weight, B)
         loss, preds, gparams, gflat = local_forward_backward(
             model_apply, cfg, state.params, flat, segments, labels, dense,
-            ins_weight=loss_w, loss_denom=loss_denom,
+            ins_weight=loss_w, loss_denom=loss_denom, rank_offset=batch.get("rank_offset"),
         )
         finite = None
         zero = torch.zeros((), dtype=torch.float32, device=flat.device)

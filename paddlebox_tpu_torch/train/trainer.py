@@ -11,23 +11,38 @@ pass:
     dataset.end_pass(trainer.trained_table())         # classic boundary
     # or dataset.end_pass(trainer.trained_table_device()): carried
 
-``train_pass`` takes one of three feeds, as the JAX package does:
+``train_pass`` takes one of these feeds, as the JAX package does, and
+names it in ``last_feed``:
 
 1. the resident feed (``train/resident_step.py``), when the pass is
    store-backed (native parser) and ``enable_resident_feed`` is on: the
    pass's row stream and index partition are uploaded once, and each
    dispatch runs ``resident_scan_batches`` steps on batches built on the
-   device;
+   device ("resident"; a model that takes ``rank_offset`` stays off it);
 2. the packer feed, store-backed with the resident feed off:
    ``BatchPacker`` packs each batch natively in prefetch threads, which
    also pin it; the dispatch thread copies it to the device
-   asynchronously from the pinned memory, so the copy waits for nothing;
+   asynchronously from the pinned memory, so the copy waits for nothing
+   ("packer");
 3. the slow feed, for a pass held as SlotRecords (Python parser):
    ``build_batch`` + ``pack_batch`` + a copy per batch on the dispatch
-   thread.
+   thread ("slow").
+
+The join phase (``dataset.pv_merged`` and ``current_phase`` 1) has its own
+three: the pass's ``PvPlan`` resident on the device, a dispatch a [K]
+slice of batch positions ("resident_pv"); the packer over the plan's
+record indices, with its rank matrices and ghost weights
+("pv_packer"); and, for a pass held as SlotRecords, ``pv_batches``
+packed in one prefetch worker ("pv_records"). ``set_test_mode(True)``
+makes every feed run the eval step (forward and AUC; table, params and
+optimizer state as they were); the eval supersteps are cached beside the
+training ones. With a ``metric_registry`` each batch's outputs, with its
+``cmatch``, ``rank`` and ``ins_weight``, feed it under the dataset's
+``current_phase``; on the resident feeds those inputs are device slices
+of columns uploaded once a pass, so the registry adds no host sync.
 
 At most ``max_inflight_steps`` dispatches are in flight (one superstep
-ahead on the resident feed); the wait is on a CUDA event recorded after
+ahead on the resident feeds); the wait is on a CUDA event recorded after
 the oldest one, so it never waits for the work queued behind it. Dense
 params and the optimizer state persist across passes on the device; the
 sparse working-set table is rebuilt per pass, as a copy of the dataset's
@@ -38,12 +53,13 @@ its carrier untouched.
 
 ``save_dense`` / ``load_dense`` write and read the JAX package's dense
 file (the leaves of its ``(params, optax.adam state)`` tree, in the order
-``models/convert.py`` spells out), so a checkpoint crosses packages either
-way. ``load_dense`` (and a ``PassGuard`` revert) drop every device-side
-cache, so the next pass trains from the loaded state.
+``models/convert.py`` spells out, DeepFM or RankDeepFM), so a checkpoint
+crosses packages either way. ``load_dense`` (and a ``PassGuard`` revert)
+drop every device-side cache, so the next pass trains from the loaded
+state.
 
-Not ported: dense features, meshes, the pv/join phase, async dense,
-dumps and eval mode.
+Not ported: dense features, meshes and multi-host lockstep (the pv
+lockstep included), async dense, dumps and the ``box=`` test-mode hook.
 """
 
 from __future__ import annotations
@@ -63,7 +79,13 @@ from paddlebox_tpu_torch.data.device_pack import BatchPacker, pack_batch
 from paddlebox_tpu_torch.data.pipeline import prefetch
 from paddlebox_tpu_torch.metrics.auc import AucState, auc_compute, auc_init
 from paddlebox_tpu_torch.train.dense_opt import Adam, AdamState
-from paddlebox_tpu_torch.train.resident_step import ResidentPass, make_resident_superstep
+from paddlebox_tpu_torch.metrics.registry import MetricRegistry
+from paddlebox_tpu_torch.train.resident_step import (
+    ResidentPass,
+    ResidentPvFeed,
+    make_resident_pv_superstep,
+    make_resident_superstep,
+)
 from paddlebox_tpu_torch.train.train_step import TrainState, TrainStepConfig, make_train_step
 from paddlebox_tpu_torch.utils.device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.utils.fs import atomic_write
@@ -98,34 +120,60 @@ class CTRTrainer:
         cfg: TrainStepConfig,
         dense_opt: Optional[Adam] = None,
         device: DeviceLike = "cuda",
+        metric_registry: Optional[MetricRegistry] = None,
     ):
-        """``model(slot_feats, dense) -> logits`` (e.g. ``models.DeepFM``)
-        moves to ``device``; its current weights are the initial params.
-        ``dense_opt`` defaults to ``Adam(1e-3)``. ``device`` defaults to
-        "cuda" and raises on a host without a GPU."""
+        """``model(slot_feats, dense) -> logits`` (e.g. ``models.DeepFM``;
+        with ``cfg.model_takes_rank_offset``, ``model(slot_feats, dense,
+        rank_offset)``, e.g. ``models.RankDeepFM``) moves to ``device``;
+        its current weights are the initial params. ``dense_opt`` defaults
+        to ``Adam(1e-3)``. ``device`` defaults to "cuda" and raises on a
+        host without a GPU. ``metric_registry`` (on the same device) is fed
+        every batch's outputs."""
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.dense_opt = dense_opt or Adam(1e-3)
+        self.metric_registry = metric_registry
         self.params: Optional[Dict[str, torch.Tensor]] = None
         self.opt_state: Optional[AdamState] = None
         self._state: Optional[TrainState] = None
         self._state_ws = None
         self._packer_cache = None  # (store, ws, BatchPacker)
         self._resident_cache = None  # (store, ws, ResidentPass)
-        self._sstep = None  # (ResidentPass, superstep)
+        # (pv, eval_mode) -> (ResidentPass, ResidentPvFeed or None, superstep)
+        self._sstep_cache: Dict[tuple, tuple] = {}
         self._idx_cache = None  # (ResidentPass, host [n, B] int32, device copy)
+        self._pv_feed_cache = None  # (PvPlan, ResidentPass, ResidentPvFeed)
+        # SetTestMode (box_wrapper.cc:623): the next train_pass calls run
+        # the eval step until cleared
+        self.test_mode = False
+        self._eval_step_fn = None
+        self.last_feed: Optional[str] = None  # the feed the last train_pass took
         self.last_prepare_s = 0.0
         # prepare_pass's seconds on the resident feed: the row stream's
         # resolve and upload (a new ResidentPass), the batch partition, its
         # pad stats (ResidentPass.ensure) and the index partition's upload
         self.last_prepare_parts: Dict[str, float] = {}
 
-        def model_apply(params, slot_feats, dense):
-            return functional_call(self.model, params, (slot_feats, dense))
+        def model_apply(params, slot_feats, dense, *extra):
+            return functional_call(self.model, params, (slot_feats, dense, *extra))
 
         self._model_apply = model_apply
         self._step = make_train_step(model_apply, cfg, self.dense_opt)
+
+    # ---- eval mode -------------------------------------------------------
+
+    def set_test_mode(self, on: bool = True) -> None:
+        """SetTestMode parity: the next train_pass calls run forward and
+        metrics only (no sparse push, no dense update) until cleared."""
+        self.test_mode = on
+
+    def _step_fn(self, eval_mode: bool):
+        if not eval_mode:
+            return self._step
+        if self._eval_step_fn is None:
+            self._eval_step_fn = make_train_step(self._model_apply, self.cfg, eval_mode=True)
+        return self._eval_step_fn
 
     # ---- dense param lifecycle ------------------------------------------
 
@@ -138,13 +186,14 @@ class CTRTrainer:
 
     def drop_device_state(self) -> None:
         """Forget every device-side cache: the pass state (table, params and
-        optimizer copies), the packer, the resident pass, its superstep and
-        its index partition. The next train_pass starts from
-        ``self.params`` / ``self.opt_state``."""
+        optimizer copies), the packer, the resident pass, its supersteps,
+        its index partition and its pv plan. The next train_pass starts
+        from ``self.params`` / ``self.opt_state``."""
         if self._packer_cache is not None:
             self._packer_cache[2].close()
         self._state = self._state_ws = None
-        self._packer_cache = self._resident_cache = self._sstep = self._idx_cache = None
+        self._packer_cache = self._resident_cache = self._idx_cache = self._pv_feed_cache = None
+        self._sstep_cache = {}
 
     def save_dense(self, path: str) -> None:
         """Dense checkpoint (boxps_trainer.cc:123-131 parity) in the JAX
@@ -215,6 +264,25 @@ class CTRTrainer:
         return ev
 
     # ---- feeds -------------------------------------------------------------
+    # Each feed yields (device batch, registry inputs). The registry's
+    # inputs (cmatch, rank, ins_weight) are gathered only when a registry
+    # is attached, and travel to the device the way the batch does.
+
+    def _to_device(self, host: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
+
+    def _host(self, arrays: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Host tensors of ``arrays``, pinned when the device is a GPU (so
+        the dispatch thread's copy is asynchronous)."""
+        host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
+        return {k: v.pin_memory() for k, v in host.items()} if self.device.type == "cuda" else host
+
+    def _logkey_aux(self, cmatch, rank) -> Dict[str, np.ndarray]:
+        """The registry's logkey inputs of a batch (none without a registry
+        or without logkey columns)."""
+        if self.metric_registry is None or cmatch is None:
+            return {}
+        return {"cmatch": cmatch, "rank": rank}
 
     def _slow_feed_iter(self, dataset: BoxPSDataset, n_batches, profile, tm):
         """Build, pack and copy each batch on the dispatch thread. With
@@ -231,13 +299,17 @@ class CTRTrainer:
             db = pack_batch(batch, dataset.ws, dataset.schema)
             t2 = time.perf_counter()
             feed = {k: torch.from_numpy(v).to(self.device) for k, v in db.as_dict().items()}
+            aux = {
+                k: torch.from_numpy(v).to(self.device)
+                for k, v in self._logkey_aux(batch.cmatch, batch.rank).items()
+            }
             if profile:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
                 tm["build_batch_s"] += t1 - t0
                 tm["pack_batch_s"] += t2 - t1
                 tm["h2d_s"] += time.perf_counter() - t2
-            yield feed
+            yield feed, aux
 
     def _get_packer(self, dataset: BoxPSDataset) -> BatchPacker:
         """One BatchPacker per (store, working set): its pad shapes stay
@@ -251,6 +323,12 @@ class CTRTrainer:
         self._packer_cache = (dataset.store, dataset.ws, packer)
         return packer
 
+    def _store_logkeys(self, store, idx):
+        """(cmatch, rank) of records ``idx`` of a store that parsed them."""
+        if store.ins_id_off is None:
+            return None, None
+        return store.cmatch[idx], store.rank[idx]
+
     def _fast_feed_iter(self, dataset: BoxPSDataset, n_batches):
         """Native pack in prefetch threads, overlapped with the device step.
         The workers also pin each batch; the copy to the device is issued
@@ -259,17 +337,68 @@ class CTRTrainer:
         for it."""
         packer = self._get_packer(dataset)
         packer.freeze_shapes(dataset.batch_indices(n_batches))
-        pin = self.device.type == "cuda"
+        store = dataset.store
 
         def prep(idx):
-            host = {k: torch.from_numpy(v) for k, v in packer.pack(idx).as_dict().items()}
-            return {k: v.pin_memory() for k, v in host.items()} if pin else host
+            aux = self._logkey_aux(*self._store_logkeys(store, idx))
+            return self._host(packer.pack(idx).as_dict()), self._host(aux)
 
-        for host in prefetch(dataset.batch_indices(n_batches), prep):
-            yield {k: v.to(self.device, non_blocking=True) for k, v in host.items()}
+        for host, aux in prefetch(dataset.batch_indices(n_batches), prep):
+            yield self._to_device(host), self._to_device(aux)
 
-    def _classic_stepper(self, iterator, holder, profile, tm):
-        """Per-batch dispatch over a host-packed feed. Yields (i, metrics)."""
+    def _pv_locked_plan(self, dataset: BoxPSDataset):
+        """The pass's PvPlan, the one source of the join phase's gate,
+        prepare and feeds. One device: no lockstep ghost batches
+        (``min_batches`` 0); the multi-host lockstep is not ported."""
+        return dataset.pv_plan(1, min_batches=0)
+
+    def _pv_plan_feed_iter(self, dataset: BoxPSDataset, plan, n_batches):
+        """The join phase's packer feed: the plan's record indices packed
+        natively in prefetch threads (which pin them, with the batch's rank
+        matrix and ghost weights), copied as ``_fast_feed_iter`` copies.
+        At most ``n_batches`` of the plan's batches (no wrap-around)."""
+        packer = self._get_packer(dataset)
+        packer.freeze_shapes(plan.idx)
+        store = dataset.store
+        n = plan.n_batches if n_batches is None else min(plan.n_batches, n_batches)
+
+        def prep(pos):
+            idx = plan.idx[pos]
+            arrays = packer.pack(idx).as_dict()
+            arrays["ins_weight"] = plan.ins_weight[pos]
+            arrays["rank_offset"] = plan.rank_offset[pos]
+            aux = self._logkey_aux(*self._store_logkeys(store, idx))
+            return self._host(arrays), self._host(aux)
+
+        for host, aux in prefetch(range(n), prep):
+            feed = self._to_device(host)
+            yield feed, self._pv_aux(feed, self._to_device(aux))
+
+    def _pv_aux(self, feed, aux):
+        if self.metric_registry is not None:
+            aux["ins_weight"] = feed["ins_weight"]
+        return aux
+
+    def _pv_feed_iter(self, dataset: BoxPSDataset, n_batches):
+        """The join phase's record-level feed, for a pass held as
+        SlotRecords: ``pv_batches`` built on the dispatch thread, packed
+        and pinned by ONE prefetch worker (the order stays the pass's),
+        copied as the other host feeds copy."""
+
+        def prepare(item):
+            batch, weight = item
+            arrays = pack_batch(batch, dataset.ws, dataset.schema).as_dict()
+            arrays["ins_weight"] = weight
+            arrays["rank_offset"] = batch.rank_offset
+            return self._host(arrays), self._host(self._logkey_aux(batch.cmatch, batch.rank))
+
+        for host, aux in prefetch(dataset.pv_batches(n_batches), prepare, workers=1, depth=2):
+            feed = self._to_device(host)
+            yield feed, self._pv_aux(feed, self._to_device(aux))
+
+    def _classic_stepper(self, iterator, holder, step_fn, profile, tm):
+        """Per-batch dispatch over a host-packed feed. Yields (i, metrics,
+        registry inputs)."""
         max_inflight = int(config.get_flag("max_inflight_steps"))
         inflight: deque = deque()
         it = iter(iterator)
@@ -277,13 +406,13 @@ class CTRTrainer:
         while True:
             t0 = time.perf_counter()
             try:
-                feed = next(it)
+                feed, aux = next(it)
             except StopIteration:
                 return
             finally:
                 tm["feed_wait_s"] += time.perf_counter() - t0
             t0 = time.perf_counter()
-            holder["state"], m = self._step(holder["state"], feed)
+            holder["state"], m = step_fn(holder["state"], feed)
             ev = self._mark()
             tm["step_dispatch_s"] += time.perf_counter() - t0
             if ev is not None and (profile or max_inflight):
@@ -292,19 +421,26 @@ class CTRTrainer:
                     t0 = time.perf_counter()
                     inflight.popleft().synchronize()
                     tm["device_step_s"] += time.perf_counter() - t0
-            yield i, m
+            yield i, m, aux
             i += 1
 
-    # ---- the resident feed -------------------------------------------------
+    # ---- the resident feeds ------------------------------------------------
 
-    def _use_resident(self, dataset: BoxPSDataset) -> bool:
-        """One predicate for the resident-vs-packer choice, shared by
-        train_pass and prepare_pass."""
-        return (
+    def _use_resident(self, dataset: BoxPSDataset, use_pv: bool) -> bool:
+        """One predicate for the resident-vs-host choice, shared by
+        train_pass and prepare_pass. The join phase needs the pass's plan
+        (every record's store index); a model that takes ``rank_offset``
+        stays off the flat tier, which has no rank matrix to feed it."""
+        ok = (
             bool(config.get_flag("enable_resident_feed"))
             and dataset.store is not None
             and len(dataset.store.u64_values) < (1 << 31)
         )
+        if not ok:
+            return False
+        if use_pv:
+            return self._pv_locked_plan(dataset) is not None
+        return not self.cfg.model_takes_rank_offset
 
     def _get_resident(self, dataset: BoxPSDataset) -> ResidentPass:
         """Pass-scoped ResidentPass, rebuilt when the store or working set
@@ -317,17 +453,52 @@ class CTRTrainer:
         # index blocks: distinct keys map to distinct rows in any working set
         prev_uniq = c[2]._uniq_cache if c is not None and c[0] is dataset.store else None
         c = None  # a live reference would keep the old arrays on the device
-        self._resident_cache = self._sstep = self._idx_cache = None
+        self._resident_cache = self._idx_cache = self._pv_feed_cache = None
+        self._sstep_cache = {}
         rp = ResidentPass(dataset.store, dataset.ws, dataset.schema, self.device)
         if prev_uniq:
             rp._uniq_cache.update(prev_uniq)
         self._resident_cache = (dataset.store, dataset.ws, rp)
         return rp
 
-    def _resident_superstep(self, rp: ResidentPass):
-        if self._sstep is None or self._sstep[0] is not rp:
-            self._sstep = (rp, make_resident_superstep(self._model_apply, self.dense_opt, self.cfg, rp))
-        return self._sstep[1]
+    def _pv_resident_prepare(self, dataset: BoxPSDataset, parts: Optional[Dict[str, float]] = None):
+        """(ResidentPass, PvPlan, ResidentPvFeed) of the resident join
+        phase: build the plan, grow the resident pads over its batches
+        (ghosts repeat records: they add keys, no unique rows) and upload
+        its arrays once a pass. With ``parts`` each stage's seconds land
+        there."""
+        t = [time.perf_counter()]
+        rp = self._get_resident(dataset)
+        t.append(time.perf_counter())
+        plan = self._pv_locked_plan(dataset)
+        t.append(time.perf_counter())
+        rp.ensure(plan.idx)
+        t.append(time.perf_counter())
+        c = self._pv_feed_cache
+        if c is None or c[0] is not plan or c[1] is not rp:
+            self._pv_feed_cache = None  # the old plan's arrays go first
+            self._pv_feed_cache = (plan, rp, ResidentPvFeed(plan, self.device))
+        t.append(time.perf_counter())
+        if parts is not None:
+            names = ("resident_upload_s", "pv_plan_s", "pad_stats_s", "pv_upload_s")
+            parts.update({k: b - a for k, a, b in zip(names, t, t[1:])})
+        return rp, plan, self._pv_feed_cache[2]
+
+    def _resident_superstep(self, rp: ResidentPass, eval_mode: bool, pv_feed: Optional[ResidentPvFeed] = None):
+        """The superstep of (flat or pv, train or eval), cached side by
+        side, so a pass that alternates training and eval builds each
+        once."""
+        key = (pv_feed is not None, eval_mode)
+        c = self._sstep_cache.get(key)
+        if c is None or c[0] is not rp or c[1] is not pv_feed:
+            if pv_feed is None:
+                ss = make_resident_superstep(self._model_apply, self.dense_opt, self.cfg, rp, eval_mode=eval_mode)
+            else:
+                ss = make_resident_pv_superstep(
+                    self._model_apply, self.dense_opt, self.cfg, rp, pv_feed, eval_mode=eval_mode
+                )
+            c = self._sstep_cache[key] = (rp, pv_feed, ss)
+        return c[2]
 
     def _index_partition(self, rp: ResidentPass, blocks: List[np.ndarray]) -> torch.Tensor:
         """The partition's record indices on the device, [n, B] int32,
@@ -344,27 +515,40 @@ class CTRTrainer:
         self._idx_cache = (rp, host, dev)
         return dev
 
-    def _resident_stepper(self, dataset: BoxPSDataset, n_batches, holder, profile, tm):
-        """Superstep dispatch: K batches a call, the feed a slice of the
-        resident index partition. Yields (i, metrics) like the classic
-        stepper; each metric is a view of the chunk's stacked output, so
-        nothing is read back unless a consumer reads it. With ``profile``
-        every dispatch is one batch and waits for the device (per-batch
-        attribution, as the JAX package does)."""
+    def _resident_stepper(self, dataset: BoxPSDataset, n_batches, holder, eval_mode, profile, tm, use_pv):
+        """Superstep dispatch: K batches a call. The flat tier's feed is a
+        slice of the resident index partition; the join tier's (``use_pv``)
+        a slice of the resident plan's batch positions, its rank matrices
+        and weights riding along on the device. Yields (i, metrics,
+        registry inputs) like the classic stepper; each metric is a view
+        of the chunk's stacked output, and each registry input a device
+        slice, so nothing is read back unless a consumer reads it. With
+        ``profile`` every dispatch is one batch and waits for the device
+        (per-batch attribution, as the JAX package does)."""
         t0 = time.perf_counter()
-        rp = self._get_resident(dataset)
-        blocks = [np.asarray(b, dtype=np.int32) for b in dataset.batch_indices(n_batches)]
-        rp.ensure(blocks)
-        idx_dev = self._index_partition(rp, blocks)
-        sstep = self._resident_superstep(rp)
+        pv_feed = None
+        if use_pv:
+            rp, plan, pv_feed = self._pv_resident_prepare(dataset)
+            n = plan.n_batches if n_batches is None else min(plan.n_batches, n_batches)
+            feed_dev, rows_dev = pv_feed.positions, pv_feed.idx
+        else:
+            rp = self._get_resident(dataset)
+            blocks = [np.asarray(b, dtype=np.int32) for b in dataset.batch_indices(n_batches)]
+            rp.ensure(blocks)
+            feed_dev = rows_dev = self._index_partition(rp, blocks)
+            n = len(blocks)
+        sstep = self._resident_superstep(rp, eval_mode, pv_feed)
+        logkeys = None
+        if self.metric_registry is not None and dataset.store.ins_id_off is not None:
+            logkeys = rp.logkey_columns()
         tm["feed_wait_s"] += time.perf_counter() - t0
         K = 1 if profile else max(1, int(config.get_flag("resident_scan_batches")))
         inflight: deque = deque()
         i = 0
-        for c0 in range(0, len(blocks), K):
-            n = min(K, len(blocks) - c0)
+        for c0 in range(0, n, K):
+            k = min(K, n - c0)
             t0 = time.perf_counter()
-            holder["state"], mstack = sstep(holder["state"], idx_dev[c0 : c0 + n])
+            holder["state"], mstack = sstep(holder["state"], feed_dev[c0 : c0 + k])
             ev = self._mark()
             tm["step_dispatch_s"] += time.perf_counter() - t0
             if ev is not None:
@@ -373,20 +557,36 @@ class CTRTrainer:
                     t0 = time.perf_counter()
                     inflight.popleft().synchronize()
                     tm["device_step_s"] += time.perf_counter() - t0
-            for j in range(n):
-                yield i, {k: v[j] for k, v in mstack.items()}
+            for j in range(k):
+                aux = {}
+                if logkeys is not None:
+                    rows = rows_dev[c0 + j]
+                    aux["cmatch"] = logkeys[0].index_select(0, rows)
+                    aux["rank"] = logkeys[1].index_select(0, rows)
+                if pv_feed is not None and self.metric_registry is not None:
+                    aux["ins_weight"] = pv_feed.ins_weight[c0 + j]
+                yield i, {key: v[j] for key, v in mstack.items()}, aux
                 i += 1
 
     def prepare_pass(self, dataset: BoxPSDataset, n_batches: Optional[int] = None) -> None:
         """Freeze this pass's pad shapes for a batch partition before a
         timed train_pass: the resident feed's L_pad/U_pad (and its index
-        partition's upload), or the packer's L_pad. Its wall time lands in
-        ``last_prepare_s``."""
+        partition's upload, or in the join phase the plan's build and
+        upload), or the packer's L_pad (the join phase's packer freezes at
+        feed time). Its wall time lands in ``last_prepare_s``, the resident
+        feeds' stages in ``last_prepare_parts``."""
         t0 = time.perf_counter()
         try:
             if dataset.store is None or dataset.ws is None:
                 return
-            if self._use_resident(dataset):
+            use_pv = dataset.pv_merged and dataset.current_phase == 1
+            if use_pv:
+                if self._use_resident(dataset, True):
+                    parts: Dict[str, float] = {}
+                    self._pv_resident_prepare(dataset, parts)
+                    self.last_prepare_parts = parts
+                return
+            if self._use_resident(dataset, False):
                 t = [time.perf_counter()]
                 rp = self._get_resident(dataset)
                 t.append(time.perf_counter())
@@ -411,7 +611,9 @@ class CTRTrainer:
         profile: bool = False,
     ) -> Dict[str, float]:
         """Train ``n_batches`` minibatches of the current pass (all of them
-        by default, wrapping around past the tail); returns pass metrics.
+        by default; the flat feeds wrap around past the tail, the join
+        phase's stop at its last pv batch); returns pass metrics. In test
+        mode it evaluates them instead.
 
         Call between ``dataset.begin_pass()`` and ``dataset.end_pass(...)``.
         ``profile=True`` adds ``out["profile"]``, host seconds in
@@ -427,28 +629,37 @@ class CTRTrainer:
         # AUC buckets accumulate across train_pass calls within one pass:
         # this call reports the delta
         auc0 = AucState(pos=state.auc.pos.cpu().clone(), neg=state.auc.neg.cpu().clone())
-        losses = []
-        skip_flags = []
+        losses: list = []
+        skip_flags: list = []
         holder = {"state": state}
-        if self._use_resident(dataset):
-            stepper = self._resident_stepper(dataset, n_batches, holder, profile, tm)
-        elif dataset.store is not None:
-            stepper = self._classic_stepper(
-                self._fast_feed_iter(dataset, n_batches), holder, profile, tm
-            )
+        # the join phase serves pv-merged batches with rank_offset and ghost
+        # weights, the update phase flat ones (data_feed.cc:2165-2198)
+        use_pv = dataset.pv_merged and dataset.current_phase == 1
+        eval_mode = self.test_mode
+        step_fn = self._step_fn(eval_mode)
+        if self._use_resident(dataset, use_pv):
+            feed = "resident_pv" if use_pv else "resident"
+            stepper = self._resident_stepper(dataset, n_batches, holder, eval_mode, profile, tm, use_pv)
         else:
-            tm.update(dict.fromkeys(_SLOW_FEED_KEYS, 0.0))
-            stepper = self._classic_stepper(
-                self._slow_feed_iter(dataset, n_batches, profile, tm), holder, profile, tm
-            )
+            if use_pv and dataset.store is not None:
+                feed = "pv_packer"
+                it = self._pv_plan_feed_iter(dataset, self._pv_locked_plan(dataset), n_batches)
+            elif use_pv:
+                feed = "pv_records"
+                it = self._pv_feed_iter(dataset, n_batches)
+            elif dataset.store is not None:
+                feed = "packer"
+                it = self._fast_feed_iter(dataset, n_batches)
+            else:
+                feed = "slow"
+                tm.update(dict.fromkeys(_SLOW_FEED_KEYS, 0.0))
+                it = self._slow_feed_iter(dataset, n_batches, profile, tm)
+            stepper = self._classic_stepper(it, holder, step_fn, profile, tm)
+        self.last_feed = feed
         try:
-            for i, m in stepper:
+            for i, m, aux in stepper:
                 t0 = time.perf_counter()
-                if "nan_skipped" in m:
-                    skip_flags.append(m["nan_skipped"])
-                if on_batch is not None:
-                    on_batch(i, m)
-                losses.append(m["loss"])
+                self._consume_batch(i, m, aux, dataset, on_batch, losses, skip_flags)
                 tm["host_metrics_s"] += time.perf_counter() - t0
         except BaseException:
             # the table was updated in place up to the failing step; keep
@@ -456,6 +667,7 @@ class CTRTrainer:
             self._state = holder["state"]
             raise
         state = holder["state"]
+        # an eval pass returns params and optimizer state as they came
         self.params = state.params
         self.opt_state = state.opt_state
         self._state = state
@@ -478,6 +690,21 @@ class CTRTrainer:
         if profile:
             out["profile"] = tm
         return out
+
+    def _consume_batch(self, i, m, aux, dataset: BoxPSDataset, on_batch, losses, skip_flags) -> None:
+        """Host-side per-batch consumers, shared by every stepper. A batch
+        the NaN check skipped stays out of the registry (the read of its
+        flag waits for the device, and happens only with a registry)."""
+        if "nan_skipped" in m:
+            skip_flags.append(m["nan_skipped"])
+        reg = self.metric_registry
+        if reg is not None and not ("nan_skipped" in m and int(m["nan_skipped"])):
+            # per-batch registry feed with the phase and the logkey inputs
+            # (AddAucMonitor parity, boxps_worker.cc:408-418)
+            reg.add_all({**m, **aux}, phase=dataset.current_phase)
+        if on_batch is not None:
+            on_batch(i, m)
+        losses.append(m["loss"])
 
     def trained_table(self) -> np.ndarray:
         """The pass's trained table on the host, [rows, width], for

@@ -42,7 +42,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     assert out["PBT"] == "", out
     walked = set(out["WALKED"].split(","))
     for m in ("train.checkpoint", "train.rollback", "serve.follower", "utils.fs",
-              "ops.wire_quant", "table.carrier"):
+              "ops.wire_quant", "table.carrier", "data.pv_instance", "ops.ctr_ops",
+              "models.rank", "metrics.registry"):
         assert f"paddlebox_tpu_torch.{m}" in walked
 
 

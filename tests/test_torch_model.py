@@ -133,9 +133,11 @@ def test_eval_step_with_ins_weight_matches_jax(adjust):
     new, m, step, state, batch = _eval_both(ins_weight=w, adjust=adjust)
     counted = int(new.auc.pos.sum() + new.auc.neg.sum())
     assert counted == int((w > 0).sum()) == 5
-    with pytest.raises(NotImplementedError, match="rank_offset"):
-        step(state, {**{k: torch.from_numpy(v) for k, v in batch.items()},
-                     "rank_offset": torch.zeros((B, 3), dtype=torch.int32)})
+    # a rank matrix reaches the model only under model_takes_rank_offset,
+    # as in the JAX step: without it the batch's rank_offset changes nothing
+    _, m_ro = step(state, {**{k: torch.from_numpy(v) for k, v in batch.items()},
+                           "rank_offset": torch.zeros((B, 3), dtype=torch.int32)})
+    assert torch.equal(m_ro["preds"], m["preds"]) and torch.equal(m_ro["loss"], m["loss"])
 
 
 def test_train_mode_is_not_ported_yet():
