@@ -150,7 +150,30 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    seconds), the warm-up, ``preprocess_instance``, ``pv_plan`` and
    ``prepare_pass`` seconds, pvs and batches an epoch, a join step's ms,
    busy ms, idle share and host-clock split, update samples/s and the
-   three metrics' log lines.
+   three metrics' log lines;
+11. the model zoo ("zoo") at the JAX classes' default widths on
+   bench.py's data (4 files x 8192 records from ``--seed + 7``, one key a
+   slot): ``LogisticRegression(39, 19)``, ``WideDeep(39, 19,
+   dense_dim=13)`` fed by a 13-wide float slot, ``DCN(108, 19)`` on 108
+   slots and ``task_head(MMoE(39, 19), 0)``. For each: ``prepare_pass``, a
+   warm-up epoch and two timed epochs on the resident feed (2 gathers and
+   1 writeback a step), samples/s, busy ms and idle share a step, 0 host
+   syncs in a resident superstep of 8, 4 steps from one state through the
+   resident feed (K = 4 and K = 1) and the packer feed (and the slow feed
+   for WideDeep) bitwise, and 4 steps at a small size (2 files, batch
+   256, small towers) on the card against the port's CPU path. Then async
+   dense on WideDeep's packer feed: a deterministic drive (``merge_limit
+   =1``, a wait on each update) twice on the card, bitwise, and against
+   the CPU path, then a free-running pass at full width (samples/s,
+   updates, ``opt_state`` untouched); a packer pass with a
+   ``DumpWorkerPool`` and ``dump_params_at_end`` (steps x batch lines,
+   each pred its step's under ``.6g``, one param line a leaf under the JAX
+   names, the overhead); a day through ``BoxWrapper`` (a training pass,
+   an eval pass under ``set_test_mode`` leaving the state bitwise,
+   ``save_base``, ``load_model`` into a second wrapper bitwise,
+   ``save_cache_model``); and ``pull_rows_cuda`` at DCN's batch shape
+   against its plain version, ``index_select``, the byte bound and the
+   sector floor, both kernels held bitwise there.
 
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -236,6 +259,23 @@ SMALL_STEPS = 3
 SMALL_TABLE_RTOL, SMALL_TABLE_ATOL = 1e-4, 1e-6
 SMALL_PARAMS_ATOL = 1e-5
 SMALL_LOSS_RTOL = 1e-5
+# phase 11: the zoo at the JAX classes' default widths, bench.py's data
+ZOO_NAMES = ("lr", "wide_deep", "dcn", "mmoe")
+ZOO_FILES = 4  # x RECORDS_PER_FILE: 8 batches an epoch
+ZOO_DENSE_DIM = 13  # Criteo-Kaggle's numeric columns, WideDeep's dense slot
+DCN_SLOTS = 108  # BASELINE config 4
+ZOO_TIMED_EPOCHS = 2
+ZOO_FEED_STEPS = 4
+ZOO_SMALL_FILES = 2  # the card against the CPU path
+ZOO_SMALL_BATCH = 256
+ZOO_SMALL_STEPS = 4
+ZOO_PARAMS_ATOL = 2e-4  # phase 10's JOIN_PARAMS_ATOL, for the same reason
+# an element whose gradients on the card and the CPU differ by more than
+# this share of their size at some step is left to Adam's bound, 2 lr a
+# step: the bf16 tower's rounding decides its update (DCN's first tower
+# layer over 2,052 inputs has many; PERF.md, phase 11)
+ZOO_GRAD_REL = 0.05
+ZOO_BOX_FILES = 2  # the façade's day
 # phase 3's tile-edge widths: the kernels' tile is TILE_FLOATS floats, so
 # 4100 is past it and is cut into column slabs
 EDGE_WIDTHS = (1, 4, 21, 128, 4100)
@@ -504,27 +544,35 @@ def bench_logkey(search_id: int, cmatch: int, rank: int) -> str:
     return "0" * 11 + format(cmatch, "03x") + format(rank, "02x") + format(search_id, "016x")
 
 
-def write_bench_files(tmpdir, rng, n_files=N_FILES, tag="part", reuse_pool=None, pv=False):
+def write_bench_files(tmpdir, rng, n_files=N_FILES, tag="part", reuse_pool=None, pv=False, n_slots=None,
+                      dense_dim=0):
     """bench.py's ``write_files``: ``n_files`` x RECORDS_PER_FILE slot
-    lines, one key a slot, a quarter from the hot head, the rest uniform,
-    POS_FRAC positive; with ``reuse_pool`` three quarters of the cold draws
-    come from it (bench.py's next pass); with ``pv`` a logkey column first
-    groups consecutive records into queries of 1-4 ads, cmatch 222, ranks
-    1..n (bench.py's join-phase data). Returns (files, this pass's cold
-    keys)."""
+    lines, one key a slot (``n_slots``, NUM_SLOTS by default), a quarter
+    from the hot head, the rest uniform, POS_FRAC positive; with
+    ``reuse_pool`` three quarters of the cold draws come from it (bench.py's
+    next pass); with ``pv`` a logkey column first groups consecutive
+    records into queries of 1-4 ads, cmatch 222, ranks 1..n (bench.py's
+    join-phase data); with ``dense_dim`` a float slot of that many values
+    follows the label (log1p of exponential counts, as Criteo's numeric
+    columns are usually fed). Returns (files, this pass's cold keys)."""
     files, pool = [], []
     search_id = 1
+    n_slots = n_slots or NUM_SLOTS
     for fi in range(n_files):
         n = RECORDS_PER_FILE
-        hot = rng.integers(1, HOT_KEYS, (n, NUM_SLOTS))
-        cold = rng.integers(1, KEY_SPACE, (n, NUM_SLOTS))
+        hot = rng.integers(1, HOT_KEYS, (n, n_slots))
+        cold = rng.integers(1, KEY_SPACE, (n, n_slots))
         if reuse_pool is not None:
-            recur = reuse_pool[rng.integers(0, len(reuse_pool), (n, NUM_SLOTS))]
-            cold = np.where(rng.random((n, NUM_SLOTS)) < 0.75, recur, cold)
-        take_hot = rng.random((n, NUM_SLOTS)) < HOT_FRAC
+            recur = reuse_pool[rng.integers(0, len(reuse_pool), (n, n_slots))]
+            cold = np.where(rng.random((n, n_slots)) < 0.75, recur, cold)
+        take_hot = rng.random((n, n_slots)) < HOT_FRAC
         keys = np.where(take_hot, hot, cold)
         pool.append(keys[~take_hot])
         labels = (rng.random(n) < POS_FRAC).astype(np.int32)
+        dense = [""] * n
+        if dense_dim:
+            vals = np.log1p(rng.exponential(8.0, (n, dense_dim)))
+            dense = [f"{dense_dim} " + " ".join(f"{v:.4f}" for v in row) + " " for row in vals]
         heads = [""] * n
         if pv:
             i = 0
@@ -537,7 +585,7 @@ def write_bench_files(tmpdir, rng, n_files=N_FILES, tag="part", reuse_pool=None,
         path = os.path.join(tmpdir, f"{tag}-{fi:03d}.txt")
         with open(path, "w") as f:
             for i in range(n):
-                f.write(heads[i] + f"1 {labels[i]}.0 " + " ".join(f"1 {k}" for k in keys[i]) + "\n")
+                f.write(heads[i] + f"1 {labels[i]}.0 " + dense[i] + " ".join(f"1 {k}" for k in keys[i]) + "\n")
         files.append(path)
     return files, np.concatenate(pool)
 
@@ -723,8 +771,10 @@ def main() -> int:
     max_err = max(max_err, serve_err)
     boundary_counts = boundary_phase(args, card, ck, lay, schema, train)
     join_counts, join_err = join_update_phase(args, dev, card, ck, pull_push, lay)
+    zoo_counts, dcn, zoo_err = zoo_phase(args, dev, card, ck, lay)
 
-    by_path = {"serve": serve_counts, **train["counts"], **published, "boundary": boundary_counts, **join_counts}
+    by_path = {"serve": serve_counts, **train["counts"], **published, "boundary": boundary_counts, **join_counts,
+               **zoo_counts}
     emit({"kernels": [
         {
             "name": name,
@@ -735,7 +785,8 @@ def main() -> int:
             # resident, the packer and the slow feed, then phase 8's serving
             # through the Follower and its passes on the live and the
             # resumed stacks, then phase 9's pass boundary, then phase 10's
-            # join and update phases
+            # join and update phases, then phase 11's zoo, async dense,
+            # dump and façade runs
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": err,
@@ -746,12 +797,15 @@ def main() -> int:
             "library_ms": train[key]["library_ms"],
             "bound_share": train[key]["bound_ms"] / train[key]["ms"],
             "sector_floor_ms": train[key]["sector_floor_ms"],
+            # the gather at DCN's batch shape (phase 11), beside phase 7's
+            **({"zoo_dcn_shape": {k: dcn[k] for k in ("U", "n_uniq", "ms", "plain_ms", "library_ms", "bound_ms",
+                                                        "sector_floor_ms")}} if key == "gather" else {}),
         }
         for name, source, replaces, key, err in (
             ("pull_rows_cuda", "paddlebox_tpu_torch/ops/csrc/gather_rows.cu", GATHER_REPLACES, "gather",
-             max(max_err, train["gather_err"], join_err)),
+             max(max_err, train["gather_err"], join_err, zoo_err)),
             ("write_rows_cuda", "paddlebox_tpu_torch/ops/csrc/write_rows.cu", WRITE_REPLACES, "write",
-             max(write_err, train["write_err"], join_err)),
+             max(write_err, train["write_err"], join_err, zoo_err)),
         )
     ]})
     print(card, flush=True)
@@ -2151,6 +2205,509 @@ def join_update_phase(args, dev, card, ck, pull_push, lay):
         "registry": {"join_auc": join_line, **lines}, "phase_s": time.perf_counter() - t_phase,
     })
     return counts, max(errs)
+
+
+# ---- 11. the model zoo, async dense, dumps and the façade --------------------
+
+
+def zoo_schema(n_slots, dense_dim):
+    """bench.py's schema of ``n_slots`` one-key slots, with ``dense_dim`` a
+    float slot "dense" after the label."""
+    from paddlebox_tpu_torch.data import SlotInfo, SlotSchema
+
+    dense = [SlotInfo("dense", type="float", dense=True, dim=dense_dim)] if dense_dim else []
+    return SlotSchema(
+        [SlotInfo("label", type="float", dense=True, dim=1)] + dense + [SlotInfo(f"s{i}") for i in range(n_slots)],
+        label_slot="label",
+    )
+
+
+def zoo_model(name, lay, seed, small=False):
+    """The zoo's model ``name`` at the JAX classes' default widths (with
+    ``small``, the card-vs-CPU check's towers), weights from ``seed``.
+    Returns (model, the dense slot's width it reads)."""
+    from paddlebox_tpu_torch.models import DCN, MMoE, LogisticRegression, WideDeep, task_head
+
+    g = torch.Generator().manual_seed(seed)
+    pw = lay.pull_width
+    if name == "lr":
+        return LogisticRegression(NUM_SLOTS, pw, generator=g), 0
+    if name == "wide_deep":
+        return WideDeep(NUM_SLOTS, pw, dense_dim=ZOO_DENSE_DIM, hidden=(32, 16) if small else (512, 256, 128),
+                        generator=g), ZOO_DENSE_DIM
+    if name == "dcn":
+        return DCN(DCN_SLOTS, pw, n_cross=3, hidden=(32, 16) if small else (256, 128), generator=g), 0
+    mmoe = MMoE(NUM_SLOTS, pw, n_experts=4, n_tasks=2, expert_hidden=(32, 16) if small else (128, 64),
+                tower_hidden=(8,) if small else (32,), generator=g)
+    return task_head(mmoe, 0), 0
+
+
+def zoo_cfg(name, lay, sparse_opt, batch, **kw):
+    from paddlebox_tpu_torch.train import TrainStepConfig
+
+    n_slots = DCN_SLOTS if name == "dcn" else NUM_SLOTS
+    return TrainStepConfig(num_slots=n_slots, batch_size=batch, layout=lay, sparse_opt=sparse_opt,
+                           auc_buckets=100_000, **kw)
+
+
+def zoo_trainer(name, lay, cfg, seed, device="cuda", small=False, **kw):
+    from paddlebox_tpu_torch.train import Adam, CTRTrainer
+
+    model, dd = zoo_model(name, lay, seed, small)
+    dense = dict(dense_slot="dense", dense_dim=dd) if dd else {}
+    tr = CTRTrainer(model, cfg, dense_opt=Adam(1e-3), device=device, **dense, **kw)
+    tr.init_params()
+    return tr
+
+
+def zoo_pass(args, lay, sparse_opt, files, schema, batch, n_shards=64):
+    """A native-tier pass over ``files``: (dataset, host table)."""
+    from paddlebox_tpu_torch.data import BoxPSDataset
+    from paddlebox_tpu_torch.table import HostSparseTable
+
+    table = HostSparseTable(lay, sparse_opt, n_shards=n_shards, seed=args.seed)
+    ds = BoxPSDataset(schema, table, batch_size=batch, shuffle_mode="local", seed=args.seed)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    ds.begin_pass(round_to=512)
+    if ds.store is None or not table.native:
+        raise AssertionError("the zoo's pass is not on the native tier")
+    return ds, table
+
+
+def zoo_syncs(tr, ds):
+    """Host syncs of one resident superstep of RESIDENT_K steps through a
+    warm trainer's stepper and its per-batch consumers."""
+    from collections import defaultdict
+
+    with flags(resident_scan_batches=RESIDENT_K):
+        holder = {"state": tr._state}
+
+        def superstep():
+            losses: list = []
+            for i, m, aux in tr._resident_stepper(ds, RESIDENT_K, holder, False, False, defaultdict(float), False):
+                tr._consume_batch(i, m, aux, ds, None, losses, [])
+            if len(losses) != RESIDENT_K:
+                raise AssertionError(f"the probed superstep ran {len(losses)} steps")
+
+        return host_syncs(superstep)
+
+
+def noisy_grads(steps_a, steps_b):
+    """Per param, the elements whose gradients on the two sides differ by
+    more than ZOO_GRAD_REL of their own size at some step (a sign flip
+    among them): the bf16 tower's rounding decides them."""
+    out: dict = {}
+    for ga, gb in zip(steps_a, steps_b):
+        for k in gb:
+            a, b = ga[k].cpu(), gb[k].cpu()
+            n = (a - b).abs() > ZOO_GRAD_REL * b.abs()
+            out[k] = out[k] | n if k in out else n
+    return out
+
+
+def params_within(card, cpu, noisy, n_steps, lr=1e-3):
+    """Params on the card against the CPU path: within ZOO_PARAMS_ATOL, but
+    for an element whose gradient the bf16 rounding decides (``noisy``):
+    Adam's step is scale-free, lr times the gradient's sign at first, so
+    such an element can move by up to 2 lr a step more on one side. Returns
+    (ok, the largest |diff| of the other elements, where, the number of
+    noisy elements, the largest |diff| of those)."""
+    worst, at, ok, n_noisy, worst_noisy = 0.0, "", True, 0, 0.0
+    for k, c in cpu.items():
+        d = (card[k].cpu() - c).abs()
+        f = noisy.get(k, torch.zeros_like(d, dtype=torch.bool))
+        n_noisy += int(f.sum())
+        rest = float(torch.where(f, 0.0, d).max()) if d.numel() else 0.0
+        worst_noisy = max(worst_noisy, float(torch.where(f, d, 0.0).max()) if d.numel() else 0.0)
+        if rest > worst:
+            worst, at = rest, k
+        ok &= rest <= ZOO_PARAMS_ATOL and bool((d <= 2 * lr * n_steps).all())
+    return ok, worst, at, n_noisy, worst_noisy
+
+
+def zoo_card_vs_cpu(name, lay, sparse_opt, ds, seed, dev):
+    """ZOO_SMALL_STEPS training steps of ``name`` (small towers) from one
+    state on the card and on the port's CPU path, over the first batches of
+    ``ds`` packed on the host. Before each step the async-mode step takes
+    the dense gradients on a copy of the state, to see where their signs
+    part. Raises if the two disagree beyond the bounds."""
+    import dataclasses
+
+    from torch.func import functional_call
+
+    from paddlebox_tpu_torch.data import pack_batch
+    from paddlebox_tpu_torch.train import Adam, make_train_step
+
+    cfg = zoo_cfg(name, lay, sparse_opt, ZOO_SMALL_BATCH)
+    _, dd = zoo_model(name, lay, seed, small=True)
+    view = records_view(ds, ZOO_SMALL_STEPS)
+    dense = dict(dense_slot="dense", dense_dim=dd) if dd else {}
+    dbs = [pack_batch(b, ds.ws, ds.schema, **dense).as_dict() for b in view.batches(ZOO_SMALL_STEPS)]
+    table0 = np.ascontiguousarray(np.asarray(ds.device_table).reshape(-1, lay.width))
+    out, grads = {}, {}
+    for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = zoo_model(name, lay, seed, small=True)[0].to(device)
+
+        def apply(p, x, d, m=model):
+            return functional_call(m, p, (x, d))
+
+        step = make_train_step(apply, cfg, Adam(1e-3))
+        gstep = make_train_step(apply, dataclasses.replace(cfg, dense_sync_mode="async"))
+        params = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        st = fresh_state(table0, params, Adam(1e-3).init(params), device)
+        losses, gs = [], []
+        for db in dbs:
+            feed = {k: torch.from_numpy(v).to(device) for k, v in db.items()}
+            gs.append(gstep(st._replace(table=st.table.clone()), feed)[1]["gparams"])
+            st, m = step(st, feed)
+            losses.append(m["loss"])
+        out[where], grads[where] = (st, torch.stack(losses).cpu()), gs
+    (g, gl), (c, cl) = out["card"], out["cpu"]
+    tab_err = float((g.table.cpu() - c.table).abs().max())
+    tab_ok = bool(torch.allclose(g.table.cpu(), c.table, rtol=SMALL_TABLE_RTOL, atol=SMALL_TABLE_ATOL))
+    par_ok, par_err, par_at, n_noisy, noisy_err = params_within(
+        g.params, c.params, noisy_grads(grads["card"], grads["cpu"]), ZOO_SMALL_STEPS
+    )
+    loss_err = float(((gl - cl).abs() / cl.abs()).max())
+    res = {"table_max_abs_diff": tab_err, "params_max_abs_diff": par_err, "params_max_at": par_at,
+           "noisy_grad_elements": n_noisy, "noisy_params_max_abs_diff": noisy_err,
+           "params": sum(v.numel() for v in c.params.values()), "loss_max_rel_diff": loss_err}
+    print(f"zoo {name} card vs CPU ({ZOO_SMALL_STEPS} steps, batch {ZOO_SMALL_BATCH}, small towers): {res} "
+          f"(table rtol {SMALL_TABLE_RTOL} atol {SMALL_TABLE_ATOL}, params atol {ZOO_PARAMS_ATOL} where the "
+          f"gradients agree within {ZOO_GRAD_REL:g} of their size, loss rtol {SMALL_LOSS_RTOL})", flush=True)
+    if not (tab_ok and par_ok and loss_err <= SMALL_LOSS_RTOL):
+        raise AssertionError(f"zoo {name}: the card and the CPU path disagree")
+    return res
+
+
+def zoo_model_run(args, name, lay, sparse_opt, ds, small_ds, ck, dev, card):
+    """One zoo model on the card: prepare_pass, a warm-up epoch and two
+    timed epochs on the resident feed, busy ms, the superstep's syncs, the
+    feeds bitwise, then the small card-vs-CPU check. Returns (numbers,
+    launch counts of the warm-up and timed epochs)."""
+    t_model = time.perf_counter()
+    cfg = zoo_cfg(name, lay, sparse_opt, BATCH)
+    n_b, n_rec = ds.num_batches(), ds.memory_data_size()
+    tr = zoo_trainer(name, lay, cfg, args.seed)
+    losses = []
+
+    def keep(i, m):
+        losses.append(m["loss"])
+
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    tr.prepare_pass(ds)
+    t0 = time.perf_counter()
+    outs = [tr.train_pass(ds, on_batch=keep)]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    outs += [tr.train_pass(ds, on_batch=keep) for _ in range(ZOO_TIMED_EPOCHS)]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = dict(ck.launch_counts)
+    if tr.last_feed != "resident":
+        raise AssertionError(f"zoo {name}: the {tr.last_feed} feed, not the resident feed")
+    check_path(f"zoo {name} (resident feed, a warm-up and {ZOO_TIMED_EPOCHS} timed epochs)",
+               {"batches": sum(o["batches"] for o in outs), "loss": outs[-1]["loss"], "auc": outs[-1]["auc"]},
+               torch.stack(losses).cpu(), counts, (1 + ZOO_TIMED_EPOCHS) * n_b)
+    step_ms = (t2 - t1) / (ZOO_TIMED_EPOCHS * n_b) * 1e3
+    busy = busy_ms_per_step(lambda: tr.train_pass(ds, n_batches=RESIDENT_K), RESIDENT_K)
+    n_syncs, sites = zoo_syncs(tr, ds)
+    if n_syncs:
+        raise AssertionError(f"zoo {name}: the resident superstep made {n_syncs} host syncs at {sites}")
+    nums = {
+        "samples_per_s": ZOO_TIMED_EPOCHS * n_rec / (t2 - t1), "ms_per_step": step_ms,
+        "device_busy_ms_per_step": busy, "device_idle_share": 1.0 - busy / step_ms,
+        "prepare_pass_s": tr.last_prepare_s, "warm_up_s": t1 - t0, "host_syncs_per_superstep": n_syncs,
+        "params": sum(v.numel() for v in tr.params.values()),
+    }
+    del tr
+    feeds = {
+        f"resident K={ZOO_FEED_STEPS}": (dict(enable_resident_feed=1, resident_scan_batches=ZOO_FEED_STEPS), ds,
+                                         "resident"),
+        "resident K=1": (dict(enable_resident_feed=1, resident_scan_batches=1), ds, "resident"),
+        "packer": (dict(enable_resident_feed=0), ds, "packer"),
+    }
+    if name == "wide_deep":  # dense features on every feed
+        feeds["slow"] = (dict(enable_resident_feed=0), records_view(ds, ZOO_FEED_STEPS), "slow")
+    four_feeds_bitwise(lambda: zoo_trainer(name, lay, cfg, args.seed), feeds, ZOO_FEED_STEPS, f"zoo {name} feeds")
+    nums["card_vs_cpu"] = zoo_card_vs_cpu(name, lay, sparse_opt, small_ds, args.seed, dev)
+    nums["model_s"] = time.perf_counter() - t_model
+    print(f"zoo {name} ({nums['params']} dense params): {n_b} steps an epoch, {ZOO_TIMED_EPOCHS} timed epochs "
+          f"{nums['samples_per_s']:.1f} samples/s, {step_ms:.3f} ms a step, busy {busy:.3f} ms (idle "
+          f"{nums['device_idle_share']:.3f}), prepare_pass {nums['prepare_pass_s']:.3f} s, warm-up "
+          f"{nums['warm_up_s']:.3f} s, {n_syncs} host syncs in a superstep of {RESIDENT_K}; {card}", flush=True)
+    return nums, counts
+
+
+def async_det_pass(args, lay, sparse_opt, ds, device):
+    """ZOO_SMALL_STEPS steps of a small WideDeep on the packer feed under
+    async dense, driven deterministically: ``merge_limit=1`` and each
+    batch's ``on_batch`` waits until its update is applied. Returns (the
+    table, the final params, the losses, each step's gradients)."""
+    from paddlebox_tpu_torch.train import AsyncDenseTable
+
+    cfg = zoo_cfg("wide_deep", lay, sparse_opt, ZOO_SMALL_BATCH, dense_sync_mode="async")
+    model, _ = zoo_model("wide_deep", lay, args.seed, small=True)
+    adt = AsyncDenseTable(model.state_dict(), base_lr=1e-3, merge_limit=1)
+    tr = zoo_trainer("wide_deep", lay, cfg, args.seed, device=device, small=True, async_dense=adt)
+    losses, grads = [], []
+
+    def wait(i, m):
+        grads.append({k: v.cpu() for k, v in m["gparams"].items()})
+        losses.append(m["loss"])
+        if not adt.wait_for_updates(i + 1, timeout=600):
+            raise AssertionError(f"async update {i + 1} never applied")
+
+    with flags(enable_resident_feed=1):
+        tr.train_pass(ds, n_batches=ZOO_SMALL_STEPS, on_batch=wait)
+    if tr.last_feed != "packer" or adt.n_updates != ZOO_SMALL_STEPS:
+        raise AssertionError(f"deterministic async pass: feed {tr.last_feed}, {adt.n_updates} updates")
+    final = adt.finalize()
+    return torch.from_numpy(tr.trained_table()), {k: torch.from_numpy(v) for k, v in final.items()}, \
+        torch.stack(losses).cpu(), grads
+
+
+def async_phase(args, lay, sparse_opt, ds, small_ds, ck, dev, card):
+    """Async dense on WideDeep's packer feed: the deterministic drive
+    (twins on the card, the card against the CPU path) at the small size,
+    then a free-running pass at full width."""
+    from paddlebox_tpu_torch.train import AsyncDenseTable
+
+    runs = [async_det_pass(args, lay, sparse_opt, small_ds, d) for d in (dev, dev, torch.device("cpu"))]
+    (t1, p1, l1, g1), (t2, p2, l2, _), (tc, pc, lc, gc) = runs
+    if not (torch.equal(t1, t2) and torch.equal(l1, l2) and all(torch.equal(p1[k], p2[k]) for k in p1)):
+        raise AssertionError("two deterministic async passes on the card differ")
+    tab_ok = bool(torch.allclose(t1, tc, rtol=SMALL_TABLE_RTOL, atol=SMALL_TABLE_ATOL))
+    par_ok, par_err, par_at, n_noisy, noisy_err = params_within(p1, pc, noisy_grads(g1, gc), ZOO_SMALL_STEPS)
+    loss_err = float(((l1 - lc).abs() / lc.abs()).max())
+    det = {"table_max_abs_diff": float((t1 - tc).abs().max()), "params_max_abs_diff": par_err,
+           "params_max_at": par_at, "noisy_grad_elements": n_noisy, "noisy_params_max_abs_diff": noisy_err,
+           "loss_max_rel_diff": loss_err}
+    print(f"async dense, deterministic (merge_limit=1, a wait on each update; {ZOO_SMALL_STEPS} packer steps, "
+          f"batch {ZOO_SMALL_BATCH}): twins on the card bitwise; card vs CPU {det}", flush=True)
+    if not (tab_ok and par_ok and loss_err <= SMALL_LOSS_RTOL):
+        raise AssertionError("the deterministic async pass on the card and on the CPU path disagree")
+
+    # free-running at full width: the table merges whatever the queue holds
+    cfg = zoo_cfg("wide_deep", lay, sparse_opt, BATCH, dense_sync_mode="async")
+    model, _ = zoo_model("wide_deep", lay, args.seed)
+    adt = AsyncDenseTable(model.state_dict(), base_lr=1e-3)
+    tr = zoo_trainer("wide_deep", lay, cfg, args.seed, async_dense=adt)
+    opt0 = copy.deepcopy(tr.opt_state)
+    with flags(enable_resident_feed=1):
+        tr.train_pass(ds)  # warm-up epoch
+        losses = []
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = tr.train_pass(ds, n_batches=ZOO_TIMED_EPOCHS * ds.num_batches(),
+                            on_batch=lambda i, m: losses.append(m["loss"]))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = dict(ck.launch_counts)
+    n = len(losses)
+    adt.finalize()
+    n_upd = adt.n_updates
+    check_path("async dense, free-running (packer feed)", out, torch.stack(losses).cpu(), counts, n)
+    untouched = int(tr.opt_state.count) == int(opt0.count) and all(
+        torch.equal(tr.opt_state.mu[k], opt0.mu[k]) and torch.equal(tr.opt_state.nu[k], opt0.nu[k]) for k in opt0.mu
+    )
+    if tr.last_feed != "packer" or not n_upd or not untouched:
+        raise AssertionError(f"free-running async: feed {tr.last_feed}, {n_upd} updates, opt_state untouched "
+                             f"{untouched}")
+    nums = {"deterministic": det, "samples_per_s": BATCH * n / secs, "ms_per_step": secs / n * 1e3,
+            "steps": n, "updates": n_upd}
+    print(f"async dense, free-running (full width, packer feed): {n} steps {nums['samples_per_s']:.1f} samples/s, "
+          f"{n_upd} updates over both epochs and the warm-up's {ds.num_batches()} pushes, opt_state untouched; "
+          f"{card}", flush=True)
+    return nums, counts
+
+
+def dump_phase(args, lay, sparse_opt, ds, ck, card, tmp):
+    """One WideDeep packer pass with a DumpWorkerPool (mode 0) and
+    dump_params_at_end against the same pass without: lines, preds under
+    ``.6g``, one param line a leaf under the JAX names, the overhead."""
+    from paddlebox_tpu_torch.models.convert import jax_named_leaves
+    from paddlebox_tpu_torch.utils.dump import DumpWorkerPool
+
+    cfg = zoo_cfg("wide_deep", lay, sparse_opt, BATCH)
+    n_b = ds.num_batches()
+    secs = {}
+    with flags(enable_resident_feed=0):
+        tr = zoo_trainer("wide_deep", lay, cfg, args.seed)
+        tr.train_pass(ds)  # warm-up epoch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_pass(ds)
+        torch.cuda.synchronize()
+        secs["plain_s"] = time.perf_counter() - t0
+        pool = DumpWorkerPool(os.path.join(tmp, "dump"), n_threads=1)
+        tr.dump_pool, tr.dump_params_at_end = pool, True
+        preds = []
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr.train_pass(ds, on_batch=lambda i, m: preds.append(m["preds"].cpu()))
+        pool.finalize()
+        torch.cuda.synchronize()
+        secs["dump_s"] = time.perf_counter() - t0
+    counts = dict(ck.launch_counts)
+    with open(os.path.join(tmp, "dump", "part-00000")) as f:
+        lines = f.read().splitlines()
+    field = [ln for ln in lines if "\tpreds:" in ln]
+    params = [ln.split("\t", 1)[0] for ln in lines if "\tpreds:" not in ln]
+    want = [f"{v:.6g}" for v in torch.cat(preds).tolist()]
+    got = [ln.split("\tpreds:", 1)[1].split("\t", 1)[0] for ln in field]
+    names = [name for name, _ in jax_named_leaves(tr.params)]
+    if len(field) != n_b * BATCH or got != want:
+        raise AssertionError(f"dump: {len(field)} field lines (want {n_b} x {BATCH}) or preds unlike the steps'")
+    if params != names:
+        raise AssertionError(f"dump: param lines {params}, want one a leaf {names}")
+    if counts != {"pull_rows_cuda": 2 * n_b, "write_rows_cuda": n_b}:
+        raise AssertionError(f"dump pass launches {counts} for {n_b} steps")
+    nums = {**secs, "overhead_s": secs["dump_s"] - secs["plain_s"], "field_lines": len(field),
+            "param_lines": len(params), "bytes": os.path.getsize(os.path.join(tmp, "dump", "part-00000"))}
+    print(f"dump (mode 0, one writer, packer feed, {n_b} steps): {len(field)} lines = steps x batch, every pred "
+          f"its step's under .6g, {len(params)} param lines {params}; the pass {secs['dump_s']:.3f} s against "
+          f"{secs['plain_s']:.3f} s without: overhead {nums['overhead_s']:.3f} s; {card}", flush=True)
+    return nums, counts
+
+
+def box_phase(args, lay, sparse_opt, files, ck, dev, card, tmp):
+    """A day through the façade: BoxWrapper(embedx_dim=16) on the card, its
+    dataset and metric, a trainer with ``box=``, a training pass, an eval
+    pass under ``box.set_test_mode()`` (state bitwise), end_pass, save_base
+    and load_model into a second wrapper (rows bitwise), save_cache_model."""
+    from paddlebox_tpu_torch import BoxWrapper
+
+    box = BoxWrapper(embedx_dim=EMBEDX_DIM, sparse_opt=sparse_opt, n_host_shards=64, seed=args.seed, device=dev)
+    ds = box.make_dataset(zoo_schema(NUM_SLOTS, ZOO_DENSE_DIM), batch_size=BATCH, shuffle_mode="local",
+                          seed=args.seed)
+    ds.set_date(PUB_DATE)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    ds.begin_pass(round_to=512)
+    box.init_metric("auc", phase=1)
+    cfg = zoo_cfg("wide_deep", lay, sparse_opt, BATCH)
+    tr = zoo_trainer("wide_deep", lay, cfg, args.seed, box=box, metric_registry=box.metrics)
+    n_b, n_rec = ds.num_batches(), ds.memory_data_size()
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    out = tr.train_pass(ds)
+    trained = device_state(tr)
+    box.set_test_mode()
+    eout = tr.train_pass(ds)
+    box.set_test_mode(False)
+    torch.cuda.synchronize()
+    counts = dict(ck.launch_counts)
+    if not same_device_state(device_state(tr), trained) or int(tr.opt_state.count) != n_b:
+        raise AssertionError("façade: the eval pass under box.set_test_mode() changed the state")
+    if counts != {"pull_rows_cuda": 3 * n_b, "write_rows_cuda": n_b} or tr.last_feed != "resident":
+        raise AssertionError(f"façade: launches {counts} for {n_b} training and {n_b} eval steps, feed {tr.last_feed}")
+    metric = box.get_metric("auc")  # reads and resets
+    if metric["ins_num"] != 2 * n_rec or not (np.isfinite(out["loss"]) and np.isfinite(eout["loss"])):
+        raise AssertionError(f"façade: the metric counted {metric['ins_num']}, not both passes' {2 * n_rec}")
+    line = f"auc {metric['auc']:.6f} over {metric['ins_num']} instances (the training and the eval pass)"
+    ds.end_pass(tr.trained_table())
+    root = os.path.join(tmp, "box_ckpt")
+    t0 = time.perf_counter()
+    box.save_base(root, PUB_DATE, tr)
+    save_s = time.perf_counter() - t0
+    box2 = BoxWrapper(embedx_dim=EMBEDX_DIM, sparse_opt=sparse_opt, n_host_shards=64, seed=args.seed, device=dev)
+    t0 = time.perf_counter()
+    got = box2.load_model(root)
+    load_s = time.perf_counter() - t0
+    keys = np.sort(box.table.keys())
+    if got["date"] != PUB_DATE or not np.array_equal(np.sort(box2.table.keys()), keys) or \
+            box2.table.pull_or_create(keys).tobytes() != box.table.pull_or_create(keys).tobytes():
+        raise AssertionError("façade: the loaded base differs from the saved table")
+    n_cache = box.save_cache_model(root, PUB_DATE, 0.1)
+    if not 0 < n_cache <= len(keys):
+        raise AssertionError(f"façade: save_cache_model wrote {n_cache} of {len(keys)} keys")
+    nums = {"keys": len(keys), "save_base_s": save_s, "load_model_s": load_s, "cache_keys": n_cache,
+            "metric": line}
+    print(f"façade: BoxWrapper day over {len(files)} files ({n_rec} records, {len(keys)} keys): a training and "
+          f"an eval pass under set_test_mode (state bitwise, launches {counts}), save_base {save_s:.3f} s, "
+          f"load_model into a second wrapper {load_s:.3f} s (rows bitwise), save_cache_model {n_cache} keys; "
+          f"{line}; {card}", flush=True)
+    return nums, counts
+
+
+def dcn_gather(args, lay, sparse_opt, ds, ck, dev, card):
+    """``pull_rows_cuda`` at DCN's training shape (the unique rows of a
+    108-slot batch) against its plain version, ``index_select``, the byte
+    bound and the sector floor; both kernels held bitwise there."""
+    from paddlebox_tpu_torch.train import ResidentPass, build_device_batch
+
+    cfg = zoo_cfg("dcn", lay, sparse_opt, BATCH)
+    rp = ResidentPass(ds.store, ds.ws, ds.schema, dev)
+    idx = np.asarray(next(iter(ds.batch_indices(1))), dtype=np.int32)
+    rp.ensure([idx])
+    rows = build_device_batch(rp, cfg, torch.from_numpy(idx).to(dev))["uniq_rows"]
+    tab = torch.from_numpy(np.ascontiguousarray(np.asarray(ds.device_table).reshape(-1, lay.width))).to(dev)
+    R, W = tab.shape
+    U = rows.shape[0]
+    what = f"DCN path R={R} W={W} U={U} int32"
+    errs = [check_gather(ck, tab, rows, what), check_write(ck, tab, rows, ck.pull_rows_ref(tab, rows) + 0.5, what)]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    cold, warm = time_fns({
+        "kernel": lambda: ck.pull_rows_cuda(tab, rows),
+        "plain": lambda: ck.pull_rows_ref(tab, rows),
+        "library": lambda: torch.index_select(tab, 0, rows),
+    }, flush)
+    bound_ms = (2 * U * W * 4 + 4 * U) / HBM_BYTES_PER_S * 1e3
+    nums = {
+        "R": R, "W": W, "U": U, "n_uniq": int((rows != rp.pad_row).sum()), "ms": cold["kernel"],
+        "plain_ms": cold["plain"], "library_ms": cold["library"], "bound_ms": bound_ms,
+        "bound_share": bound_ms / cold["kernel"], "sector_floor_ms": sector_floor_ms(rows, R, W, False),
+        "warm_l2_ms": warm["kernel"], "warm_l2_plain_ms": warm["plain"], "warm_l2_library_ms": warm["library"],
+    }
+    emit({"card": card, "kernel": "pull_rows_cuda", "path": "zoo_dcn", "reps": TIMING_REPS, "l2": "cold", **nums})
+    return nums, max(errs)
+
+
+def zoo_phase(args, dev, card, ck, lay):
+    """Phase 11: the zoo's four models at their default widths on the
+    resident feed, async dense, dumps and the façade. Returns the launch
+    counts by path, the gather's numbers at DCN's shape and the kernels'
+    max abs error there."""
+    from paddlebox_tpu_torch.table import SparseOptimizerConfig
+
+    t_phase = time.perf_counter()
+    sparse_opt = SparseOptimizerConfig(embedx_threshold=0.0)
+    rng = np.random.default_rng(args.seed + 7)
+    counts, nums = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_zoo_") as tmp:
+        t0 = time.perf_counter()
+        files, _ = write_bench_files(tmp, rng, ZOO_FILES, "zoo", dense_dim=ZOO_DENSE_DIM)
+        dcn_files, _ = write_bench_files(tmp, rng, ZOO_FILES, "dcn", n_slots=DCN_SLOTS)
+        small, _ = write_bench_files(tmp, rng, ZOO_SMALL_FILES, "zoosmall", dense_dim=ZOO_DENSE_DIM)
+        small_dcn, _ = write_bench_files(tmp, rng, ZOO_SMALL_FILES, "dcnsmall", n_slots=DCN_SLOTS)
+        nums["data_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        schema, dcn_schema = zoo_schema(NUM_SLOTS, ZOO_DENSE_DIM), zoo_schema(DCN_SLOTS, 0)
+        ds, _ = zoo_pass(args, lay, sparse_opt, files, schema, BATCH)
+        dcn_ds, _ = zoo_pass(args, lay, sparse_opt, dcn_files, dcn_schema, BATCH)
+        small_ds, _ = zoo_pass(args, lay, sparse_opt, small, schema, ZOO_SMALL_BATCH, n_shards=8)
+        small_dcn_ds, _ = zoo_pass(args, lay, sparse_opt, small_dcn, dcn_schema, ZOO_SMALL_BATCH, n_shards=8)
+        nums["load_s"] = time.perf_counter() - t0
+        zoo_counts = []
+        for name in ZOO_NAMES:
+            d, sd = (dcn_ds, small_dcn_ds) if name == "dcn" else (ds, small_ds)
+            nums[name], c = zoo_model_run(args, name, lay, sparse_opt, d, sd, ck, dev, card)
+            zoo_counts.append(c)
+        counts["zoo"] = {k: sum(c[k] for c in zoo_counts) for k in zoo_counts[0]}
+        nums["async"], counts["async"] = async_phase(args, lay, sparse_opt, ds, small_ds, ck, dev, card)
+        nums["dump"], counts["dump"] = dump_phase(args, lay, sparse_opt, ds, ck, card, tmp)
+        nums["box"], counts["box"] = box_phase(args, lay, sparse_opt, files[:ZOO_BOX_FILES], ck, dev, card, tmp)
+        gather, err = dcn_gather(args, lay, sparse_opt, dcn_ds, ck, dev, card)
+    nums["phase_s"] = time.perf_counter() - t_phase
+    emit({"card": card, "phase": "zoo", "records_per_pass": RECORDS_PER_FILE * ZOO_FILES, "batch": BATCH, **nums,
+          "dcn_gather": gather})
+    print(f"phase 11 (zoo) in {nums['phase_s']:.3f} s; {card}", flush=True)
+    return counts, gather, err
 
 
 if __name__ == "__main__":

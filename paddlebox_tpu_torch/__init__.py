@@ -14,14 +14,18 @@ package's names so each counterpart is easy to find:
 - ``ops``      sparse pull and push (hand-written CUDA row gather and
                row writeback), seqpool+CVM
 - ``metrics``  online AUC
-- ``models``   DeepFM as an ``nn.Module``; weight and Adam-state
-               conversion from and to JAX
+- ``models``   the model zoo as ``nn.Module``s (LR, DeepFM, Wide&Deep,
+               DCN, MMoE and its task head, RankDeepFM); weight and
+               Adam-state conversion from and to JAX
 - ``train``    the training and eval step, the resident K-step feed,
-               Adam, the pass trainer and its dense checkpoint, the
-               checkpoint chain (CheckpointManager), pass rollback
-- ``utils``    stats, fault injection, device selection, atomic file
-               writes, the ctypes binding of the native host tier
-               (``csrc/*.cc``)
+               Adam, the async dense table, the pass trainer and its
+               dense checkpoint, the checkpoint chain
+               (CheckpointManager), pass rollback
+- ``utils``    stats, fault injection, device selection, file writes
+               (atomic, piped), dump writers, the ctypes binding of the
+               native host tier (``csrc/*.cc``)
+- ``boxps``    the ``BoxWrapper`` façade over table, metrics, dataset
+               and publishing
 - ``serve``    atomic-swap scoring table, scorer, batching server and the
                checkpoint follower
 
@@ -31,3 +35,5 @@ The package imports neither ``jax`` nor the JAX package.
 """
 
 __version__ = "0.1.0"
+
+from paddlebox_tpu_torch.boxps import BoxWrapper  # noqa: F401  (the reference's façade)

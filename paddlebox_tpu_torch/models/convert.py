@@ -1,11 +1,18 @@
-"""Carry DeepFM and RankDeepFM weights and Adam state between the JAX
-package and the port.
+"""Carry the model zoo's weights and Adam state between the JAX package
+and the port.
 
-The JAX DeepFM keeps ``{"mlp": [{"w": [in, out], "b": [out]}, ...],
-"out": {"w", "b"}, "b": scalar, "dense_lin"?: {"w", "b"}}``; ``nn.Linear``
-keeps ``weight`` as [out, in]. The JAX RankDeepFM keeps ``{"base": <a
-DeepFM tree>, "rank_param": [R*R*F, 1]}``, the port's ``base.*`` and
-``rank_param``. Callers hand the pytree over as numpy arrays
+Every JAX model keeps a params tree of dicts and lists (DeepFM ``{"mlp":
+[{"w": [in, out], "b": [out]}, ...], "out": {"w", "b"}, "b": scalar,
+"dense_lin"?: ...}``, RankDeepFM ``{"base": <DeepFM>, "rank_param"}``,
+LR ``{"b", "dense"?}``, Wide&Deep ``{"mlp", "out", "b",
+"wide_dense"?}``, DCN ``{"cross_w": [...], "cross_b": [...], "mlp",
+"out"}``, MMoE ``{"experts": [{"w": [E, in, out], "b": [E, out]}, ...],
+"gates": [...], "towers": [{"mlp", "out"}, ...]}``). The port's
+``state_dict`` names each leaf by its path, dots between the parts, with
+one rule: a ``{"w", "b"}`` dict whose ``w`` is 2-D is an ``nn.Linear``,
+``weight`` [out, in] (the transpose) and ``bias``; every other leaf keeps
+its name and layout (MMoE's stacked experts, DCN's crosses, a scalar
+``b``, ``rank_param``). Callers hand a pytree over as numpy arrays
 (``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
 
 Adam's moments follow the same map (optax keeps them in the params' tree;
@@ -14,7 +21,8 @@ inverse, so weights and state can be carried across and compared back.
 
 The dense checkpoint file (``CTRTrainer.save_dense``) holds the leaves of
 the JAX package's ``(params, optax.adam state)`` tree as ``leaf_0`` ..
-``leaf_{n-1}``; :func:`dense_leaf_names` spells that order out, and
+``leaf_{n-1}``; :func:`dense_leaf_names` spells that order out (a JAX
+tree flatten sorts dict keys and walks lists by index), and
 :func:`dense_to_jax_leaves` / :func:`dense_from_jax_leaves` carry the
 port's params and :class:`AdamState` to and from it.
 """
@@ -33,81 +41,98 @@ def _t(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
 
 
-def deepfm_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX DeepFM params (numpy leaves) -> the port's DeepFM ``state_dict``."""
+def _n(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().astype(np.float32)
+
+
+def _leaves_with_paths(tree: Any, prefix: tuple = ()) -> List[Tuple[tuple, Any]]:
+    """(path, leaf) of every leaf of a params tree, in the order a JAX tree
+    flatten visits them: dict keys sorted, list items in order."""
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree) for pl in _leaves_with_paths(tree[k], prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree) for pl in _leaves_with_paths(v, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def _is_linear(node: Any) -> bool:
+    return isinstance(node, dict) and set(node) == {"w", "b"} and np.ndim(node["w"]) == 2
+
+
+def params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """A JAX zoo model's params (numpy leaves) -> the port's ``state_dict``."""
     sd: Dict[str, torch.Tensor] = {}
-    for i, layer in enumerate(params["mlp"]):
-        sd[f"mlp.{i}.weight"] = _t(layer["w"]).t().contiguous()
-        sd[f"mlp.{i}.bias"] = _t(layer["b"])
-    sd["out.weight"] = _t(params["out"]["w"]).t().contiguous()
-    sd["out.bias"] = _t(params["out"]["b"])
-    sd["b"] = _t(params["b"]).reshape(())
-    if "dense_lin" in params:
-        sd["dense_lin.weight"] = _t(params["dense_lin"]["w"]).t().contiguous()
-        sd["dense_lin.bias"] = _t(params["dense_lin"]["b"])
+
+    def walk(node: Any, prefix: str) -> None:
+        if _is_linear(node):
+            sd[prefix + "weight"] = _t(node["w"]).t().contiguous()
+            sd[prefix + "bias"] = _t(node["b"])
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{prefix}{k}.")
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{prefix}{i}.")
+        else:
+            sd[prefix[:-1]] = _t(node)
+
+    walk(params, "")
     return sd
 
 
-def deepfm_params_to_jax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """The port's DeepFM ``state_dict`` -> the JAX package's params tree as
-    numpy arrays (the inverse of :func:`deepfm_params_from_jax`)."""
+def params_to_jax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The port's ``state_dict`` -> the JAX package's params tree as numpy
+    arrays (the inverse of :func:`params_from_jax`)."""
+    root: Dict[Any, Any] = {}
+    for name, t in sd.items():
+        parts: List[Any] = [int(p) if p.isdigit() else p for p in name.split(".")]
+        a = _n(t)
+        if parts[-1] in ("weight", "bias"):
+            a = a.T.copy() if parts[-1] == "weight" else a
+            parts[-1] = "w" if parts[-1] == "weight" else "b"
+        node = root
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = a
 
-    def n(t: torch.Tensor) -> np.ndarray:
-        return t.detach().cpu().numpy().astype(np.float32)
+    def lists(node: Any) -> Any:
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            return [lists(node[i]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
 
-    n_mlp = len({k.split(".")[1] for k in sd if k.startswith("mlp.")})
-    params: Dict[str, Any] = {
-        "mlp": [
-            {"w": n(sd[f"mlp.{i}.weight"]).T.copy(), "b": n(sd[f"mlp.{i}.bias"])}
-            for i in range(n_mlp)
-        ],
-        "out": {"w": n(sd["out.weight"]).T.copy(), "b": n(sd["out.bias"])},
-        "b": n(sd["b"]),
-    }
-    if "dense_lin.weight" in sd:
-        params["dense_lin"] = {
-            "w": n(sd["dense_lin.weight"]).T.copy(),
-            "b": n(sd["dense_lin.bias"]),
-        }
-    return params
-
-
-def rank_deepfm_params_from_jax(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX RankDeepFM params (numpy leaves) -> the port's RankDeepFM
-    ``state_dict``: the base's keys under ``base.``, then ``rank_param``."""
-    sd = {f"base.{k}": v for k, v in deepfm_params_from_jax(params["base"]).items()}
-    sd["rank_param"] = _t(params["rank_param"])
-    return sd
+    return lists(root)
 
 
-def rank_deepfm_params_to_jax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """The port's RankDeepFM ``state_dict`` -> the JAX package's params tree
-    as numpy arrays (the inverse of :func:`rank_deepfm_params_from_jax`)."""
-    base = {k[len("base."):]: v for k, v in sd.items() if k.startswith("base.")}
-    return {
-        "base": deepfm_params_to_jax(base),
-        "rank_param": sd["rank_param"].detach().cpu().numpy().astype(np.float32),
-    }
+def jax_named_leaves(sd: Dict[str, torch.Tensor]) -> List[Tuple[str, np.ndarray]]:
+    """(the JAX package's "/"-joined leaf path, the leaf in its layout) of
+    every param, in the JAX tree-flatten order."""
+    return [("/".join(map(str, p)), a) for p, a in _leaves_with_paths(params_to_jax(sd))]
 
 
-def _from_jax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Either model's JAX params tree -> its port ``state_dict``."""
-    return rank_deepfm_params_from_jax(tree) if "rank_param" in tree else deepfm_params_from_jax(tree)
+def jax_path(name: str) -> str:
+    """The JAX package's "/"-joined leaf path of a port param name
+    (``mlp.0.weight`` -> ``mlp/0/w``, ``experts.0.w`` -> ``experts/0/w``)."""
+    parts = name.split(".")
+    parts[-1] = {"weight": "w", "bias": "b"}.get(parts[-1], parts[-1])
+    return "/".join(parts)
 
 
-def _to_jax(sd: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """Either model's port ``state_dict`` -> its JAX params tree."""
-    return rank_deepfm_params_to_jax(sd) if "rank_param" in sd else deepfm_params_to_jax(sd)
+# the zoo's converters: one naming rule serves every model
+deepfm_params_from_jax = lr_params_from_jax = wide_deep_params_from_jax = params_from_jax
+dcn_params_from_jax = mmoe_params_from_jax = rank_deepfm_params_from_jax = params_from_jax
+deepfm_params_to_jax = lr_params_to_jax = wide_deep_params_to_jax = params_to_jax
+dcn_params_to_jax = mmoe_params_to_jax = rank_deepfm_params_to_jax = params_to_jax
 
 
 def adam_state_from_optax(count: Any, mu: Dict[str, Any], nu: Dict[str, Any]) -> AdamState:
-    """optax ``ScaleByAdamState(count, mu, nu)`` of a JAX DeepFM or
-    RankDeepFM (numpy leaves) -> the port's :class:`AdamState`, mapped as
-    the params are."""
+    """optax ``ScaleByAdamState(count, mu, nu)`` of a JAX zoo model (numpy
+    leaves) -> the port's :class:`AdamState`, mapped as the params are."""
     return AdamState(
         count=torch.tensor(int(np.asarray(count)), dtype=torch.int32),
-        mu=_from_jax(mu),
-        nu=_from_jax(nu),
+        mu=params_from_jax(mu),
+        nu=params_from_jax(nu),
     )
 
 
@@ -116,25 +141,15 @@ def adam_state_to_optax(state: AdamState) -> Tuple[np.ndarray, Dict[str, Any], D
     layout as numpy (the inverse of :func:`adam_state_from_optax`)."""
     return (
         np.asarray(int(state.count), dtype=np.int32),
-        _to_jax(state.mu),
-        _to_jax(state.nu),
+        params_to_jax(state.mu),
+        params_to_jax(state.nu),
     )
 
 
 def _leaf_paths(tree: Dict[str, Any]) -> List[tuple]:
-    """The key path of each leaf of a JAX DeepFM or RankDeepFM params
-    tree, in the order a JAX tree flatten visits them: dict keys sorted
-    (``b``, ``dense_lin``, ``mlp``, ``out``; ``base`` before
-    ``rank_param``), list items in order, ``b`` before ``w`` within a
-    layer."""
-    if "rank_param" in tree:
-        return [("base",) + p for p in _leaf_paths(tree["base"])] + [("rank_param",)]
-    paths: List[tuple] = [("b",)]
-    if "dense_lin" in tree:
-        paths += [("dense_lin", "b"), ("dense_lin", "w")]
-    for i in range(len(tree["mlp"])):
-        paths += [("mlp", i, "b"), ("mlp", i, "w")]
-    return paths + [("out", "b"), ("out", "w")]
+    """The key path of each leaf of a JAX params tree, in tree-flatten
+    order."""
+    return [p for p, _ in _leaves_with_paths(tree)]
 
 
 def _get(tree: Any, path: tuple) -> Any:
@@ -163,11 +178,11 @@ def _tree_from_leaves(template: Dict[str, Any], leaves: Sequence[Any]) -> Dict[s
 
 def dense_leaf_names(params: Dict[str, torch.Tensor]) -> List[str]:
     """The key path of every leaf of ``(params, optax.adam(lr).init(params))``
-    as the JAX package flattens it, for the port's DeepFM or RankDeepFM
-    ``params``: the params, then Adam's ``count``, its first moments and
+    as the JAX package flattens it, for a port zoo model's ``params``: the
+    params, then Adam's ``count``, its first moments and
     its second moments in the params' order (the learning-rate stage's
     empty state has no leaf)."""
-    keys = ["".join(f"[{p!r}]" for p in path) for path in _leaf_paths(_to_jax(params))]
+    keys = ["".join(f"[{p!r}]" for p in path) for path in _leaf_paths(params_to_jax(params))]
     return (
         [f"[0]{k}" for k in keys] + ["[1][0].count"]
         + [f"[1][0].mu{k}" for k in keys] + [f"[1][0].nu{k}" for k in keys]
@@ -177,7 +192,7 @@ def dense_leaf_names(params: Dict[str, torch.Tensor]) -> List[str]:
 def dense_to_jax_leaves(params: Dict[str, torch.Tensor], state: AdamState) -> List[np.ndarray]:
     """The port's params and Adam state -> the JAX package's dense leaves
     (numpy, JAX's [in, out] layout), in :func:`dense_leaf_names`' order."""
-    tree = _to_jax(params)
+    tree = params_to_jax(params)
     count, mu, nu = adam_state_to_optax(state)
     paths = _leaf_paths(tree)
     return (
@@ -193,7 +208,7 @@ def dense_from_jax_leaves(
     -> (params, AdamState) on ``device`` for a model whose params look like
     ``like``. Raises ``ValueError`` on a leaf count or a shape that
     differs."""
-    ref = _to_jax(like)
+    ref = params_to_jax(like)
     paths = _leaf_paths(ref)
     k = len(paths)
     if len(leaves) != 3 * k + 1:
@@ -210,7 +225,7 @@ def dense_from_jax_leaves(
         return _tree_from_leaves(ref, part)
 
     state = adam_state_from_optax(leaves[k], tree(leaves[k + 1 : 2 * k + 1]), tree(leaves[2 * k + 1 :]))
-    params = {n: t.to(device) for n, t in _from_jax(tree(leaves[:k])).items()}
+    params = {n: t.to(device) for n, t in params_from_jax(tree(leaves[:k])).items()}
     return params, AdamState(
         count=state.count.to(device),
         mu={n: t.to(device) for n, t in state.mu.items()},

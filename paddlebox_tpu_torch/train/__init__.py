@@ -1,4 +1,5 @@
 from paddlebox_tpu_torch.train.dense_opt import Adam, AdamState
+from paddlebox_tpu_torch.train.async_dense import AsyncDenseTable
 from paddlebox_tpu_torch.train.train_step import TrainState, TrainStepConfig, make_train_step
 from paddlebox_tpu_torch.train.resident_step import (
     ResidentPass,
@@ -37,4 +38,5 @@ __all__ = [
     "PassGuard",
     "Adam",
     "AdamState",
+    "AsyncDenseTable",
 ]

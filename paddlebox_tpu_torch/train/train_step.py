@@ -237,10 +237,12 @@ def make_train_step(
     ins_weight [B] and rank_offset [B, 2R+1]. See data/device_pack.py.
 
     ``eval_mode`` is forward + AUC, with table, params and opt_state
-    returned as they came. Training needs ``dense_opt``; it updates the
-    table in place and returns new params and optimizer state. Dense sync
-    "step" and "kstep" are the same local update on one device; "async",
-    ``use_expand`` and ``axis_name`` (a mesh) are not ported.
+    returned as they came. Training updates the table in place. Dense sync
+    "step" and "kstep" are the same local update on one device and need
+    ``dense_opt``; under "async" the host's ``AsyncDenseTable`` owns the
+    dense optimizer: the step returns params and opt_state as they came
+    and its dense gradients as ``metrics["gparams"]`` (an eval step never
+    does). ``use_expand`` and ``axis_name`` (a mesh) are not ported.
     """
     if cfg.use_expand or cfg.axis_name is not None:
         raise NotImplementedError("use_expand and axis_name are not ported yet")
@@ -279,11 +281,8 @@ def make_train_step(
 
         return eval_step
 
-    if cfg.dense_sync_mode == "async":
-        raise NotImplementedError(
-            "dense_sync_mode='async' (a host AsyncDenseTable) is not ported yet"
-        )
-    if dense_opt is None:
+    is_async = cfg.dense_sync_mode == "async"
+    if dense_opt is None and not is_async:
         raise ValueError("the training step needs a dense optimizer (train/dense_opt.py)")
     B = cfg.batch_size
 
@@ -331,10 +330,15 @@ def make_train_step(
             clk_counts = torch.where(finite, clk_counts, zero)
         push_sparse_rows(state.table, uniq_rows, guniq, show_counts, clk_counts, lay, opt)
 
-        # dense update ("step" and "kstep" are one local update on one device)
-        updates, new_opt_state = dense_opt.update(gparams, state.opt_state)
-        new_params = {k: p + updates[k] for k, p in state.params.items()}
-        if finite is not None:
+        if is_async:
+            # the host's AsyncDenseTable owns the dense optimizer: the
+            # gradients go back to it through the metrics
+            new_params, new_opt_state = state.params, state.opt_state
+        else:
+            # "step" and "kstep" are one local update on one device
+            updates, new_opt_state = dense_opt.update(gparams, state.opt_state)
+            new_params = {k: p + updates[k] for k, p in state.params.items()}
+        if finite is not None and not is_async:
             # skipped batch: dense params and optimizer moments stay put
             new_params = {k: torch.where(finite, v, state.params[k]) for k, v in new_params.items()}
             new_opt_state = AdamState(
@@ -362,6 +366,8 @@ def make_train_step(
         }
         if finite is not None:
             metrics["nan_skipped"] = (~finite).to(torch.int32)
+        if is_async:
+            metrics["gparams"] = gparams
         return (
             TrainState(
                 table=state.table,

@@ -53,13 +53,31 @@ its carrier untouched.
 
 ``save_dense`` / ``load_dense`` write and read the JAX package's dense
 file (the leaves of its ``(params, optax.adam state)`` tree, in the order
-``models/convert.py`` spells out, DeepFM or RankDeepFM), so a checkpoint
+``models/convert.py`` spells out, for every zoo model), so a checkpoint
 crosses packages either way. ``load_dense`` (and a ``PassGuard`` revert)
 drop every device-side cache, so the next pass trains from the loaded
 state.
 
-Not ported: dense features, meshes and multi-host lockstep (the pv
-lockstep included), async dense, dumps and the ``box=`` test-mode hook.
+The JAX trainer's single-device options, with its names and meanings:
+
+- ``dense_slot`` / ``dense_dim`` / ``pack_bucket``: a float slot's first
+  ``dense_dim`` values become the model's ``dense`` input on every feed
+  (``pack_batch``, ``BatchPacker``, ``ResidentPass``), the pad bucket
+  ``pack_bucket``;
+- ``async_dense`` (with ``dense_sync_mode="async"``): a host
+  ``AsyncDenseTable`` owns the dense optimizer. The resident feeds are not
+  taken; before every batch the step gets a copy of the table's params,
+  after it the trainer pushes the step's gradients, and at the pass's end
+  ``params`` are the table's (``opt_state`` untouched);
+- ``dump_pool`` and ``dump_*``: each kept batch's ``dump_fields_list``
+  per instance (``ins_id`` from the store, else ``b{step}:{j}``) and, with
+  ``dump_params_at_end``, the params at the pass's end under the JAX
+  package's leaf names and layouts. A dump reads each batch back to the
+  host, as the JAX trainer does;
+- ``box``: a ``BoxWrapper`` whose ``test_mode`` also makes a pass an eval
+  pass.
+
+Not ported: meshes and multi-host lockstep (the pv lockstep included).
 """
 
 from __future__ import annotations
@@ -67,7 +85,8 @@ from __future__ import annotations
 import os
 import time
 from collections import deque
-from typing import Callable, Dict, List, Optional
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -78,6 +97,7 @@ from paddlebox_tpu_torch.data.dataset import BoxPSDataset
 from paddlebox_tpu_torch.data.device_pack import BatchPacker, pack_batch
 from paddlebox_tpu_torch.data.pipeline import prefetch
 from paddlebox_tpu_torch.metrics.auc import AucState, auc_compute, auc_init
+from paddlebox_tpu_torch.train.async_dense import AsyncDenseTable
 from paddlebox_tpu_torch.train.dense_opt import Adam, AdamState
 from paddlebox_tpu_torch.metrics.registry import MetricRegistry
 from paddlebox_tpu_torch.train.resident_step import (
@@ -88,6 +108,7 @@ from paddlebox_tpu_torch.train.resident_step import (
 )
 from paddlebox_tpu_torch.train.train_step import TrainState, TrainStepConfig, make_train_step
 from paddlebox_tpu_torch.utils.device import DeviceLike, resolve_device
+from paddlebox_tpu_torch.utils.dump import DumpWorkerPool, dump_fields, dump_param
 from paddlebox_tpu_torch.utils.fs import atomic_write
 
 config.define_flag(
@@ -121,19 +142,49 @@ class CTRTrainer:
         dense_opt: Optional[Adam] = None,
         device: DeviceLike = "cuda",
         metric_registry: Optional[MetricRegistry] = None,
+        dense_slot: Optional[str] = None,
+        dense_dim: int = 0,
+        pack_bucket: Optional[int] = None,
+        async_dense: Optional[AsyncDenseTable] = None,
+        dump_pool: Optional[DumpWorkerPool] = None,
+        dump_fields_list: Sequence[str] = ("preds", "labels"),
+        dump_mode: int = 0,  # 0 all, 1 sampled by ins_id hash, 2 every Nth batch
+        dump_interval: int = 1,
+        dump_params_at_end: bool = False,
+        box=None,  # a BoxWrapper whose test_mode gates eval
     ):
-        """``model(slot_feats, dense) -> logits`` (e.g. ``models.DeepFM``;
-        with ``cfg.model_takes_rank_offset``, ``model(slot_feats, dense,
-        rank_offset)``, e.g. ``models.RankDeepFM``) moves to ``device``;
-        its current weights are the initial params. ``dense_opt`` defaults
-        to ``Adam(1e-3)``. ``device`` defaults to "cuda" and raises on a
-        host without a GPU. ``metric_registry`` (on the same device) is fed
-        every batch's outputs."""
+        """``model(slot_feats, dense) -> logits`` (a zoo model, e.g.
+        ``models.DeepFM``; with ``cfg.model_takes_rank_offset``,
+        ``model(slot_feats, dense, rank_offset)``, e.g.
+        ``models.RankDeepFM``) moves to ``device``; its current weights are
+        the initial params. ``dense_opt`` defaults to ``Adam(1e-3)``.
+        ``device`` defaults to "cuda" and raises on a host without a GPU.
+        ``metric_registry`` (on the same device) is fed every batch's
+        outputs. The other options are the JAX trainer's (module
+        docstring); ``dense_sync_mode="async"`` without ``async_dense``
+        raises."""
+        if cfg.dense_sync_mode == "async" and async_dense is None:
+            raise ValueError(
+                "dense_sync_mode='async' needs an AsyncDenseTable (else the dense "
+                "params would never update)"
+            )
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.cfg = cfg
         self.dense_opt = dense_opt or Adam(1e-3)
         self.metric_registry = metric_registry
+        self.dense_slot = dense_slot
+        self.dense_dim = dense_dim
+        self.pack_bucket = pack_bucket
+        self.async_dense = async_dense
+        # per-batch field and pass-end param dumps (DeviceWorker::DumpField /
+        # DumpParam, device_worker.cc:98-133; modes device_worker.h:218-219)
+        self.dump_pool = dump_pool
+        self.dump_fields_list = tuple(dump_fields_list)
+        self.dump_mode = dump_mode
+        self.dump_interval = dump_interval
+        self.dump_params_at_end = dump_params_at_end
+        self.box = box
         self.params: Optional[Dict[str, torch.Tensor]] = None
         self.opt_state: Optional[AdamState] = None
         self._state: Optional[TrainState] = None
@@ -167,6 +218,11 @@ class CTRTrainer:
         """SetTestMode parity: the next train_pass calls run forward and
         metrics only (no sparse push, no dense update) until cleared."""
         self.test_mode = on
+
+    @property
+    def _eval_active(self) -> bool:
+        """Test mode, set on the trainer or on its ``box``."""
+        return self.test_mode or bool(self.box is not None and self.box.test_mode)
 
     def _step_fn(self, eval_mode: bool):
         if not eval_mode:
@@ -284,6 +340,29 @@ class CTRTrainer:
             return {}
         return {"cmatch": cmatch, "rank": rank}
 
+    def _with_ids(self, aux: Dict, ins_ids) -> Dict:
+        """``aux`` with the batch's instance ids, which only a dump reads."""
+        if self.dump_pool is not None and ins_ids is not None:
+            aux["ins_ids"] = ins_ids
+        return aux
+
+    def _wants_ids(self, store) -> bool:
+        """A dump reads instance ids, and ``store`` parsed them."""
+        return self.dump_pool is not None and store.ins_id_off is not None
+
+    def _store_ids(self, store, idx):
+        """The instance ids of records ``idx`` of a store, when a dump wants
+        them (else None)."""
+        return [store.ins_id(int(j)) for j in idx] if self._wants_ids(store) else None
+
+    def _pack(self, batch, dataset: BoxPSDataset) -> Dict[str, np.ndarray]:
+        """``pack_batch`` of a SlotBatch with the trainer's dense slot and
+        pad bucket."""
+        return pack_batch(
+            batch, dataset.ws, dataset.schema, dense_slot=self.dense_slot, dense_dim=self.dense_dim,
+            bucket=self.pack_bucket,
+        ).as_dict()
+
     def _slow_feed_iter(self, dataset: BoxPSDataset, n_batches, profile, tm):
         """Build, pack and copy each batch on the dispatch thread. With
         ``profile`` each stage's host seconds add up in ``tm`` (the copy
@@ -296,13 +375,14 @@ class CTRTrainer:
             except StopIteration:
                 return
             t1 = time.perf_counter()
-            db = pack_batch(batch, dataset.ws, dataset.schema)
+            arrays = self._pack(batch, dataset)
             t2 = time.perf_counter()
-            feed = {k: torch.from_numpy(v).to(self.device) for k, v in db.as_dict().items()}
+            feed = {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
             aux = {
                 k: torch.from_numpy(v).to(self.device)
                 for k, v in self._logkey_aux(batch.cmatch, batch.rank).items()
             }
+            aux = self._with_ids(aux, batch.ins_ids)
             if profile:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
@@ -319,7 +399,10 @@ class CTRTrainer:
             return c[2]
         if c is not None:
             c[2].close()
-        packer = BatchPacker(dataset.store, dataset.ws, dataset.schema)
+        packer = BatchPacker(
+            dataset.store, dataset.ws, dataset.schema, dense_slot=self.dense_slot, dense_dim=self.dense_dim,
+            bucket=self.pack_bucket,
+        )
         self._packer_cache = (dataset.store, dataset.ws, packer)
         return packer
 
@@ -341,10 +424,11 @@ class CTRTrainer:
 
         def prep(idx):
             aux = self._logkey_aux(*self._store_logkeys(store, idx))
-            return self._host(packer.pack(idx).as_dict()), self._host(aux)
+            # the ids' strings are built here, off the dispatch thread
+            return self._host(packer.pack(idx).as_dict()), self._host(aux), self._store_ids(store, idx)
 
-        for host, aux in prefetch(dataset.batch_indices(n_batches), prep):
-            yield self._to_device(host), self._to_device(aux)
+        for host, aux, ids in prefetch(dataset.batch_indices(n_batches), prep):
+            yield self._to_device(host), self._with_ids(self._to_device(aux), ids)
 
     def _pv_locked_plan(self, dataset: BoxPSDataset):
         """The pass's PvPlan, the one source of the join phase's gate,
@@ -368,11 +452,11 @@ class CTRTrainer:
             arrays["ins_weight"] = plan.ins_weight[pos]
             arrays["rank_offset"] = plan.rank_offset[pos]
             aux = self._logkey_aux(*self._store_logkeys(store, idx))
-            return self._host(arrays), self._host(aux)
+            return self._host(arrays), self._host(aux), self._store_ids(store, idx)
 
-        for host, aux in prefetch(range(n), prep):
+        for host, aux, ids in prefetch(range(n), prep):
             feed = self._to_device(host)
-            yield feed, self._pv_aux(feed, self._to_device(aux))
+            yield feed, self._with_ids(self._pv_aux(feed, self._to_device(aux)), ids)
 
     def _pv_aux(self, feed, aux):
         if self.metric_registry is not None:
@@ -387,18 +471,19 @@ class CTRTrainer:
 
         def prepare(item):
             batch, weight = item
-            arrays = pack_batch(batch, dataset.ws, dataset.schema).as_dict()
+            arrays = self._pack(batch, dataset)
             arrays["ins_weight"] = weight
             arrays["rank_offset"] = batch.rank_offset
-            return self._host(arrays), self._host(self._logkey_aux(batch.cmatch, batch.rank))
+            return self._host(arrays), self._host(self._logkey_aux(batch.cmatch, batch.rank)), batch.ins_ids
 
-        for host, aux in prefetch(dataset.pv_batches(n_batches), prepare, workers=1, depth=2):
+        for host, aux, ids in prefetch(dataset.pv_batches(n_batches), prepare, workers=1, depth=2):
             feed = self._to_device(host)
-            yield feed, self._pv_aux(feed, self._to_device(aux))
+            yield feed, self._with_ids(self._pv_aux(feed, self._to_device(aux)), ids)
 
-    def _classic_stepper(self, iterator, holder, step_fn, profile, tm):
+    def _classic_stepper(self, iterator, holder, step_fn, profile, tm, is_async=False):
         """Per-batch dispatch over a host-packed feed. Yields (i, metrics,
-        registry inputs)."""
+        registry inputs). With ``is_async`` each step starts from a copy of
+        the async dense table's params (PullDense)."""
         max_inflight = int(config.get_flag("max_inflight_steps"))
         inflight: deque = deque()
         it = iter(iterator)
@@ -411,6 +496,10 @@ class CTRTrainer:
                 return
             finally:
                 tm["feed_wait_s"] += time.perf_counter() - t0
+            if is_async:
+                # a copy: the table's arrays stay the table's
+                fresh = {k: torch.from_numpy(v).to(self.device, copy=True) for k, v in self.async_dense.pull_dense().items()}
+                holder["state"] = holder["state"]._replace(params=fresh)
             t0 = time.perf_counter()
             holder["state"], m = step_fn(holder["state"], feed)
             ev = self._mark()
@@ -426,13 +515,16 @@ class CTRTrainer:
 
     # ---- the resident feeds ------------------------------------------------
 
-    def _use_resident(self, dataset: BoxPSDataset, use_pv: bool) -> bool:
+    def _use_resident(self, dataset: BoxPSDataset, use_pv: bool, is_async: bool = False) -> bool:
         """One predicate for the resident-vs-host choice, shared by
-        train_pass and prepare_pass. The join phase needs the pass's plan
-        (every record's store index); a model that takes ``rank_offset``
-        stays off the flat tier, which has no rank matrix to feed it."""
+        train_pass and prepare_pass. Async dense pulls and pushes every
+        batch, so it stays on the host feeds. The join phase needs the
+        pass's plan (every record's store index); a model that takes
+        ``rank_offset`` stays off the flat tier, which has no rank matrix
+        to feed it."""
         ok = (
             bool(config.get_flag("enable_resident_feed"))
+            and not is_async
             and dataset.store is not None
             and len(dataset.store.u64_values) < (1 << 31)
         )
@@ -455,7 +547,10 @@ class CTRTrainer:
         c = None  # a live reference would keep the old arrays on the device
         self._resident_cache = self._idx_cache = self._pv_feed_cache = None
         self._sstep_cache = {}
-        rp = ResidentPass(dataset.store, dataset.ws, dataset.schema, self.device)
+        rp = ResidentPass(
+            dataset.store, dataset.ws, dataset.schema, self.device, dense_slot=self.dense_slot,
+            dense_dim=self.dense_dim, bucket=self.pack_bucket,
+        )
         if prev_uniq:
             rp._uniq_cache.update(prev_uniq)
         self._resident_cache = (dataset.store, dataset.ws, rp)
@@ -541,32 +636,48 @@ class CTRTrainer:
         logkeys = None
         if self.metric_registry is not None and dataset.store.ins_id_off is not None:
             logkeys = rp.logkey_columns()
+        host_idx = plan.idx if use_pv else blocks
         tm["feed_wait_s"] += time.perf_counter() - t0
         K = 1 if profile else max(1, int(config.get_flag("resident_scan_batches")))
-        inflight: deque = deque()
-        i = 0
-        for c0 in range(0, n, K):
-            k = min(K, n - c0)
-            t0 = time.perf_counter()
-            holder["state"], mstack = sstep(holder["state"], feed_dev[c0 : c0 + k])
-            ev = self._mark()
-            tm["step_dispatch_s"] += time.perf_counter() - t0
-            if ev is not None:
-                inflight.append(ev)
-                if profile or len(inflight) > 1:  # one superstep ahead
-                    t0 = time.perf_counter()
-                    inflight.popleft().synchronize()
-                    tm["device_step_s"] += time.perf_counter() - t0
-            for j in range(k):
-                aux = {}
-                if logkeys is not None:
-                    rows = rows_dev[c0 + j]
-                    aux["cmatch"] = logkeys[0].index_select(0, rows)
-                    aux["rank"] = logkeys[1].index_select(0, rows)
-                if pv_feed is not None and self.metric_registry is not None:
-                    aux["ins_weight"] = pv_feed.ins_weight[c0 + j]
-                yield i, {key: v[j] for key, v in mstack.items()}, aux
-                i += 1
+        # a dump's instance ids are built off the dispatch thread: one
+        # worker resolves a chunk's ids while its superstep runs
+        ids_ex = ThreadPoolExecutor(max_workers=1) if self._wants_ids(dataset.store) else None
+        try:
+            inflight: deque = deque()
+            i = 0
+            for c0 in range(0, n, K):
+                k = min(K, n - c0)
+                ids_fut = None
+                if ids_ex is not None:
+                    ids_fut = ids_ex.submit(
+                        lambda c0, k: [self._store_ids(dataset.store, host_idx[c0 + j]) for j in range(k)], c0, k
+                    )
+                t0 = time.perf_counter()
+                holder["state"], mstack = sstep(holder["state"], feed_dev[c0 : c0 + k])
+                ev = self._mark()
+                tm["step_dispatch_s"] += time.perf_counter() - t0
+                if ev is not None:
+                    inflight.append(ev)
+                    if profile or len(inflight) > 1:  # one superstep ahead
+                        t0 = time.perf_counter()
+                        inflight.popleft().synchronize()
+                        tm["device_step_s"] += time.perf_counter() - t0
+                chunk_ids = ids_fut.result() if ids_fut is not None else None
+                for j in range(k):
+                    aux = {}
+                    if logkeys is not None:
+                        rows = rows_dev[c0 + j]
+                        aux["cmatch"] = logkeys[0].index_select(0, rows)
+                        aux["rank"] = logkeys[1].index_select(0, rows)
+                    if pv_feed is not None and self.metric_registry is not None:
+                        aux["ins_weight"] = pv_feed.ins_weight[c0 + j]
+                    if chunk_ids is not None:
+                        aux["ins_ids"] = chunk_ids[j]
+                    yield i, {key: v[j] for key, v in mstack.items()}, aux
+                    i += 1
+        finally:
+            if ids_ex is not None:
+                ids_ex.shutdown(wait=False)
 
     def prepare_pass(self, dataset: BoxPSDataset, n_batches: Optional[int] = None) -> None:
         """Freeze this pass's pad shapes for a batch partition before a
@@ -580,13 +691,14 @@ class CTRTrainer:
             if dataset.store is None or dataset.ws is None:
                 return
             use_pv = dataset.pv_merged and dataset.current_phase == 1
+            is_async = self.cfg.dense_sync_mode == "async" and not self._eval_active
             if use_pv:
-                if self._use_resident(dataset, True):
+                if self._use_resident(dataset, True, is_async):
                     parts: Dict[str, float] = {}
                     self._pv_resident_prepare(dataset, parts)
                     self.last_prepare_parts = parts
                 return
-            if self._use_resident(dataset, False):
+            if self._use_resident(dataset, False, is_async):
                 t = [time.perf_counter()]
                 rp = self._get_resident(dataset)
                 t.append(time.perf_counter())
@@ -613,7 +725,7 @@ class CTRTrainer:
         """Train ``n_batches`` minibatches of the current pass (all of them
         by default; the flat feeds wrap around past the tail, the join
         phase's stop at its last pv batch); returns pass metrics. In test
-        mode it evaluates them instead.
+        mode (the trainer's, or its ``box``'s) it evaluates them instead.
 
         Call between ``dataset.begin_pass()`` and ``dataset.end_pass(...)``.
         ``profile=True`` adds ``out["profile"]``, host seconds in
@@ -635,9 +747,12 @@ class CTRTrainer:
         # the join phase serves pv-merged batches with rank_offset and ghost
         # weights, the update phase flat ones (data_feed.cc:2165-2198)
         use_pv = dataset.pv_merged and dataset.current_phase == 1
-        eval_mode = self.test_mode
+        eval_mode = self._eval_active
+        is_async = self.cfg.dense_sync_mode == "async" and not eval_mode
+        if is_async and set(self.async_dense.pull_dense()) != set(state.params):
+            raise ValueError("the AsyncDenseTable's params are not the model's")
         step_fn = self._step_fn(eval_mode)
-        if self._use_resident(dataset, use_pv):
+        if self._use_resident(dataset, use_pv, is_async):
             feed = "resident_pv" if use_pv else "resident"
             stepper = self._resident_stepper(dataset, n_batches, holder, eval_mode, profile, tm, use_pv)
         else:
@@ -654,7 +769,7 @@ class CTRTrainer:
                 feed = "slow"
                 tm.update(dict.fromkeys(_SLOW_FEED_KEYS, 0.0))
                 it = self._slow_feed_iter(dataset, n_batches, profile, tm)
-            stepper = self._classic_stepper(it, holder, step_fn, profile, tm)
+            stepper = self._classic_stepper(it, holder, step_fn, profile, tm, is_async)
         self.last_feed = feed
         try:
             for i, m, aux in stepper:
@@ -667,10 +782,16 @@ class CTRTrainer:
             self._state = holder["state"]
             raise
         state = holder["state"]
-        # an eval pass returns params and optimizer state as they came
-        self.params = state.params
-        self.opt_state = state.opt_state
+        if is_async:
+            # the host table owns the dense params: take its latest view
+            self.params = {k: torch.from_numpy(v).to(self.device) for k, v in self.async_dense.pull_dense().items()}
+        else:
+            # an eval pass returns params and optimizer state as they came
+            self.params = state.params
+        self.opt_state = state.opt_state  # untouched in async mode
         self._state = state
+        if self.dump_pool is not None and self.dump_params_at_end:
+            self._dump_params()
 
         cum = AucState(pos=state.auc.pos.cpu(), neg=state.auc.neg.cpu())
         out = auc_compute(AucState(pos=cum.pos - auc0.pos, neg=cum.neg - auc0.neg))
@@ -693,18 +814,62 @@ class CTRTrainer:
 
     def _consume_batch(self, i, m, aux, dataset: BoxPSDataset, on_batch, losses, skip_flags) -> None:
         """Host-side per-batch consumers, shared by every stepper. A batch
-        the NaN check skipped stays out of the registry (the read of its
-        flag waits for the device, and happens only with a registry)."""
+        the NaN check skipped reaches neither the async dense table, the
+        registry nor the dump (the read of its flag waits for the device,
+        and happens only with such a consumer, which reads the batch back
+        anyway)."""
         if "nan_skipped" in m:
             skip_flags.append(m["nan_skipped"])
         reg = self.metric_registry
-        if reg is not None and not ("nan_skipped" in m and int(m["nan_skipped"])):
+        is_async = "gparams" in m  # an async training step's
+        skipped = 0
+        if "nan_skipped" in m and (is_async or reg is not None or self.dump_pool is not None):
+            skipped = int(m["nan_skipped"])
+        if is_async and not skipped:
+            self.async_dense.push_dense(m["gparams"])  # PushDense
+        if reg is not None and not skipped:
             # per-batch registry feed with the phase and the logkey inputs
             # (AddAucMonitor parity, boxps_worker.cc:408-418)
             reg.add_all({**m, **aux}, phase=dataset.current_phase)
+        if self.dump_pool is not None and not skipped:
+            self._dump_batch(i, m, aux)
         if on_batch is not None:
             on_batch(i, m)
         losses.append(m["loss"])
+
+    def _dump_batch(self, step_i: int, m: Dict, aux: Dict) -> None:
+        """Per-batch field dump (DeviceWorker::DumpField): every field of
+        ``dump_fields_list`` the step returned per instance, one line an
+        instance, sampled by ``dump_mode``."""
+        if not self.dump_pool._started:
+            self.dump_pool.start()
+        fields = {}
+        n_ins = None
+        for name in self.dump_fields_list:
+            v = m.get(name)
+            if not isinstance(v, torch.Tensor) or v.dim() == 0:
+                continue  # scalars (loss, step) have no rows an instance
+            arr = v.detach().cpu().numpy()
+            flat = arr.reshape(-1, *arr.shape[2:]) if arr.ndim > 1 else arr
+            fields[name] = flat
+            n_ins = len(flat) if n_ins is None else min(n_ins, len(flat))
+        if not fields or not n_ins:
+            return
+        ins_ids = aux.get("ins_ids")
+        if ins_ids is None or len(ins_ids) != n_ins:
+            ins_ids = [f"b{step_i}:{j}" for j in range(n_ins)]  # no parsed ids: batch ordinals
+        dump_fields(
+            self.dump_pool, ins_ids, {k: v[:n_ins] for k, v in fields.items()}, step=step_i,
+            dump_mode=self.dump_mode, dump_interval=self.dump_interval,
+        )
+
+    def _dump_params(self) -> None:
+        """DumpParam (device_worker.cc:131-133): the dense params once, one
+        line a leaf, under the JAX package's leaf paths and layouts."""
+        from paddlebox_tpu_torch.models.convert import jax_named_leaves
+
+        for name, leaf in jax_named_leaves(self.params):
+            dump_param(self.dump_pool, name, leaf)
 
     def trained_table(self) -> np.ndarray:
         """The pass's trained table on the host, [rows, width], for

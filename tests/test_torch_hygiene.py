@@ -43,7 +43,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     walked = set(out["WALKED"].split(","))
     for m in ("train.checkpoint", "train.rollback", "serve.follower", "utils.fs",
               "ops.wire_quant", "table.carrier", "data.pv_instance", "ops.ctr_ops",
-              "models.rank", "metrics.registry"):
+              "models.rank", "metrics.registry", "models.lr", "models.wide_deep", "models.mmoe",
+              "train.async_dense", "utils.dump", "boxps"):
         assert f"paddlebox_tpu_torch.{m}" in walked
 
 

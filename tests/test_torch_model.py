@@ -141,10 +141,12 @@ def test_eval_step_with_ins_weight_matches_jax(adjust):
 
 
 def test_train_mode_is_not_ported_yet():
-    """Training is ported; its async dense mode and the expand, rank-offset
-    and mesh variants are not, and say so."""
+    """Training is ported, its async dense mode too; the expand and mesh
+    variants are not, and say so."""
     lay = ValueLayout(embedx_dim=D)
-    for kw in ({"dense_sync_mode": "async"}, {"use_expand": True}, {"axis_name": "dp"}):
+    cfg = TrainStepConfig(num_slots=S, batch_size=B, layout=lay, dense_sync_mode="async")
+    assert callable(make_train_step(lambda p, x, d: x, cfg, None, eval_mode=False))
+    for kw in ({"use_expand": True}, {"axis_name": "dp"}):
         cfg = TrainStepConfig(num_slots=S, batch_size=B, layout=lay, **kw)
         with pytest.raises(NotImplementedError):
             make_train_step(lambda p, x, d: x, cfg, Adam(1e-3), eval_mode=False)
