@@ -173,7 +173,37 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    ``save_base``, ``load_model`` into a second wrapper bitwise,
    ``save_cache_model``); and ``pull_rows_cuda`` at DCN's batch shape
    against its plain version, ``index_select``, the byte bound and the
-   sector floor, both kernels held bitwise there.
+   sector floor, both kernels held bitwise there;
+12. the mesh ("mesh", ``CTRTrainer(plan=...)``) at the same width on
+   bench.py's data (16 files x 8192 records from ``--seed + 8``), a global
+   batch of 4096 (``cfg.batch_size`` 4096 / world), every rank its own
+   ``HostSparseTable(n_shards=64)`` and ``BoxPSDataset(n_mesh_shards=
+   world)`` over the same files, in two worlds one after the other,
+   spawned by ``fleet.launch.spawn``: an NCCL world of
+   ``min(device_count, 4)`` ranks, one a card (1 on a one-card machine,
+   where NCCL cannot put two ranks on one GPU), then a gloo world of 2
+   ranks sharing cuda:0 (every line it prints says ``"backend": "gloo",
+   "ranks_per_card": 2``), whose ranks route real buckets to each other.
+   Each rank: load, ``begin_pass(512)``, ``prepare_pass``, a warm-up
+   ``train_pass(8)``, a timed ``train_pass(32)`` on the resident mesh feed
+   (K = 8), 8 packer steps, each step launching ``pull_rows_cuda`` twice
+   and ``write_rows_cuda`` once with finite losses; one packer step in
+   each mesh wire mode, whose value bytes must equal ``ici_wire_nbytes``;
+   4 steps from one state through the resident feed (K = 4 and K = 1),
+   the packer and the slow feed, twice on the packer and with the plain
+   gather and writeback, all bitwise alike; kstep and ZeRO-1 4 steps each,
+   ZeRO's params within 2e-4 of step mode's; both kernels bitwise at the
+   owner's ``[world x K]`` ids into its shard; the host syncs of one
+   resident mesh superstep (0 required on the NCCL world); ``end_pass``
+   of the gathered table, every rank's host table then the same. The 4
+   steps must match the one-device trajectory on the same data, and the
+   gloo world the NCCL world, within ``tests/test_sharded.py``'s bounds.
+   Printed: samples/s a rank and in all, ms a step, rank 0's busy ms and
+   idle share, the host split (``pack_sharded`` of the global batch, the
+   dispatch, the collectives' host time), the wire bytes a step in each
+   mode, ``prepare_pass`` and ``end_pass`` seconds, and both kernels at
+   each world's owner shape (cold and warm) beside ``index_select`` /
+   ``index_copy_``, the byte bound and the sector floor.
 
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -347,10 +377,12 @@ def check_gather(ck, table, rows, what):
 
 
 def check_write(ck, table, rows, new_rows, what):
-    """``write_rows_cuda`` against ``write_rows_ref`` on copies of ``table``."""
+    """``write_rows_cuda`` against ``write_rows_ref`` on copies of ``table``,
+    the ids outside [0, R) taken out of the plain side (the kernel skips
+    them)."""
     got = ck.write_rows_cuda(table.clone(), rows, new_rows)
     torch.cuda.synchronize()
-    want = ck.write_rows_ref(table.clone(), rows, new_rows)
+    want = ck.write_rows_ref(table.clone(), *ck.drop_out_of_range(table, rows, new_rows))
     if not torch.equal(got, want):
         raise AssertionError(f"write_rows_cuda != write_rows_ref at {what}")
     print(f"kernel check write_rows_cuda {what}: bitwise equal", flush=True)
@@ -772,9 +804,10 @@ def main() -> int:
     boundary_counts = boundary_phase(args, card, ck, lay, schema, train)
     join_counts, join_err = join_update_phase(args, dev, card, ck, pull_push, lay)
     zoo_counts, dcn, zoo_err = zoo_phase(args, dev, card, ck, lay)
+    mesh_counts, owner, mesh_err = mesh_phase(args, dev, card, ck, lay)
 
     by_path = {"serve": serve_counts, **train["counts"], **published, "boundary": boundary_counts, **join_counts,
-               **zoo_counts}
+               **zoo_counts, **mesh_counts}
     emit({"kernels": [
         {
             "name": name,
@@ -786,7 +819,8 @@ def main() -> int:
             # through the Follower and its passes on the live and the
             # resumed stacks, then phase 9's pass boundary, then phase 10's
             # join and update phases, then phase 11's zoo, async dense,
-            # dump and façade runs
+            # dump and façade runs, then phase 12's NCCL and gloo mesh
+            # worlds (every rank's main path)
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": err,
@@ -800,12 +834,15 @@ def main() -> int:
             # the gather at DCN's batch shape (phase 11), beside phase 7's
             **({"zoo_dcn_shape": {k: dcn[k] for k in ("U", "n_uniq", "ms", "plain_ms", "library_ms", "bound_ms",
                                                         "sector_floor_ms")}} if key == "gather" else {}),
+            # both kernels at the mesh owner's shape (phase 12): world x K
+            # received ids into the owner's shard
+            "mesh_owner_shape": {w: owner[w][name] for w in owner},
         }
         for name, source, replaces, key, err in (
             ("pull_rows_cuda", "paddlebox_tpu_torch/ops/csrc/gather_rows.cu", GATHER_REPLACES, "gather",
-             max(max_err, train["gather_err"], join_err, zoo_err)),
+             max(max_err, train["gather_err"], join_err, zoo_err, mesh_err)),
             ("write_rows_cuda", "paddlebox_tpu_torch/ops/csrc/write_rows.cu", WRITE_REPLACES, "write",
-             max(write_err, train["write_err"], join_err, zoo_err)),
+             max(write_err, train["write_err"], join_err, zoo_err, mesh_err)),
         )
     ]})
     print(card, flush=True)
@@ -2708,6 +2745,509 @@ def zoo_phase(args, dev, card, ck, lay):
           "dcn_gather": gather})
     print(f"phase 11 (zoo) in {nums['phase_s']:.3f} s; {card}", flush=True)
     return counts, gather, err
+
+
+# ---- 12. the mesh ----------------------------------------------------------
+
+MESH_NCCL_MAX = 4  # ranks of the NCCL world: one a card, at most this many
+MESH_GLOO_RANKS = 2  # the gloo world's ranks, all on cuda:0
+MESH_WARM = 8
+MESH_TIMED = 32
+MESH_PACKER = 8
+MESH_FEED_STEPS = 4
+MESH_WIRES = ("fp32", "bf16", "int8", "adaptive")
+MESH_TIMEOUT_S = 300.0
+MESH_KEY_STRIDE = 16  # every 16th unique key of the 4-step batches is compared across runs
+MESH_LOSS_RTOL_FIRST, MESH_LOSS_RTOL = 1e-5, 6e-3  # tests/test_sharded.py's mesh-vs-one-device bounds
+MESH_TABLE_RTOL, MESH_TABLE_ATOL = 2e-3, 1e-3
+MESH_PARAMS_ATOL = 2e-4  # ZeRO-1 against step mode, tests/test_torch_train_step.py's bound
+
+
+def bench_schema():
+    from paddlebox_tpu_torch.data import SlotInfo, SlotSchema
+
+    return SlotSchema([SlotInfo("label", type="float", dense=True, dim=1)] + [SlotInfo(f"s{i}") for i in range(NUM_SLOTS)],
+                      label_slot="label")
+
+
+class _CollectiveMeter:
+    """Host seconds in the plan's collectives and the bytes each rank's
+    ``all_to_all`` sends, split into the int32 request buckets and the
+    value payloads (patched onto ``MeshPlan`` in a rank's process only)."""
+
+    def __init__(self):
+        from paddlebox_tpu_torch.parallel import mesh
+
+        self.reset()
+        for name in ("all_to_all", "all_reduce", "all_gather"):
+            orig = getattr(mesh.MeshPlan, name)
+
+            def timed(plan, x, *a, _orig=orig, _name=name, **kw):
+                t0 = time.perf_counter()
+                out = _orig(plan, x, *a, **kw)
+                self.secs += time.perf_counter() - t0
+                if _name == "all_to_all":
+                    key = "req_bytes" if x.dtype == torch.int32 else "value_bytes"
+                    setattr(self, key, getattr(self, key) + x.numel() * x.element_size())
+                return out
+
+            setattr(mesh.MeshPlan, name, timed)
+
+    def reset(self):
+        self.secs, self.req_bytes, self.value_bytes = 0.0, 0, 0
+
+
+def _mesh_key_rows(tr, ds, n_steps):
+    """(keys, rows) of every MESH_KEY_STRIDE-th unique key of the first
+    ``n_steps`` batches, from the trainer's whole trained table."""
+    from paddlebox_tpu_torch.data.record_store import _ragged_indices
+
+    counts = ds.store.key_counts()
+    idx = np.concatenate(list(ds.batch_indices(n_steps)))
+    keys = np.unique(ds.store.u64_values[_ragged_indices(ds.store.u64_base[idx], counts[idx])])[::MESH_KEY_STRIDE]
+    table = tr.trained_table()
+    rows = table.reshape(-1, table.shape[-1])[ds.ws.row_of_sorted[np.searchsorted(ds.ws.sorted_keys, keys)]]
+    return keys, rows
+
+
+def _mesh_tag(backend, ranks_per_card) -> str:
+    """What every line of a mesh world names: its backend and ranks a card."""
+    return json.dumps({"backend": backend, "ranks_per_card": ranks_per_card})
+
+
+def _stderr_syncs(fn):
+    """(``fn``'s result, the "synchronizing CUDA operation" warnings written
+    to the process's stderr while it ran): the syncs that torch's sync
+    debug mode reports from threads without Python, such as gloo's."""
+    import tempfile as _tf
+
+    sys.stderr.flush()
+    saved = os.dup(2)
+    with _tf.TemporaryFile(mode="w+b") as f:
+        os.dup2(f.fileno(), 2)
+        try:
+            out = fn()
+        finally:
+            sys.stderr.flush()
+            os.dup2(saved, 2)
+            os.close(saved)
+        f.seek(0)
+        text = f.read().decode(errors="replace")
+    sys.stderr.write(text)
+    return out, text.count("synchronizing CUDA operation")
+
+
+def mesh_rank(plan, spec):
+    """Phase 12 on one rank of a world (spawned by ``fleet.launch.spawn``):
+    load bench.py's data into this rank's replica, train on the mesh, check
+    what a rank can check alone, write the rest to ``spec["out"]``. One
+    trainer serves every run of step mode, its state reset between runs
+    (its resident pass and packer are built once)."""
+    import dataclasses
+    import hashlib
+
+    from paddlebox_tpu_torch.data import BoxPSDataset
+    from paddlebox_tpu_torch.fleet import Zero1Optimizer
+    from paddlebox_tpu_torch.models import DeepFM
+    from paddlebox_tpu_torch.ops import cuda_kernels as ck
+    from paddlebox_tpu_torch.ops import pull_push
+    from paddlebox_tpu_torch.ops import wire_quant as wq
+    from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig, ValueLayout
+    from paddlebox_tpu_torch.train import Adam, AdamState, CTRTrainer, TrainStepConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n, r, dev = plan.world, plan.rank, plan.device
+    tag = _mesh_tag(plan.backend, spec["ranks_per_card"])
+    meter = _CollectiveMeter()
+    lay = ValueLayout(embedx_dim=EMBEDX_DIM)
+    sparse_opt = SparseOptimizerConfig(embedx_threshold=0.0)
+    cfg = TrainStepConfig(num_slots=NUM_SLOTS, batch_size=BATCH // n, layout=lay, sparse_opt=sparse_opt,
+                          auc_buckets=100_000)
+    res = {"rank": r, "world": n, "backend": plan.backend, "device": str(dev), "ranks_per_card": spec["ranks_per_card"]}
+    table = HostSparseTable(lay, sparse_opt, n_shards=64, seed=spec["seed"])
+    ds = BoxPSDataset(bench_schema(), table, batch_size=BATCH, shuffle_mode="local", seed=spec["seed"], n_mesh_shards=n)
+    ds.set_filelist(spec["files"])
+    t0 = time.perf_counter()
+    ds.load_into_memory()
+    res["load_into_memory_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds.begin_pass(round_to=512)
+    res["begin_pass_s"] = time.perf_counter() - t0
+    res["cap"], res["n_keys"] = ds.ws.capacity, ds.ws.n_keys
+
+    def trainer(dense_opt=None, cfg_=cfg):
+        model = DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
+                       generator=torch.Generator().manual_seed(spec["seed"]))
+        t = CTRTrainer(model, cfg_, dense_opt=dense_opt or Adam(1e-3), plan=plan)
+        t.init_params()
+        return t
+
+    tr = trainer()
+    p0 = {k: v.clone() for k, v in tr.params.items()}
+    o0 = tr.opt_state
+
+    def reset(t):
+        """The next train_pass starts from the pass-open table and p0."""
+        t._state = t._state_ws = None
+        t.params = {k: v.clone() for k, v in p0.items()}
+        t.opt_state = AdamState(o0.count.clone(), {k: v.clone() for k, v in o0.mu.items()},
+                                {k: v.clone() for k, v in o0.nu.items()})
+
+    def steps(t, data, k, **kw):
+        losses = []
+        out = t.train_pass(data, n_batches=k, on_batch=lambda i, m: losses.append(m["loss"]), **kw)
+        return out, torch.stack(losses).cpu()
+
+    def counted(name, fn, k):
+        torch.cuda.synchronize(dev)
+        ck.reset_launch_counts()
+        meter.reset()
+        t0 = time.perf_counter()
+        out, losses = fn()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        counts = dict(ck.launch_counts)
+        if counts["pull_rows_cuda"] != 2 * k or counts["write_rows_cuda"] != k:
+            raise AssertionError(f"mesh {tag} rank {r} {name}: launches {counts} for {k} steps")
+        if not bool(torch.isfinite(losses).all()):
+            raise AssertionError(f"mesh {tag} rank {r} {name}: non-finite loss {losses.tolist()}")
+        return out, losses, wall, counts
+
+    def feed_is(want):
+        if tr.last_feed != want:
+            raise AssertionError(f"mesh {tag}: the trainer took the {tr.last_feed} feed, not {want}")
+
+    # the main path: prepare_pass, a warm-up, the timed resident pass
+    tr.prepare_pass(ds, n_batches=MESH_WARM + MESH_TIMED)
+    res["prepare_pass_s"] = tr.last_prepare_s
+    tr.train_pass(ds, n_batches=MESH_WARM)
+    out, losses, wall, c_res = counted("resident", lambda: steps(tr, ds, MESH_TIMED), MESH_TIMED)
+    feed_is("resident")
+    res.update(resident_wall_s=wall, resident_coll_s=meter.secs, resident_loss=out["loss"], auc=out["auc"])
+    # every rank steps (the collectives need all); rank 0's numbers are printed
+    res["busy_ms_per_step"] = busy_ms_per_step(lambda: tr.train_pass(ds, n_batches=RESIDENT_K), RESIDENT_K)
+    res["resident_profile_ms"] = {k: v / RESIDENT_K * 1e3 for k, v in tr.train_pass(
+        ds, n_batches=RESIDENT_K, profile=True)["profile"].items()}
+
+    # the host syncs of one resident mesh superstep: the sync debug mode's
+    # warnings from Python and those written by threads without it
+    rp = tr._resident_cache[2]
+    sstep = tr._resident_superstep(rp, False)
+    idx_dev = tr._idx_cache[2][:RESIDENT_K]
+    plan.reset_calls()
+    state = tr._state
+    holder = {}
+
+    def run():
+        holder["st"] = sstep(state, idx_dev)[0]
+
+    (n_syncs, sites), n_thread = _stderr_syncs(lambda: host_syncs(run))
+    tr._state = holder["st"]
+    res.update(superstep_host_syncs=n_syncs + n_thread, superstep_sync_sites=sites,
+               superstep_thread_syncs=n_thread, superstep_collectives=dict(plan.calls))
+
+    # the trained table for end_pass, and the owner's three id patterns:
+    # the pull's received ids, the merge's old-row ids and its writeback ids
+    trained = tr.trained_table()
+    shard = tr._state.table
+    with flags(enable_resident_feed=0):
+        reset(tr)
+        first = next(ds.batch_indices(1))
+        packer = tr._get_packer(ds)
+        packer.freeze_shapes([first], n_devices=n)
+        db = packer.pack_sharded(first, n)
+    recv = torch.from_numpy(np.ascontiguousarray(db.req_ranks[:, r, :].reshape(-1))).to(dev)
+    uniq = torch.unique(recv)  # sorted: the merge's runs, one a distinct row
+    tail = recv.numel() - uniq.numel()
+    owner = {
+        "pull": recv,
+        "merge_old": torch.cat([uniq, torch.zeros(tail, dtype=uniq.dtype, device=dev)]),
+        "merge_write": torch.cat([uniq.long(), torch.full((tail,), shard.shape[0], dtype=torch.long, device=dev)]),
+    }
+    what = (f"mesh {tag} rank {r} owner R={shard.shape[0]} "
+            f"U={recv.numel()} ({uniq.numel()} distinct)")
+    kerr = max(check_gather(ck, shard, owner["pull"], what + " pull ids"),
+               check_gather(ck, shard, owner["merge_old"], what + " merge old-row ids"),
+               check_write(ck, shard, owner["merge_write"], ck.pull_rows_ref(shard, owner["merge_old"]) + 0.5,
+                           what + " merge writeback ids"))
+    res.update(owner_R=shard.shape[0], kernel_err=kerr)
+
+    # 8 packer steps
+    with flags(enable_resident_feed=0):
+        reset(tr)
+        tr.prepare_pass(ds, n_batches=MESH_PACKER)
+        pout, plosses, pwall, c_pack = counted("packer", lambda: steps(tr, ds, MESH_PACKER), MESH_PACKER)
+        feed_is("packer")
+        meter.reset()
+        prof = tr.train_pass(ds, n_batches=MESH_PACKER, profile=True)["profile"]
+        res["packer_profile_ms"] = {k: v / MESH_PACKER * 1e3 for k, v in prof.items()}
+        res["packer_coll_ms"] = meter.secs / MESH_PACKER * 1e3
+        packer = tr._packer_cache[2]
+        idx = list(ds.batch_indices(MESH_PACKER))
+        t0 = time.perf_counter()
+        for b in idx:
+            packer.pack_sharded(b, n)
+        res["pack_sharded_ms"] = (time.perf_counter() - t0) / len(idx) * 1e3
+        K = packer._K_pad
+    res.update(counts={"resident": c_res, "packer": c_pack}, packer_wall_s=pwall, K=K)
+
+    # the wire: one packer step in each mode, bytes sent against ici_wire_nbytes
+    wires = {}
+    for mode in MESH_WIRES:
+        with flags(enable_resident_feed=0, ici_wire_dtype=mode):
+            reset(tr)
+            meter.reset()
+            tr.train_pass(ds, n_batches=1)
+            hot = wq.ici_hot_slots(K) if mode == "adaptive" else 0
+            want = (wq.ici_wire_nbytes(n, K, lay.pull_width, lay.embed_w_col, 1, mode, hot)
+                    + wq.ici_wire_nbytes(n, K, lay.push_width + 2, 2, 1, mode, hot))
+            wires[mode] = {"K": K, "value_bytes": meter.value_bytes, "ici_wire_nbytes": want,
+                           "req_bytes": meter.req_bytes, "fp32_bytes": n * K * (lay.pull_width + lay.push_width + 2) * 4}
+            if meter.value_bytes != want or meter.req_bytes != 2 * n * K * 4:
+                raise AssertionError(f"mesh {tag} wire {mode}: sent {meter.value_bytes} value bytes, "
+                                     f"ici_wire_nbytes says {want}; req {meter.req_bytes}")
+    res["wire"] = wires
+
+    # 4 steps from one state through every flat feed: bitwise alike
+    def four(kw, data, want_feed):
+        with flags(**kw):
+            reset(tr)
+            _, ls = steps(tr, data, MESH_FEED_STEPS)
+            feed_is(want_feed)
+            st = tr._state
+            return ({k: v.cpu() for k, v in st.params.items()}, {k: v.cpu() for k, v in st.opt_state.mu.items()},
+                    {k: v.cpu() for k, v in st.opt_state.nu.items()}, st.table.cpu(), ls)
+
+    runs = {"packer": four(dict(enable_resident_feed=0), ds, "packer")}
+    res["four_keys"], res["four_rows"] = _mesh_key_rows(tr, ds, MESH_FEED_STEPS)
+    runs["resident K=4"] = four(dict(resident_scan_batches=4), ds, "resident")
+    runs["resident K=1"] = four(dict(resident_scan_batches=1), ds, "resident")
+    runs["slow"] = four({}, records_view(ds, MESH_FEED_STEPS), "slow")
+    runs["packer twin"] = four(dict(enable_resident_feed=0), ds, "packer")
+    saved = pull_push.pull_rows_cuda, pull_push.write_rows_cuda
+    pull_push.pull_rows_cuda = ck.pull_rows_ref
+    # the owner names its idle runs R: the plain writeback takes them out first
+    pull_push.write_rows_cuda = lambda t, i, v: ck.write_rows_ref(t, *ck.drop_out_of_range(t, i, v))
+    try:
+        runs["packer, plain gather and writeback"] = four(dict(enable_resident_feed=0), ds, "packer")
+    finally:
+        pull_push.pull_rows_cuda, pull_push.write_rows_cuda = saved
+    ref = runs["packer"]
+    for name, got in runs.items():
+        same = (all(torch.equal(got[i][k], ref[i][k]) for i in (0, 1, 2) for k in ref[i])
+                and torch.equal(got[3], ref[3]) and torch.equal(got[4], ref[4]))
+        if not same:
+            raise AssertionError(f"mesh {tag} rank {r}: {MESH_FEED_STEPS} steps through {name} differ from packer")
+    res["feeds_bitwise"] = list(runs)
+    res["four_losses"] = ref[4].tolist()
+
+    # kstep and ZeRO-1, 4 steps each
+    with flags(enable_resident_feed=0):
+        ktr = trainer(cfg_=dataclasses.replace(cfg, dense_sync_mode="kstep", param_sync_step=2))
+        _, kl = steps(ktr, ds, MESH_FEED_STEPS)
+        ztr = trainer(dense_opt=Zero1Optimizer(Adam(1e-3), n_dev=n))
+        _, zl = steps(ztr, ds, MESH_FEED_STEPS)
+    for name, ls in (("kstep", kl), ("zero1", zl)):
+        if not bool(torch.isfinite(ls).all()):
+            raise AssertionError(f"mesh {tag} {name}: non-finite loss {ls.tolist()}")
+    zd = max(float((ztr.params[k].cpu() - ref[0][k]).abs().max()) for k in ref[0])
+    if zd > MESH_PARAMS_ATOL:
+        raise AssertionError(f"mesh {tag} ZeRO-1 params differ from step mode's by {zd} > {MESH_PARAMS_ATOL}")
+    res.update(kstep_losses=kl.tolist(), zero_losses=zl.tolist(), zero_vs_step_params_max_abs=zd)
+
+    # end_pass: every rank writes back the same gathered table
+    t0 = time.perf_counter()
+    ds.end_pass(trained)
+    res["end_pass_s"] = time.perf_counter() - t0
+    keys = np.sort(table.keys())
+    h = hashlib.blake2b(digest_size=16)
+    h.update(keys.tobytes())
+    h.update(table.pull_or_create(keys).tobytes())
+    res["host_digest"], res["host_keys"] = h.hexdigest(), int(len(keys))
+    arrays = {k: res.pop(k) for k in ("four_keys", "four_rows")}
+    arrays.update({f"owner_{k}": v.cpu().numpy() for k, v in owner.items()})
+    np.savez(os.path.join(spec["out"], f"rank{r}.npz"), **arrays)
+    with open(os.path.join(spec["out"], f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _mesh_compare(what, losses, rows, keys, ref_losses, ref_keys, ref_rows):
+    """A 4-step trajectory against a reference: losses and the sampled
+    table rows (by key) within the mesh-vs-one-device bounds."""
+    losses, ref_losses = np.asarray(losses), np.asarray(ref_losses)
+    if not np.allclose(losses[0], ref_losses[0], rtol=MESH_LOSS_RTOL_FIRST, atol=0):
+        raise AssertionError(f"{what}: step-1 loss {losses[0]} vs {ref_losses[0]}")
+    if not np.allclose(losses, ref_losses, rtol=MESH_LOSS_RTOL, atol=0):
+        raise AssertionError(f"{what}: losses {losses} vs {ref_losses}")
+    pos = np.searchsorted(ref_keys, keys)
+    if not np.array_equal(ref_keys[np.minimum(pos, len(ref_keys) - 1)], keys):
+        raise AssertionError(f"{what}: the sampled keys differ")
+    d = np.abs(rows - ref_rows[pos])
+    if not np.all(d <= MESH_TABLE_ATOL + MESH_TABLE_RTOL * np.abs(ref_rows[pos])):
+        raise AssertionError(f"{what}: table rows differ by up to {d.max()}")
+    return float(d.max()), float(np.max(np.abs(losses - ref_losses) / np.abs(ref_losses)))
+
+
+def mesh_phase(args, dev, card, ck, lay):
+    """Phase 12: the mesh at full width in an NCCL world (one rank a card)
+    and a gloo world of two ranks on cuda:0. Returns the launch counts by
+    path and the kernels' numbers at the owner's shape."""
+    from paddlebox_tpu_torch.data import BoxPSDataset
+    from paddlebox_tpu_torch.fleet.launch import spawn
+    from paddlebox_tpu_torch.models import DeepFM
+    from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig
+    from paddlebox_tpu_torch.train import Adam, CTRTrainer, TrainStepConfig
+
+    t_phase = time.perf_counter()
+    sparse_opt = SparseOptimizerConfig(embedx_threshold=0.0)
+    counts, nums, worlds = {}, {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        files, _ = write_bench_files(tmp, np.random.default_rng(args.seed + 8), N_FILES, "mesh")
+        # the one-device trajectory of the same 4 steps, the mesh's reference
+        table = HostSparseTable(lay, sparse_opt, n_shards=64, seed=args.seed + 8)
+        ds = BoxPSDataset(bench_schema(), table, batch_size=BATCH, shuffle_mode="local", seed=args.seed + 8)
+        ds.set_filelist(files)
+        ds.load_into_memory()
+        ds.begin_pass(round_to=512)
+        with flags(enable_resident_feed=0):
+            model = DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
+                           generator=torch.Generator().manual_seed(args.seed + 8))
+            one = CTRTrainer(model, TrainStepConfig(num_slots=NUM_SLOTS, batch_size=BATCH, layout=lay,
+                                                    sparse_opt=sparse_opt, auc_buckets=100_000),
+                             dense_opt=Adam(1e-3), device=dev)
+            one.init_params()
+            losses = []
+            one.train_pass(ds, n_batches=MESH_FEED_STEPS, on_batch=lambda i, m: losses.append(float(m["loss"])))
+        ref_keys, ref_rows = _mesh_key_rows(one, ds, MESH_FEED_STEPS)
+        ref_losses = losses
+        del one, ds, table
+        torch.cuda.empty_cache()
+        n_nccl = min(torch.cuda.device_count(), MESH_NCCL_MAX)
+        for name, backend, world, device, per_card in (
+            ("nccl", "nccl", n_nccl, None, 1), ("gloo", "gloo", MESH_GLOO_RANKS, "cuda:0", MESH_GLOO_RANKS),
+        ):
+            out = os.path.join(tmp, name)
+            os.makedirs(out)
+            spec = {"files": files, "seed": args.seed + 8, "out": out, "ranks_per_card": per_card}
+            t0 = time.perf_counter()
+            spawn(mesh_rank, world, f"file://{out}/rdv", backend=backend, device=device, args=(spec,),
+                  timeout_s=MESH_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            ranks = []
+            for r in range(world):
+                with open(os.path.join(out, f"rank{r}.json")) as f:
+                    res = json.load(f)
+                res.update({k: v for k, v in np.load(os.path.join(out, f"rank{r}.npz")).items()})
+                ranks.append(res)
+            worlds[name] = (ranks, wall)
+        tag = {"nccl": {"backend": "nccl", "ranks_per_card": 1},
+               "gloo": {"backend": "gloo", "ranks_per_card": MESH_GLOO_RANKS}}
+        for name, (ranks, wall) in worlds.items():
+            world = len(ranks)
+            r0 = ranks[0]
+            if len({r["host_digest"] for r in ranks}) != 1:
+                raise AssertionError(f"mesh {_mesh_tag(**tag[name])}: the ranks' host tables differ after end_pass")
+            for r in ranks:
+                if r["four_losses"] != r0["four_losses"]:
+                    raise AssertionError(f"mesh {_mesh_tag(**tag[name])}: the ranks' losses differ")
+            rows = np.concatenate([r["four_rows"] for r in ranks])
+            keys = np.concatenate([r["four_keys"] for r in ranks])
+            keys, first = np.unique(keys, return_index=True)
+            tab_d, loss_d = _mesh_compare(f"mesh {_mesh_tag(**tag[name])} vs one device", r0["four_losses"], rows[first], keys,
+                                          ref_losses, ref_keys, ref_rows)
+            if name == "nccl" and r0["superstep_host_syncs"] != 0:
+                raise AssertionError(f"mesh nccl: a resident superstep made {r0['superstep_host_syncs']} host syncs: "
+                                     f"{r0['superstep_sync_sites']}")
+            counts[f"mesh_{name}"] = {k: sum(r["counts"][p][k] for r in ranks for p in r["counts"])
+                                      for k in ("pull_rows_cuda", "write_rows_cuda")}
+            step_ms = r0["resident_wall_s"] / MESH_TIMED * 1e3
+            emit({
+                "card": card, "phase": "mesh", **tag[name], "world": world, "spawn_wall_s": wall,
+                "samples_per_s_all": BATCH * MESH_TIMED / max(r["resident_wall_s"] for r in ranks),
+                "samples_per_s_rank": BATCH * MESH_TIMED / max(r["resident_wall_s"] for r in ranks) / world,
+                "ms_per_step": step_ms, "device_busy_ms_per_step_rank0": r0["busy_ms_per_step"],
+                "device_idle_share_rank0": 1.0 - r0["busy_ms_per_step"] / step_ms,
+                "resident_collective_host_ms_per_step": r0["resident_coll_s"] / MESH_TIMED * 1e3,
+                "resident_host_clock_ms_per_step_rank0": r0["resident_profile_ms"],
+                "packer_host_clock_ms_per_step_rank0": r0["packer_profile_ms"],
+                "pack_sharded_ms_per_global_batch": r0["pack_sharded_ms"],
+                "packer_collective_host_ms_per_step": r0["packer_coll_ms"],
+                "packer_samples_per_s_all": BATCH * MESH_PACKER / r0["packer_wall_s"],
+                "load_into_memory_s": r0["load_into_memory_s"], "begin_pass_s": r0["begin_pass_s"],
+                "prepare_pass_s": r0["prepare_pass_s"], "end_pass_s": r0["end_pass_s"],
+                "K": r0["K"], "cap": r0["cap"], "n_keys": r0["n_keys"],
+                "wire_bytes_per_step_rank0": r0["wire"],
+                "superstep_host_syncs": r0["superstep_host_syncs"], "superstep_sync_sites": r0["superstep_sync_sites"],
+                "superstep_collectives": r0["superstep_collectives"],
+                "vs_one_device": {"table_max_abs": tab_d, "loss_max_rel": loss_d},
+                "zero_vs_step_params_max_abs": max(r["zero_vs_step_params_max_abs"] for r in ranks),
+                "kstep_losses": r0["kstep_losses"], "zero_losses": r0["zero_losses"],
+                "launches": counts[f"mesh_{name}"], "host_digest": r0["host_digest"],
+            })
+            print(f"mesh {_mesh_tag(**tag[name])} world {world}: launches 2 gathers and 1 writeback a step on every rank, losses finite, feeds "
+                  f"{', '.join(r0['feeds_bitwise'])} bitwise alike, the host tables of all ranks alike, within bounds "
+                  f"of one device (table {tab_d:.3g}, loss rel {loss_d:.3g}); {card}", flush=True)
+        g_ranks, n_ranks = worlds["gloo"][0], worlds["nccl"][0]
+        gk = np.unique(np.concatenate([r["four_keys"] for r in g_ranks]), return_index=True)
+        nk = np.unique(np.concatenate([r["four_keys"] for r in n_ranks]), return_index=True)
+        _mesh_compare("mesh gloo vs nccl", g_ranks[0]["four_losses"],
+                      np.concatenate([r["four_rows"] for r in g_ranks])[gk[1]], gk[0],
+                      n_ranks[0]["four_losses"], nk[0], np.concatenate([r["four_rows"] for r in n_ranks])[nk[1]])
+        print(f"mesh {_mesh_tag(**tag['gloo'])}: the gloo world's 4 steps match the nccl world's within the mesh "
+              "bounds", flush=True)
+
+        # both kernels at each world's owner shapes, timed here alone: the
+        # pull's gather of the received ids, the merge's old-row gather
+        # (one id a distinct row, then row 0) and its writeback (one id a
+        # distinct row, then R, which writes nothing)
+        owner = {}
+        for name, (ranks, _) in worlds.items():
+            R, W = int(ranks[0]["owner_R"]), lay.width
+            g = torch.Generator(device=dev).manual_seed(args.seed)
+            tab = torch.randn((R, W), device=dev, generator=g)
+            pristine = tab.clone()
+            flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+            kres = {}
+            for pattern in ("pull", "merge_old", "merge_write"):
+                ids = torch.from_numpy(ranks[0][f"owner_{pattern}"]).to(dev)
+                U = ids.numel()
+                valid = ids[ids < R]
+                distinct = int(torch.unique(valid).numel())
+                what = f"mesh {_mesh_tag(**tag[name])} owner {pattern} ids U={U} ({distinct} distinct) R={R}"
+                if pattern == "merge_write":
+                    kname = "write_rows_cuda"
+                    new_rows = torch.randn((U, W), device=dev, generator=g)
+                    check_write(ck, tab, ids, new_rows, what)
+                    nv = valid.numel()
+                    fns = {"kernel": lambda: ck.write_rows_cuda(tab, ids, new_rows),
+                           "plain": lambda: ck.write_rows_ref(tab, *ck.drop_out_of_range(tab, ids, new_rows)),
+                           "library": lambda: tab.index_copy_(0, valid, new_rows[:nv])}
+                    restore = lambda: tab.copy_(pristine)
+                    moved = 2 * nv * W * 4 + U * ids.element_size()
+                else:
+                    kname = "pull_rows_cuda"
+                    check_gather(ck, tab, ids, what)
+                    fns = {"kernel": lambda: ck.pull_rows_cuda(tab, ids),
+                           "plain": lambda: ck.pull_rows_ref(tab, ids),
+                           "library": lambda: torch.index_select(tab, 0, ids)}
+                    restore = None
+                    moved = (U + distinct) * W * 4 + U * ids.element_size()
+                med, warm = time_fns(fns, flush, restore)
+                bound = moved / HBM_BYTES_PER_S * 1e3
+                row = {"pattern": pattern, "U": U, "distinct": distinct, "R": R, "ms": med["kernel"],
+                       "plain_ms": med["plain"], "library_ms": med["library"], "bound_ms": bound, "bytes": moved,
+                       "sector_floor_ms": sector_floor_ms(ids, R, W, kname == "write_rows_cuda"),
+                       "warm_l2_ms": warm["kernel"], "warm_l2_plain_ms": warm["plain"],
+                       "warm_l2_library_ms": warm["library"]}
+                kres.setdefault(kname, {})[pattern] = row
+                emit({"card": card, "kernel": kname, "path": f"mesh_{name}_owner", **tag[name], "W": W, **row,
+                      "bound_share": bound / med["kernel"], "reps": TIMING_REPS, "l2": "cold"})
+            owner[name] = kres
+    err = max(r["kernel_err"] for ranks, _ in worlds.values() for r in ranks)
+    nums["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 12 (mesh) in {nums['phase_s']:.3f} s; {card}", flush=True)
+    return counts, owner, err
 
 
 if __name__ == "__main__":

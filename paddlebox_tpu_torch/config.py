@@ -88,14 +88,29 @@ def all_flags() -> Dict[str, Any]:
 define_flag("enable_native_parser", True, "use the C++ slot parser fast path when eligible")
 define_flag("sample_rate", 1.0, "line sampling rate on read (BufferedLineFileReader parity)")
 
-# --- wire formats (the JAX package's ops/wire_quant.py reads these; the
-# port has no wire codec yet, so their validators are not carried over) ---
+# --- wire formats (ops/wire_quant.py reads these; the validators import it
+# lazily, since it imports this module) ---
+
+
+def _validate_wire_dtype(mode: str) -> None:
+    from paddlebox_tpu_torch.ops import wire_quant
+
+    wire_quant._check(mode)
+
+
+def _validate_ici_wire_dtype(mode: str) -> None:
+    from paddlebox_tpu_torch.ops import wire_quant
+
+    wire_quant.check_ici(mode)
+
+
 define_flag(
     "wire_dtype",
     "fp32",
     "value format on the host<->device boundary wire (carrier splice "
     "uploads, departing-slice fetch, flush, classic device writeback): "
     "fp32 | bf16 | int8 (int8 = per-row-scaled embed block + bf16 rest)",
+    validator=_validate_wire_dtype,
 )
 define_flag(
     "ici_wire_dtype",
@@ -105,6 +120,7 @@ define_flag(
     "columns fp32; int8 carries one per-record max-abs scale; adaptive "
     "rides hot rows bf16 and the cold tail int8 — see ici_hot_frac / "
     "ici_hot_show / ici_wire_adaptive)",
+    validator=_validate_ici_wire_dtype,
 )
 define_flag(
     "ici_wire_adaptive",

@@ -55,6 +55,15 @@ with ``rank_offset`` and ghost weights; ``postprocess_instance`` restores
 the flat view, a permutation ``_order`` of the store when every record
 knows its store index (the ``_store_idx`` that ``records`` stamps).
 
+On a single-host mesh (``n_mesh_shards`` = the world size) every rank
+runs the same dataset over the same files with the same seed, so its host
+table, its working set (``PassWorkingSet(n_mesh_shards)``, rows laid out
+[n_mesh_shards, cap, width]) and its batches are replicas.
+:meth:`BoxPSDataset.replica_digest` hashes the pass's keys and its record
+order; the mesh trainer all-gathers it before a pass's first step and
+raises on a rank that differs (a drifted replica would route wrongly or
+deadlock the collectives).
+
 Not ported: quarantine, pipe converters, global shuffles across nodes, the
 multi-host working set and carrier, the transport (``num_pv_batches``
 counts the local pvs) and trace events.
@@ -182,10 +191,12 @@ class PassStats:
     keys_s: float = 0.0
 
 
-def _working_set(store: Optional[ColumnarRecords], records: List[SlotRecord]) -> PassWorkingSet:
+def _working_set(
+    store: Optional[ColumnarRecords], records: List[SlotRecord], n_mesh_shards: int = 1
+) -> PassWorkingSet:
     """A fresh working set fed every feasign of the pass (MergeInsKeys
     parity), from the columnar store or else the record list."""
-    ws = PassWorkingSet()
+    ws = PassWorkingSet(n_mesh_shards=n_mesh_shards)
     if store is not None:
         ws.add_keys(store.u64_values)
     else:
@@ -206,6 +217,7 @@ class BoxPSDataset:
         read_threads: int = 8,
         shuffle_mode: str = "none",
         seed: int = 0,
+        n_mesh_shards: int = 1,
     ):
         if shuffle_mode not in _SHUFFLE_MODES:
             raise NotImplementedError(
@@ -217,6 +229,7 @@ class BoxPSDataset:
         self.read_threads = read_threads
         self.shuffle_mode = shuffle_mode
         self.seed = seed
+        self.n_mesh_shards = n_mesh_shards  # the mesh's world size; 1 = one device
 
         self.date: Optional[str] = None
         self.pass_id = 0
@@ -477,7 +490,7 @@ class BoxPSDataset:
         t1 = time.perf_counter()
         store, order, records = self._normalize_and_shuffle(parts)
         t2 = time.perf_counter()
-        ws = _working_set(store, records)
+        ws = _working_set(store, records, self.n_mesh_shards)
         stats.read_s, stats.shuffle_s, stats.keys_s = t1 - t0, t2 - t1, time.perf_counter() - t2
         stats.records = len(store) if store is not None else len(records)
         self._staged = (store, order, records, ws, stats)
@@ -733,7 +746,7 @@ class BoxPSDataset:
             except Exception:
                 STAT_ADD("data.revert_preload_errors")
         self.discard_staged()
-        self.ws = _working_set(self.store, self._records)
+        self.ws = _working_set(self.store, self._records, self.n_mesh_shards)
         if self.store is not None:
             self.store.invalidate_rows()  # its rows resolved against the old set
         self.device_table = None
@@ -783,6 +796,15 @@ class BoxPSDataset:
         if need_save_delta and delta_dir is None:
             raise ValueError("need_save_delta requires delta_dir")
         ws, guard, table = self.ws, self._guard, self.table
+        if (
+            isinstance(trained_table, torch.Tensor)
+            and ws is not None
+            and trained_table.numel() != ws.n_mesh_shards * ws.capacity * table.layout.width
+        ):
+            raise NotImplementedError(
+                "a mesh rank's table shard cannot end the pass: the carried boundary on a "
+                "mesh is not ported yet (slice 10); pass trainer.trained_table()"
+            )
         # a kicked writeback of this working set is joined, not repeated
         kick = self._wb_kick
         if kick is not None and kick.ws is ws:
@@ -932,6 +954,27 @@ class BoxPSDataset:
                 raise RuntimeError(f"asked for {n} batches but the pass holds 0 records")
             return False
         return True
+
+    def replica_digest(self) -> np.ndarray:
+        """int64 [3]: hashes of the pass's sorted keys and of its record
+        order (the store's shuffle order, or the record list's keys in
+        order), and the batch size. Ranks of one mesh must agree on it."""
+        import hashlib
+
+        def h(*arrays) -> int:
+            d = hashlib.blake2b(digest_size=8)
+            for a in arrays:
+                d.update(np.ascontiguousarray(a).tobytes())
+            return int(np.frombuffer(d.digest(), dtype=np.int64)[0])
+
+        if self.ws is None or self.ws.sorted_keys is None:
+            raise RuntimeError("begin_pass first")
+        if self.store is not None:
+            order = self._order if self._order is not None else np.arange(len(self.store))
+            order_h = h(np.asarray(order, dtype=np.int64), self.store.u64_values)
+        else:
+            order_h = h(*[r.u64_values for r in self._records])
+        return np.array([h(self.ws.sorted_keys), order_h, self.batch_size], dtype=np.int64)
 
     def batch_indices(self, n_batches: Optional[int] = None) -> Iterator[np.ndarray]:
         """Store-record indices of each minibatch, int64 [batch_size], the

@@ -12,6 +12,21 @@ Everything ragged or key-valued is resolved here on the host —
 
 The device then runs only gather/segment-sum over these arrays. The arrays
 stay numpy: the caller moves them to its device.
+
+On a mesh (``pack_batch_sharded``, ``BatchPacker.pack_sharded``) the
+global batch splits over the ranks (record ``i`` goes to rank ``i // b``)
+and each rank's unique rows are bucketed by owner shard into
+``req_ranks`` [n_dev, n_shards, K] (the row within the shard), so the
+device side is ``all_to_all`` + gather (``parallel/sharded_pullpush.py``).
+Every rank packs the whole global batch and keeps its block.
+``BatchPacker`` freezes K from an exact scan of the pass's partition
+(``freeze_shapes(n_devices=)``, :func:`block_pad_stats`) before its
+prefetch threads start, so K is the same on every rank, whichever batch
+a thread finishes first, with no collective. With the adaptive mesh
+wire engaged each bucket is ordered hot rows first (the working set's
+``hot_rows``); hot rows past the bucket's bf16 slots count under
+``wire.ici_hot_overflow_keys``. ``route_serve_requests`` (the device
+scoring tier) is not ported.
 """
 
 from __future__ import annotations
@@ -25,11 +40,41 @@ import numpy as np
 from paddlebox_tpu_torch import config
 from paddlebox_tpu_torch.data.slot_record import SlotBatch
 from paddlebox_tpu_torch.data.slot_schema import SlotSchema
+from paddlebox_tpu_torch.ops import wire_quant
 from paddlebox_tpu_torch.table.sparse_table import PassWorkingSet
+from paddlebox_tpu_torch.utils.faultinject import InjectedFault
+from paddlebox_tpu_torch.utils.faultinject import fire as _fault_fire
+from paddlebox_tpu_torch.utils.monitor import STAT_ADD
 
 
 def _round_bucket(n: int, quantum: int) -> int:
     return max(quantum, -(-n // quantum) * quantum)
+
+
+def block_pad_stats(rows, u64_base, key_counts, slices, cap: int, ns: int):
+    """Per index slice of a pass's records: (key count L, most unique rows
+    that fall in one of ``ns`` shards of ``cap`` rows), int64 [n] each,
+    over the pass's resolved ``rows``. One native ``pbx_block_stats``
+    sweep when ``enable_native_parser`` is on and the slices are of one
+    length, else numpy (the same numbers)."""
+    if not len(slices):
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    if config.get_flag("enable_native_parser") and len({len(s) for s in slices}) == 1:
+        from paddlebox_tpu_torch.utils import native
+
+        blocks = np.stack([np.asarray(s, dtype=np.int64) for s in slices])
+        return native.block_stats(rows, u64_base, key_counts, blocks, cap, ns)
+    from paddlebox_tpu_torch.data.record_store import _ragged_indices
+
+    L = np.zeros(len(slices), np.int64)
+    bmax = np.zeros(len(slices), np.int64)
+    for i, sl in enumerate(slices):
+        sl = np.asarray(sl, dtype=np.int64)
+        r = rows[_ragged_indices(u64_base[sl], key_counts[sl])]
+        L[i] = len(r)
+        if len(r):
+            bmax[i] = int(np.bincount(np.unique(r) // cap, minlength=ns).max())
+    return L, bmax
 
 
 @dataclass
@@ -78,6 +123,168 @@ def _extract_labels_dense(
         dense = batch.dense_float_matrix(di, dense_dim)
     return labels.astype(np.float32), dense
 
+
+
+@dataclass
+class ShardedDeviceBatch:
+    """Static-shape arrays of the mesh step; axis 0 = rank.
+
+    ``req_ranks[d, s]`` is the bucket of rows rank d asks of shard s (pads
+    -> ``cap - 1``, the padding row); ``inverse[d]`` maps rank d's flat
+    keys to bucket positions ``s*K + j``. Slot K-1 of every bucket is a
+    pad, so pad keys point at position K-1 (shard 0's)."""
+
+    local_batch: int
+    num_slots: int
+    req_ranks: np.ndarray  # int32 [n_dev, n_shards, K]
+    inverse: np.ndarray  # int32 [n_dev, L_pad] flat key -> bucket pos
+    segments: np.ndarray  # int32 [n_dev, L_pad]; pads -> S*local_batch
+    labels: np.ndarray  # f32 [n_dev, local_batch]
+    dense: Optional[np.ndarray]  # f32 [n_dev, local_batch, dense_dim]
+
+    def as_dict(self) -> Dict[str, np.ndarray]:
+        d = {
+            "req_ranks": self.req_ranks,
+            "inverse": self.inverse,
+            "segments": self.segments,
+            "labels": self.labels,
+        }
+        if self.dense is not None:
+            d["dense"] = self.dense
+        return d
+
+
+def _route_sharded(
+    rows: np.ndarray,
+    segments: np.ndarray,
+    B: int,
+    S: int,
+    ws: PassWorkingSet,
+    n_devices: int,
+    bucket: int,
+    labels: np.ndarray,
+    dense: Optional[np.ndarray],
+    dense_dim: int,
+    k_floor: int = 0,
+    l_floor: int = 0,
+) -> ShardedDeviceBatch:
+    """Flat (rows, segments) of a global batch -> per-rank buckets.
+
+    ``k_floor`` / ``l_floor`` keep the pads sticky across a pass's batches;
+    ``k_floor == -1`` asks for first-batch headroom (25%) on K."""
+    ns = ws.n_mesh_shards
+    if ns % n_devices:
+        raise ValueError(f"{ns} working-set mesh shards not divisible by {n_devices} packed devices")
+    if B % n_devices:
+        raise ValueError(f"batch {B} not divisible by {n_devices} devices")
+    b = B // n_devices
+    cap = ws.capacity
+    ins = segments % B
+    slot = segments // B
+    dev = ins // b
+
+    # hot-first buckets for the adaptive wire: the device side decides
+    # precision by slot index alone, so this order IS the hot/cold split
+    hot_rows = getattr(ws, "hot_rows", None)
+    if hot_rows is not None:
+        try:
+            _fault_fire("wire.ici_pack")
+        except InjectedFault:
+            # this batch keeps the plain order: hot keys ride int8
+            STAT_ADD("wire.ici_pack_errors", 1)
+            hot_rows = None
+
+    per_dev = []  # (uniq_rows, inverse, local_segments) per rank
+    max_L = 1
+    max_bucket = 1
+    for d in range(n_devices):
+        sel = np.nonzero(dev == d)[0]
+        uniq, inv = np.unique(rows[sel], return_inverse=True)
+        local_seg = slot[sel] * b + (ins[sel] - d * b)
+        per_dev.append((uniq, inv, local_seg))
+        max_L = max(max_L, len(sel))
+        if len(uniq):
+            counts = np.bincount(uniq // cap, minlength=ns)
+            max_bucket = max(max_bucket, int(counts.max()))
+
+    # K-1 is always a pad slot; L_pad and K are the same for every rank
+    if k_floor == -1:
+        K = _round_bucket(max_bucket + 1 + max(bucket, max_bucket // 4), bucket)
+    else:
+        K = max(_round_bucket(max_bucket + 1, bucket), k_floor)
+    L_pad = max(_round_bucket(max_L, bucket), l_floor)
+
+    req_ranks = np.full((n_devices, ns, K), cap - 1, dtype=np.int32)
+    inverse = np.full((n_devices, L_pad), K - 1, dtype=np.int32)
+    seg_out = np.full((n_devices, L_pad), S * b, dtype=np.int32)
+
+    hot_overflow = 0
+    H = wire_quant.ici_hot_slots(K) if hot_rows is not None else 0
+    for d, (uniq, inv, local_seg) in enumerate(per_dev):
+        shard_of = (uniq // cap).astype(np.int64)
+        rank_of = (uniq % cap).astype(np.int64)
+        if hot_rows is not None and len(uniq):
+            # lexsort's LAST key is primary: by owner shard, hot first
+            cold = ~hot_rows[uniq]
+            order = np.lexsort((cold, shard_of))
+            per_shard_hot = np.bincount(shard_of[~cold], minlength=ns)
+            hot_overflow += int(np.maximum(per_shard_hot - H, 0).sum())
+        else:
+            order = np.argsort(shard_of, kind="stable")
+        counts = np.bincount(shard_of, minlength=ns)
+        # bucket position of each unique row: owner_shard*K + slot
+        pos_in_bucket = np.empty(len(uniq), dtype=np.int64)
+        start = 0
+        for s in range(ns):
+            c = int(counts[s])
+            req_ranks[d, s, :c] = rank_of[order[start : start + c]]
+            pos_in_bucket[order[start : start + c]] = s * K + np.arange(c)
+            start += c
+        inverse[d, : len(inv)] = pos_in_bucket[inv]
+        seg_out[d, : len(local_seg)] = local_seg
+
+    if hot_rows is not None and hot_overflow:
+        # hot keys past the bf16 slots ride int8 this batch
+        STAT_ADD("wire.ici_hot_overflow_keys", hot_overflow)
+
+    labels = labels.reshape(n_devices, b)
+    if dense is not None:
+        dense = dense.reshape(n_devices, b, dense_dim)
+    return ShardedDeviceBatch(
+        local_batch=b,
+        num_slots=S,
+        req_ranks=req_ranks,
+        inverse=inverse,
+        segments=seg_out,
+        labels=labels,
+        dense=dense,
+    )
+
+
+def pack_batch_sharded(
+    batch: SlotBatch,
+    ws: PassWorkingSet,
+    schema: SlotSchema,
+    n_devices: int,
+    dense_slot: Optional[str] = None,
+    dense_dim: int = 0,
+    label_slot: Optional[str] = None,
+    bucket: Optional[int] = None,
+    k_floor: int = 0,
+    l_floor: int = 0,
+) -> ShardedDeviceBatch:
+    """Split a global batch over the mesh and bucket its keys by owner
+    shard (the per-GPU split of data_set.cc:2155-2192 plus the host half
+    of the key routing PullSparseGPU does inside). ``n_devices`` must
+    divide the working set's shard count and the batch size."""
+    bucket = bucket or config.get_flag("batch_bucket_rounding")
+    rows = ws.lookup(batch.keys)  # int32 [L] global rows (shard*cap + rank)
+    segments = batch.segment_ids()  # int32 [L] slot*B + ins
+    labels, dense = _extract_labels_dense(batch, schema, label_slot, dense_slot, dense_dim)
+    return _route_sharded(
+        rows, segments, batch.batch_size, batch.num_sparse_slots, ws, n_devices, bucket,
+        labels, dense, dense_dim, k_floor=k_floor, l_floor=l_floor,
+    )
 
 def pack_batch(
     batch: SlotBatch,
@@ -182,20 +389,49 @@ class BatchPacker:
         # from the pass's partition, U_pad from the first batch with 25%
         # headroom (the reused-pack-buffer discipline of MiniBatchGpuPack)
         self._shape_lock = threading.Lock()
-        self._L_pad = 0  # guarded-by: _shape_lock
+        self._L_pad = 0  # guarded-by: _shape_lock (per rank on a mesh)
         self._U_pad = 0  # guarded-by: _shape_lock
+        self._K_pad = 0  # guarded-by: _shape_lock (the mesh's bucket size)
         # every native handle spawned, in any thread, for close()
         self._all_native: list = []  # guarded-by: _shape_lock
 
-    def freeze_shapes(self, batch_indices) -> None:
+    def freeze_shapes(self, batch_indices, n_devices: int = 0) -> None:
         """Fix L_pad for a whole pass up front: every batch's key count is
         known exactly from the record key counts. Call with the pass's
-        batch partition before the first pack."""
+        batch partition before the first pack.
+
+        With ``n_devices`` (the mesh feed) L is a rank's, and K, the
+        request bucket of one (rank, shard), is frozen too, from the exact
+        unique-row counts of every rank's block (:func:`block_pad_stats`,
+        the resident feed's ``ensure_sharded`` scan). Every rank freezes
+        the same partition in the same order, so K is the same on every
+        rank: ``all_to_all``'s equal splits need that, and a K that grew
+        as prefetch threads finished would differ by thread timing. The
+        multi-host branch (a transport that all-reduces the pads) is not
+        ported."""
         max_L = 1
+        if not n_devices:
+            for idx in batch_indices:
+                max_L = max(max_L, int(self._key_counts[np.asarray(idx)].sum()))
+            with self._shape_lock:
+                self._L_pad = max(self._L_pad, _round_bucket(max_L, self.bucket))
+            return
+        slices = []
         for idx in batch_indices:
-            max_L = max(max_L, int(self._key_counts[np.asarray(idx)].sum()))
+            idx = np.asarray(idx, dtype=np.int64)
+            if len(idx) % n_devices:
+                raise ValueError(f"batch of {len(idx)} records not divisible by {n_devices} devices")
+            b = len(idx) // n_devices
+            slices += [idx[d * b : (d + 1) * b] for d in range(n_devices)]
+        L, bmax = block_pad_stats(
+            self._rows, self.store.u64_base, self._key_counts, slices, self.ws.capacity, self.ws.n_mesh_shards
+        )
+        max_L = max(max_L, int(L.max(initial=0)))
+        # _route_sharded's own floor: one row a bucket, plus the pad slot
+        max_bucket = max(1, int(bmax.max(initial=0)))
         with self._shape_lock:
             self._L_pad = max(self._L_pad, _round_bucket(max_L, self.bucket))
+            self._K_pad = max(self._K_pad, _round_bucket(max_bucket + 1, self.bucket))
 
     def _native(self):
         from paddlebox_tpu_torch.utils import native
@@ -272,6 +508,30 @@ class BatchPacker:
             n_keys=L,
             n_uniq=U,
         )
+
+    def pack_sharded(self, indices: np.ndarray, n_devices: int) -> ShardedDeviceBatch:
+        """Batch of store records ``indices`` -> mesh-routed
+        ShardedDeviceBatch (the native gather, then the routing) at the
+        frozen K and L. Raises before ``freeze_shapes(n_devices=)``, and
+        on a batch that needs more than the frozen pads: a batch outside
+        the frozen partition must not grow K on one rank alone."""
+        with self._shape_lock:
+            K, L_pad = self._K_pad, self._L_pad
+        if not K:
+            raise RuntimeError("pack_sharded before freeze_shapes(n_devices=): K would differ by rank")
+        uniq, inverse, segments, L = self._gather_flat(indices)
+        rows = uniq[inverse] if len(uniq) else np.zeros(0, np.int32)
+        out = _route_sharded(
+            rows, segments, len(indices), self.store.n_sparse, self.ws, n_devices, self.bucket,
+            self._labels[indices], self._dense[indices] if self._dense is not None else None,
+            self.dense_dim, k_floor=K, l_floor=L_pad,
+        )
+        if out.req_ranks.shape[2] != K or out.inverse.shape[1] != L_pad:
+            raise RuntimeError(
+                f"batch needs K={out.req_ranks.shape[2]}, L={out.inverse.shape[1]} past the frozen "
+                f"K={K}, L={L_pad}: freeze_shapes(n_devices=) with a partition that holds it"
+            )
+        return out
 
     def close(self) -> None:
         """Free every native scratch handle this packer spawned, including

@@ -1,4 +1,4 @@
-from paddlebox_tpu_torch.metrics.auc import AucState, auc_compute, auc_init, auc_update
+from paddlebox_tpu_torch.metrics.auc import AucState, auc_compute, auc_init, auc_psum, auc_update
 from paddlebox_tpu_torch.metrics.registry import (
     CmatchRankMaskMetricMsg,
     CmatchRankMetricMsg,
@@ -14,6 +14,7 @@ __all__ = [
     "auc_init",
     "auc_update",
     "auc_compute",
+    "auc_psum",
     "MetricMsg",
     "MaskMetricMsg",
     "CmatchRankMetricMsg",

@@ -13,10 +13,13 @@ tables in f64 on the host.
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import TYPE_CHECKING, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from paddlebox_tpu_torch.parallel.mesh import MeshPlan
 
 
 class AucState(NamedTuple):
@@ -56,6 +59,14 @@ def auc_update(
     # wrapping int32; auc_compute reports `saturated`
     tab = torch.clamp(tab, max=int(AUC_BUCKET_CAP))
     return AucState(pos=tab[:n_buckets], neg=tab[n_buckets:])
+
+
+def auc_psum(state: AucState, plan: "MeshPlan") -> AucState:
+    """The bucket tables summed over the mesh (collect_data_nccl parity):
+    one ``all_reduce`` of the int32 tables, exact in any order."""
+    both = plan.all_reduce(torch.cat([state.pos, state.neg]))
+    n = state.pos.shape[0]
+    return AucState(pos=both[:n], neg=both[n:])
 
 
 def auc_compute(state: AucState) -> Dict[str, float]:

@@ -25,6 +25,14 @@ the JAX package's ``(params, optax.adam state)`` tree as ``leaf_0`` ..
 tree flatten sorts dict keys and walks lists by index), and
 :func:`dense_to_jax_leaves` / :func:`dense_from_jax_leaves` carry the
 port's params and :class:`AdamState` to and from it.
+
+A JAX mesh state crosses too (``mesh_*``): the ``[n, cap, W]`` table to a
+rank's block, kstep's stacked params and moments (a leading [n] replica
+axis) to a rank's replica, and ZeRO-1's stacked chunk state (count [n],
+moments [n, c] of the params raveled in the JAX order,
+``fleet/zero.py``) to chunk [rank]. A ZeRO dense file holds the params,
+then the stacked count, first and second moments; the port's stacked
+state (``{"flat": [n, c]}`` moments) writes and reads it.
 """
 
 from __future__ import annotations
@@ -176,13 +184,20 @@ def _tree_from_leaves(template: Dict[str, Any], leaves: Sequence[Any]) -> Dict[s
     return tree
 
 
-def dense_leaf_names(params: Dict[str, torch.Tensor]) -> List[str]:
+def _is_zero(state: AdamState) -> bool:
+    """A ZeRO-1 stacked state: one flat moment vector a chunk."""
+    return set(state.mu) == {"flat"}
+
+
+def dense_leaf_names(params: Dict[str, torch.Tensor], zero: bool = False) -> List[str]:
     """The key path of every leaf of ``(params, optax.adam(lr).init(params))``
     as the JAX package flattens it, for a port zoo model's ``params``: the
     params, then Adam's ``count``, its first moments and
     its second moments in the params' order (the learning-rate stage's
     empty state has no leaf)."""
     keys = ["".join(f"[{p!r}]" for p in path) for path in _leaf_paths(params_to_jax(params))]
+    if zero:  # the stacked chunk state's three leaves
+        return [f"[0]{k}" for k in keys] + ["[1][0].count", "[1][0].mu", "[1][0].nu"]
     return (
         [f"[0]{k}" for k in keys] + ["[1][0].count"]
         + [f"[1][0].mu{k}" for k in keys] + [f"[1][0].nu{k}" for k in keys]
@@ -193,8 +208,12 @@ def dense_to_jax_leaves(params: Dict[str, torch.Tensor], state: AdamState) -> Li
     """The port's params and Adam state -> the JAX package's dense leaves
     (numpy, JAX's [in, out] layout), in :func:`dense_leaf_names`' order."""
     tree = params_to_jax(params)
-    count, mu, nu = adam_state_to_optax(state)
     paths = _leaf_paths(tree)
+    if _is_zero(state):
+        return [_get(tree, p) for p in paths] + [
+            _n(state.count).astype(np.int32), _n(state.mu["flat"]), _n(state.nu["flat"])
+        ]
+    count, mu, nu = adam_state_to_optax(state)
     return (
         [_get(tree, p) for p in paths] + [count]
         + [_get(mu, p) for p in paths] + [_get(nu, p) for p in paths]
@@ -211,6 +230,13 @@ def dense_from_jax_leaves(
     ref = params_to_jax(like)
     paths = _leaf_paths(ref)
     k = len(paths)
+    if len(leaves) == k + 3 and np.ndim(leaves[k]) == 1:  # a ZeRO-1 stacked state
+        params = {n: t.to(device) for n, t in params_from_jax(_tree_from_leaves(ref, leaves[:k])).items()}
+        return params, AdamState(
+            count=torch.from_numpy(np.array(leaves[k], dtype=np.int32)).to(device),
+            mu={"flat": _t(leaves[k + 1]).to(device)},
+            nu={"flat": _t(leaves[k + 2]).to(device)},
+        )
     if len(leaves) != 3 * k + 1:
         raise ValueError(
             f"checkpoint holds {len(leaves)} leaves but the current (params, "
@@ -230,4 +256,29 @@ def dense_from_jax_leaves(
         count=state.count.to(device),
         mu={n: t.to(device) for n, t in state.mu.items()},
         nu={n: t.to(device) for n, t in state.nu.items()},
+    )
+
+
+# ---- a JAX mesh state -> one rank's -----------------------------------------
+
+
+def mesh_table_block(table: Any, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s block [cap, W] of a JAX mesh table [n, cap, W]."""
+    return _t(np.asarray(table)[rank])
+
+
+def mesh_kstep_replica(params: Dict[str, Any], count: Any, mu: Dict[str, Any], nu: Dict[str, Any], rank: int):
+    """Rank ``rank``'s replica of a JAX kstep state, whose params and Adam
+    moments carry a leading [n] replica axis (numpy leaves): (params,
+    AdamState) in the port's naming."""
+    pick = lambda tree: _tree_from_leaves(tree, [np.asarray(x)[rank] for _, x in _leaves_with_paths(tree)])
+    return params_from_jax(pick(params)), adam_state_from_optax(np.asarray(count)[rank], pick(mu), pick(nu))
+
+
+def mesh_zero_chunk(count: Any, mu: Any, nu: Any, rank: int) -> AdamState:
+    """Chunk ``rank`` of a JAX ZeRO-1 state (count [n], moments [n, c])."""
+    return AdamState(
+        count=torch.tensor(int(np.asarray(count)[rank]), dtype=torch.int32),
+        mu={"flat": _t(np.asarray(mu)[rank])},
+        nu={"flat": _t(np.asarray(nu)[rank])},
     )

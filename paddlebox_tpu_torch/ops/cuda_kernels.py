@@ -298,8 +298,23 @@ def write_rows_ref(
 ) -> torch.Tensor:
     """Plain version of the row writeback: ``table[rows] = new_rows`` in
     place, returns ``table``. Exact because repeated rows (the padding row)
-    carry identical contents."""
+    carry identical contents. Every id lies in [0, R): where a caller
+    names rows outside it, as the mesh owner names its idle runs (the
+    kernel writes nothing for them), :func:`drop_out_of_range` takes them
+    out first."""
     return table.index_copy_(0, rows.long(), new_rows)
+
+
+def drop_out_of_range(
+    table: torch.Tensor, rows: torch.Tensor, new_rows: torch.Tensor
+) -> tuple:
+    """``(rows, new_rows)`` without the ids outside [0, R), the ones the
+    writeback kernel skips: what :func:`write_rows_ref` then writes is
+    the kernel's result. The kept count sets the shapes, so on a card
+    this reads back to the host."""
+    rows = rows.long()
+    keep = (rows >= 0) & (rows < table.shape[0])
+    return rows[keep], new_rows[keep]
 
 
 def write_rows_cuda(

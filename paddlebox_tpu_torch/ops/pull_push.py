@@ -93,6 +93,31 @@ def pull_sparse_rows(
     return torch.cat([cvm_block, embedx], dim=1)
 
 
+
+def pull_sparse_rows_extended(
+    table: torch.Tensor,  # [rows, width] f32
+    rows: torch.Tensor,  # int32 [U]
+    layout: ValueLayout,
+    embedx_threshold: float,
+    scale: float = 1.0,
+):
+    """(pull records [U, pull_width], expand embeddings [U, expand_dim]):
+    pull_box_extended_sparse (pull_box_extended_sparse_op.h:26-95). The
+    embedx block is gated as in :func:`pull_sparse_rows`; the expand block
+    is gated by row (an independent second embedding)."""
+    if layout.expand_dim == 0:
+        raise ValueError("layout has no expand block (expand_embed_dim == 0)")
+    picked = gather_rows(table, rows)
+    zero = torch.zeros((), dtype=picked.dtype, device=picked.device)
+    show = picked[:, layout.SHOW]
+    active = embedx_active_mask(layout, show, embedx_threshold)
+    row_active = (show >= embedx_threshold)[:, None]
+    embedx = picked[:, layout.embedx_col : layout.embedx_col + layout.embedx_dim]
+    embedx = torch.where(active, embedx * scale, zero)
+    expand = picked[:, layout.expand_col : layout.expand_col + layout.expand_dim]
+    expand = torch.where(row_active, expand * scale, zero)
+    return torch.cat([picked[:, : layout.cvm_offset], embedx], dim=1), expand
+
 def push_sparse_rows(
     table: torch.Tensor,  # [rows, width] f32, updated in place
     rows: torch.Tensor,  # int32 [U] deduped rows (padding row allowed)

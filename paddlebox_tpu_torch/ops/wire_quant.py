@@ -29,7 +29,15 @@ host, copies the small payload to the device and rebuilds there.
 
 Every fetch adds to ``wire.fetch_rows_total``, ``wire.fetch_bytes_total``
 and ``wire.fetch_fp32_bytes_total``, every send to the ``wire.send_*``
-twins. The inter-chip half of the JAX module (``ici_*``) is not ported.
+twins.
+
+The mesh wire (``ici_*``, the JAX module's inter-chip half): the
+``ici_wire_dtype`` flag picks the format of the sharded pull/push
+``all_to_all`` payloads (``parallel/sharded_pullpush.py``): ``fp32``,
+``bf16``, ``int8`` (one max-abs scale a record and value section), or
+``adaptive``, where each request bucket's first ``ici_hot_slots(K)`` slots
+ride bf16 and the rest int8. :func:`ici_effective_mode` applies the
+``ici_wire_adaptive`` gate, :func:`ici_wire_nbytes` counts the bytes.
 """
 
 from __future__ import annotations
@@ -43,6 +51,8 @@ import torch
 from paddlebox_tpu_torch.utils.monitor import STAT_ADD
 
 _MODES = ("fp32", "bf16", "int8")
+# the mesh wire also takes the frequency-adaptive mixed mode
+_ICI_MODES = _MODES + ("adaptive",)
 
 _side_lock = threading.Lock()
 _side_streams: Dict[torch.device, "torch.cuda.Stream"] = {}  # guarded-by: _side_lock
@@ -52,6 +62,40 @@ def _check(mode: str) -> str:
     if mode not in _MODES:
         raise ValueError(f"wire dtype {mode!r} not in {_MODES}")
     return mode
+
+
+def check_ici(mode: str) -> str:
+    if mode not in _ICI_MODES:
+        raise ValueError(f"ici wire dtype {mode!r} not in {_ICI_MODES}")
+    return mode
+
+
+def ici_effective_mode() -> str:
+    """The mesh wire's mode as the collective runs it: ``adaptive`` with
+    ``ici_wire_adaptive`` off degrades to fp32 (not to a uniform quantized
+    mode), so the off-leg is the default wire bit for bit."""
+    from paddlebox_tpu_torch import config
+
+    mode = check_ici(str(config.get_flag("ici_wire_dtype")))
+    if mode != "adaptive":
+        return mode
+    return "adaptive" if config.get_flag("ici_wire_adaptive") else "fp32"
+
+
+def ici_adaptive_engaged() -> bool:
+    """True iff the adaptive wire is live: the one predicate the hotness
+    plumbing (the working set's hot bits, the packer's hot-first order)
+    reads."""
+    return ici_effective_mode() == "adaptive"
+
+
+def ici_hot_slots(K: int) -> int:
+    """The static hot-slot count of a request bucket of K slots: its first
+    ``round(ici_hot_frac * K)`` slots ride bf16."""
+    from paddlebox_tpu_torch import config
+
+    frac = float(config.get_flag("ici_hot_frac"))
+    return int(min(K, max(0, round(frac * K))))
 
 
 def _embed_span(layout) -> Tuple[int, int]:
@@ -200,3 +244,29 @@ def row_wire_nbytes(n: int, layout, mode: str) -> int:
     n_blocks = len(_embed_blocks(layout))
     # int8 region + bf16 rest + one fp32 scale per block
     return n * ((b - a) + (w - (b - a)) * 2 + 4 * n_blocks)
+
+
+def ici_wire_nbytes(
+    n: int, K: int, W: int, head: int, n_sections: int, mode: str, hot_slots: int = 0
+) -> int:
+    """Bytes of an [n, K, W] record block on the mesh wire.
+
+    The ``head`` columns ride fp32 (the pull's counters, the push's
+    show/clk); the other W - head value columns ride the mode's format.
+    An int8 record carries one fp32 scale a section. ``adaptive`` splits
+    each bucket at ``hot_slots``: bf16 before, int8 after, and is the
+    uniform int8 / bf16 wire at H = 0 / H = K."""
+    mode = check_ici(mode)
+    q_cols = W - head
+    if mode == "fp32":
+        return n * K * W * 4
+    if mode == "bf16":
+        return n * K * (head * 4 + q_cols * 2)
+    if mode == "int8":
+        return n * K * (head * 4 + q_cols + 4 * n_sections)
+    H = int(hot_slots)
+    if H <= 0:
+        return ici_wire_nbytes(n, K, W, head, n_sections, "int8")
+    if H >= K:
+        return ici_wire_nbytes(n, K, W, head, n_sections, "bf16")
+    return n * (K * head * 4 + H * q_cols * 2 + (K - H) * (q_cols + 4 * n_sections))

@@ -45,8 +45,13 @@ Port of the JAX package's ``table/sparse_table.py``:
 Each mesh shard reserves its last row as the padding row (zero, never
 written back): batch padding targets it.
 
-Not ported: the multi-host working set and carrier, and the adaptive ICI
-wire's hotness bits.
+With the adaptive mesh wire engaged (``ops/wire_quant.py``),
+``finalize`` publishes ``PassWorkingSet.hot_rows``, a bool a row: the
+row's decayed show reaches ``ici_hot_show``. The classic finalize reads the
+show column of the rows it pulled, the spliced one the host table's
+``shows_peek`` (side-effect free, maybe a pass stale).
+
+Not ported: the multi-host working set and carrier.
 """
 
 from __future__ import annotations
@@ -887,6 +892,9 @@ class PassWorkingSet:
         self.capacity = 0  # rows per mesh shard (incl. padding row)
         self.n_keys = 0
         self._table = None  # the row source finalize pulled from
+        # bool [n_mesh_shards*capacity] hotness bits of the adaptive mesh
+        # wire; None when it is not engaged (the packer keeps its order)
+        self.hot_rows: Optional[np.ndarray] = None
 
     def add_keys(self, keys: np.ndarray) -> None:
         """Feed feasigns seen in loaded records (PSAgent::AddKeys parity)."""
@@ -955,6 +963,10 @@ class PassWorkingSet:
         self._table = table
 
         if carrier is not None and not carrier.flushed and carrier.ws.n_keys:
+            # the resident keys' live shows are on the device: hotness reads
+            # the host tier instead
+            if self._ici_adaptive():
+                self._set_hot_rows(global_rows, table.shows_peek(all_keys))
             return self._finalize_spliced(table, carrier, all_keys, global_rows, ns, cap, prefetch)
         t0 = time.perf_counter()
         rows = (
@@ -963,9 +975,26 @@ class PassWorkingSet:
             else np.zeros((0, table.layout.width), dtype=np.float32)
         )
         STAT_SET("boundary.pull_s", time.perf_counter() - t0)
+        if self._ici_adaptive() and len(all_keys):
+            # the pulled rows' decayed show column is the exact hotness
+            self._set_hot_rows(global_rows, rows[:, table.layout.SHOW])
         dev = np.zeros((ns, cap, table.layout.width), dtype=np.float32)
         dev.reshape(ns * cap, -1)[global_rows] = rows
         return dev
+
+    @staticmethod
+    def _ici_adaptive() -> bool:
+        from paddlebox_tpu_torch.ops import wire_quant  # lazy: an import cycle
+
+        return wire_quant.ici_adaptive_engaged()
+
+    def _set_hot_rows(self, global_rows: np.ndarray, shows: np.ndarray) -> None:
+        """Publish the hotness bits of the adaptive mesh wire."""
+        thr = float(config.get_flag("ici_hot_show"))
+        hot = np.zeros(self.n_mesh_shards * self.capacity, dtype=bool)
+        hot[global_rows] = np.asarray(shows, dtype=np.float32) >= thr
+        self.hot_rows = hot
+        STAT_SET("wire.ici_hot_keys", int(hot.sum()))
 
     def _finalize_spliced(self, table, carrier, all_keys, global_rows, ns, cap, prefetch=None):
         """The delta boundary: rows of keys in both passes are spliced on

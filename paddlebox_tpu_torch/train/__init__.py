@@ -5,8 +5,17 @@ from paddlebox_tpu_torch.train.resident_step import (
     ResidentPass,
     ResidentPvFeed,
     build_device_batch,
+    build_mesh_device_batch,
+    ensure_sharded,
+    make_resident_mesh_superstep,
     make_resident_pv_superstep,
     make_resident_superstep,
+)
+from paddlebox_tpu_torch.train.sharded_step import (
+    init_sharded_train_state,
+    kstep_sync_params,
+    make_local_mesh_step,
+    make_sharded_train_step,
 )
 from paddlebox_tpu_torch.train.trainer import CTRTrainer
 from paddlebox_tpu_torch.train.checkpoint import (
@@ -28,6 +37,13 @@ __all__ = [
     "make_resident_superstep",
     "ResidentPvFeed",
     "make_resident_pv_superstep",
+    "ensure_sharded",
+    "build_mesh_device_batch",
+    "make_resident_mesh_superstep",
+    "init_sharded_train_state",
+    "make_local_mesh_step",
+    "make_sharded_train_step",
+    "kstep_sync_params",
     "CTRTrainer",
     "CheckpointManager",
     "DeltaLineageError",

@@ -35,8 +35,13 @@ occurrence there. The step's merge sorts by ``inverse`` stably, so each
 row's gradient sums the same keys in the same flat order either way, and
 the trained state is the same bits.
 
-The mesh variants (``ensure_sharded``, the mesh supersteps) are not
-ported.
+On a single-host mesh (:func:`ensure_sharded`,
+:func:`build_mesh_device_batch`, :func:`make_resident_mesh_superstep`)
+every rank holds the same resident arrays (its dataset is a replica) and
+builds its own route buckets on its card from its slice of each global
+batch, then runs the same per-rank body as the host-packed mesh feeds
+(``train/sharded_step.py``). The pv mesh superstep is not ported (slice
+10).
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ import numpy as np
 import torch
 
 from paddlebox_tpu_torch import config
-from paddlebox_tpu_torch.data.device_pack import _round_bucket
+from paddlebox_tpu_torch.data.device_pack import _round_bucket, block_pad_stats
 from paddlebox_tpu_torch.train.train_step import TrainStepConfig, make_train_step
 
 config.define_flag(
@@ -124,9 +129,12 @@ class ResidentPass:
         self._logkey_cols = None  # (cmatch, rank) on the device, uploaded on first use
         self.L_pad = 0
         self.U_pad = 0
+        self.K_pad = 0  # the mesh's request-bucket size (ensure_sharded)
         # unique-row count per index block, keyed by the block's bytes (a
         # hash collision would freeze U_pad too small)
         self._uniq_cache: Dict[bytes, int] = {}
+        # (key count, most unique rows of one shard) per (rank, block bytes)
+        self._mesh_cache: Dict[tuple, tuple] = {}
 
     def logkey_columns(self):
         """(cmatch, rank) of every record, int32 [N] each, on the device:
@@ -153,18 +161,12 @@ class ResidentPass:
                 pending.append((fp, b))
                 seen.add(fp)
         if pending:
-            stats = _native_pad_stats(self, [b for _, b in pending], self.n_table_rows, 1)
-            if stats is not None:
-                for (fp, _), U in zip(pending, stats[1]):
-                    self._uniq_cache[fp] = max(int(U), 1)
-            else:
-                from paddlebox_tpu_torch.data.record_store import _ragged_indices
-
-                for fp, idx in pending:
-                    rows = self._host_rows[
-                        _ragged_indices(self.store.u64_base[idx], self._key_counts[idx])
-                    ]
-                    self._uniq_cache[fp] = len(np.unique(rows)) if len(rows) else 1
+            _, uniq = block_pad_stats(
+                self._host_rows, self.store.u64_base, self._key_counts,
+                [b for _, b in pending], self.n_table_rows, 1,
+            )
+            for (fp, _), U in zip(pending, uniq):
+                self._uniq_cache[fp] = max(int(U), 1)
         max_L, max_U = 1, 1
         for b, fp in zip(blocks, fps):
             max_L = max(max_L, int(self._key_counts[b].sum()))
@@ -172,20 +174,6 @@ class ResidentPass:
         self.L_pad = max(self.L_pad, _round_bucket(max_L, self.bucket))
         # +1 keeps a slot for the invalid tail even at the unique maximum
         self.U_pad = max(self.U_pad, _round_bucket(max_U + 1, self.bucket))
-
-
-def _native_pad_stats(rp: ResidentPass, slices, cap: int, ns: int):
-    """One native ``pbx_block_stats`` sweep over equal-length index slices
-    -> (L[n], bmax[n]); None when ``enable_native_parser`` is off or the
-    slices are ragged (the caller then sweeps in numpy)."""
-    if not config.get_flag("enable_native_parser") or not slices:
-        return None
-    if len({len(s) for s in slices}) != 1:
-        return None
-    from paddlebox_tpu_torch.utils import native
-
-    blocks = np.stack([np.asarray(s, dtype=np.int64) for s in slices])
-    return native.block_stats(rp._host_rows, rp.store.u64_base, rp._key_counts, blocks, cap, ns)
 
 
 def _batch_offsets(rp: ResidentPass, idx: torch.Tensor) -> torch.Tensor:
@@ -282,6 +270,127 @@ def make_resident_superstep(
 
     return superstep
 
+
+
+# ---- mesh (single-host) resident tier --------------------------------------
+
+
+def ensure_sharded(rp: ResidentPass, batch_indices, n_devices: int) -> None:
+    """Freeze/grow the mesh pads over a batch partition: the per-rank
+    L_pad and the per-(rank, shard) request bucket K_pad, from the exact
+    counts of every rank's block (cached per block). Uncached blocks go
+    through one native ``pbx_block_stats`` sweep with the mesh's shards
+    when ``enable_native_parser`` is on and the blocks are of one length,
+    else numpy."""
+    cap, ns = rp.ws.capacity, rp.ws.n_mesh_shards
+    work, pending, seen = [], [], set()
+    for idx in batch_indices:
+        idx = np.asarray(idx)
+        if len(idx) % n_devices:
+            raise ValueError(
+                f"batch of {len(idx)} records not divisible by {n_devices} devices "
+                "(the host packer's contract)"
+            )
+        b = len(idx) // n_devices
+        for d in range(n_devices):
+            sl = idx[d * b : (d + 1) * b]
+            fp = (d, sl.tobytes())
+            work.append(fp)
+            if fp not in rp._mesh_cache and fp not in seen:
+                pending.append((fp, sl))
+                seen.add(fp)
+    if pending:
+        L, bmax = block_pad_stats(
+            rp._host_rows, rp.store.u64_base, rp._key_counts, [sl for _, sl in pending], cap, ns
+        )
+        for (fp, _), n_keys, bm in zip(pending, L, bmax):
+            rp._mesh_cache[fp] = (int(n_keys), int(bm))
+    max_L, max_bucket = 1, 0
+    for fp in work:
+        L, bm = rp._mesh_cache[fp]
+        max_L, max_bucket = max(max_L, L), max(max_bucket, bm)
+    rp.L_pad = max(rp.L_pad, _round_bucket(max_L, rp.bucket))
+    rp.K_pad = max(rp.K_pad, _round_bucket(max_bucket + 1, rp.bucket))
+
+
+def build_mesh_device_batch(
+    rp: ResidentPass, cfg: TrainStepConfig, idx: torch.Tensor, ns: int, cap: int
+) -> Dict[str, torch.Tensor]:
+    """This rank's mesh batch (``req_ranks`` [ns, K], ``inverse``,
+    ``segments``, ``labels``, ``dense``) built on the card from its [b]
+    record indices: ``_route_sharded`` in fixed-shape ops. Global rows are
+    shard-major (shard*cap + rank), so the sort by row groups them by
+    owner; a first-occurrence scan numbers each shard's unique rows; pads
+    ride in slot K-1 of shard 0, whose request is the padding row."""
+    S, b = cfg.num_slots, cfg.batch_size
+    L_pad, K = rp.L_pad, rp.K_pad
+    idx = idx.long()
+    dev = idx.device
+    INF = ns * cap  # the invalid tail's row, sorted last
+    off_b = _batch_offsets(rp, idx)
+    rows_flat, segments, _ = _ragged_rows(rp.rows, off_b, S, b, L_pad, INF)
+    sorted_rows, perm = torch.sort(rows_flat, stable=True)
+    real = sorted_rows < INF
+    first = torch.cat(
+        [torch.ones((1,), dtype=torch.bool, device=dev), sorted_rows[1:] != sorted_rows[:-1]]
+    ) & real
+    uniq_seq = torch.cumsum(first.to(torch.int32), dim=0, dtype=torch.int32) - 1
+    shard = torch.where(real, sorted_rows // cap, 0)
+    # unique rows a shard: an integer scatter-add, the same in any order
+    cnts = torch.zeros((ns,), dtype=torch.int32, device=dev).scatter_add_(
+        0, shard.long(), first.to(torch.int32)
+    )
+    shard_start = torch.cumsum(cnts, dim=0, dtype=torch.int32) - cnts
+    j = torch.clamp(uniq_seq - shard_start.index_select(0, shard.long()), 0, K - 2)
+    bucket_sorted = torch.where(real, shard * K + j, K - 1).to(torch.int32)
+    inverse = torch.empty((L_pad,), dtype=torch.int32, device=dev).scatter_(0, perm, bucket_sorted)
+    # one request a first occurrence; every other position writes the
+    # spare slot ns*K, cut off after
+    flat_pos = torch.where(first, shard * K + j, ns * K).long()
+    req = torch.full((ns * K + 1,), cap - 1, dtype=torch.int32, device=dev).scatter_(
+        0, flat_pos, torch.where(real, sorted_rows % cap, cap - 1).to(torch.int32)
+    )
+    out = {
+        "req_ranks": req[: ns * K].reshape(ns, K),
+        "inverse": inverse,
+        "segments": segments,
+        "labels": rp.labels.index_select(0, idx),
+    }
+    if rp.dense is not None:
+        out["dense"] = rp.dense.index_select(0, idx)
+    return out
+
+
+def make_resident_mesh_superstep(
+    model_apply: Callable,
+    dense_opt,
+    cfg: TrainStepConfig,
+    rp: ResidentPass,
+    plan,
+    eval_mode: bool = False,
+) -> Callable:
+    """``superstep(state, idx_block [K, B]) -> (state, metrics)`` on a
+    single-host mesh: ``idx_block`` holds K GLOBAL batches (B = world * b
+    record indices, record ``i`` to rank ``i // b``); this rank builds its
+    batch from its block and runs the mesh step body
+    (``make_local_mesh_step``: the host-packed feeds' numerics). Metrics
+    come back stacked along a leading K axis."""
+    from paddlebox_tpu_torch.train.sharded_step import make_local_mesh_step
+
+    local_step = make_local_mesh_step(model_apply, dense_opt, cfg, plan, eval_mode)
+    ns, cap = rp.ws.n_mesh_shards, rp.ws.capacity
+    b = cfg.batch_size
+    lo, hi = plan.rank * b, (plan.rank + 1) * b
+
+    def superstep(state, idx_block: torch.Tensor):
+        ms = []
+        for k in range(idx_block.shape[0]):
+            batch = build_mesh_device_batch(rp, cfg, idx_block[k, lo:hi], ns, cap)
+            state, m = local_step(state, batch)
+            ms.append(m)
+        return state, {key: torch.stack([m[key] for m in ms]) for key in ms[0]}
+
+    return superstep
 
 # ---- resident pv (join-phase) tier -----------------------------------------
 

@@ -40,11 +40,14 @@ from paddlebox_tpu_torch.train.dense_opt import Adam, AdamState
 
 
 class TrainState(NamedTuple):
-    table: torch.Tensor  # [rows, width] pass working-set
+    table: torch.Tensor  # [rows, width] pass working-set (a mesh rank's shard)
     params: Any  # dense model params (the model's state_dict)
     opt_state: Any  # dense optimizer state (train/dense_opt.AdamState)
     auc: AucState
     step: torch.Tensor  # int32 scalar
+    # steps dispatched, counted on the host: the mesh's kstep cadence,
+    # which must not read ``step`` back from the card
+    host_step: int = 0
 
 
 @dataclass(frozen=True)
@@ -165,11 +168,16 @@ def scale_and_merge_grads(
     labels: torch.Tensor,  # [b]
     num_segments: int,
     ins_weight: Optional[torch.Tensor] = None,  # [b] ghosts -> 0 show/clk
+    grad_div: float = 1.0,
 ):
     """Push-side merge: slot-lr scale, pad mask, per-position sums.
 
-    Returns (merged grads, show counts, clk counts), each [num_segments, ...]."""
+    Returns (merged grads, show counts, clk counts), each [num_segments, ...].
+    ``grad_div`` rescales a rank's local-mean grads to the global mean on a
+    mesh (a tensor divisor: a scalar one may multiply by its reciprocal)."""
     S, b = cfg.num_slots, cfg.batch_size
+    if grad_div != 1.0:
+        gflat = torch.div(gflat, torch.full((), grad_div, dtype=gflat.dtype, device=gflat.device))
     if cfg.slot_lr is not None:
         slot_of_key = torch.clamp(segments // b, max=S - 1).long()
         lr_tab = torch.tensor(cfg.slot_lr, dtype=torch.float32, device=gflat.device)

@@ -44,7 +44,15 @@ class _PipeStream:
         return self.stream.write(s)
 
     def close(self) -> None:
-        self.stream.close()
+        try:
+            self.stream.close()  # flushes what is still buffered
+        except BrokenPipeError:
+            # the pipeline exited before it read all of its input: a failure
+            # whatever its exit status, reported as the others are
+            self.proc.wait()
+            raise RuntimeError(
+                f"pipe command failed ({self.proc.returncode}) before reading its input: {self.cmd}"
+            ) from None
         if self.proc.wait() != 0:
             raise RuntimeError(f"pipe command failed ({self.proc.returncode}): {self.cmd}")
 

@@ -44,7 +44,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     for m in ("train.checkpoint", "train.rollback", "serve.follower", "utils.fs",
               "ops.wire_quant", "table.carrier", "data.pv_instance", "ops.ctr_ops",
               "models.rank", "metrics.registry", "models.lr", "models.wide_deep", "models.mmoe",
-              "train.async_dense", "utils.dump", "boxps"):
+              "train.async_dense", "utils.dump", "boxps", "parallel", "parallel.mesh",
+              "parallel.sharded_pullpush", "fleet", "fleet.role_maker", "fleet.strategy", "fleet.zero",
+              "fleet.launch", "train.sharded_step"):
         assert f"paddlebox_tpu_torch.{m}" in walked
 
 
@@ -81,3 +83,18 @@ def test_trainer_without_device_raises_on_a_host_without_gpu():
     cfg = TrainStepConfig(num_slots=2, batch_size=4, layout=ValueLayout(embedx_dim=4))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         CTRTrainer(torch.nn.Linear(1, 1), cfg)
+
+
+def test_torch_distributed_is_reached_only_through_the_mesh():
+    """Data collectives go through ``MeshPlan``: no module of the port but
+    ``parallel/mesh.py`` imports ``torch.distributed``."""
+    pat = re.compile(r"^\s*(import torch\.distributed|from torch\.distributed|from torch import distributed)")
+    offenders = []
+    for root, _, names in os.walk(os.path.join(REPO, "paddlebox_tpu_torch")):
+        for n in names:
+            path = os.path.join(root, n)
+            if not n.endswith(".py") or path.endswith(os.path.join("parallel", "mesh.py")):
+                continue
+            with open(path, encoding="utf-8") as f:
+                offenders += [f"{os.path.relpath(path, REPO)}:{i}" for i, line in enumerate(f, 1) if pat.match(line)]
+    assert offenders == []
