@@ -82,7 +82,18 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    and params, and a ``ScoreServer`` over it answers requests drawn from
    the trained keys (1% absent) with preds bitwise equal to direct scoring
    against the trainer's table and params, one ``pull_rows_cuda`` a served
-   batch; phases 4 and 5 run on this follower at the base. A second day (bench.py's generator from ``--seed + 2``, as phase
+   batch; phases 4 and 5 run on this follower at the base. Then the
+   device scoring tier on the base: ``Follower``s with
+   ``device_scoring_tier`` on, one on one shard (cuda:0) and one on two
+   shards sharing cuda:0, and the base's follower (the tier off) serve
+   TIER_REQUESTS requests in turns, each key drawn in proportion to the
+   base's decayed show (the tier's own selection signal): preds bitwise
+   the tier-off preds, tier hits and misses counted apart from the absent
+   keys (the follower's health snapshot counting them), one gather a
+   served batch plus one a shard for the tier, exact request p50/p99/mean
+   on each, and ``pull_rows_cuda`` at the tier's shape (shard 0's bucket
+   of a full served batch) bitwise against its plain version and timed
+   beside ``index_select``, the byte bound and the sector floor. A second day (bench.py's generator from ``--seed + 2``, as phase
    6's data took ``--seed + 1``; 4 files, 16 resident steps) ends with
    ``end_pass(need_save_delta=False)`` and ``CheckpointManager.save_delta``,
    whose delta holds exactly the day's keys; the follower reaches delta 1
@@ -203,7 +214,38 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    dispatch, the collectives' host time), the wire bytes a step in each
    mode, ``prepare_pass`` and ``end_pass`` seconds, and both kernels at
    each world's owner shape (cold and warm) beside ``index_select`` /
-   ``index_copy_``, the byte bound and the sector floor.
+   ``index_copy_``, the byte bound and the sector floor; and kstep with
+   ``check_nan`` against kstep alone (16 resident steps each, ms a step
+   and the pass's all-reduces);
+13. the join day and the trainer's options on the mesh ("mesh_join"), in
+   the same two worlds (one spawned process a rank runs phase 12, then
+   phase 13): bench.py's pv data (16 files x 8192 records from
+   ``--seed + 9``), every rank a replica (``n_mesh_shards=world``,
+   ``preprocess_instance(max_rank=4)``, the pv plan blocked for the
+   world), ``RankDeepFM(DeepFM, 39 * 19, max_rank=4)`` with phase 10's
+   registry on every rank: ``prepare_pass``, a warm-up epoch, two timed
+   epochs and an eval epoch on the resident pv feed (2 gathers and 1
+   writeback a training step, 1 gather an eval step, on every rank; each
+   epoch ``memory_data_size()`` real instances; the eval epoch leaving the
+   state bitwise; the join metric 4 x that); the host syncs of a resident
+   pv superstep of 8 through the trainer's stepper and registry feed (0 on
+   the NCCL world) and rank 0's busy ms a step; 4 steps from one state
+   through the resident pv feed, the pv packer, the record-level feed and
+   a twin, bitwise, which must also match one device trained on the same
+   (globalized) pv batches within phase 12's bounds; both kernels bitwise
+   at the join owner's ids; the update phase on the flat resident feed;
+   async dense on its pass (rank 0's table, ``merge_limit=1`` and a wait,
+   twice: bitwise, and the params every rank trained on alike every step)
+   and a dump (the global batch's lines on rank 0 alone); the classic
+   ``end_pass``; then two passes of bench.py's data (2 files each, the
+   second reusing the first's keys, 8 steps a pass) carried
+   (``end_pass(trained_table_device())``: each rank splices its shard, the
+   departing rows all-gathered to every host table) and classic: pass-2
+   tables, losses and drained host tables bitwise. Every rank's registry,
+   losses and host tables must be alike. Printed: join and update
+   samples/s in all and a rank, ms a step, busy ms and idle share,
+   ``boundary_s`` (end_pass + the next begin_pass) a rank, both kernels
+   at each world's join owner shape.
 
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -216,6 +258,8 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
+import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -237,6 +281,12 @@ KEY_SPACE = 1 << 22
 HOT_KEYS = 1 << 12  # bench.py's hot head
 HOT_FRAC = 0.25
 MISS_FRAC = 0.01
+# the device tier's traffic (phase 8): requests of 8 to TIER_SERVE_BATCH
+# records, each key drawn in proportion to the base's decayed show (the
+# tier's own selection signal), served one at a time by a server whose
+# batch is TIER_SERVE_BATCH records, the tier off and on in turns
+TIER_REQUESTS = 300
+TIER_SERVE_BATCH = 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 TIMING_REPS = 30
 # phase 8: the training day's publish, follow and resume
@@ -344,14 +394,19 @@ def cuda_ms(fn, flush) -> float:
     return start.elapsed_time(end)
 
 
-def make_records(rng, keys, n, miss_frac=MISS_FRAC):
-    """``n`` SlotRecords of one key per slot: a quarter from the hot head,
-    the rest uniform over the committed keys, ``miss_frac`` absent."""
+def make_records(rng, keys, n, miss_frac=MISS_FRAC, cdf=None):
+    """``n`` SlotRecords of one key per slot, ``miss_frac`` absent: a
+    quarter from the hot head, the rest uniform over the committed keys;
+    with ``cdf`` (the running sum of the keys' hotness) each key drawn in
+    proportion to its hotness instead."""
     from paddlebox_tpu_torch.data import SlotRecord
 
-    idx = rng.integers(0, len(keys), (n, NUM_SLOTS))
-    hot = rng.integers(0, HOT_KEYS, (n, NUM_SLOTS))
-    idx = np.where(rng.random((n, NUM_SLOTS)) < HOT_FRAC, hot, idx)
+    if cdf is None:
+        idx = rng.integers(0, len(keys), (n, NUM_SLOTS))
+        hot = rng.integers(0, HOT_KEYS, (n, NUM_SLOTS))
+        idx = np.where(rng.random((n, NUM_SLOTS)) < HOT_FRAC, hot, idx)
+    else:
+        idx = np.searchsorted(cdf, rng.random((n, NUM_SLOTS)) * cdf[-1], side="right")
     k = keys[idx]
     # committed keys are < 2**63; these never are
     absent = rng.integers(1 << 63, (1 << 64) - 1, (n, NUM_SLOTS), dtype=np.uint64)
@@ -739,6 +794,7 @@ def main() -> int:
     from paddlebox_tpu_torch.table import ValueLayout
     from paddlebox_tpu_torch.train import TrainStepConfig
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -798,13 +854,23 @@ def main() -> int:
                generator=torch.Generator().manual_seed(args.seed)),
         cfg, device="cuda",
     )
-    train = train_phase(args, dev, card, ck, pull_push, lay, schema)
-    serve_counts, serve_err, published = publish_phase(args, card, ck, pull_push, lay, schema, scorer, train)
+    walls = {"build_and_kernel_checks": time.perf_counter() - t_start}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    train = timed("6-7 train", train_phase, args, dev, card, ck, pull_push, lay, schema)
+    serve_counts, serve_err, published, tier_shape = timed(
+        "8 publish (with 4-5 serve and the tier)", publish_phase, args, card, ck, pull_push, lay, schema, scorer, train)
     max_err = max(max_err, serve_err)
-    boundary_counts = boundary_phase(args, card, ck, lay, schema, train)
-    join_counts, join_err = join_update_phase(args, dev, card, ck, pull_push, lay)
-    zoo_counts, dcn, zoo_err = zoo_phase(args, dev, card, ck, lay)
-    mesh_counts, owner, mesh_err = mesh_phase(args, dev, card, ck, lay)
+    boundary_counts = timed("9 boundary", boundary_phase, args, card, ck, lay, schema, train)
+    join_counts, join_err = timed("10 join_update", join_update_phase, args, dev, card, ck, pull_push, lay)
+    zoo_counts, dcn, zoo_err = timed("11 zoo", zoo_phase, args, dev, card, ck, lay)
+    mesh_counts, owner, join_owner, mesh_err = timed("12-13 mesh", mesh_phases, args, dev, card, ck, lay)
+    emit({"card": card, "phase_wall_s": walls, "script_s": time.perf_counter() - t_start})
 
     by_path = {"serve": serve_counts, **train["counts"], **published, "boundary": boundary_counts, **join_counts,
                **zoo_counts, **mesh_counts}
@@ -820,7 +886,9 @@ def main() -> int:
             # resumed stacks, then phase 9's pass boundary, then phase 10's
             # join and update phases, then phase 11's zoo, async dense,
             # dump and façade runs, then phase 12's NCCL and gloo mesh
-            # worlds (every rank's main path)
+            # worlds (every rank's main path), then phase 13's mesh join
+            # and update, boundary, async and dump runs; serve_tier is
+            # phase 8's tiered serving
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": err,
@@ -835,8 +903,13 @@ def main() -> int:
             **({"zoo_dcn_shape": {k: dcn[k] for k in ("U", "n_uniq", "ms", "plain_ms", "library_ms", "bound_ms",
                                                         "sector_floor_ms")}} if key == "gather" else {}),
             # both kernels at the mesh owner's shape (phase 12): world x K
-            # received ids into the owner's shard
+            # received ids into the owner's shard; and at the mesh join
+            # owner's (phase 13)
             "mesh_owner_shape": {w: owner[w][name] for w in owner},
+            "mesh_join_owner_shape": {w: join_owner[w][name] for w in join_owner},
+            # the gather at the device scoring tier's shape (phase 8): one
+            # shard's bucket of a full request
+            **({"serve_tier_shape": tier_shape} if key == "gather" else {}),
         }
         for name, source, replaces, key, err in (
             ("pull_rows_cuda", "paddlebox_tpu_torch/ops/csrc/gather_rows.cu", GATHER_REPLACES, "gather",
@@ -1557,6 +1630,156 @@ def serve_phase(args, card, ck, pull_push, fol, scorer, schema, keys):
     return counts, max_err
 
 
+TIER_SHARDS = (("one shard", ("cuda:0",)), ("two shards", ("cuda:0", "cuda:0")))
+
+
+def tier_phase(args, card, ck, root, lay, opt, cfg, scorer, schema, plain_fol, keys, hot):
+    """The device scoring tier on phase 8's published base: Followers with
+    ``device_scoring_tier`` on, on one shard and on two shards sharing
+    cuda:0, beside ``plain_fol`` (the tier off). TIER_REQUESTS requests
+    whose keys are drawn in proportion to ``hot`` (the base's decayed
+    shows, aligned with ``keys``), each served by the three in turns (the
+    first of them rotating): preds bitwise the tier-off preds, tier hits
+    and misses counted apart from the key misses, one gather a served
+    batch plus one a shard for the tier's hits; exact request p50/p99/mean
+    on each; ``pull_rows_cuda`` at the tier's shape (shard 0's bucket of a
+    full served batch) against its plain version, ``index_select``, the
+    byte bound and the sector floor. Returns (the tier's launch counts,
+    {shard setup: the gather's numbers}, its max abs error)."""
+    from paddlebox_tpu_torch.data import build_batch
+    from paddlebox_tpu_torch.serve import Follower, ScoreServer, Scorer
+    from paddlebox_tpu_torch.utils.monitor import STAT_GET
+
+    rng = np.random.default_rng(args.seed + 11)
+    cdf = np.cumsum(hot, dtype=np.float64)
+    sizes = rng.integers(8, TIER_SERVE_BATCH + 1, TIER_REQUESTS)
+    reqs = [make_records(rng, keys, int(n), cdf=cdf) for n in sizes]
+    full = make_records(rng, keys, TIER_SERVE_BATCH, cdf=cdf)  # a full served batch: warm-up and the gather's shape
+    small = Scorer(scorer.model, dataclasses.replace(cfg, batch_size=TIER_SERVE_BATCH), device="cuda")
+
+    setups = [("tier off", plain_fol, None, 0.0)]
+    for name, devices in TIER_SHARDS:
+        with flags(device_scoring_tier="on"):
+            fol = Follower(root, lay, opt, n_host_shards=64, trainer=new_trainer(args, cfg, lay), device=list(devices))
+            t0 = time.perf_counter()
+            if not fol.poll_once():
+                raise AssertionError(f"tier {name}: the follower applied nothing")
+            apply_s = time.perf_counter() - t0
+        tier = fol.version().device_tier
+        if tier is None or tier.n_shards != len(devices) or tier.n_rows == 0:
+            raise AssertionError(f"tier {name}: the version carries no tier on {devices}")
+        setups.append((name, fol, tier, apply_s))
+    if plain_fol.version().device_tier is not None:
+        raise AssertionError("the tier-off follower's version carries a tier")
+
+    stat_keys = ("serve.device_tier_hits", "serve.device_tier_misses", "serve.key_misses")
+    servers = {name: ScoreServer(fol, small, schema, device="cuda") for name, fol, _, _ in setups}
+    per = {name: {"ms": [], "preds": [], "launches": dict.fromkeys(ck.launch_counts, 0),
+                  "stats": dict.fromkeys(stat_keys, 0)} for name in servers}
+    b0 = STAT_GET("serve.batches")
+    for srv in servers.values():
+        srv.start()
+    try:
+        for srv in servers.values():  # warm-up: the batch shape's first forward
+            srv.score(full, timeout=300.0)
+        torch.cuda.synchronize()
+        tallies0 = {name: (tier.hits, tier.misses) for name, _, tier, _ in setups if tier is not None}
+        for i, rq in enumerate(reqs):
+            for j in range(len(setups)):
+                name = setups[(i + j) % len(setups)][0]
+                s0 = {k: STAT_GET(k) or 0 for k in stat_keys}
+                c0 = dict(ck.launch_counts)
+                t0 = time.perf_counter()
+                got = servers[name].score(rq, timeout=300.0)
+                per[name]["ms"].append((time.perf_counter() - t0) * 1e3)
+                per[name]["preds"].append(got)
+                for k in stat_keys:
+                    per[name]["stats"][k] += (STAT_GET(k) or 0) - s0[k]
+                for k, v in ck.launch_counts.items():
+                    per[name]["launches"][k] += v - c0[k]
+    finally:
+        for srv in servers.values():
+            srv.stop()
+    torch.cuda.synchronize()
+    n_batches = STAT_GET("serve.batches") - b0
+    if n_batches != len(setups) * (1 + len(reqs)):
+        raise AssertionError(f"{n_batches} batches for {len(reqs)} requests (and a warm-up) on {len(setups)} servers")
+
+    want = per["tier off"]
+    if want["launches"] != {"pull_rows_cuda": len(reqs), "write_rows_cuda": 0}:
+        raise AssertionError(f"tier off: launches {want['launches']} for {len(reqs)} batches")
+    if want["stats"]["serve.device_tier_hits"] or want["stats"]["serve.device_tier_misses"]:
+        raise AssertionError(f"tier off: the tier counters moved {want['stats']}")
+    n_absent = want["stats"]["serve.key_misses"]
+    counts = {"pull_rows_cuda": 0, "write_rows_cuda": 0}
+    shapes, err = {}, 0.0
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    nums = {"requests": len(reqs), "request_records": [int(sizes.min()), int(sizes.max()), float(sizes.mean())],
+            "serve_batch": TIER_SERVE_BATCH, "tier off": {"request_ms": request_ms(want["ms"]), "key_misses": n_absent}}
+    for name, fol, tier, apply_s in setups[1:]:
+        got = per[name]
+        for g, w in zip(got["preds"], want["preds"]):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"tier {name}: served preds differ from the tier-off preds")
+        hits, misses = tier.hits - tallies0[name][0], tier.misses - tallies0[name][1]
+        stats = got["stats"]
+        if (hits, misses) != (stats["serve.device_tier_hits"], stats["serve.device_tier_misses"]):
+            raise AssertionError(f"tier {name}: tallies {hits}/{misses} against the counters {stats}")
+        if stats["serve.key_misses"] != n_absent:
+            raise AssertionError(f"tier {name}: {stats['serve.key_misses']} key misses, the tier off {n_absent}")
+        if not (hits > 0 and misses >= n_absent > 0):
+            raise AssertionError(f"tier {name}: hits {hits}, tier misses {misses}, key misses {n_absent}: "
+                                 "the tier must hit, and miss every absent key")
+        c = got["launches"]
+        if c != {"pull_rows_cuda": len(reqs) * (1 + tier.n_shards), "write_rows_cuda": 0}:
+            raise AssertionError(f"tier {name}: launches {c} for {len(reqs)} batches over {tier.n_shards} shards")
+        for k in counts:
+            counts[k] += c[k]
+        snap = fol.health_snapshot()
+        if (snap["tier_rows"], snap["tier_hits"], snap["tier_misses"]) != (tier.n_rows, tier.hits, tier.misses):
+            raise AssertionError(f"tier {name}: the health snapshot {snap} does not count the tier")
+
+        # the gather at the tier's shape: shard 0's bucket of a full served batch
+        hit, req, _, K = tier.route(np.unique(build_batch(full, schema).keys))
+        tab = tier.tables[0]
+        ids = torch.from_numpy(np.ascontiguousarray(req[:, 0, :].reshape(-1))).to(tab.device)
+        R, W = tab.shape
+        U = ids.numel()
+        distinct = int(torch.unique(ids).numel())
+        err = max(err, check_gather(ck, tab, ids, f"tier {name} shard 0 R={R} U={U} ({distinct} distinct)"))
+        med, warm = time_fns({"kernel": lambda: ck.pull_rows_cuda(tab, ids), "plain": lambda: ck.pull_rows_ref(tab, ids),
+                              "library": lambda: torch.index_select(tab, 0, ids)}, flush)
+        moved = (U + distinct) * W * 4 + U * 4
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        shapes[name] = {"R": R, "U": U, "distinct": distinct, "K": K, "batch_hits": int(hit.sum()),
+                        "batch_keys": len(hit), "ms": med["kernel"], "plain_ms": med["plain"],
+                        "library_ms": med["library"], "bound_ms": bound, "bytes": moved,
+                        "sector_floor_ms": sector_floor_ms(ids, R, W, False), "warm_l2_ms": warm["kernel"],
+                        "warm_l2_plain_ms": warm["plain"], "warm_l2_library_ms": warm["library"]}
+        emit({"card": card, "kernel": "pull_rows_cuda", "path": "serve_tier", "shards": name, "W": W,
+              **shapes[name], "bound_share": bound / med["kernel"], "reps": TIMING_REPS, "l2": "cold"})
+        lat = request_ms(got["ms"])
+        nums[name] = {"tier_rows": tier.n_rows, "tier_mem_mb": tier.mem_used_mb(), "apply_s": apply_s,
+                      "tier_hits": hits, "tier_misses": misses, "hit_share": hits / (hits + misses),
+                      "key_misses": n_absent, "launches": c, "request_ms": lat}
+        print(f"device scoring tier, {name}: {tier.n_rows} rows ({tier.mem_used_mb():.1f} MB); {len(reqs)} requests "
+              f"of {sizes.min()}-{sizes.max()} records, preds bitwise the tier-off preds; {hits} tier hits, {misses} "
+              f"tier misses ({hits / (hits + misses):.1%} hit; {n_absent} keys absent); launches {c}; request "
+              f"p50/p99/mean {lat['p50']:.3f}/{lat['p99']:.3f}/{lat['mean']:.3f} ms (tier off "
+              f"{nums['tier off']['request_ms']['p50']:.3f}/{nums['tier off']['request_ms']['p99']:.3f}/"
+              f"{nums['tier off']['request_ms']['mean']:.3f}); {card}", flush=True)
+    emit({"card": card, "phase": "serve_tier", **nums})
+    del setups, servers, tier, tab
+    return counts, shapes, err
+
+
+def request_ms(ms):
+    """Exact request-latency statistics (ms) of one server's requests."""
+    ms = np.asarray(ms)
+    p50, p99 = np.percentile(ms, [50, 99])
+    return {"p50": float(p50), "p99": float(p99), "mean": float(ms.mean()), "max": float(ms.max())}
+
+
 def publish_phase(args, card, ck, pull_push, lay, schema, scorer, live):
     """Phase 8: publish, follow and resume the training day at full width,
     with phases 4 and 5 on the follower at the base. Returns the serving
@@ -1591,6 +1814,11 @@ def publish_phase(args, card, ck, pull_push, lay, schema, scorer, live):
         t0 = time.perf_counter()
         serve_counts, serve_err = serve_phase(args, card, ck, pull_push, fol, scorer, schema, np.sort(table.keys()))
         serve_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tier_keys = np.sort(table.keys())
+        counts["serve_tier"], tier_shape, tier_err = tier_phase(args, card, ck, root, lay, opt, cfg, scorer, schema,
+                                                               fol, tier_keys, table.shows_peek(tier_keys))
+        tier_s = time.perf_counter() - t0
 
         # the second day: part of the keys touched, some new, then a delta.
         # Phase 6's data came from --seed + 1, so each later day takes the
@@ -1654,10 +1882,10 @@ def publish_phase(args, card, ck, pull_push, lay, schema, scorer, live):
         print(f"third day: the resumed stack spilled {nums['spilled_rows']} rows at its end_pass and promoted "
               f"{nums['promoted_rows']} at the next begin_pass; pass tables, host tables and dense state bitwise "
               "the live stack's", flush=True)
-    nums["phases_4_5_s"] = serve_s
-    nums["phase_s"] = time.perf_counter() - t_phase - serve_s  # phase 8's own seconds
+    nums["phases_4_5_s"], nums["tier_s"] = serve_s, tier_s
+    nums["phase_s"] = time.perf_counter() - t_phase - serve_s - tier_s  # phase 8's own seconds
     emit({"card": card, "phase": "publish_follow_resume", **nums})
-    return serve_counts, serve_err, counts
+    return serve_counts, max(serve_err, tier_err), counts, tier_shape
 
 
 BOUNDARY_GAUGES = (
@@ -2761,6 +2989,7 @@ MESH_KEY_STRIDE = 16  # every 16th unique key of the 4-step batches is compared 
 MESH_LOSS_RTOL_FIRST, MESH_LOSS_RTOL = 1e-5, 6e-3  # tests/test_sharded.py's mesh-vs-one-device bounds
 MESH_TABLE_RTOL, MESH_TABLE_ATOL = 2e-3, 1e-3
 MESH_PARAMS_ATOL = 2e-4  # ZeRO-1 against step mode, tests/test_torch_train_step.py's bound
+KSTEP_TIMED = 16  # resident steps of kstep with and without check_nan
 
 
 def bench_schema():
@@ -3056,6 +3285,24 @@ def mesh_rank(plan, spec):
         raise AssertionError(f"mesh {tag} ZeRO-1 params differ from step mode's by {zd} > {MESH_PARAMS_ATOL}")
     res.update(kstep_losses=kl.tolist(), zero_losses=zl.tolist(), zero_vs_step_params_max_abs=zd)
 
+    # the known cost of kstep with check_nan (ROADMAP Queue 1 item 4.5): its
+    # dense average runs every step; ms a step on the resident feed (the
+    # resident pass shared) against kstep alone, and the pass's all-reduces
+    kms = {}
+    for name, extra in (("kstep", {}), ("kstep_check_nan", {"check_nan": True})):
+        kt = trainer(cfg_=dataclasses.replace(cfg, dense_sync_mode="kstep", param_sync_step=2, **extra))
+        kt._resident_cache = tr._resident_cache
+        kt.train_pass(ds, n_batches=RESIDENT_K)  # warm
+        torch.cuda.synchronize(dev)
+        plan.reset_calls()
+        t0 = time.perf_counter()
+        kt.train_pass(ds, n_batches=KSTEP_TIMED)
+        torch.cuda.synchronize(dev)
+        kms[name] = {"ms_per_step": (time.perf_counter() - t0) / KSTEP_TIMED * 1e3, "steps": KSTEP_TIMED,
+                     "all_reduce_calls": plan.calls["all_reduce"]}
+        del kt
+    res["kstep_timing"] = kms
+
     # end_pass: every rank writes back the same gathered table
     t0 = time.perf_counter()
     ds.end_pass(trained)
@@ -3089,164 +3336,733 @@ def _mesh_compare(what, losses, rows, keys, ref_losses, ref_keys, ref_rows):
     return float(d.max()), float(np.max(np.abs(losses - ref_losses) / np.abs(ref_losses)))
 
 
-def mesh_phase(args, dev, card, ck, lay):
-    """Phase 12: the mesh at full width in an NCCL world (one rank a card)
-    and a gloo world of two ranks on cuda:0. Returns the launch counts by
-    path and the kernels' numbers at the owner's shape."""
-    from paddlebox_tpu_torch.data import BoxPSDataset
+def owner_kernel_rows(args, dev, card, ck, lay, r0, path, tag):
+    """Both kernels at a mesh owner's ids (rank 0's ``owner_{pattern}``
+    arrays, its shard's ``owner_R`` rows), timed here alone, cold and warm,
+    beside the plain versions and ``index_select`` / ``index_copy_``: the
+    pull's gather of the received ids, the merge's old-row gather (one id a
+    distinct row, then row 0) and its writeback (one id a distinct row,
+    then R, which writes nothing). Returns {kernel: {pattern: numbers}}."""
+    R, W = int(r0["owner_R"]), lay.width
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    tab = torch.randn((R, W), device=dev, generator=g)
+    pristine = tab.clone()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    kres = {}
+    for pattern in ("pull", "merge_old", "merge_write"):
+        ids = torch.from_numpy(r0[f"owner_{pattern}"]).to(dev)
+        U = ids.numel()
+        valid = ids[ids < R]
+        distinct = int(torch.unique(valid).numel())
+        what = f"{path} {json.dumps(tag)} {pattern} ids U={U} ({distinct} distinct) R={R}"
+        if pattern == "merge_write":
+            kname = "write_rows_cuda"
+            new_rows = torch.randn((U, W), device=dev, generator=g)
+            check_write(ck, tab, ids, new_rows, what)
+            nv = valid.numel()
+            fns = {"kernel": lambda: ck.write_rows_cuda(tab, ids, new_rows),
+                   "plain": lambda: ck.write_rows_ref(tab, *ck.drop_out_of_range(tab, ids, new_rows)),
+                   "library": lambda: tab.index_copy_(0, valid, new_rows[:nv])}
+            restore = lambda: tab.copy_(pristine)
+            moved = 2 * nv * W * 4 + U * ids.element_size()
+        else:
+            kname = "pull_rows_cuda"
+            check_gather(ck, tab, ids, what)
+            fns = {"kernel": lambda: ck.pull_rows_cuda(tab, ids),
+                   "plain": lambda: ck.pull_rows_ref(tab, ids),
+                   "library": lambda: torch.index_select(tab, 0, ids)}
+            restore = None
+            moved = (U + distinct) * W * 4 + U * ids.element_size()
+        med, warm = time_fns(fns, flush, restore)
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        row = {"pattern": pattern, "U": U, "distinct": distinct, "R": R, "ms": med["kernel"],
+               "plain_ms": med["plain"], "library_ms": med["library"], "bound_ms": bound, "bytes": moved,
+               "sector_floor_ms": sector_floor_ms(ids, R, W, kname == "write_rows_cuda"),
+               "warm_l2_ms": warm["kernel"], "warm_l2_plain_ms": warm["plain"],
+               "warm_l2_library_ms": warm["library"]}
+        kres.setdefault(kname, {})[pattern] = row
+        emit({"card": card, "kernel": kname, "path": path, **tag, "W": W, **row,
+              "bound_share": bound / med["kernel"], "reps": TIMING_REPS, "l2": "cold"})
+    return kres
+
+
+MESH_WORLDS = (  # name, backend, ranks (None: one a card, at most MESH_NCCL_MAX), device, ranks a card
+    ("nccl", "nccl", None, None, 1), ("gloo", "gloo", MESH_GLOO_RANKS, "cuda:0", MESH_GLOO_RANKS),
+)
+MESH_TAGS = {"nccl": {"backend": "nccl", "ranks_per_card": 1},
+             "gloo": {"backend": "gloo", "ranks_per_card": MESH_GLOO_RANKS}}
+
+
+def mesh_ranks(plan, spec12, spec13):
+    """Phases 12 and 13 on one rank of a world, in one spawned process (the
+    process, its CUDA context and its collectives' set-up are paid once)."""
+    mesh_rank(plan, spec12)
+    mesh_join_rank(plan, spec13)
+
+
+def _read_ranks(out, world):
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            res = json.load(f)
+        res.update({k: v for k, v in np.load(os.path.join(out, f"rank{r}.npz")).items()})
+        ranks.append(res)
+    return ranks
+
+
+def mesh_phases(args, dev, card, ck, lay):
+    """Phases 12 and 13 in the NCCL world (one rank a card) and the gloo
+    world of two ranks on cuda:0, one spawn a world running both phases'
+    rank functions. Returns the launch counts by path, the kernels'
+    numbers at phase 12's and phase 13's owner shapes and their max abs
+    error."""
     from paddlebox_tpu_torch.fleet.launch import spawn
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        p12 = mesh_prepare(args, dev, lay, tmp)
+        p13 = mesh_join_prepare(args, dev, lay, tmp)
+        worlds12, worlds13 = {}, {}
+        for name, backend, world, device, per_card in MESH_WORLDS:
+            world = world or min(torch.cuda.device_count(), MESH_NCCL_MAX)
+            outs = []
+            for phase in ("12", "13"):
+                outs.append(os.path.join(tmp, f"{name}-{phase}"))
+                os.makedirs(outs[-1])
+            spec12 = {"files": p12["files"], "seed": args.seed + 8, "out": outs[0], "ranks_per_card": per_card}
+            spec13 = {"pv_files": p13["pv_files"], "boundary_files": p13["boundary_files"],
+                      "seed": args.seed + MESH_JOIN_SEED, "out": outs[1], "ranks_per_card": per_card}
+            t0 = time.perf_counter()
+            spawn(mesh_ranks, world, f"file://{tmp}/rdv-{name}", backend=backend, device=device,
+                  args=(spec12, spec13), timeout_s=MESH_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            worlds12[name] = (_read_ranks(outs[0], world), wall)
+            worlds13[name] = (_read_ranks(outs[1], world), wall)
+        counts, owner, err = mesh_report(args, dev, card, ck, lay, worlds12, p12)
+        counts13, join_owner, err13 = mesh_join_report(args, dev, card, ck, lay, worlds13, p13)
+    print(f"phases 12-13 (mesh) in {time.perf_counter() - t_phase:.3f} s; {card}", flush=True)
+    return {**counts, **counts13}, owner, join_owner, max(err, err13)
+
+
+def mesh_prepare(args, dev, lay, tmp):
+    """Phase 12's data (bench.py's, from ``--seed + 8``) and its one-device
+    reference: the same 4 steps' losses and sampled rows."""
+    from paddlebox_tpu_torch.data import BoxPSDataset
     from paddlebox_tpu_torch.models import DeepFM
     from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig
     from paddlebox_tpu_torch.train import Adam, CTRTrainer, TrainStepConfig
 
-    t_phase = time.perf_counter()
     sparse_opt = SparseOptimizerConfig(embedx_threshold=0.0)
-    counts, nums, worlds = {}, {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
-        files, _ = write_bench_files(tmp, np.random.default_rng(args.seed + 8), N_FILES, "mesh")
-        # the one-device trajectory of the same 4 steps, the mesh's reference
-        table = HostSparseTable(lay, sparse_opt, n_shards=64, seed=args.seed + 8)
-        ds = BoxPSDataset(bench_schema(), table, batch_size=BATCH, shuffle_mode="local", seed=args.seed + 8)
-        ds.set_filelist(files)
-        ds.load_into_memory()
-        ds.begin_pass(round_to=512)
-        with flags(enable_resident_feed=0):
-            model = DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
-                           generator=torch.Generator().manual_seed(args.seed + 8))
-            one = CTRTrainer(model, TrainStepConfig(num_slots=NUM_SLOTS, batch_size=BATCH, layout=lay,
-                                                    sparse_opt=sparse_opt, auc_buckets=100_000),
-                             dense_opt=Adam(1e-3), device=dev)
-            one.init_params()
-            losses = []
-            one.train_pass(ds, n_batches=MESH_FEED_STEPS, on_batch=lambda i, m: losses.append(float(m["loss"])))
-        ref_keys, ref_rows = _mesh_key_rows(one, ds, MESH_FEED_STEPS)
-        ref_losses = losses
-        del one, ds, table
-        torch.cuda.empty_cache()
-        n_nccl = min(torch.cuda.device_count(), MESH_NCCL_MAX)
-        for name, backend, world, device, per_card in (
-            ("nccl", "nccl", n_nccl, None, 1), ("gloo", "gloo", MESH_GLOO_RANKS, "cuda:0", MESH_GLOO_RANKS),
-        ):
-            out = os.path.join(tmp, name)
-            os.makedirs(out)
-            spec = {"files": files, "seed": args.seed + 8, "out": out, "ranks_per_card": per_card}
-            t0 = time.perf_counter()
-            spawn(mesh_rank, world, f"file://{out}/rdv", backend=backend, device=device, args=(spec,),
-                  timeout_s=MESH_TIMEOUT_S)
-            wall = time.perf_counter() - t0
-            ranks = []
-            for r in range(world):
-                with open(os.path.join(out, f"rank{r}.json")) as f:
-                    res = json.load(f)
-                res.update({k: v for k, v in np.load(os.path.join(out, f"rank{r}.npz")).items()})
-                ranks.append(res)
-            worlds[name] = (ranks, wall)
-        tag = {"nccl": {"backend": "nccl", "ranks_per_card": 1},
-               "gloo": {"backend": "gloo", "ranks_per_card": MESH_GLOO_RANKS}}
-        for name, (ranks, wall) in worlds.items():
-            world = len(ranks)
-            r0 = ranks[0]
-            if len({r["host_digest"] for r in ranks}) != 1:
-                raise AssertionError(f"mesh {_mesh_tag(**tag[name])}: the ranks' host tables differ after end_pass")
-            for r in ranks:
-                if r["four_losses"] != r0["four_losses"]:
-                    raise AssertionError(f"mesh {_mesh_tag(**tag[name])}: the ranks' losses differ")
-            rows = np.concatenate([r["four_rows"] for r in ranks])
-            keys = np.concatenate([r["four_keys"] for r in ranks])
-            keys, first = np.unique(keys, return_index=True)
-            tab_d, loss_d = _mesh_compare(f"mesh {_mesh_tag(**tag[name])} vs one device", r0["four_losses"], rows[first], keys,
-                                          ref_losses, ref_keys, ref_rows)
-            if name == "nccl" and r0["superstep_host_syncs"] != 0:
-                raise AssertionError(f"mesh nccl: a resident superstep made {r0['superstep_host_syncs']} host syncs: "
-                                     f"{r0['superstep_sync_sites']}")
-            counts[f"mesh_{name}"] = {k: sum(r["counts"][p][k] for r in ranks for p in r["counts"])
-                                      for k in ("pull_rows_cuda", "write_rows_cuda")}
-            step_ms = r0["resident_wall_s"] / MESH_TIMED * 1e3
-            emit({
-                "card": card, "phase": "mesh", **tag[name], "world": world, "spawn_wall_s": wall,
-                "samples_per_s_all": BATCH * MESH_TIMED / max(r["resident_wall_s"] for r in ranks),
-                "samples_per_s_rank": BATCH * MESH_TIMED / max(r["resident_wall_s"] for r in ranks) / world,
-                "ms_per_step": step_ms, "device_busy_ms_per_step_rank0": r0["busy_ms_per_step"],
-                "device_idle_share_rank0": 1.0 - r0["busy_ms_per_step"] / step_ms,
-                "resident_collective_host_ms_per_step": r0["resident_coll_s"] / MESH_TIMED * 1e3,
-                "resident_host_clock_ms_per_step_rank0": r0["resident_profile_ms"],
-                "packer_host_clock_ms_per_step_rank0": r0["packer_profile_ms"],
-                "pack_sharded_ms_per_global_batch": r0["pack_sharded_ms"],
-                "packer_collective_host_ms_per_step": r0["packer_coll_ms"],
-                "packer_samples_per_s_all": BATCH * MESH_PACKER / r0["packer_wall_s"],
-                "load_into_memory_s": r0["load_into_memory_s"], "begin_pass_s": r0["begin_pass_s"],
-                "prepare_pass_s": r0["prepare_pass_s"], "end_pass_s": r0["end_pass_s"],
-                "K": r0["K"], "cap": r0["cap"], "n_keys": r0["n_keys"],
-                "wire_bytes_per_step_rank0": r0["wire"],
-                "superstep_host_syncs": r0["superstep_host_syncs"], "superstep_sync_sites": r0["superstep_sync_sites"],
-                "superstep_collectives": r0["superstep_collectives"],
-                "vs_one_device": {"table_max_abs": tab_d, "loss_max_rel": loss_d},
-                "zero_vs_step_params_max_abs": max(r["zero_vs_step_params_max_abs"] for r in ranks),
-                "kstep_losses": r0["kstep_losses"], "zero_losses": r0["zero_losses"],
-                "launches": counts[f"mesh_{name}"], "host_digest": r0["host_digest"],
-            })
-            print(f"mesh {_mesh_tag(**tag[name])} world {world}: launches 2 gathers and 1 writeback a step on every rank, losses finite, feeds "
-                  f"{', '.join(r0['feeds_bitwise'])} bitwise alike, the host tables of all ranks alike, within bounds "
-                  f"of one device (table {tab_d:.3g}, loss rel {loss_d:.3g}); {card}", flush=True)
-        g_ranks, n_ranks = worlds["gloo"][0], worlds["nccl"][0]
-        gk = np.unique(np.concatenate([r["four_keys"] for r in g_ranks]), return_index=True)
-        nk = np.unique(np.concatenate([r["four_keys"] for r in n_ranks]), return_index=True)
-        _mesh_compare("mesh gloo vs nccl", g_ranks[0]["four_losses"],
-                      np.concatenate([r["four_rows"] for r in g_ranks])[gk[1]], gk[0],
-                      n_ranks[0]["four_losses"], nk[0], np.concatenate([r["four_rows"] for r in n_ranks])[nk[1]])
-        print(f"mesh {_mesh_tag(**tag['gloo'])}: the gloo world's 4 steps match the nccl world's within the mesh "
-              "bounds", flush=True)
+    files, _ = write_bench_files(tmp, np.random.default_rng(args.seed + 8), N_FILES, "mesh")
+    # the one-device trajectory of the same 4 steps, the mesh's reference
+    table = HostSparseTable(lay, sparse_opt, n_shards=64, seed=args.seed + 8)
+    ds = BoxPSDataset(bench_schema(), table, batch_size=BATCH, shuffle_mode="local", seed=args.seed + 8)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    ds.begin_pass(round_to=512)
+    with flags(enable_resident_feed=0):
+        model = DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
+                       generator=torch.Generator().manual_seed(args.seed + 8))
+        one = CTRTrainer(model, TrainStepConfig(num_slots=NUM_SLOTS, batch_size=BATCH, layout=lay,
+                                                sparse_opt=sparse_opt, auc_buckets=100_000),
+                         dense_opt=Adam(1e-3), device=dev)
+        one.init_params()
+        losses = []
+        one.train_pass(ds, n_batches=MESH_FEED_STEPS, on_batch=lambda i, m: losses.append(float(m["loss"])))
+    ref_keys, ref_rows = _mesh_key_rows(one, ds, MESH_FEED_STEPS)
+    del one, ds, table
+    torch.cuda.empty_cache()
+    return {"files": files, "ref": (losses, ref_keys, ref_rows)}
 
-        # both kernels at each world's owner shapes, timed here alone: the
-        # pull's gather of the received ids, the merge's old-row gather
-        # (one id a distinct row, then row 0) and its writeback (one id a
-        # distinct row, then R, which writes nothing)
-        owner = {}
-        for name, (ranks, _) in worlds.items():
-            R, W = int(ranks[0]["owner_R"]), lay.width
-            g = torch.Generator(device=dev).manual_seed(args.seed)
-            tab = torch.randn((R, W), device=dev, generator=g)
-            pristine = tab.clone()
-            flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
-            kres = {}
-            for pattern in ("pull", "merge_old", "merge_write"):
-                ids = torch.from_numpy(ranks[0][f"owner_{pattern}"]).to(dev)
-                U = ids.numel()
-                valid = ids[ids < R]
-                distinct = int(torch.unique(valid).numel())
-                what = f"mesh {_mesh_tag(**tag[name])} owner {pattern} ids U={U} ({distinct} distinct) R={R}"
-                if pattern == "merge_write":
-                    kname = "write_rows_cuda"
-                    new_rows = torch.randn((U, W), device=dev, generator=g)
-                    check_write(ck, tab, ids, new_rows, what)
-                    nv = valid.numel()
-                    fns = {"kernel": lambda: ck.write_rows_cuda(tab, ids, new_rows),
-                           "plain": lambda: ck.write_rows_ref(tab, *ck.drop_out_of_range(tab, ids, new_rows)),
-                           "library": lambda: tab.index_copy_(0, valid, new_rows[:nv])}
-                    restore = lambda: tab.copy_(pristine)
-                    moved = 2 * nv * W * 4 + U * ids.element_size()
-                else:
-                    kname = "pull_rows_cuda"
-                    check_gather(ck, tab, ids, what)
-                    fns = {"kernel": lambda: ck.pull_rows_cuda(tab, ids),
-                           "plain": lambda: ck.pull_rows_ref(tab, ids),
-                           "library": lambda: torch.index_select(tab, 0, ids)}
-                    restore = None
-                    moved = (U + distinct) * W * 4 + U * ids.element_size()
-                med, warm = time_fns(fns, flush, restore)
-                bound = moved / HBM_BYTES_PER_S * 1e3
-                row = {"pattern": pattern, "U": U, "distinct": distinct, "R": R, "ms": med["kernel"],
-                       "plain_ms": med["plain"], "library_ms": med["library"], "bound_ms": bound, "bytes": moved,
-                       "sector_floor_ms": sector_floor_ms(ids, R, W, kname == "write_rows_cuda"),
-                       "warm_l2_ms": warm["kernel"], "warm_l2_plain_ms": warm["plain"],
-                       "warm_l2_library_ms": warm["library"]}
-                kres.setdefault(kname, {})[pattern] = row
-                emit({"card": card, "kernel": kname, "path": f"mesh_{name}_owner", **tag[name], "W": W, **row,
-                      "bound_share": bound / med["kernel"], "reps": TIMING_REPS, "l2": "cold"})
-            owner[name] = kres
+
+def mesh_report(args, dev, card, ck, lay, worlds, prep):
+    """Phase 12's checks across each world's ranks and against the
+    one-device reference, its lines, and both kernels at each world's
+    owner shape. Returns (launch counts by path, owner numbers, max abs
+    error)."""
+    t_phase = time.perf_counter()
+    ref_losses, ref_keys, ref_rows = prep["ref"]
+    counts, tag = {}, MESH_TAGS
+    for name, (ranks, wall) in worlds.items():
+        world = len(ranks)
+        r0 = ranks[0]
+        if len({r["host_digest"] for r in ranks}) != 1:
+            raise AssertionError(f"mesh {_mesh_tag(**tag[name])}: the ranks' host tables differ after end_pass")
+        for r in ranks:
+            if r["four_losses"] != r0["four_losses"]:
+                raise AssertionError(f"mesh {_mesh_tag(**tag[name])}: the ranks' losses differ")
+        rows = np.concatenate([r["four_rows"] for r in ranks])
+        keys = np.concatenate([r["four_keys"] for r in ranks])
+        keys, first = np.unique(keys, return_index=True)
+        tab_d, loss_d = _mesh_compare(f"mesh {_mesh_tag(**tag[name])} vs one device", r0["four_losses"], rows[first], keys,
+                                      ref_losses, ref_keys, ref_rows)
+        if name == "nccl" and r0["superstep_host_syncs"] != 0:
+            raise AssertionError(f"mesh nccl: a resident superstep made {r0['superstep_host_syncs']} host syncs: "
+                                 f"{r0['superstep_sync_sites']}")
+        counts[f"mesh_{name}"] = {k: sum(r["counts"][p][k] for r in ranks for p in r["counts"])
+                                  for k in ("pull_rows_cuda", "write_rows_cuda")}
+        step_ms = r0["resident_wall_s"] / MESH_TIMED * 1e3
+        emit({
+            "card": card, "phase": "mesh", **tag[name], "world": world, "spawn_wall_s": wall,
+            "samples_per_s_all": BATCH * MESH_TIMED / max(r["resident_wall_s"] for r in ranks),
+            "samples_per_s_rank": BATCH * MESH_TIMED / max(r["resident_wall_s"] for r in ranks) / world,
+            "ms_per_step": step_ms, "device_busy_ms_per_step_rank0": r0["busy_ms_per_step"],
+            "device_idle_share_rank0": 1.0 - r0["busy_ms_per_step"] / step_ms,
+            "resident_collective_host_ms_per_step": r0["resident_coll_s"] / MESH_TIMED * 1e3,
+            "resident_host_clock_ms_per_step_rank0": r0["resident_profile_ms"],
+            "packer_host_clock_ms_per_step_rank0": r0["packer_profile_ms"],
+            "pack_sharded_ms_per_global_batch": r0["pack_sharded_ms"],
+            "packer_collective_host_ms_per_step": r0["packer_coll_ms"],
+            "packer_samples_per_s_all": BATCH * MESH_PACKER / r0["packer_wall_s"],
+            "load_into_memory_s": r0["load_into_memory_s"], "begin_pass_s": r0["begin_pass_s"],
+            "prepare_pass_s": r0["prepare_pass_s"], "end_pass_s": r0["end_pass_s"],
+            "K": r0["K"], "cap": r0["cap"], "n_keys": r0["n_keys"],
+            "wire_bytes_per_step_rank0": r0["wire"],
+            "superstep_host_syncs": r0["superstep_host_syncs"], "superstep_sync_sites": r0["superstep_sync_sites"],
+            "superstep_collectives": r0["superstep_collectives"],
+            "vs_one_device": {"table_max_abs": tab_d, "loss_max_rel": loss_d},
+            "zero_vs_step_params_max_abs": max(r["zero_vs_step_params_max_abs"] for r in ranks),
+            "kstep_losses": r0["kstep_losses"], "zero_losses": r0["zero_losses"],
+            "kstep_timing_rank0": r0["kstep_timing"],
+            "launches": counts[f"mesh_{name}"], "host_digest": r0["host_digest"],
+        })
+        print(f"mesh {_mesh_tag(**tag[name])} world {world}: launches 2 gathers and 1 writeback a step on every rank, losses finite, feeds "
+              f"{', '.join(r0['feeds_bitwise'])} bitwise alike, the host tables of all ranks alike, within bounds "
+              f"of one device (table {tab_d:.3g}, loss rel {loss_d:.3g}); {card}", flush=True)
+    g_ranks, n_ranks = worlds["gloo"][0], worlds["nccl"][0]
+    gk = np.unique(np.concatenate([r["four_keys"] for r in g_ranks]), return_index=True)
+    nk = np.unique(np.concatenate([r["four_keys"] for r in n_ranks]), return_index=True)
+    _mesh_compare("mesh gloo vs nccl", g_ranks[0]["four_losses"],
+                  np.concatenate([r["four_rows"] for r in g_ranks])[gk[1]], gk[0],
+                  n_ranks[0]["four_losses"], nk[0], np.concatenate([r["four_rows"] for r in n_ranks])[nk[1]])
+    print(f"mesh {_mesh_tag(**tag['gloo'])}: the gloo world's 4 steps match the nccl world's within the mesh "
+          "bounds", flush=True)
+
+    # both kernels at each world's owner shapes, timed here alone
+    owner = {name: owner_kernel_rows(args, dev, card, ck, lay, ranks[0], f"mesh_{name}_owner", tag[name])
+             for name, (ranks, _) in worlds.items()}
     err = max(r["kernel_err"] for ranks, _ in worlds.values() for r in ranks)
-    nums["phase_s"] = time.perf_counter() - t_phase
-    print(f"phase 12 (mesh) in {nums['phase_s']:.3f} s; {card}", flush=True)
+    print(f"phase 12 (mesh): its checks and kernel timings in {time.perf_counter() - t_phase:.3f} s, its ranks in "
+          f"the worlds' spawns (spawn_wall_s); {card}", flush=True)
+    return counts, owner, err
+
+
+# ---- 13. the join day, the trainer's options and the carried boundary on the mesh
+
+MESH_JOIN_SEED = 9  # the pv data's seed offset (phase 10 took 6, phase 12 8)
+MESH_BOUNDARY_FILES = 2  # bench.py's data a pass, the second reusing the first's keys
+MESH_BOUNDARY_STEPS = 8
+MESH_OPTION_STEPS = 4  # async twins and the dump
+
+
+def _digest(*arrays) -> str:
+    h = hashlib.blake2b(digest_size=16)
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def _registry_digest(reg) -> str:
+    """The bucket tables of every metric of a registry, hashed."""
+    return _digest(*[t.cpu().numpy() for name in reg.names() for t in (reg[name].state.pos, reg[name].state.neg)])
+
+
+def _host_digest(table) -> str:
+    keys = np.sort(table.keys())
+    return _digest(keys, table.pull_or_create(keys))
+
+
+def _pv_sample_keys(store, idx):
+    """Every MESH_KEY_STRIDE-th unique key of the records ``idx``."""
+    from paddlebox_tpu_torch.data.record_store import _ragged_indices
+
+    counts = store.key_counts()
+    return np.unique(store.u64_values[_ragged_indices(store.u64_base[idx], counts[idx])])[::MESH_KEY_STRIDE]
+
+
+def globalize_pv_plan(plan):
+    """A PvPlan blocked for ``plan.n_devices`` devices as one device's: the
+    same global batches, each block's peer rows moved by its offset, so one
+    device trains what the mesh trains."""
+    from paddlebox_tpu_torch.data.pv_instance import PvPlan
+
+    n_b, B = plan.idx.shape
+    b = B // plan.n_devices
+    ro = plan.rank_offset.copy()
+    off = (np.arange(B) // b * b).astype(np.int32)[None, :, None]
+    peers = ro[:, :, 2::2]
+    ro[:, :, 2::2] = np.where(peers >= 0, peers + off, peers)
+    return PvPlan(idx=plan.idx, rank_offset=ro, ins_weight=plan.ins_weight, n_devices=1)
+
+
+def _join_model(seed, lay):
+    from paddlebox_tpu_torch.models import DeepFM, RankDeepFM
+
+    g = torch.Generator().manual_seed(seed)
+    return RankDeepFM(DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN, generator=g),
+                      NUM_SLOTS * lay.pull_width, max_rank=MAX_RANK, generator=g)
+
+
+def mesh_join_rank(plan, spec):
+    """Phase 13 on one rank of a world: bench.py's join/update day on the
+    mesh (a registry, the eval epoch, the three join feeds, the host syncs
+    of a pv superstep), async dense and a dump on the update phase's pass,
+    the classic end_pass, then two passes carried and two classic. Writes
+    what a rank cannot check alone to ``spec["out"]``."""
+    import dataclasses
+    from collections import defaultdict
+
+    from paddlebox_tpu_torch.data import BoxPSDataset
+    from paddlebox_tpu_torch.models import DeepFM
+    from paddlebox_tpu_torch.ops import cuda_kernels as ck
+    from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig, ValueLayout
+    from paddlebox_tpu_torch.train import Adam, AsyncDenseTable, CTRTrainer, TrainStepConfig
+    from paddlebox_tpu_torch.utils.dump import DumpWorkerPool
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n, r, dev = plan.world, plan.rank, plan.device
+    tag = _mesh_tag(plan.backend, spec["ranks_per_card"])
+    lay = ValueLayout(embedx_dim=EMBEDX_DIM)
+    sparse_opt = SparseOptimizerConfig(embedx_threshold=0.0, shrink_threshold=0.0)
+    kw = dict(num_slots=NUM_SLOTS, batch_size=BATCH // n, layout=lay, sparse_opt=sparse_opt, auc_buckets=100_000)
+    join_cfg, upd_cfg = TrainStepConfig(**kw, model_takes_rank_offset=True), TrainStepConfig(**kw)
+    res = {"rank": r, "world": n, "backend": plan.backend}
+    arrays = {}
+    sections, t_sec = {}, [time.perf_counter()]
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def section(name):
+        """Wall seconds since the previous section ended, under ``name``."""
+        now = time.perf_counter()
+        sections[name] = now - t_sec[0]
+        t_sec[0] = now
+
+    def fail(msg):
+        raise AssertionError(f"mesh join {tag} rank {r}: {msg}")
+
+    t0 = time.perf_counter()
+    table = HostSparseTable(lay, sparse_opt, n_shards=64, seed=spec["seed"])
+    ds = BoxPSDataset(pv_schema(), table, batch_size=BATCH, shuffle_mode="local", seed=spec["seed"],
+                      n_mesh_shards=n)
+    ds.set_filelist(spec["pv_files"])
+    ds.load_into_memory()
+    ds.begin_pass(round_to=512)
+    ds.set_current_phase(1)
+    n_pvs = ds.preprocess_instance(max_rank=MAX_RANK)
+    pvp = ds.pv_plan(n)
+    n_rec, n_b = ds.memory_data_size(), pvp.n_batches
+    res.update(setup_s=time.perf_counter() - t0, records=n_rec, pvs=n_pvs, pv_batches=n_b, keys=ds.ws.n_keys)
+    section("setup")
+
+    def join_trainer(registry=None, share=None):
+        """A join trainer from the seed's weights; with ``share`` it takes
+        that trainer's resident pass and pv plan on the card (no second
+        upload)."""
+        t = CTRTrainer(_join_model(spec["seed"], lay), join_cfg, dense_opt=Adam(1e-3), plan=plan,
+                       metric_registry=registry)
+        t.init_params()
+        if share is not None:
+            t._resident_cache, t._pv_feed_cache = share._resident_cache, share._pv_feed_cache
+        return t
+
+    # ---- the main path: prepare, a warm-up epoch, two timed epochs and an
+    # eval epoch with a registry, launch counts from 0
+    reg = join_registry(dev)
+    jtr = join_trainer(reg)
+    sync()
+    ck.reset_launch_counts()
+    jtr.prepare_pass(ds)
+    outs, feeds = [], []
+    t0 = time.perf_counter()
+    outs.append(jtr.train_pass(ds))
+    feeds.append(jtr.last_feed)
+    sync()
+    t1 = time.perf_counter()
+    for _ in range(JOIN_TIMED_EPOCHS):
+        outs.append(jtr.train_pass(ds))
+        feeds.append(jtr.last_feed)
+    sync()
+    t2 = time.perf_counter()
+    trained = device_state(jtr)
+    jtr.set_test_mode(True)
+    outs.append(jtr.train_pass(ds))
+    feeds.append(jtr.last_feed)
+    jtr.set_test_mode(False)
+    sync()
+    counts = {"join": dict(ck.launch_counts)}
+    if feeds != ["resident_pv"] * len(feeds):
+        fail(f"the join epochs took the feeds {feeds}")
+    for i, o in enumerate(outs):
+        if o["batches"] != n_b or o["ins_num"] != n_rec or not np.isfinite(o["loss"]):
+            fail(f"join epoch {i}: {o['batches']} batches (want {n_b}), ins_num {o['ins_num']} (want {n_rec}), "
+                 f"loss {o['loss']}")
+    n_train = (1 + JOIN_TIMED_EPOCHS) * n_b
+    want = {"pull_rows_cuda": 2 * n_train + n_b, "write_rows_cuda": n_train}
+    if counts["join"] != want:
+        fail(f"launches {counts['join']}, want {want}")
+    if not same_device_state(device_state(jtr), trained):
+        fail("the eval epoch changed the table shard, params or Adam state")
+    if counted(reg, "join_auc") != 4 * n_rec or counted(reg, "update_auc") != 0:
+        fail(f"registry after the join phase: join {counted(reg, 'join_auc')} (want 4 x {n_rec}), "
+             f"update {counted(reg, 'update_auc')}")
+    res.update(join_prepare_s=jtr.last_prepare_s, join_warm_up_s=t1 - t0, join_train_s=t2 - t1,
+               join_losses=[o["loss"] for o in outs], join_registry_digest=_registry_digest(reg),
+               join_line=reg.get_metric_msg("join_auc"))
+    section("join_epochs")
+
+    # the host syncs of one resident pv superstep through the trainer's
+    # stepper and registry feed (the registry all-gathers each batch)
+    holder = {"state": jtr._state}
+
+    def superstep():
+        losses: list = []
+        for i, m, aux in jtr._resident_stepper(ds, RESIDENT_K, holder, False, False, defaultdict(float), True):
+            jtr._consume_batch(i, m, aux, ds, None, losses, [])
+        if len(losses) != RESIDENT_K or not aux:
+            fail("the probed superstep fed no registry inputs")
+
+    plan.reset_calls()
+    (n_syncs, sites), n_thread = _stderr_syncs(lambda: host_syncs(superstep))
+    jtr._state = holder["state"]
+    res.update(pv_superstep_host_syncs=n_syncs + n_thread, pv_superstep_sync_sites=sites,
+               pv_superstep_collectives=dict(plan.calls))
+    res["join_busy_ms_per_step"] = busy_ms_per_step(lambda: jtr.train_pass(ds, n_batches=RESIDENT_K), RESIDENT_K)
+    section("join_probes")
+
+    # ---- the three join feeds over 4 steps from one state, and a twin
+    def four(flag_kw, data, want_feed):
+        with flags(**flag_kw):
+            t = join_trainer(share=jtr)
+            losses = []
+            t.train_pass(data, n_batches=JOIN_FEED_STEPS, on_batch=lambda i, m: losses.append(m["loss"]))
+            if t.last_feed != want_feed:
+                fail(f"took the {t.last_feed} feed, not {want_feed}")
+            return t, (*device_state(t), torch.stack(losses))
+
+    view = copy.copy(ds)
+    view.records = ds.records  # a pass held as SlotRecords: the record-level feed
+    ref_tr, ref = four(dict(resident_scan_batches=JOIN_FEED_STEPS), ds, "resident_pv")
+    packer_tr, packed = four(dict(enable_resident_feed=0), ds, "pv_packer")
+    runs = {"pv packer": packed, "pv records": four({}, view, "pv_records")[1],
+            "resident twin": four(dict(resident_scan_batches=JOIN_FEED_STEPS), ds, "resident_pv")[1]}
+    del view
+    for name, got in runs.items():
+        if not (same_device_state(got[:4], ref[:4]) and torch.equal(got[4], ref[4])):
+            fail(f"{JOIN_FEED_STEPS} join steps through {name} differ from the resident pv feed")
+    keys = _pv_sample_keys(ds.store, pvp.idx[:JOIN_FEED_STEPS].reshape(-1))
+    full = ref_tr.trained_table()
+    arrays["four_keys"] = keys
+    arrays["four_rows"] = full.reshape(-1, full.shape[-1])[ds.ws.row_of_sorted[np.searchsorted(ds.ws.sorted_keys, keys)]]
+    res.update(four_losses=ref[4].cpu().tolist(), feeds_bitwise=["resident pv"] + list(runs))
+    del ref_tr, runs, full
+
+    # the owner's ids of the first join batch (the pv packer's frozen K),
+    # and both kernels bitwise there
+    db = packer_tr._packer_cache[2].pack_sharded(pvp.idx[0], n)
+    del packer_tr
+    shard = jtr.trained_table_device()
+    recv = torch.from_numpy(np.ascontiguousarray(db.req_ranks[:, r, :].reshape(-1))).to(dev)
+    uniq = torch.unique(recv)
+    tail = recv.numel() - uniq.numel()
+    owner = {"pull": recv, "merge_old": torch.cat([uniq, torch.zeros(tail, dtype=uniq.dtype, device=dev)]),
+             "merge_write": torch.cat([uniq.long(), torch.full((tail,), shard.shape[0], dtype=torch.long,
+                                                              device=dev)])}
+    what = f"mesh join {tag} rank {r} owner R={shard.shape[0]} U={recv.numel()} ({uniq.numel()} distinct)"
+    res["kernel_err"] = max(
+        check_gather(ck, shard, owner["pull"], what + " pull ids"),
+        check_gather(ck, shard, owner["merge_old"], what + " merge old-row ids"),
+        check_write(ck, shard.clone(), owner["merge_write"], ck.pull_rows_ref(shard, owner["merge_old"]) + 0.5,
+                    what + " merge writeback ids"))
+    res["owner_R"] = shard.shape[0]
+    arrays.update({f"owner_{k}": v.cpu().numpy() for k, v in owner.items()})
+
+    section("feeds_and_owner")
+
+    # ---- the update phase on the flat resident feed
+    jtr.handoff_table(ds)
+    ds.postprocess_instance()
+    ds.set_current_phase(0)
+    utr = CTRTrainer(jtr.model, upd_cfg, dense_opt=Adam(1e-3), plan=plan, metric_registry=reg)
+    utr.params = {k: v.clone() for k, v in jtr.params.items()}
+    utr.opt_state = utr.dense_opt.init(utr.params)
+    utr.prepare_pass(ds)
+    n_u = ds.num_batches()
+    sync()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    uout = utr.train_pass(ds)
+    sync()
+    res["update_s"] = time.perf_counter() - t0
+    counts["update"] = dict(ck.launch_counts)
+    if utr.last_feed != "resident" or uout["batches"] != n_u or not np.isfinite(uout["loss"]):
+        fail(f"update: feed {utr.last_feed}, {uout['batches']} batches (want {n_u}), loss {uout['loss']}")
+    if counts["update"] != {"pull_rows_cuda": 2 * n_u, "write_rows_cuda": n_u}:
+        fail(f"update launches {counts['update']} for {n_u} steps")
+    if counted(reg, "update_auc") != BATCH * n_u:
+        fail(f"the update metric counted {counted(reg, 'update_auc')}, want {BATCH * n_u}")
+    res.update(update_batches=n_u, update_loss=uout["loss"], update_registry_digest=_registry_digest(reg))
+
+    section("update")
+
+    # ---- async dense on the update phase's pass: rank 0 holds the table,
+    # waits for each update; twice, from one state
+    def async_run():
+        model = DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
+                       generator=torch.Generator().manual_seed(spec["seed"]))
+        adt = AsyncDenseTable(model.state_dict(), base_lr=1e-3, merge_limit=1) if r == 0 else None
+        t = CTRTrainer(model, dataclasses.replace(upd_cfg, dense_sync_mode="async"), dense_opt=Adam(1e-3),
+                       plan=plan, async_dense=adt)
+        t.init_params()
+        seen, pull = [], t._async_params
+
+        def recorded(like):
+            out = pull(like)
+            seen.append(_digest(*[out[k].cpu().numpy() for k in sorted(out)]))
+            return out
+
+        t._async_params = recorded
+        losses = []
+
+        def on_batch(i, m):
+            losses.append(m["loss"])
+            if adt is not None and not adt.wait_for_updates(i + 1, timeout=60.0):
+                fail(f"async update {i + 1} never applied")
+
+        t.train_pass(ds, n_batches=MESH_OPTION_STEPS, on_batch=on_batch)
+        if t.last_feed != "packer":
+            fail(f"async took the {t.last_feed} feed")
+        if adt is not None:
+            adt.finalize()
+        return seen, (t.trained_table_device().clone(), {k: v.clone() for k, v in t.params.items()},
+                      torch.stack(losses))
+
+    sync()
+    ck.reset_launch_counts()
+    seen, a1 = async_run()
+    sync()
+    counts["async"] = dict(ck.launch_counts)
+    seen2, a2 = async_run()
+    if not (torch.equal(a1[0], a2[0]) and all(torch.equal(a1[1][k], a2[1][k]) for k in a1[1])
+            and torch.equal(a1[2], a2[2]) and seen == seen2):
+        fail("two deterministic async runs differ")
+    res.update(async_params_seen=seen, async_losses=a1[2].cpu().tolist())
+
+    section("async")
+
+    # ---- a dump: rank 0 writes every line once
+    droot = os.path.join(spec["out"], f"dump-rank{r}")
+    pool = DumpWorkerPool(droot, n_threads=1)
+    dtr = CTRTrainer(jtr.model, upd_cfg, dense_opt=Adam(1e-3), plan=plan, dump_pool=pool)
+    dtr.params = {k: v.clone() for k, v in jtr.params.items()}
+    dtr.opt_state = dtr.dense_opt.init(dtr.params)
+    dtr._resident_cache = utr._resident_cache
+    sync()
+    ck.reset_launch_counts()
+    dtr.train_pass(ds, n_batches=MESH_OPTION_STEPS)
+    sync()
+    counts["dump"] = dict(ck.launch_counts)
+    pool.finalize()
+    lines = 0
+    for name in os.listdir(droot) if os.path.isdir(droot) else []:
+        with open(os.path.join(droot, name)) as f:
+            lines += sum(1 for ln in f if ln.strip())
+    res["dump_lines"] = lines
+
+    t0 = time.perf_counter()
+    ds.end_pass(utr.trained_table())
+    res.update(end_pass_s=time.perf_counter() - t0, host_digest=_host_digest(table))
+    del jtr, utr, dtr, ds, reg
+
+    section("dump_and_end_pass")
+
+    # ---- two passes carried and two classic on bench.py's flat data
+    boundary = {}
+    for mode in ("classic", "carried"):
+        btable = HostSparseTable(lay, sparse_opt, n_shards=64, seed=spec["seed"])
+        bds = BoxPSDataset(bench_schema(), btable, batch_size=BATCH, shuffle_mode="local", seed=spec["seed"],
+                           n_mesh_shards=n)
+        model = DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
+                       generator=torch.Generator().manual_seed(spec["seed"]))
+        btr = CTRTrainer(model, upd_cfg, dense_opt=Adam(1e-3), plan=plan)
+        btr.init_params()
+        out = {"losses": []}
+        with flags(enable_carried_table=1, carried_eager_flush=0, wire_dtype="fp32"):
+            for i, files in enumerate(spec["boundary_files"]):
+                bds.set_filelist(files)
+                bds.load_into_memory()
+                sync()
+                t0 = time.perf_counter()
+                dev_table = bds.begin_pass(round_to=512)
+                sync()
+                if i == 1:  # the boundary: end_pass, then this splice or upload
+                    own = dev_table if isinstance(dev_table, torch.Tensor) else torch.from_numpy(dev_table[r])
+                    out.update(spliced=isinstance(dev_table, torch.Tensor), begin2_s=time.perf_counter() - t0,
+                               pass2_table=_digest(own.reshape(-1, lay.width).cpu().numpy()))
+                    c = dict(ck.launch_counts)
+                btr.prepare_pass(bds, MESH_BOUNDARY_STEPS)
+                losses = []
+                btr.train_pass(bds, n_batches=MESH_BOUNDARY_STEPS, on_batch=lambda i, m: losses.append(m["loss"]))
+                out["losses"] += torch.stack(losses).cpu().tolist()
+                sync()
+                ck.reset_launch_counts()
+                t0 = time.perf_counter()
+                bds.end_pass(btr.trained_table_device() if mode == "carried" else btr.trained_table())
+                out[f"end_pass{i + 1}_s"] = time.perf_counter() - t0
+            bds.flush_carried()
+            sync()
+            if mode == "carried":  # the first boundary's splice and the last one's drain
+                counts["boundary"] = {k: c[k] + v for k, v in ck.launch_counts.items()}
+        out["boundary_s"] = out["end_pass1_s"] + out["begin2_s"]
+        out["host"] = _host_digest(btable)
+        boundary[mode] = out
+        del btr, bds, btable
+    c, k = boundary["carried"], boundary["classic"]
+    if not c["spliced"] or k["spliced"]:
+        fail("the carried run did not splice, or the classic one did")
+    for key in ("pass2_table", "losses", "host"):
+        if c[key] != k[key]:
+            fail(f"carried vs classic: {key} differs")
+    res["boundary"] = boundary
+    section("boundary")
+    res["sections_s"] = sections
+    res["counts"] = counts
+    np.savez(os.path.join(spec["out"], f"rank{r}.npz"), **arrays)
+    with open(os.path.join(spec["out"], f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def mesh_join_reference(args, lay, files, worlds, dev):
+    """The one-device join trajectory of JOIN_FEED_STEPS steps a world
+    size: the world's pv plan globalized, on the resident pv feed from the
+    same weights. Returns {world: (losses, sampled keys, their rows)}."""
+    from paddlebox_tpu_torch.data import BoxPSDataset
+    from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig
+    from paddlebox_tpu_torch.train import Adam, CTRTrainer, TrainStepConfig
+
+    sparse_opt = SparseOptimizerConfig(embedx_threshold=0.0, shrink_threshold=0.0)
+    table = HostSparseTable(lay, sparse_opt, n_shards=64, seed=args.seed + MESH_JOIN_SEED)
+    ds = BoxPSDataset(pv_schema(), table, batch_size=BATCH, shuffle_mode="local", seed=args.seed + MESH_JOIN_SEED)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    ds.begin_pass(round_to=512)
+    ds.set_current_phase(1)
+    ds.preprocess_instance(max_rank=MAX_RANK)
+    cfg = TrainStepConfig(num_slots=NUM_SLOTS, batch_size=BATCH, layout=lay, sparse_opt=sparse_opt,
+                          auc_buckets=100_000, model_takes_rank_offset=True)
+    out = {}
+    for w in worlds:
+        gplan = globalize_pv_plan(ds.pv_plan(w))
+        ds._pv_plan_cache = (ds.pvs, {(1, 0): gplan})
+        tr = CTRTrainer(_join_model(args.seed + MESH_JOIN_SEED, lay), cfg, dense_opt=Adam(1e-3), device=dev)
+        tr.init_params()
+        losses = []
+        with flags(resident_scan_batches=JOIN_FEED_STEPS):
+            tr.train_pass(ds, n_batches=JOIN_FEED_STEPS, on_batch=lambda i, m: losses.append(float(m["loss"])))
+        if tr.last_feed != "resident_pv":
+            raise AssertionError(f"the one-device reference took the {tr.last_feed} feed")
+        keys = _pv_sample_keys(ds.store, gplan.idx[:JOIN_FEED_STEPS].reshape(-1))
+        full = tr.trained_table()
+        out[w] = (losses, keys, full.reshape(-1, full.shape[-1])[ds.ws.row_of_sorted[np.searchsorted(
+            ds.ws.sorted_keys, keys)]])
+        del tr
+    return out
+
+
+def mesh_join_prepare(args, dev, lay, tmp):
+    """Phase 13's data (bench.py's pv data from ``--seed + 9`` and two
+    passes of its flat data) and the one-device references for both
+    world sizes."""
+    rng = np.random.default_rng(args.seed + MESH_JOIN_SEED)
+    pv_files, _ = write_bench_files(tmp, rng, N_FILES, "pv", pv=True)
+    b1, pool = write_bench_files(tmp, rng, MESH_BOUNDARY_FILES, "b1")
+    b2, _ = write_bench_files(tmp, rng, MESH_BOUNDARY_FILES, "b2", reuse_pool=pool)
+    sizes = sorted({min(torch.cuda.device_count(), MESH_NCCL_MAX), MESH_GLOO_RANKS})
+    t0 = time.perf_counter()
+    refs = mesh_join_reference(args, lay, pv_files, sizes, dev)
+    torch.cuda.empty_cache()
+    return {"pv_files": pv_files, "boundary_files": [b1, b2], "refs": refs, "ref_s": time.perf_counter() - t0}
+
+
+def mesh_join_report(args, dev, card, ck, lay, worlds, prep):
+    """Phase 13's checks across each world's ranks and against one device,
+    its lines, and both kernels at each world's join owner shape. Returns
+    (launch counts by path, owner numbers, max abs error)."""
+    t_phase = time.perf_counter()
+    counts, owner, refs = {}, {}, prep["refs"]
+    tags = MESH_TAGS
+    for name, (ranks, wall) in worlds.items():
+        world, r0, tag = len(ranks), ranks[0], _mesh_tag(**tags[name])
+        for key in ("host_digest", "join_registry_digest", "update_registry_digest", "four_losses",
+                    "join_losses", "async_params_seen", "async_losses"):
+            if any(r[key] != r0[key] for r in ranks):
+                raise AssertionError(f"mesh join {tag}: the ranks' {key} differ")
+        for key in ("host", "losses"):  # pass2_table is each rank's own shard
+            if any(r["boundary"][m][key] != r0["boundary"][m][key] for r in ranks for m in ("carried", "classic")):
+                raise AssertionError(f"mesh boundary {tag}: the ranks' {key} differ")
+        if r0["dump_lines"] != MESH_OPTION_STEPS * BATCH or any(r["dump_lines"] for r in ranks[1:]):
+            raise AssertionError(f"mesh dump {tag}: lines {[r['dump_lines'] for r in ranks]}, want "
+                                 f"{MESH_OPTION_STEPS * BATCH} on rank 0 alone")
+        if name == "nccl" and r0["pv_superstep_host_syncs"] != 0:
+            raise AssertionError(f"mesh join nccl: a resident pv superstep made {r0['pv_superstep_host_syncs']} "
+                                 f"host syncs: {r0['pv_superstep_sync_sites']}")
+        losses, keys, rows = refs[world]
+        rows_all = np.concatenate([r["four_rows"] for r in ranks])
+        keys_all, first = np.unique(np.concatenate([r["four_keys"] for r in ranks]), return_index=True)
+        tab_d, loss_d = _mesh_compare(f"mesh join {tag} vs one device", r0["four_losses"], rows_all[first],
+                                      keys_all, losses, keys, rows)
+        for path in ("join", "update"):
+            counts[f"mesh_{path}_{name}"] = {k: sum(r["counts"][path][k] for r in ranks)
+                                             for k in ("pull_rows_cuda", "write_rows_cuda")}
+        for path in ("boundary", "async", "dump"):
+            c = counts.setdefault(f"mesh_{path}", {"pull_rows_cuda": 0, "write_rows_cuda": 0})
+            for k in c:
+                c[k] += sum(r["counts"][path][k] for r in ranks)
+        n_train = (1 + JOIN_TIMED_EPOCHS) * r0["pv_batches"]
+        train_s = max(r["join_train_s"] for r in ranks)
+        step_ms = train_s / (JOIN_TIMED_EPOCHS * r0["pv_batches"]) * 1e3
+        b = {m: [r["boundary"][m] for r in ranks] for m in ("carried", "classic")}
+        emit({
+            "card": card, "phase": "mesh_join", **tags[name], "world": world, "spawn_wall_s": wall,
+            "records": r0["records"], "pvs": r0["pvs"], "pv_batches_per_epoch": r0["pv_batches"],
+            "keys": r0["keys"], "setup_s_rank0": r0["setup_s"], "prepare_pass_s_rank0": r0["join_prepare_s"],
+            "join_samples_per_s_all": JOIN_TIMED_EPOCHS * r0["records"] / train_s,
+            "join_samples_per_s_rank": JOIN_TIMED_EPOCHS * r0["records"] / train_s / world,
+            "join_ms_per_step": step_ms, "join_device_busy_ms_per_step_rank0": r0["join_busy_ms_per_step"],
+            "join_warm_up_epoch_s_rank0": r0["join_warm_up_s"],
+            "join_device_idle_share_rank0": 1.0 - r0["join_busy_ms_per_step"] / step_ms,
+            "update_samples_per_s_all": BATCH * r0["update_batches"] / max(r["update_s"] for r in ranks),
+            "update_ms_per_step": max(r["update_s"] for r in ranks) / r0["update_batches"] * 1e3,
+            "pv_superstep_host_syncs": r0["pv_superstep_host_syncs"],
+            "pv_superstep_sync_sites": r0["pv_superstep_sync_sites"],
+            "pv_superstep_collectives": r0["pv_superstep_collectives"],
+            "feeds_bitwise": r0["feeds_bitwise"], "vs_one_device": {"table_max_abs": tab_d, "loss_max_rel": loss_d},
+            "join_losses": r0["join_losses"], "registry_join_line": r0["join_line"],
+            "end_pass_s_rank0": r0["end_pass_s"], "dump_lines_rank0": r0["dump_lines"],
+            "boundary_s_by_rank": {m: [x["boundary_s"] for x in v] for m, v in b.items()},
+            "boundary_begin2_s_by_rank": {m: [x["begin2_s"] for x in v] for m, v in b.items()},
+            "boundary_end_pass1_s_by_rank": {m: [x["end_pass1_s"] for x in v] for m, v in b.items()},
+            "launches": {p: counts.get(f"mesh_{p}_{name}") for p in ("join", "update")},
+            "sections_s_rank0": r0["sections_s"],
+            "join_launch_rule": {"train_steps_a_rank": n_train, "eval_steps_a_rank": r0["pv_batches"]},
+        })
+        print(f"mesh join {tag} world {world}: {r0['pvs']} pvs, {r0['pv_batches']} pv batches an epoch; "
+              f"launches 2 gathers + 1 writeback a training step and 1 gather an eval step on every rank; "
+              f"the eval epoch left the state bitwise; ins_num = memory_data_size() = {r0['records']} every "
+              f"epoch, the join metric 4 x that; every rank's registry, losses and host table alike; feeds "
+              f"{', '.join(r0['feeds_bitwise'])} bitwise; within bounds of one device (table {tab_d:.3g}, loss "
+              f"rel {loss_d:.3g}); async twins bitwise and the ranks' params alike every step; the dump's "
+              f"{r0['dump_lines']} lines on rank 0 alone; carried vs classic bitwise (pass-2 table, losses, "
+              f"drained host tables), every rank's host table alike; {card}", flush=True)
+    for name, (ranks, _) in worlds.items():
+        owner[name] = owner_kernel_rows(args, dev, card, ck, lay, ranks[0], f"mesh_join_{name}_owner", tags[name])
+    err = max(r["kernel_err"] for ranks, _ in worlds.values() for r in ranks)
+    emit({"card": card, "phase": "mesh_join", "report_s": time.perf_counter() - t_phase,
+          "one_device_reference_s": prep["ref_s"]})
+    print(f"phase 13 (mesh join, options, boundary): its checks and kernel timings in "
+          f"{time.perf_counter() - t_phase:.3f} s, its ranks in the worlds' spawns; {card}", flush=True)
     return counts, owner, err
 
 

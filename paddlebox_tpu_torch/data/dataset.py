@@ -62,10 +62,20 @@ table, its working set (``PassWorkingSet(n_mesh_shards)``, rows laid out
 :meth:`BoxPSDataset.replica_digest` hashes the pass's keys and its record
 order; the mesh trainer all-gathers it before a pass's first step and
 raises on a rank that differs (a drifted replica would route wrongly or
-deadlock the collectives).
+deadlock the collectives). That first pass binds the dataset to the
+trainer's plan (``mesh_plan``): ``end_pass`` then takes a rank's shard
+(``trainer.trained_table_device()``) and carries it (``table/carrier.py``:
+the departing rows of every shard reach every rank's host table, so the
+replicas stay bitwise alike and bitwise what the classic boundary gives
+once drained); with ``need_save_delta``, a guard or a kicked writeback the
+shard is all-gathered and written back the classic way. A mesh carrier's
+flush is a collective: its eager flush runs on the calling thread, right
+after the splice, and before a save every rank calls
+:meth:`BoxPSDataset.flush_carried` (a save that reaches a pending mesh
+carrier raises rather than wait for ranks that never join).
 
 Not ported: quarantine, pipe converters, global shuffles across nodes, the
-multi-host working set and carrier, the transport (``num_pv_batches``
+multi-host working set and carrier (ROADMAP Queue 5), the transport (``num_pv_batches``
 counts the local pvs) and trace events.
 """
 
@@ -118,7 +128,10 @@ config.define_flag(
     0,
     "after the carried-table splice, flush the carrier to the host store "
     "on a background thread (a full-table fetch beside the next pass): "
-    "frees the device memory the lazy default holds for a whole pass",
+    "frees the device memory the lazy default holds for a whole pass. On a "
+    "single-host mesh the flush is a collective, so it runs inside "
+    "begin_pass on the calling thread instead (all-gathers of every shard's "
+    "carried rows and a host push: about a classic boundary's writeback)",
 )
 config.define_flag(
     "boundary_pipeline",
@@ -221,7 +234,8 @@ class BoxPSDataset:
     ):
         if shuffle_mode not in _SHUFFLE_MODES:
             raise NotImplementedError(
-                f"shuffle_mode {shuffle_mode!r}: only {_SHUFFLE_MODES} are ported"
+                f"shuffle_mode {shuffle_mode!r}: only {_SHUFFLE_MODES} are ported (global "
+                "shuffles across nodes: ROADMAP Queue 5)"
             )
         self.schema = schema
         self.table = table
@@ -230,6 +244,8 @@ class BoxPSDataset:
         self.shuffle_mode = shuffle_mode
         self.seed = seed
         self.n_mesh_shards = n_mesh_shards  # the mesh's world size; 1 = one device
+        # the mesh plan a mesh trainer bound at its first pass (None: one device)
+        self.mesh_plan = None
 
         self.date: Optional[str] = None
         self.pass_id = 0
@@ -646,15 +662,18 @@ class BoxPSDataset:
         if self.ws is None:
             raise RuntimeError("load_into_memory first")
         if enable_revert:
-            # the snapshot reads host rows: carried values land first
-            self.table.drain_pending()
+            # the snapshot reads host rows: carried values land first (every
+            # rank makes this call alike, so a mesh carrier may flush)
+            self.table.drain_pending(collective=True)
         if not self.ws._finalized:
             carrier = self._carrier
             if carrier is not None and not carrier.flushed:
                 self.device_table = self.ws.finalize(
                     self.table, round_to=round_to, carrier=carrier, prefetch=prefetch
                 )
-                if config.get_flag("carried_eager_flush"):
+                if config.get_flag("carried_eager_flush") and carrier.plan is not None:
+                    self.table.drain_pending(collective=True)  # its collectives stay on this thread
+                elif config.get_flag("carried_eager_flush"):
                     self._eager_thread = threading.Thread(
                         target=self._eager_drain, name="carrier-flush", daemon=False
                     )
@@ -689,7 +708,7 @@ class BoxPSDataset:
             return
         ws, table = self.ws, self.table
         kick = _WritebackKick(ws)
-        to_host = _trained_to_host(trained_table, table.layout)
+        to_host = _trained_to_host(self._whole_table(trained_table), table.layout)
 
         def run_kick():
             t0 = time.perf_counter()
@@ -796,15 +815,7 @@ class BoxPSDataset:
         if need_save_delta and delta_dir is None:
             raise ValueError("need_save_delta requires delta_dir")
         ws, guard, table = self.ws, self._guard, self.table
-        if (
-            isinstance(trained_table, torch.Tensor)
-            and ws is not None
-            and trained_table.numel() != ws.n_mesh_shards * ws.capacity * table.layout.width
-        ):
-            raise NotImplementedError(
-                "a mesh rank's table shard cannot end the pass: the carried boundary on a "
-                "mesh is not ported yet (slice 10); pass trainer.trained_table()"
-            )
+        shard = self._is_shard(trained_table)
         # a kicked writeback of this working set is joined, not repeated
         kick = self._wb_kick
         if kick is not None and kick.ws is ws:
@@ -818,9 +829,12 @@ class BoxPSDataset:
             and config.get_flag("enable_carried_table")
             and guard is None
             and kick is None
+            # a mesh carrier flushes with collectives, which the worker's
+            # save_delta must not run: the shard goes back the classic way
+            and not (shard and need_save_delta)
         ):
             # the worker's decay_and_shrink notes the decay on the carrier
-            carrier = TableCarrier(trained_table, ws, table.layout)
+            carrier = TableCarrier(trained_table, ws, table.layout, plan=self.mesh_plan if shard else None)
             table.add_pending_carrier(carrier)
             # the previous boundary's carrier is superseded: its carried
             # keys live on in this one, its departures were pushed
@@ -829,7 +843,7 @@ class BoxPSDataset:
                 prev.supersede()
             self._carrier = carrier
         to_host = (
-            _trained_to_host(trained_table, table.layout)
+            _trained_to_host(self._whole_table(trained_table), table.layout)
             if trained_table is not None and carrier is None and kick is None
             else None
         )
@@ -903,6 +917,27 @@ class BoxPSDataset:
         self._end_pass_thread = threading.Thread(target=worker, name="end-pass", daemon=False)
         self._end_pass_thread.start()
 
+    def _is_shard(self, trained_table) -> bool:
+        """A mesh rank's shard [cap, width] of the open pass's table (raises
+        when no mesh trainer bound the dataset to its plan)."""
+        ws = self.ws
+        if not isinstance(trained_table, torch.Tensor) or ws is None or ws.n_mesh_shards == 1:
+            return False
+        if trained_table.numel() == ws.n_mesh_shards * ws.capacity * self.table.layout.width:
+            return False
+        if trained_table.numel() != ws.capacity * self.table.layout.width:
+            raise ValueError(f"a pass table of shape {tuple(trained_table.shape)} fits neither the mesh's table nor one shard")
+        if self.mesh_plan is None:
+            raise ValueError("a rank's table shard needs the dataset bound to the mesh plan (a mesh trainer's train_pass)")
+        return True
+
+    def _whole_table(self, trained_table):
+        """``trained_table``, with a mesh rank's shard all-gathered into
+        the whole [world, cap, width] table on this rank's device."""
+        if self._is_shard(trained_table):
+            return self.mesh_plan.all_gather(trained_table.reshape(self.ws.capacity, -1))
+        return trained_table
+
     def wait_end_pass(self) -> dict:
         """Join a pending end_pass_async; returns its result dict (the last
         one again if it was joined already; {} if none ran). Sets
@@ -936,6 +971,14 @@ class BoxPSDataset:
                 "and the next drain_pending retries them"
             ) from err
         return self._end_pass_result
+
+    def flush_carried(self) -> int:
+        """Flush the carriers the host table is owed, after joining a
+        pending end_pass; returns the keys written. On a mesh every rank
+        calls it alike on its main thread (each carrier's flush is a
+        collective); that is how a mesh rank drains before a save."""
+        self.wait_end_pass()
+        return self.table.drain_pending(collective=True)
 
     # ---- batch serving ---------------------------------------------------
 

@@ -25,8 +25,8 @@ prefetch threads start, so K is the same on every rank, whichever batch
 a thread finishes first, with no collective. With the adaptive mesh
 wire engaged each bucket is ordered hot rows first (the working set's
 ``hot_rows``); hot rows past the bucket's bf16 slots count under
-``wire.ici_hot_overflow_keys``. ``route_serve_requests`` (the device
-scoring tier) is not ported.
+``wire.ici_hot_overflow_keys``. :func:`route_serve_requests` buckets the
+device scoring tier's hit keys the same way (``serve/scoring_table.py``).
 """
 
 from __future__ import annotations
@@ -259,6 +259,44 @@ def _route_sharded(
         labels=labels,
         dense=dense,
     )
+
+
+def route_serve_requests(
+    owner: np.ndarray,
+    local_rank: np.ndarray,
+    n_devices: int,
+    bucket: int,
+    pad_rank: int,
+):
+    """Serve-tier hit keys -> static sharded-pull request buckets.
+
+    ``owner[i]`` is the shard holding hit key i, ``local_rank[i]`` its row
+    within that shard's block. Keys split round-robin over the
+    ``n_devices`` requesters (one request exercises every shard's card),
+    then bucket per owner shard as :func:`_route_sharded` does: K rounds to
+    ``bucket`` (a bounded family of shapes) and slot K-1 of every bucket is
+    padding (``pad_rank``, the tier's zero row).
+
+    Returns ``(req_ranks int32 [n_dev, n_dev, K], pos int64 [m], K)``:
+    ``pos[i]`` is key i's flat row in the pulled ``[n_dev, n_dev*K, width]``
+    output (requester-major, then bucket position s*K + j)."""
+    m = len(owner)
+    if m == 0:
+        K = bucket
+        req = np.full((n_devices, n_devices, K), pad_rank, dtype=np.int32)
+        return req, np.zeros(0, dtype=np.int64), K
+    dev = np.arange(m, dtype=np.int64) % n_devices
+    grp = dev * n_devices + owner
+    order = np.argsort(grp, kind="stable")
+    counts = np.bincount(grp, minlength=n_devices * n_devices)
+    K = max(_round_bucket(int(counts.max()) + 1, bucket), bucket)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    slot = np.arange(m, dtype=np.int64) - starts[grp[order]]
+    req = np.full((n_devices, n_devices, K), pad_rank, dtype=np.int32)
+    req[dev[order], owner[order], slot] = local_rank[order]
+    pos = np.empty(m, dtype=np.int64)
+    pos[order] = dev[order] * (n_devices * K) + owner[order] * K + slot
+    return req, pos, K
 
 
 def pack_batch_sharded(

@@ -17,7 +17,7 @@ from paddlebox_tpu_torch.parallel.mesh import (
     put_replicated,
     put_sharded,
 )
-from paddlebox_tpu_torch.parallel.sharded_pullpush import sharded_pull, sharded_push
+from paddlebox_tpu_torch.parallel.sharded_pullpush import sharded_pull, sharded_push, sharded_serve_pull
 
 __all__ = [
     "MeshPlan",
@@ -29,4 +29,5 @@ __all__ = [
     "put_sharded",
     "sharded_pull",
     "sharded_push",
+    "sharded_serve_pull",
 ]

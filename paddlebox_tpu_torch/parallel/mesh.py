@@ -12,7 +12,7 @@ keeps the JAX package's single-host semantics:
   holds ``table[r]``, and the sparse pull/push ride ``all_to_all``;
 - dense gradients are all-reduced over ``dp``.
 
-:class:`MeshPlan` owns the three collectives the port runs, and nothing
+:class:`MeshPlan` owns the four collectives the port runs, and nothing
 else in the port calls ``torch.distributed`` for data:
 
 - :meth:`MeshPlan.all_to_all`: ``[world, ...]`` blocks, equal splits over
@@ -20,7 +20,9 @@ else in the port calls ``torch.distributed`` for data:
   is ``lax.all_to_all(x, ax, 0, 0, tiled=True)``;
 - :meth:`MeshPlan.all_reduce` (``psum``; ``pmean`` is a sum over world);
 - :meth:`MeshPlan.all_gather`, stacking every rank's tensor on a new
-  leading axis.
+  leading axis;
+- :meth:`MeshPlan.broadcast`, one rank's tensor on every rank, bit for
+  bit (async dense hands rank 0's table params to every rank with it).
 
 The backend is an explicit argument. ``nccl`` runs one rank a card,
 rank ``r`` on ``cuda:r``, and refuses a world larger than the visible
@@ -63,7 +65,9 @@ class MeshPlan:
     backend: str
     group: Any = None  # the torch.distributed ProcessGroup (None = default)
     axis: str = "dp"
-    calls: Dict[str, int] = field(default_factory=lambda: {"all_to_all": 0, "all_reduce": 0, "all_gather": 0})
+    calls: Dict[str, int] = field(
+        default_factory=lambda: {"all_to_all": 0, "all_reduce": 0, "all_gather": 0, "broadcast": 0}
+    )
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` [world, ...] -> [world, ...]: block ``d`` of the result is
@@ -92,6 +96,14 @@ class MeshPlan:
         self.calls["all_gather"] += 1
         dist.all_gather(parts, x, group=self.group)
         return torch.stack(parts)
+
+    def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``x`` on every rank, into a new tensor (the other
+        ranks' ``x`` gives only the shape and dtype)."""
+        y = x.clone().contiguous()
+        self.calls["broadcast"] += 1
+        dist.broadcast(y, src=src, group=self.group)
+        return y
 
     def reset_calls(self) -> None:
         for k in self.calls:

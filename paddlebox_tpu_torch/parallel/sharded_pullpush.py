@@ -40,7 +40,9 @@ writes nothing. On the CPU those ids are dropped before the plain
 writeback (``cuda_kernels.drop_out_of_range``), which takes ids in range
 only.
 
-``sharded_serve_pull`` (the device scoring tier) is not ported.
+:func:`sharded_serve_pull` is the device scoring tier's pull: one process
+holds every shard, shard ``s`` on its own device, and no process group
+runs (the JAX package's tier is one process over a mesh of local devices).
 """
 
 from __future__ import annotations
@@ -219,3 +221,24 @@ def _owner_merge_push(
     if not table_local.is_cuda:  # the plain writeback takes ids in [0, R) only
         ids, vals = drop_out_of_range(table_local, ids, vals)
     return write_rows(table_local, ids, vals)
+
+
+def sharded_serve_pull(tables: List[torch.Tensor], req_ranks: torch.Tensor) -> torch.Tensor:
+    """The device scoring tier's pull: ``tables[s]`` is shard ``s`` [cap,
+    width] on its device, ``req_ranks`` [n, n, K] the request buckets of
+    ``route_serve_requests`` (requester d, owner s). Returns the rows on
+    the host, [n, n*K, width] in the JAX package's order: row ``s*K + j``
+    of requester d answers its slot j at shard s.
+
+    Each owner gathers every requester's slots of its shard in one
+    ``gather_rows`` on its device (``pull_rows_cuda`` on a card), which
+    is what the JAX owner gathers after the request ``all_to_all``. The
+    rows come back verbatim, fp32: no embedx gating, no CVM scale, no
+    wire, so a tier hit is bitwise the committed version's row."""
+    n, _, K = req_ranks.shape
+    width = tables[0].shape[1]
+    out = torch.empty((n, n, K, width), dtype=torch.float32)
+    for s, tab in enumerate(tables):
+        ids = req_ranks[:, s, :].reshape(-1).to(tab.device)
+        out[:, s] = gather_rows(tab, ids).reshape(n, K, width).cpu()
+    return out.reshape(n, n * K, width)

@@ -7,7 +7,12 @@
 
 from paddlebox_tpu_torch.serve.follower import Follower, apply_published_chain, verify_chain_link
 
-from paddlebox_tpu_torch.serve.scoring_table import ScoringTable, TableVersion
+from paddlebox_tpu_torch.serve.scoring_table import (
+    DeviceScoringTier,
+    ScoringTable,
+    TableVersion,
+    build_device_tier,
+)
 from paddlebox_tpu_torch.serve.server import (
     ScoreServer,
     Scorer,
@@ -21,8 +26,10 @@ __all__ = [
     "Follower",
     "apply_published_chain",
     "verify_chain_link",
+    "DeviceScoringTier",
     "ScoringTable",
     "TableVersion",
+    "build_device_tier",
     "Scorer",
     "ScoreServer",
     "ServeOverloadError",

@@ -23,9 +23,12 @@ Each poll:
    through a ``CTRTrainer``'s ``load_dense``.
 
 Preds served from the committed version are bitwise equal to scoring
-directly against the trainer's table and params at the same pass. The
-mesh-sharded device scoring tier is not ported: with the
-``device_scoring_tier`` flag on, a commit raises in ``ScoringTable.commit``.
+directly against the trainer's table and params at the same pass. With
+the ``device_scoring_tier`` flag on, each commit passes the staging
+table's decayed shows as ``hotness``, so the version carries a device
+scoring tier on the follower's ``device`` (``serve/scoring_table.py``;
+on a host without a GPU the commit raises unless ``device="cpu"``), and
+:meth:`Follower.health_snapshot` reports its rows, hits and misses.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 
 from paddlebox_tpu_torch import config
-from paddlebox_tpu_torch.serve.scoring_table import ScoringTable, TableVersion
+from paddlebox_tpu_torch.serve.scoring_table import ScoringTable, TableVersion, TierDevices
 from paddlebox_tpu_torch.table.sparse_table import HostSparseTable
 from paddlebox_tpu_torch.train.checkpoint import (
     DeltaLineageError,
@@ -160,7 +163,10 @@ class Follower:
         n_host_shards: int = 4,
         trainer=None,
         require_manifest: Optional[bool] = None,
+        device: TierDevices = None,
     ):
+        """``device``: where the device scoring tier lives (see
+        ``ScoringTable``); read only with ``device_scoring_tier`` on."""
         self.root = root
         self.layout = layout
         self.sparse_opt = sparse_opt
@@ -171,7 +177,7 @@ class Follower:
             if require_manifest is None
             else require_manifest
         )
-        self.scoring = ScoringTable(layout.width)
+        self.scoring = ScoringTable(layout.width, device=device)
         self._staging = self._fresh_staging()
         # last committed chain position; base_crc pins the lineage so a
         # re-published base under the same date forces a full reload
@@ -204,6 +210,7 @@ class Follower:
         it concurrently with the poller."""
         v = self.version()
         applied = self._applied
+        tier = v.device_tier
         return {
             "delta_idx": v.delta_idx,
             "date": v.date,
@@ -216,11 +223,11 @@ class Follower:
                 None if v.published_unix is None
                 else max(0.0, time.time() - v.published_unix)
             ),
-            # device-tier telemetry: the device scoring tier is not ported,
-            # so every version is host-only (0/0/0)
-            "tier_rows": 0,
-            "tier_hits": 0,
-            "tier_misses": 0,
+            # device-tier telemetry: rows the served version holds on its
+            # devices and its lookups' hits and misses (0/0/0: host-only)
+            "tier_rows": 0 if tier is None else int(tier.n_rows),
+            "tier_hits": 0 if tier is None else int(tier.hits),
+            "tier_misses": 0 if tier is None else int(tier.misses),
         }
 
     def poll_once(self) -> bool:

@@ -66,10 +66,13 @@ class _RowSource:
 
 def version_source(layout, version: TableVersion) -> _RowSource:
     """Row source over an immutable served version; misses (keys the
-    published model has never seen) pull the zero row and are counted."""
+    published model has never seen) pull the zero row and are counted.
+    A version with a device tier pulls through the miss-fallback ladder
+    (``lookup_rows_tiered``: tier rows first, host rows for its misses),
+    the same rows bitwise either way."""
 
     def pull(keys: np.ndarray) -> np.ndarray:
-        rows, n_miss = version.lookup_rows(keys)
+        rows, _, n_miss = version.lookup_rows_tiered(keys)
         if n_miss:
             STAT_ADD("serve.miss_keys", n_miss)
         return rows

@@ -25,8 +25,25 @@ decay. The carried tensor is the trainer's own table, which the step writes
 in place, so the trainer copies the next pass's table rather than train on
 this one (``CTRTrainer._make_state``).
 
-The multi-host carrier (``_ShardView``, ``MultiHostCarrier``) is not
-ported.
+On a single-host mesh (``plan``) each rank carries its own shard
+[cap, width] of the pass table (the JAX package carries the whole
+[ns*cap, width] array in one process). A key's owner shard is a stable
+hash of the key with the same shard count in every pass, so a surviving
+key stays on its rank and splices there. The host tables are replicas, so
+every rank must receive every row the host is owed: the departing rows
+and, at a flush, the carried ones. Each rank gathers those of its shard
+(the counts of every shard are known to all from the replicated working
+set), pads them to the largest count, and one ``all_gather`` puts every
+shard's rows on every rank, reordered to the keys' order before the
+``wire_dtype`` wire. So every rank pushes the same bytes, the same as one
+device would. These collectives run on the calling thread: a mesh
+carrier splices and flushes on the main thread of every rank alike, in
+the dataset's boundary calls and ``BoxPSDataset.flush_carried``, never on
+a background thread; a save that reaches a pending mesh carrier raises
+(``HostSparseTable.drain_pending``).
+
+The multi-host carrier (``MultiHostCarrier``) is not ported (ROADMAP
+Queue 5).
 """
 
 from __future__ import annotations
@@ -51,13 +68,17 @@ class TableCarrier:
     the next pass can still flush what the host is owed: this table's
     values (the next pass trains its own table)."""
 
-    def __init__(self, dev_flat: torch.Tensor, ws, layout, decay: Optional[float] = None):
-        # the single-device table, [rows, width] or [1, cap, width]
+    def __init__(self, dev_flat: torch.Tensor, ws, layout, decay: Optional[float] = None, plan=None):
+        # the single-device table, [rows, width] or [1, cap, width]; on a
+        # mesh (``plan``) this rank's shard [cap, width]
         if dev_flat.dim() == 3:
             dev_flat = dev_flat.reshape(-1, dev_flat.shape[-1])
+        if plan is not None and dev_flat.shape[0] != ws.capacity:
+            raise ValueError(f"a mesh carrier holds one shard of {ws.capacity} rows, got {dev_flat.shape[0]}")
         self.dev_flat = dev_flat
         self.ws = ws
         self.layout = layout
+        self.plan = plan
         # show/clk decay owed to the carried rows: every decay_and_shrink
         # while this carrier is pending notes one, under the table's
         # maintenance lock, so no boundary is missed or counted twice
@@ -97,30 +118,66 @@ class TableCarrier:
         mult[lay.CLK] = self._decay_accum
         return mult
 
+    def _local_rows(self, rows: np.ndarray) -> np.ndarray:
+        """Global table rows -> rows of the carried tensor (on a mesh, of
+        this rank's shard)."""
+        if self.plan is None:
+            return rows
+        return rows - self.plan.rank * self.ws.capacity
+
     def rows_for(self, positions: np.ndarray) -> torch.Tensor:
-        """The (decayed) device rows of ws-order key positions [k]: a row
-        gather, then the fp32 decay multiply. Stays on the device."""
+        """The (decayed) device rows of ws-order key positions [k] (on a
+        mesh, of keys in this rank's shard): a row gather, then the fp32
+        decay multiply. Stays on the device."""
         dev = self.dev_flat.device
-        ids = torch.from_numpy(np.ascontiguousarray(self.ws.row_of_sorted[positions])).to(dev)
+        local = self._local_rows(self.ws.row_of_sorted[positions])
+        ids = torch.from_numpy(np.ascontiguousarray(local)).to(dev)
         vals = gather_rows(self.dev_flat, ids)
         mult = self._decay_mult()
         if mult is not None:
             vals = vals * torch.from_numpy(mult).to(dev)[None, :]
         return vals
 
+    def rows_everywhere(self, positions: np.ndarray) -> torch.Tensor:
+        """The (decayed) rows of ws-order key positions of any shard, on
+        this rank's device, in ``positions`` order. One device: ``rows_for``.
+        A mesh: each rank gathers its shard's positions, padded with zero
+        rows to the largest shard's count, and one ``all_gather`` brings
+        every shard's rows here (every rank calls it alike)."""
+        if self.plan is None:
+            return self.rows_for(positions)
+        plan, cap = self.plan, self.ws.capacity
+        positions = np.asarray(positions, dtype=np.int64)
+        shard = self.ws.row_of_sorted[positions] // cap
+        counts = np.bincount(shard, minlength=plan.world)
+        n_max = int(counts.max()) if len(positions) else 0
+        dev = self.dev_flat.device
+        if n_max == 0:
+            return torch.zeros((0, self.layout.width), dtype=torch.float32, device=dev)
+        vals = self.rows_for(positions[shard == plan.rank])
+        pad = torch.zeros((n_max - vals.shape[0], vals.shape[1]), dtype=vals.dtype, device=dev)
+        every = plan.all_gather(torch.cat([vals, pad]))  # [world, n_max, W]
+        # shard s's rows, in positions order: its j-th position is row j
+        order = np.argsort(shard, kind="stable")
+        slot = np.arange(len(positions)) - np.repeat(np.cumsum(counts) - counts, counts)
+        flat = np.empty(len(positions), dtype=np.int64)
+        flat[order] = shard[order] * n_max + slot
+        return every.reshape(-1, every.shape[-1]).index_select(0, torch.from_numpy(flat).to(dev))
+
     def fetch_for(self, positions: np.ndarray) -> np.ndarray:
         """Host copy (decayed) of ws-order key positions over the
-        ``wire_dtype`` wire."""
-        return fetch_rows(self.rows_for(positions), self.layout, str(config.get_flag("wire_dtype")))
+        ``wire_dtype`` wire (on a mesh, of every shard's keys)."""
+        return fetch_rows(self.rows_everywhere(positions), self.layout, str(config.get_flag("wire_dtype")))
 
     def push_departures_async(self, table, keys: np.ndarray, positions) -> None:
         """Push the departing slice on a non-daemon thread. The gather, the
         casts and the copy to the host are queued now, on this thread, so
         they read this table's values; the worker waits for the copy and
         pushes. Joined by ``flush`` and by the next end_pass before its
-        decay (a push landing after a decay would undo it)."""
+        decay (a push landing after a decay would undo it). On a mesh the
+        rows of every shard's departing keys are gathered here first."""
         mode = str(config.get_flag("wire_dtype"))
-        handle = fetch_rows_start(self.rows_for(positions), self.layout, mode)
+        handle = fetch_rows_start(self.rows_everywhere(positions), self.layout, mode)
         pos = np.asarray(positions)
         self._departed = pos if self._departed is None else np.union1d(self._departed, pos)
         fut: Future = Future()
@@ -167,7 +224,8 @@ class TableCarrier:
 
     def flush(self, table) -> int:
         """Push every carried key's (decayed) row to the host store, in
-        chunks of 2M keys. Idempotent; returns the keys written."""
+        chunks of 2M keys. Idempotent; returns the keys written. On a mesh
+        every rank flushes alike: each chunk is one all-gather."""
         self.join_push()
         if self._flushed or self.ws is None or self.ws.n_keys == 0:
             self._flushed = True

@@ -34,7 +34,8 @@ Port of the JAX package's ``table/sparse_table.py``:
 - the device-carried boundary (``table/carrier.py``): the table registers
   the carriers it is owed (:meth:`~HostSparseTable.add_pending_carrier`),
   notes each boundary's decay on them and drains them before every save
-  (:meth:`~HostSparseTable.drain_pending`); ``finalize(carrier=...)``
+  (:meth:`~HostSparseTable.drain_pending`; a save that would reach a
+  pending mesh carrier raises, see there); ``finalize(carrier=...)``
   splices the rows of keys that stay on the device (the port's row gather
   and row writeback kernels), pushes the departing rows and uploads only
   the new ones. ``finalize(prefetch=...)`` takes the rows the dataset's
@@ -315,11 +316,24 @@ class HostSparseTable:
             self._pending_carriers = [c for c in self._pending_carriers if not c.flushed]
             self._pending_carriers.append(carrier)
 
-    def drain_pending(self) -> int:
+    def drain_pending(self, collective: bool = False) -> int:
         """Flush every registered carrier (idempotent); returns the keys
         written. A flush that raises keeps the failed carrier and those not
-        reached yet registered, so a later save cannot miss their rows."""
+        reached yet registered, so a later save cannot miss their rows.
+
+        A mesh carrier's flush is a collective that every rank must join,
+        so only a caller that every rank makes alike passes
+        ``collective=True`` (``BoxPSDataset.flush_carried`` and the
+        dataset's boundary calls). Anything else that reaches a pending
+        mesh carrier (a save on one rank, or on another thread) raises
+        here instead of waiting on ranks that never join."""
         with self._maintenance_lock:
+            if not collective and any(c.plan is not None and not c.flushed for c in self._pending_carriers):
+                raise RuntimeError(
+                    "a mesh carrier is pending: its flush is a collective, so call "
+                    "BoxPSDataset.flush_carried() on every rank's main thread before "
+                    "saving this rank's host table"
+                )
             carriers, self._pending_carriers = self._pending_carriers, []
             n = 0
             try:
@@ -1005,10 +1019,20 @@ class PassWorkingSet:
 
         The host pull of the new keys runs on a thread, beside the device
         allocation and the splice; the two row writes hit disjoint rows, so
-        their order does not matter."""
+        their order does not matter.
+
+        A mesh carrier (``carrier.plan``) returns this rank's new shard
+        [cap, width]: its surviving keys splice from its old shard (a key's
+        shard is a hash of the key, the same in both passes), the departing
+        rows of every shard are gathered to every rank, and every rank
+        pulls every new key from its host replica (so each creates the same
+        keys in the same order) but uploads only its shard's."""
         from paddlebox_tpu_torch.ops.pull_push import write_rows
         from paddlebox_tpu_torch.ops.wire_quant import send_rows
 
+        mesh = carrier.plan
+        if mesh is not None and carrier.ws.n_mesh_shards != ns:
+            raise ValueError(f"a mesh carrier of {carrier.ws.n_mesh_shards} shards cannot splice into {ns}")
         old_keys = carrier.ws.sorted_keys
         # both sides sorted: positions of the intersection in each
         pos_in_old = np.minimum(np.searchsorted(old_keys, all_keys), len(old_keys) - 1)
@@ -1040,22 +1064,28 @@ class PassWorkingSet:
             puller = threading.Thread(target=_pull_new, name="boundary-pull", daemon=True)
             puller.start()
 
+        # the rows this process holds: all, or on a mesh its shard's
+        base, n_rows = (0, ns * cap) if mesh is None else (mesh.rank * cap, cap)
+        mine = (global_rows >= base) & (global_rows < base + n_rows)
+
         def ids(mask):
-            return torch.from_numpy(np.ascontiguousarray(global_rows[mask])).to(device)
+            return torch.from_numpy(np.ascontiguousarray(global_rows[mask] - base)).to(device)
 
         t0 = time.perf_counter()
-        dev = torch.zeros((ns * cap, W), dtype=torch.float32, device=device)
-        if common.any():
-            write_rows(dev, ids(common), carrier.rows_for(common_old))
+        dev = torch.zeros((n_rows, W), dtype=torch.float32, device=device)
+        if (common & mine).any():
+            write_rows(dev, ids(common & mine), carrier.rows_for(pos_in_old[common & mine]))
         STAT_SET("boundary.splice_s", time.perf_counter() - t0)
         if puller is not None:
             puller.join()
             if pull["err"] is not None:
                 raise pull["err"]
             STAT_SET("boundary.pull_s", pull["secs"])
-            up = send_rows(pull["rows"], table.layout, str(config.get_flag("wire_dtype")), device)
-            write_rows(dev, ids(new_mask), up)
-        return dev.reshape(ns, cap, W)
+            rows = pull["rows"] if mesh is None else pull["rows"][mine[new_mask]]
+            if len(rows):
+                up = send_rows(rows, table.layout, str(config.get_flag("wire_dtype")), device)
+                write_rows(dev, ids(new_mask & mine), up)
+        return dev if mesh is not None else dev.reshape(ns, cap, W)
 
     def lookup(self, keys: np.ndarray) -> np.ndarray:
         """Batch keys -> global row ids (int32). Keys must be in the pass."""

@@ -8,6 +8,7 @@ from paddlebox_tpu_torch.train.resident_step import (
     build_mesh_device_batch,
     ensure_sharded,
     make_resident_mesh_superstep,
+    make_resident_pv_mesh_superstep,
     make_resident_pv_superstep,
     make_resident_superstep,
 )
@@ -40,6 +41,7 @@ __all__ = [
     "ensure_sharded",
     "build_mesh_device_batch",
     "make_resident_mesh_superstep",
+    "make_resident_pv_mesh_superstep",
     "init_sharded_train_state",
     "make_local_mesh_step",
     "make_sharded_train_step",

@@ -40,8 +40,11 @@ On a single-host mesh (:func:`ensure_sharded`,
 every rank holds the same resident arrays (its dataset is a replica) and
 builds its own route buckets on its card from its slice of each global
 batch, then runs the same per-rank body as the host-packed mesh feeds
-(``train/sharded_step.py``). The pv mesh superstep is not ported (slice
-10).
+(``train/sharded_step.py``). The join phase's mesh tier
+(``ResidentPvFeed(plan, device, mesh_plan=)``,
+:func:`make_resident_pv_mesh_superstep`) uploads only this rank's block of
+a plan built for ``n_devices = world`` and builds the rank's batch from it
+the same way.
 """
 
 from __future__ import annotations
@@ -403,19 +406,42 @@ class ResidentPvFeed:
     ``arange`` of batch positions, itself on the device): no per-chunk
     upload, no host sync. ``idx`` [n_b, B] int32 record indices,
     ``rank_offset`` [n_b, B, 2R+1] int32, ``ins_weight`` [n_b, B] float32
-    (0 on ghosts)."""
+    (0 on ghosts).
 
-    def __init__(self, plan, device: torch.device):
-        if plan.n_devices != 1:
-            raise NotImplementedError(f"a PvPlan blocked for {plan.n_devices} devices (a mesh) is not ported")
+    With ``mesh_plan`` (a single-host mesh) the plan must be blocked for
+    ``mesh_plan.world`` devices, and only this rank's block goes up:
+    ``idx`` [n_b, b], ``rank_offset`` [n_b, b, 2R+1] (its rank matrices are
+    block-local already) and ``ins_weight`` [n_b, b], on the plan's device,
+    beside the global ``idx`` and ``ins_weight`` (``global_idx``,
+    ``global_ins_weight``, [n_b, B]: a metric registry reads the whole
+    batch; a few MB a pass). On one device those are ``idx`` and
+    ``ins_weight``."""
+
+    def __init__(self, plan, device: torch.device, mesh_plan=None):
+        idx, ro, w = plan.idx, plan.rank_offset, plan.ins_weight
+        if mesh_plan is None:
+            if plan.n_devices != 1:
+                raise ValueError(f"a PvPlan blocked for {plan.n_devices} devices needs mesh_plan=")
+        else:
+            if plan.n_devices != mesh_plan.world:
+                raise ValueError(f"PvPlan built for {plan.n_devices} devices, the mesh has {mesh_plan.world} ranks")
+            device = mesh_plan.device
+            n_b, B = idx.shape
+            b = B // mesh_plan.world
+            lo, hi = mesh_plan.rank * b, (mesh_plan.rank + 1) * b
+            idx, ro, w = idx[:, lo:hi], ro[:, lo:hi], w[:, lo:hi]
 
         def put(a: np.ndarray, dtype) -> torch.Tensor:
             return torch.from_numpy(np.ascontiguousarray(a, dtype=dtype)).to(device)
 
         self.n_batches = plan.n_batches
-        self.idx = put(plan.idx, np.int32)
-        self.rank_offset = put(plan.rank_offset, np.int32)
-        self.ins_weight = put(plan.ins_weight, np.float32)
+        self.idx = put(idx, np.int32)
+        self.rank_offset = put(ro, np.int32)
+        self.ins_weight = put(w, np.float32)
+        self.global_idx, self.global_ins_weight = self.idx, self.ins_weight
+        if mesh_plan is not None:
+            self.global_idx = put(plan.idx, np.int32)
+            self.global_ins_weight = put(plan.ins_weight, np.float32)
         self.positions = torch.arange(self.n_batches, dtype=torch.int64, device=device)
 
 
@@ -445,6 +471,41 @@ def make_resident_pv_superstep(
             batch["ins_weight"] = w[j]
             batch["rank_offset"] = ro[j]
             state, m = raw_step(state, batch)
+            ms.append(m)
+        return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+
+    return superstep
+
+
+def make_resident_pv_mesh_superstep(
+    model_apply: Callable,
+    dense_opt,
+    cfg: TrainStepConfig,
+    rp: ResidentPass,
+    feed: ResidentPvFeed,
+    plan,
+    eval_mode: bool = False,
+) -> Callable:
+    """``superstep(state, pos_block [K]) -> (state, metrics)`` on a
+    single-host mesh: the pv analog of :func:`make_resident_mesh_superstep`.
+    ``feed`` holds this rank's blocks of the plan; each batch is
+    ``build_mesh_device_batch`` of the rank's [b] record indices, with its
+    ghost weights and rank matrix, run through the mesh step body."""
+    from paddlebox_tpu_torch.train.sharded_step import make_local_mesh_step
+
+    local_step = make_local_mesh_step(model_apply, dense_opt, cfg, plan, eval_mode)
+    ns, cap = rp.ws.n_mesh_shards, rp.ws.capacity
+
+    def superstep(state, pos_block: torch.Tensor):
+        idx = feed.idx.index_select(0, pos_block)
+        ro = feed.rank_offset.index_select(0, pos_block)
+        w = feed.ins_weight.index_select(0, pos_block)
+        ms = []
+        for j in range(pos_block.shape[0]):
+            batch = build_mesh_device_batch(rp, cfg, idx[j], ns, cap)
+            batch["ins_weight"] = w[j]
+            batch["rank_offset"] = ro[j]
+            state, m = local_step(state, batch)
             ms.append(m)
         return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 

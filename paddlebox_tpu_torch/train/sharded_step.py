@@ -17,8 +17,10 @@ A rank's state: ``table`` its shard [cap, width], ``params`` and
 ``opt_state`` replicated (kstep: the rank's replica; ZeRO-1: its moment
 chunk), ``auc`` its own tables, ``step`` the replicated counter. A rank's
 batch: ``req_ranks`` [n, K], ``inverse`` / ``segments`` [L], ``labels``
-[b] and optionally ``dense`` [b, Dd] and ``ins_weight`` [b], block
-``[rank]`` of ``pack_batch_sharded`` / ``pack_sharded``.
+[b] and optionally ``dense`` [b, Dd], ``ins_weight`` [b] and, in the join
+phase, ``rank_offset`` [b, 2R+1] (the model's input with
+``cfg.model_takes_rank_offset``), block ``[rank]`` of
+``pack_batch_sharded`` / ``pack_sharded`` and the pv plan.
 
 The numerics follow JAX's branch by branch: weighted or adjusted batches
 normalize by the global weight sum (``loss_denom``, an all-reduce) with
@@ -33,11 +35,13 @@ rescaled to the local mean) and averages the params every
 ``check_nan`` the counter may not advance, so the average is then
 computed every step and selected on the card. Eval mode pulls and runs
 the forward only: table, params and optimizer state come back as they
-came.
+came. Under ``dense_sync_mode="async"`` the step leaves params and
+optimizer state as they came and returns the globally reduced dense
+gradients as ``metrics["gparams"]`` (the same on every rank); the
+trainer pushes them to the one ``AsyncDenseTable`` (rank 0's) and
+broadcasts its params before the next step.
 
-Not ported: ``dense_sync_mode="async"`` on a mesh and a model that takes
-``rank_offset`` (the pv feeds) — slice 10; ``use_expand`` (ROADMAP Queue 1
-item 6).
+Not ported: ``use_expand`` (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -102,13 +106,14 @@ def _check_mesh_cfg(cfg: TrainStepConfig, dense_opt, plan: MeshPlan) -> None:
             f"cfg.axis_name {cfg.axis_name!r} != mesh axis {plan.axis!r}; the sharded "
             "step always runs its collectives over the plan's axis"
         )
-    if cfg.dense_sync_mode == "async":
-        raise NotImplementedError("dense_sync_mode='async' on a mesh is not ported yet (slice 10)")
-    if cfg.model_takes_rank_offset:
-        raise NotImplementedError("a model that takes rank_offset on a mesh is not ported yet (slice 10)")
     if cfg.use_expand:
         raise NotImplementedError("use_expand is not ported (ROADMAP Queue 1 item 6)")
     if isinstance(dense_opt, Zero1Optimizer):
+        if cfg.dense_sync_mode == "async":
+            raise ValueError(
+                "dense_sync_mode='async' hands the dense optimizer to the host "
+                "AsyncDenseTable: ZeRO state sharding has nothing to shard"
+            )
         if cfg.dense_sync_mode == "kstep":
             raise ValueError(
                 "ZeRO state sharding needs identical (replicated) grads each step; "
@@ -173,6 +178,7 @@ def make_local_mesh_step(
     _check_mesh_cfg(cfg, dense_opt, plan)
     is_zero = isinstance(dense_opt, Zero1Optimizer)
     kstep = cfg.dense_sync_mode == "kstep"
+    is_async = cfg.dense_sync_mode == "async"
     lay, opt = cfg.layout, cfg.sparse_opt
     b = cfg.batch_size
     world = float(plan.world)
@@ -193,7 +199,7 @@ def make_local_mesh_step(
             loss_denom = torch.clamp(plan.all_reduce(ins_weight.sum()), min=1.0)
         loss, preds = local_forward(
             model_apply, cfg, state.params, flat, batch["segments"], labels, batch.get("dense"),
-            ins_weight=ins_weight, loss_denom=loss_denom,
+            ins_weight=ins_weight, loss_denom=loss_denom, rank_offset=batch.get("rank_offset"),
         )
         loss = plan.all_reduce(loss)
         if ins_weight is None:
@@ -239,7 +245,7 @@ def make_local_mesh_step(
             loss_w, _ = adjusted_loss_weight(cfg, flat, segments, ins_weight, b)
         loss, preds, gparams, gflat = local_forward_backward(
             model_apply, cfg, state.params, flat, segments, labels, dense,
-            ins_weight=loss_w, loss_denom=loss_denom,
+            ins_weight=loss_w, loss_denom=loss_denom, rank_offset=batch.get("rank_offset"),
         )
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         finite = None
@@ -279,12 +285,17 @@ def make_local_mesh_step(
             if not weighted:
                 gparams = {k: _div(g, world) for k, g in gparams.items()}
                 loss = _div(loss, world)
-        if is_zero:
+        if is_async:
+            # the host AsyncDenseTable owns the dense optimizer: the reduced
+            # grads ride back in metrics, the dense side stays as it came
+            new_params, new_opt_state = state.params, state.opt_state
+        elif is_zero:
             # this rank updates its chunk; all_gather rebuilds the update
             updates, new_opt_state = dense_opt.update_local(plan, gparams, state.opt_state)
+            new_params = {k: p + updates[k] for k, p in state.params.items()}
         else:
             updates, new_opt_state = dense_opt.update(gparams, state.opt_state)
-        new_params = {k: p + updates[k] for k, p in state.params.items()}
+            new_params = {k: p + updates[k] for k, p in state.params.items()}
         step_inc = (
             torch.ones((), dtype=torch.int32, device=dev) if finite is None else finite.to(torch.int32)
         )
@@ -314,6 +325,8 @@ def make_local_mesh_step(
         metrics = {"loss": loss, "step": state.step + step_inc, "preds": preds, "labels": labels}
         if finite is not None:
             metrics["nan_skipped"] = (~finite).to(torch.int32)
+        if is_async:
+            metrics["gparams"] = gparams  # globally reduced, the same on every rank
         return (
             TrainState(
                 table=state.table,

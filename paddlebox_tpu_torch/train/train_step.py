@@ -253,7 +253,10 @@ def make_train_step(
     does). ``use_expand`` and ``axis_name`` (a mesh) are not ported.
     """
     if cfg.use_expand or cfg.axis_name is not None:
-        raise NotImplementedError("use_expand and axis_name are not ported yet")
+        raise NotImplementedError(
+            "use_expand is not ported (ROADMAP Queue 1 item 6); a mesh's step (axis_name) is "
+            "train/sharded_step.py's make_sharded_train_step"
+        )
     lay, opt = cfg.layout, cfg.sparse_opt
 
     if eval_mode:

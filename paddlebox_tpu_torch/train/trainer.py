@@ -88,27 +88,48 @@ shard of the pass table with the mesh step (``train/sharded_step.py``):
     trainer = CTRTrainer(model, cfg, plan=plan)
     ... the same pass loop; end_pass(trainer.trained_table())
 
-The flat feeds are chosen as on one device and named alike: "resident"
+The feeds are chosen as on one device and named alike: "resident"
 (each rank builds its route buckets on its card,
 ``make_resident_mesh_superstep``), "packer" (``BatchPacker.pack_sharded``
 of the global batch at the bucket K ``freeze_shapes`` froze for the pass
 on every rank alike, the rank's block kept) and "slow"
-(``pack_batch_sharded``). Before a pass's first step the ranks all-gather
-``dataset.replica_digest()`` and raise on a mismatch. The AUC is read
-through ``auc_psum``; kstep averages the replicas at the pass's end
+(``pack_batch_sharded``); in the join phase "resident_pv" (the rank's
+block of a ``PvPlan`` built for ``n_devices = world``,
+``make_resident_pv_mesh_superstep``), "pv_packer" (``pack_sharded`` of the
+plan's global batches, the rank's block of their ``ins_weight`` and
+``rank_offset`` kept) and "pv_records" (``pv_batches(n_devices=world)``
+through ``pack_batch_sharded``). A single host needs no lockstep: the
+plan's ghost-batch floor is 0. Before a pass's first step the ranks
+all-gather ``dataset.replica_digest()`` (with the options that add
+collectives: a registry, a dump) and raise on a mismatch; that first pass
+also binds the dataset to the plan (``dataset.mesh_plan``), so its
+``end_pass`` can carry a rank's shard. The AUC is read through
+``auc_psum``; kstep averages the replicas at the pass's end
 (``kstep_sync_params``; the optimizer state becomes rank 0's, as the JAX
 package keeps device 0's); ZeRO-1's chunk states are all-gathered into
 the stacked state at the pass's end, so ``save_dense`` writes the JAX
 package's ZeRO file. ``trained_table()`` all-gathers the shards
 ([world, cap, width] on every rank, so every rank's end_pass writes the
 same rows and the host tables stay replicas); ``trained_table_device()``
-is this rank's shard.
+is this rank's shard, which ``end_pass`` carries (``table/carrier.py``).
 
-Not ported, left to slice 10 and raising ``NotImplementedError``: the join
-phase on a mesh (pv feeds, ``_pv_lockstep``), a model that takes
-``rank_offset``, async dense, a metric registry or a dump on a mesh, and
-the carried boundary on a mesh; and to the multi-host slice, meshes over
-several hosts and their lockstep.
+Every rank passes the same options. On a mesh:
+
+- a metric registry or a dump all-gathers each kept batch's per-instance
+  outputs (``preds``, ``labels``: one collective a step, only with such a
+  consumer), so every rank's registry sees the global batch in the JAX
+  package's device-major order beside the global ``cmatch``, ``rank``
+  and ``ins_weight``, and reads the same; rank 0 alone writes the dump
+  (each line once) and the pass-end param dump;
+- async dense has one ``AsyncDenseTable``, rank 0's (the other ranks may
+  pass None): before every batch rank 0 pulls its params and
+  ``MeshPlan.broadcast`` hands them to every rank bit for bit, so the
+  ranks never train on different params; after the batch rank 0 pushes
+  the step's globally reduced gradients. Replicated tables would drift:
+  each applies its pushes on its own thread.
+
+Not ported (ROADMAP Queue 5): meshes over several hosts and their
+lockstep (``_pv_lockstep``).
 """
 
 from __future__ import annotations
@@ -138,6 +159,7 @@ from paddlebox_tpu_torch.train.resident_step import (
     ResidentPvFeed,
     ensure_sharded,
     make_resident_mesh_superstep,
+    make_resident_pv_mesh_superstep,
     make_resident_pv_superstep,
     make_resident_superstep,
 )
@@ -205,8 +227,8 @@ class CTRTrainer:
         ``metric_registry`` (on the same device) is fed every batch's
         outputs. The other options are the JAX trainer's (module
         docstring); ``dense_sync_mode="async"`` without ``async_dense``
-        raises."""
-        if cfg.dense_sync_mode == "async" and async_dense is None:
+        raises (on a mesh, on rank 0)."""
+        if cfg.dense_sync_mode == "async" and async_dense is None and (plan is None or plan.rank == 0):
             raise ValueError(
                 "dense_sync_mode='async' needs an AsyncDenseTable (else the dense "
                 "params would never update)"
@@ -220,9 +242,6 @@ class CTRTrainer:
         if plan is not None:
             if device is not None and resolve_device(device) != plan.device:
                 raise ValueError(f"device {device} is not the plan's {plan.device}")
-            for what, on in (("a metric registry", metric_registry), ("a dump", dump_pool)):
-                if on is not None:
-                    raise NotImplementedError(f"{what} on a mesh is not ported yet (slice 10)")
             self.device = plan.device
         else:
             self.device = resolve_device("cuda" if device is None else device)
@@ -528,53 +547,71 @@ class CTRTrainer:
 
     def _pv_locked_plan(self, dataset: BoxPSDataset):
         """The pass's PvPlan, the one source of the join phase's gate,
-        prepare and feeds. One device: no lockstep ghost batches
-        (``min_batches`` 0); the multi-host lockstep is not ported."""
-        return dataset.pv_plan(1, min_batches=0)
+        prepare and feeds, blocked for the mesh's ranks (one device: 1).
+        A single host needs no lockstep ghost batches (``min_batches`` 0);
+        the multi-host lockstep is not ported."""
+        return dataset.pv_plan(1 if self.plan is None else self.plan.world, min_batches=0)
+
+    def _pv_block(self, w: np.ndarray, ro: np.ndarray):
+        """A global pv batch's ``ins_weight`` [B] and ``rank_offset`` [B, R]
+        as this rank's blocks (the rank matrices are block-local already);
+        unchanged on one device."""
+        if self.plan is None:
+            return w, ro
+        b = len(w) // self.plan.world
+        lo = self.plan.rank * b
+        return w[lo : lo + b], ro[lo : lo + b]
 
     def _pv_plan_feed_iter(self, dataset: BoxPSDataset, plan, n_batches):
         """The join phase's packer feed: the plan's record indices packed
         natively in prefetch threads (which pin them, with the batch's rank
         matrix and ghost weights), copied as ``_fast_feed_iter`` copies.
-        At most ``n_batches`` of the plan's batches (no wrap-around)."""
+        At most ``n_batches`` of the plan's batches (no wrap-around). On a
+        mesh the global batch packs and this rank keeps its block."""
         packer = self._get_packer(dataset)
-        packer.freeze_shapes(plan.idx)
+        world = 0 if self.plan is None else self.plan.world
+        packer.freeze_shapes(plan.idx, n_devices=world)
         store = dataset.store
         n = plan.n_batches if n_batches is None else min(plan.n_batches, n_batches)
 
         def prep(pos):
             idx = plan.idx[pos]
-            arrays = packer.pack(idx).as_dict()
-            arrays["ins_weight"] = plan.ins_weight[pos]
-            arrays["rank_offset"] = plan.rank_offset[pos]
-            aux = self._logkey_aux(*self._store_logkeys(store, idx))
+            if self.plan is None:
+                arrays = packer.pack(idx).as_dict()
+            else:
+                arrays = self._rank_block(packer.pack_sharded(idx, world))
+            w = plan.ins_weight[pos]
+            arrays["ins_weight"], arrays["rank_offset"] = self._pv_block(w, plan.rank_offset[pos])
+            aux = self._pv_aux(self._logkey_aux(*self._store_logkeys(store, idx)), w)
             return self._host(arrays), self._host(aux), self._store_ids(store, idx)
 
         for host, aux, ids in prefetch(range(n), prep):
-            feed = self._to_device(host)
-            yield feed, self._with_ids(self._pv_aux(feed, self._to_device(aux)), ids)
+            yield self._to_device(host), self._with_ids(self._to_device(aux), ids)
 
-    def _pv_aux(self, feed, aux):
+    def _pv_aux(self, aux: Dict, w: np.ndarray) -> Dict:
+        """``aux`` with the global batch's ghost weights, which only a
+        registry reads."""
         if self.metric_registry is not None:
-            aux["ins_weight"] = feed["ins_weight"]
+            aux["ins_weight"] = w
         return aux
 
     def _pv_feed_iter(self, dataset: BoxPSDataset, n_batches):
         """The join phase's record-level feed, for a pass held as
-        SlotRecords: ``pv_batches`` built on the dispatch thread, packed
-        and pinned by ONE prefetch worker (the order stays the pass's),
+        SlotRecords: ``pv_batches`` (blocked for the mesh's ranks) built on
+        the dispatch thread, packed and pinned by ONE prefetch worker (the
+        order stays the pass's and the mesh's sticky pads race-free),
         copied as the other host feeds copy."""
 
         def prepare(item):
             batch, weight = item
             arrays = self._pack(batch, dataset)
-            arrays["ins_weight"] = weight
-            arrays["rank_offset"] = batch.rank_offset
-            return self._host(arrays), self._host(self._logkey_aux(batch.cmatch, batch.rank)), batch.ins_ids
+            arrays["ins_weight"], arrays["rank_offset"] = self._pv_block(weight, batch.rank_offset)
+            aux = self._pv_aux(self._logkey_aux(batch.cmatch, batch.rank), weight)
+            return self._host(arrays), self._host(aux), batch.ins_ids
 
-        for host, aux, ids in prefetch(dataset.pv_batches(n_batches), prepare, workers=1, depth=2):
-            feed = self._to_device(host)
-            yield feed, self._with_ids(self._pv_aux(feed, self._to_device(aux)), ids)
+        n_dev = 1 if self.plan is None else self.plan.world
+        for host, aux, ids in prefetch(dataset.pv_batches(n_batches, n_devices=n_dev), prepare, workers=1, depth=2):
+            yield self._to_device(host), self._with_ids(self._to_device(aux), ids)
 
     def _classic_stepper(self, iterator, holder, step_fn, profile, tm, is_async=False):
         """Per-batch dispatch over a host-packed feed. Yields (i, metrics,
@@ -593,9 +630,7 @@ class CTRTrainer:
             finally:
                 tm["feed_wait_s"] += time.perf_counter() - t0
             if is_async:
-                # a copy: the table's arrays stay the table's
-                fresh = {k: torch.from_numpy(v).to(self.device, copy=True) for k, v in self.async_dense.pull_dense().items()}
-                holder["state"] = holder["state"]._replace(params=fresh)
+                holder["state"] = holder["state"]._replace(params=self._async_params(holder["state"].params))
             t0 = time.perf_counter()
             holder["state"], m = step_fn(holder["state"], feed)
             ev = self._mark()
@@ -627,8 +662,6 @@ class CTRTrainer:
         if not ok:
             return False
         if use_pv:
-            if self.plan is not None:
-                raise NotImplementedError("the join phase (pv feeds) on a mesh is not ported yet (slice 10)")
             return self._pv_locked_plan(dataset) is not None
         return not self.cfg.model_takes_rank_offset
 
@@ -665,12 +698,12 @@ class CTRTrainer:
         t.append(time.perf_counter())
         plan = self._pv_locked_plan(dataset)
         t.append(time.perf_counter())
-        rp.ensure(plan.idx)
+        self._ensure_pads(rp, plan.idx)
         t.append(time.perf_counter())
         c = self._pv_feed_cache
         if c is None or c[0] is not plan or c[1] is not rp:
             self._pv_feed_cache = None  # the old plan's arrays go first
-            self._pv_feed_cache = (plan, rp, ResidentPvFeed(plan, self.device))
+            self._pv_feed_cache = (plan, rp, ResidentPvFeed(plan, self.device, mesh_plan=self.plan))
         t.append(time.perf_counter())
         if parts is not None:
             names = ("resident_upload_s", "pv_plan_s", "pad_stats_s", "pv_upload_s")
@@ -690,6 +723,10 @@ class CTRTrainer:
                 )
             elif pv_feed is None:
                 ss = make_resident_superstep(self._model_apply, self.dense_opt, self.cfg, rp, eval_mode=eval_mode)
+            elif self.plan is not None:
+                ss = make_resident_pv_mesh_superstep(
+                    self._model_apply, self.dense_opt, self.cfg, rp, pv_feed, self.plan, eval_mode=eval_mode
+                )
             else:
                 ss = make_resident_pv_superstep(
                     self._model_apply, self.dense_opt, self.cfg, rp, pv_feed, eval_mode=eval_mode
@@ -723,11 +760,13 @@ class CTRTrainer:
         ``profile`` every dispatch is one batch and waits for the device
         (per-batch attribution, as the JAX package does)."""
         t0 = time.perf_counter()
-        pv_feed = None
+        pv_feed = w_dev = None
         if use_pv:
             rp, plan, pv_feed = self._pv_resident_prepare(dataset)
             n = plan.n_batches if n_batches is None else min(plan.n_batches, n_batches)
-            feed_dev, rows_dev = pv_feed.positions, pv_feed.idx
+            # the registry reads the global batch (on a mesh, beside the
+            # rank's blocks the step reads)
+            feed_dev, rows_dev, w_dev = pv_feed.positions, pv_feed.global_idx, pv_feed.global_ins_weight
         else:
             rp = self._get_resident(dataset)
             blocks = [np.asarray(b, dtype=np.int32) for b in dataset.batch_indices(n_batches)]
@@ -772,7 +811,7 @@ class CTRTrainer:
                         aux["cmatch"] = logkeys[0].index_select(0, rows)
                         aux["rank"] = logkeys[1].index_select(0, rows)
                     if pv_feed is not None and self.metric_registry is not None:
-                        aux["ins_weight"] = pv_feed.ins_weight[c0 + j]
+                        aux["ins_weight"] = w_dev[c0 + j]
                     if chunk_ids is not None:
                         aux["ins_ids"] = chunk_ids[j]
                     yield i, {key: v[j] for key, v in mstack.items()}, aux
@@ -829,8 +868,10 @@ class CTRTrainer:
 
     def _check_replicas(self, dataset: BoxPSDataset) -> None:
         """Once a pass on a mesh: all-gather the ranks' replica digests
-        (the pass's keys, its record order, the batch size) and raise on a
-        rank that differs, before any step could route wrongly."""
+        (the pass's keys, its record order, the batch size) and whether
+        each has a registry and a dump, and raise on a rank that differs,
+        before any step could route wrongly or wait on a collective the
+        others never make. Binds the dataset to the plan."""
         if self.plan is None or self._digest_ws is dataset.ws:
             return
         if dataset.batch_size != self.cfg.batch_size * self.plan.world:
@@ -843,15 +884,25 @@ class CTRTrainer:
                 f"the working set has {dataset.ws.n_mesh_shards} mesh shards, the mesh "
                 f"{self.plan.world} ranks: BoxPSDataset(n_mesh_shards=world)"
             )
-        mine = torch.from_numpy(dataset.replica_digest()).to(self.device)
+        if dataset.mesh_plan is not None and dataset.mesh_plan is not self.plan:
+            raise ValueError("the dataset is bound to another mesh plan")
+        opts = [self.metric_registry is not None, self.dump_pool is not None]
+        mine = torch.from_numpy(np.concatenate([dataset.replica_digest(), np.array(opts, np.int64)])).to(self.device)
         every = self.plan.all_gather(mine).cpu().numpy()
-        bad = [r for r in range(self.plan.world) if not np.array_equal(every[r], every[0])]
+        bad = [r for r in range(self.plan.world) if not np.array_equal(every[r, :3], every[0, :3])]
         if bad:
             raise RuntimeError(
                 f"replica digest mismatch: ranks {bad} differ from rank 0 in the pass's "
                 "keys, record order or batch size (every rank must load the same files "
                 "with the same seed)"
             )
+        bad = [r for r in range(self.plan.world) if not np.array_equal(every[r, 3:], every[0, 3:])]
+        if bad:
+            raise RuntimeError(
+                f"ranks {bad} differ from rank 0 in having a metric registry or a dump: "
+                "every rank passes the same options (each gathers the outputs they read)"
+            )
+        dataset.mesh_plan = self.plan
         self._digest_ws = dataset.ws
 
     def train_pass(
@@ -878,8 +929,6 @@ class CTRTrainer:
         # the join phase serves pv-merged batches with rank_offset and ghost
         # weights, the update phase flat ones (data_feed.cc:2165-2198)
         use_pv = dataset.pv_merged and dataset.current_phase == 1
-        if use_pv and self.plan is not None:
-            raise NotImplementedError("the join phase (pv feeds) on a mesh is not ported yet (slice 10)")
         self._check_replicas(dataset)
         state = self._make_state(dataset.device_table, ws_key=dataset.ws)
         tm = dict.fromkeys(_PROFILE_KEYS, 0.0)
@@ -891,7 +940,7 @@ class CTRTrainer:
         holder = {"state": state}
         eval_mode = self._eval_active
         is_async = self.cfg.dense_sync_mode == "async" and not eval_mode
-        if is_async and set(self.async_dense.pull_dense()) != set(state.params):
+        if is_async and self._lead and set(self.async_dense.pull_dense()) != set(state.params):
             raise ValueError("the AsyncDenseTable's params are not the model's")
         step_fn = self._step_fn(eval_mode)
         if self._use_resident(dataset, use_pv, is_async):
@@ -926,7 +975,7 @@ class CTRTrainer:
         state = holder["state"]
         if is_async:
             # the host table owns the dense params: take its latest view
-            self.params = {k: torch.from_numpy(v).to(self.device) for k, v in self.async_dense.pull_dense().items()}
+            self.params = self._async_params(state.params)
             self.opt_state = state.opt_state  # untouched in async mode
         elif self.plan is None:
             # an eval pass returns params and optimizer state as they came
@@ -934,7 +983,7 @@ class CTRTrainer:
         else:
             state = self._mesh_pass_end(state, eval_mode)
         self._state = state
-        if self.dump_pool is not None and self.dump_params_at_end:
+        if self.dump_pool is not None and self.dump_params_at_end and self._lead:
             self._dump_params()
 
         cum = self._auc_host(state.auc)
@@ -954,6 +1003,53 @@ class CTRTrainer:
         out["batches"] = float(len(losses))
         if profile:
             out["profile"] = tm
+        return out
+
+    @property
+    def _lead(self) -> bool:
+        """The one device, or rank 0 of a mesh: the process that holds the
+        async dense table and writes the dump (each line once)."""
+        return self.plan is None or self.plan.rank == 0
+
+    def _async_params(self, like: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The async dense table's params on the device, copies (PullDense).
+        On a mesh rank 0 pulls and one broadcast of the flattened params
+        puts its bits on every rank (the other ranks' buffers give only the
+        shapes)."""
+        if self.plan is None:
+            return {k: torch.from_numpy(v).to(self.device, copy=True) for k, v in self.async_dense.pull_dense().items()}
+        keys = list(like)
+        if self._lead:
+            host = self.async_dense.pull_dense()
+            flat = torch.cat([torch.from_numpy(np.asarray(host[k], np.float32)).reshape(-1) for k in keys])
+            flat = flat.to(self.device)
+        else:
+            flat = torch.empty(sum(like[k].numel() for k in keys), dtype=torch.float32, device=self.device)
+        flat = self.plan.broadcast(flat, src=0)
+        out, off = {}, 0
+        for k in keys:
+            n = like[k].numel()
+            out[k] = flat[off : off + n].reshape(like[k].shape)
+            off += n
+        return out
+
+    def _gather_instances(self, m: Dict) -> Dict:
+        """``m`` with each per-instance output ([b, ...] float32: ``preds``,
+        ``labels``) replaced by every rank's, [world, b, ...] in rank order
+        (the JAX mesh step's layout), in ONE all-gather."""
+        b = self.cfg.batch_size
+        names = [
+            k for k, v in m.items()
+            if isinstance(v, torch.Tensor) and v.dim() >= 1 and v.shape[0] == b and v.dtype == torch.float32
+        ]
+        if not names:
+            return m
+        parts = [m[k].reshape(-1) for k in names]
+        every = self.plan.all_gather(torch.cat(parts))  # [world, sum]
+        out, off = dict(m), 0
+        for k, p in zip(names, parts):
+            out[k] = every[:, off : off + p.numel()].reshape(self.plan.world, *m[k].shape)
+            off += p.numel()
         return out
 
     def _auc_host(self, auc: AucState) -> AucState:
@@ -1000,7 +1096,9 @@ class CTRTrainer:
         the NaN check skipped reaches neither the async dense table, the
         registry nor the dump (the read of its flag waits for the device,
         and happens only with such a consumer, which reads the batch back
-        anyway)."""
+        anyway; on a mesh the flag is all-reduced, so every rank skips
+        alike). On a mesh the registry and the dump read the global
+        batch's outputs (:meth:`_gather_instances`)."""
         if "nan_skipped" in m:
             skip_flags.append(m["nan_skipped"])
         reg = self.metric_registry
@@ -1008,13 +1106,15 @@ class CTRTrainer:
         skipped = 0
         if "nan_skipped" in m and (is_async or reg is not None or self.dump_pool is not None):
             skipped = int(m["nan_skipped"])
-        if is_async and not skipped:
+        if is_async and not skipped and self._lead:
             self.async_dense.push_dense(m["gparams"])  # PushDense
+        if self.plan is not None and not skipped and (reg is not None or self.dump_pool is not None):
+            m = self._gather_instances(m)
         if reg is not None and not skipped:
             # per-batch registry feed with the phase and the logkey inputs
             # (AddAucMonitor parity, boxps_worker.cc:408-418)
             reg.add_all({**m, **aux}, phase=dataset.current_phase)
-        if self.dump_pool is not None and not skipped:
+        if self.dump_pool is not None and not skipped and self._lead:
             self._dump_batch(i, m, aux)
         if on_batch is not None:
             on_batch(i, m)
@@ -1070,8 +1170,9 @@ class CTRTrainer:
         (``table/carrier.py``): the next begin_pass splices the rows that
         stay on the device and fetches only the departing ones. The
         trainer never writes it again: the next pass trains a copy. On a
-        mesh it is this rank's shard [cap, width] (the carried boundary on
-        a mesh is not ported yet, slice 10)."""
+        mesh it is this rank's shard [cap, width]: its end_pass carries the
+        shard, the departing rows all-gathered to every rank's host
+        table."""
         if self._state is None:
             raise RuntimeError("no trained pass")
         return self._state.table

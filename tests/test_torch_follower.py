@@ -360,13 +360,16 @@ def test_follower_needs_the_publishers_shard_count(stack):
         fol.poll_once()
 
 
-def test_device_scoring_tier_raises_where_the_scoring_table_does(stack):
+def test_device_scoring_tier_raises_where_the_scoring_table_does(stack, monkeypatch):
+    """With the tier on and no device given, a host without a GPU raises
+    in ``ScoringTable.commit``, before anything is served."""
     st = stack
     st.publish_base()
     before = config.get_flag("device_scoring_tier")
     config.set_flag("device_scoring_tier", "on")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     try:
-        with pytest.raises(NotImplementedError, match="device scoring tier"):
+        with pytest.raises(RuntimeError, match="device scoring tier needs a GPU"):
             st.follower.poll_once()
     finally:
         config.set_flag("device_scoring_tier", before)

@@ -280,10 +280,12 @@ def test_replica_digest_raises_when_a_rank_loads_other_files(ranks):
 
 
 def test_mesh_refusals(tmp_path):
-    """What slice 10 owes raises ``NotImplementedError`` naming it, on a
-    plan that never runs a collective: a rank-offset model, async dense, a
-    metric registry, a pv phase, and a rank's table shard at end_pass.
-    ZeRO-1 without a plan is a ``ValueError``."""
+    """What the mesh still refuses, on a plan that never runs a
+    collective: ``use_expand`` raises ``NotImplementedError`` naming its
+    ROADMAP item; async dense without a table on rank 0, async with
+    ZeRO-1, ZeRO-1 without a plan and a rank's table shard at end_pass on
+    a dataset no mesh trainer bound are ``ValueError``s. Async dense, a
+    rank-offset model and a metric registry are taken."""
     import dataclasses
 
     from paddlebox_tpu_torch.fleet import Zero1Optimizer
@@ -292,15 +294,22 @@ def test_mesh_refusals(tmp_path):
     from paddlebox_tpu_torch.train import AsyncDenseTable
 
     plan = MeshPlan(rank=0, world=2, device=torch.device("cpu"), backend="gloo")
+    plan1 = MeshPlan(rank=1, world=2, device=torch.device("cpu"), backend="gloo")
     lay = ValueLayout(embedx_dim=D)
     cfg = TrainStepConfig(num_slots=S, batch_size=B // 2, layout=lay, auc_buckets=1000)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        CTRTrainer(Tower(), dataclasses.replace(cfg, model_takes_rank_offset=True), plan=plan)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        CTRTrainer(Tower(), dataclasses.replace(cfg, use_expand=True), plan=plan)
+    acfg = dataclasses.replace(cfg, dense_sync_mode="async")
+    with pytest.raises(ValueError, match="AsyncDenseTable"):
+        CTRTrainer(Tower(), acfg, plan=plan)
+    CTRTrainer(Tower(), acfg, plan=plan1)  # only rank 0 holds the table
     adt = AsyncDenseTable(Tower().state_dict(), base_lr=1e-3)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        CTRTrainer(Tower(), dataclasses.replace(cfg, dense_sync_mode="async"), async_dense=adt, plan=plan)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        CTRTrainer(Tower(), cfg, plan=plan, metric_registry=MetricRegistry(device="cpu"))
+    CTRTrainer(Tower(), acfg, async_dense=adt, plan=plan)
+    with pytest.raises(ValueError, match="ZeRO"):
+        CTRTrainer(Tower(), acfg, dense_opt=Zero1Optimizer(Adam(LR), n_dev=2), async_dense=adt, plan=plan)
+    adt.finalize()
+    CTRTrainer(Tower(), dataclasses.replace(cfg, model_takes_rank_offset=True), plan=plan)
+    CTRTrainer(Tower(), cfg, plan=plan, metric_registry=MetricRegistry(device="cpu"))
     with pytest.raises(ValueError, match="mesh plan"):
         CTRTrainer(Tower(), cfg, dense_opt=Zero1Optimizer(Adam(LR), n_dev=2), device="cpu")
 
@@ -309,11 +318,8 @@ def test_mesh_refusals(tmp_path):
     ds.set_filelist(_write_files(str(tmp_path), n_files=1))
     ds.load_into_memory()
     ds.begin_pass(round_to=64)
-    ds._pv_merged, ds.current_phase = True, 1  # a join phase
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        CTRTrainer(Tower(), cfg, plan=plan).train_pass(ds)
     shard = torch.zeros((ds.ws.capacity, lay.width))
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    with pytest.raises(ValueError, match="bound to the mesh plan"):
         ds.end_pass(shard)
 
 

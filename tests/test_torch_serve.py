@@ -176,7 +176,7 @@ def test_lookup_rows_matches_jax_exactly(slice_setup):
     assert got.tobytes() == want.tobytes() and got_miss == want_miss == 2
 
 
-def test_commit_is_all_or_nothing():
+def test_commit_is_all_or_nothing(monkeypatch):
     tab = ScoringTable(3)
     v0 = tab.commit(np.array([1, 2], dtype=np.uint64), np.ones((2, 3), np.float32),
                     date=DATE, delta_idx=0, decay_epoch=0)
@@ -185,7 +185,9 @@ def test_commit_is_all_or_nothing():
             tab.commit(np.array([5], dtype=np.uint64), np.zeros((1, 3), np.float32),
                        date=DATE, delta_idx=1, decay_epoch=0)
     assert tab.version() is v0 and tab.committed_indices() == [0]
-    with pytest.raises(NotImplementedError):
+    # a device tier on a host without a GPU and without an explicit device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device scoring tier needs a GPU"):
         tab.commit(np.array([5], dtype=np.uint64), np.zeros((1, 3), np.float32),
                    date=DATE, delta_idx=1, decay_epoch=0, hotness=np.ones(1, np.float32))
     assert tab.version() is v0
