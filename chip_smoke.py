@@ -247,6 +247,44 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    ``boundary_s`` (end_pass + the next begin_pass) a rank, both kernels
    at each world's join owner shape.
 
+14. the supervised day ("supervised_day"), at the same width on bench.py's
+   data from ``--seed + 14`` (14 files, and 6 more that a writer thread
+   streams), on cuda:0. Ingest: the first 4 files through a
+   ``MultiSlotDataGenerator`` script as ``pipe_command`` and through the
+   native tier, records and working-set keys bitwise alike (load seconds,
+   lines/s and ``PassStats`` printed); then a copy with a seeded 0.5% of
+   one file's lines corrupted, an intact ``.gz`` part and a truncated one:
+   ``bad_lines`` and ``bad_files`` exactly those injected, the dead letter
+   exactly those lines and the torn part, the pass admitted. The day:
+   ``PassSupervisor(dataset, CTRTrainer, checkpoint=CheckpointManager)
+   .run_day`` over 3 passes of 4 files (8 resident steps a pass, 4 a
+   dispatch), once clean and once under an ``fs.open_read`` flake, a
+   ``step.device`` fault at step 5 of pass 2 and a torn ``checkpoint.save``:
+   the incidents (train_error revert_retry, ckpt_save_error retry), and the
+   table, params, Adam state, AUC tables and published chain bitwise the
+   clean day's, as are bare ``train_pass``'s; the quarantined pass under
+   ``on_poisoned="degrade"`` (its line threshold lowered under its loss)
+   bitwise a pass over the pre-cleaned files; the flight recorder's bundle
+   holds the step-5 incident and the metric series reads back.
+   Observability: the profiler over a supervised pass, a quarantined
+   load, profiled passes on the resident and the packer feed and a
+   carried boundary: every span of the JAX package's trainer,
+   dataset and table in the exported chrome trace, samples/s with the
+   profiler on and off, and 2 steps under ``device_trace`` naming both
+   kernels as often as ``launch_counts``. The AUC runner: ``slots_shuffle``
+   over 3 slots on the trained table, an eval pass each (1 gather an eval
+   step) beside the unshuffled one. The stream: 8192 records every 2 s
+   into a directory, a ``StreamSupervisor`` (3 s micro-passes, compaction
+   every 3 deltas) and a ``Follower`` polling its chain; a
+   ``stream.cut_publish`` fault crashes cut 2 with its spool durable, the
+   stack restarts from disk and replays it; after 6 cuts the table and
+   dense state are bitwise an uninterrupted run over the same spools.
+   Every training step launches 2 gathers and 1 writeback. Printed: the
+   day's samples/s supervised and bare, a retry's seconds, ``save_base``
+   / ``save_delta`` s, the span counts, each slot's shuffled AUC, and the
+   stream's ``serve.freshness_s`` p50 and p99, records a cut and backlog
+   stretches.
+
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
 {...}}``. It exits non-zero without a result when no CUDA device is
@@ -269,6 +307,7 @@ import time
 import traceback
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -360,6 +399,21 @@ ZOO_BOX_FILES = 2  # the façade's day
 # 4100 is past it and is cut into column slabs
 EDGE_WIDTHS = (1, 4, 21, 128, 4100)
 BIG_TABLE = (2**21 + 8, 1024)  # 2**31 + 8192 f32 elements, 8.6 GB
+# phase 14: the supervised day, its ingest, observability, the AUC runner
+# and the stream, on bench.py's data from --seed + 14
+PUB14_DATE = "20261018"
+SUP_PASSES = 3
+SUP_FILES = 4  # x RECORDS_PER_FILE: 32768 records, 8 steps a pass
+SUP_K = 4  # resident_scan_batches on the day: step 5 of a pass opens its second dispatch
+AUC_FILES = 2  # the AUC runner's eval pass: 16384 records, 4 eval steps
+AUC_SLOTS = ("s0", "s1", "s2")
+STREAM_CHUNKS = 6  # the writer's chunk files, appended in turn
+STREAM_EVERY_S = 2.0  # a chunk of RECORDS_PER_FILE records every 2 s
+STREAM_MICRO_S = 3.0  # stream_micro_pass_s
+STREAM_COMPACT = 3  # stream_compact_every
+STREAM_CUTS = 6
+STREAM_FAULT_HIT = 3  # stream.cut_publish's third fire: cut 2, its spool durable and untrained
+STREAM_DEADLINE_S = 240.0  # a stream that stalls fails here instead of hanging
 
 
 def smi_line() -> str:
@@ -870,10 +924,11 @@ def main() -> int:
     join_counts, join_err = timed("10 join_update", join_update_phase, args, dev, card, ck, pull_push, lay)
     zoo_counts, dcn, zoo_err = timed("11 zoo", zoo_phase, args, dev, card, ck, lay)
     mesh_counts, owner, join_owner, mesh_err = timed("12-13 mesh", mesh_phases, args, dev, card, ck, lay)
+    supervised_counts, sup_err = timed("14 supervised_day", supervised_phase, args, dev, card, ck, lay, schema)
     emit({"card": card, "phase_wall_s": walls, "script_s": time.perf_counter() - t_start})
 
     by_path = {"serve": serve_counts, **train["counts"], **published, "boundary": boundary_counts, **join_counts,
-               **zoo_counts, **mesh_counts}
+               **zoo_counts, **mesh_counts, **supervised_counts}
     emit({"kernels": [
         {
             "name": name,
@@ -887,8 +942,9 @@ def main() -> int:
             # join and update phases, then phase 11's zoo, async dense,
             # dump and façade runs, then phase 12's NCCL and gloo mesh
             # worlds (every rank's main path), then phase 13's mesh join
-            # and update, boundary, async and dump runs; serve_tier is
-            # phase 8's tiered serving
+            # and update, boundary, async and dump runs, then phase 14's
+            # supervised day, AUC runner and stream; serve_tier is phase
+            # 8's tiered serving
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": err,
@@ -913,9 +969,9 @@ def main() -> int:
         }
         for name, source, replaces, key, err in (
             ("pull_rows_cuda", "paddlebox_tpu_torch/ops/csrc/gather_rows.cu", GATHER_REPLACES, "gather",
-             max(max_err, train["gather_err"], join_err, zoo_err, mesh_err)),
+             max(max_err, train["gather_err"], join_err, zoo_err, mesh_err, sup_err)),
             ("write_rows_cuda", "paddlebox_tpu_torch/ops/csrc/write_rows.cu", WRITE_REPLACES, "write",
-             max(write_err, train["write_err"], join_err, zoo_err, mesh_err)),
+             max(write_err, train["write_err"], join_err, zoo_err, mesh_err, sup_err)),
         )
     ]})
     print(card, flush=True)
@@ -4064,6 +4120,736 @@ def mesh_join_report(args, dev, card, ck, lay, worlds, prep):
     print(f"phase 13 (mesh join, options, boundary): its checks and kernel timings in "
           f"{time.perf_counter() - t_phase:.3f} s, its ranks in the worlds' spawns; {card}", flush=True)
     return counts, owner, err
+
+
+# ---- phase 14: the supervised day ---------------------------------------------
+
+# the JAX trainer's spans, the dataset's and the table's (utils/trace.py):
+# each must be in phase 14's chrome trace
+SPAN_NAMES = (
+    "pack+upload", "feed_wait", "train_step_dispatch", "device_step", "resident_prepare", "superstep_dispatch",
+    "device_superstep", "boundary.premerge", "boundary.stage_pull", "boundary.writeback_kick",
+    "boundary.end_pass_worker", "boundary.dedup", "boundary.pull", "boundary.splice", "data.quarantine.dead_letter",
+)
+# bench.py's slot lines in, the same slots out, through the port's
+# MultiSlotDataGenerator: the pipe_command of phase 14's ingest check. It
+# loads data_generator.py by its path: the module needs neither torch nor
+# the rest of the package, which a generator process would otherwise
+# import (seconds a file)
+RELAY_SCRIPT = '''import importlib.util
+spec = importlib.util.spec_from_file_location("data_generator", {path!r})
+module = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(module)
+MultiSlotDataGenerator = module.MultiSlotDataGenerator
+
+
+class Relay(MultiSlotDataGenerator):
+    def generate_sample(self, line):
+        def it():
+            t = line.split()
+            yield [("label", [float(t[1])])] + [("s%d" % i, [int(t[3 + 2 * i])]) for i in range({n_slots})]
+
+        return it
+
+
+Relay().run_from_stdin()
+'''
+
+
+def _clocked(fn, into):
+    """``fn``, appending (seconds, raised) to ``into`` at each call."""
+
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        raised = True
+        try:
+            out = fn(*a, **kw)
+            raised = False
+            return out
+        finally:
+            into.append((time.perf_counter() - t0, raised))
+
+    return run
+
+
+class _DayClock:
+    """A supervised stack whose saves (``save_base`` / ``save_delta``),
+    pass attempts and reverts are timed, each call as (seconds, raised)."""
+
+    def __init__(self, s):
+        self.base, self.delta, self.attempts, self.reverts = [], [], [], []
+        s.cm.save_base, s.cm.save_delta = _clocked(s.cm.save_base, self.base), _clocked(s.cm.save_delta, self.delta)
+        s.sup._attempt, s.sup._revert = _clocked(s.sup._attempt, self.attempts), _clocked(s.sup._revert, self.reverts)
+
+    def retry_s(self):
+        """What the day's retries cost: the failed attempts and saves, and
+        the reverts."""
+        return sum(t for t, raised in self.attempts + self.base + self.delta if raised) + sum(
+            t for t, _ in self.reverts)
+
+
+def sup_stack(args, lay, schema, root, shuffle_mode="local", shrink_threshold=None, **sup_kw):
+    """A fresh supervised stack at full width: the native table
+    (n_shards=64; ``shrink_threshold`` when given, else the default), a
+    dataset of BATCH (``shuffle_mode``), phase 6's DeepFM and Adam, a
+    CheckpointManager at ``root`` and a PassSupervisor that never sleeps
+    between retries."""
+    from paddlebox_tpu_torch.data import BoxPSDataset
+    from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig
+    from paddlebox_tpu_torch.train import CheckpointManager, PassSupervisor, RetryPolicy, TrainStepConfig
+
+    opt = SparseOptimizerConfig() if shrink_threshold is None else SparseOptimizerConfig(
+        shrink_threshold=shrink_threshold)
+    table = HostSparseTable(lay, opt, n_shards=64, seed=args.seed)
+    ds = BoxPSDataset(schema, table, batch_size=BATCH, shuffle_mode=shuffle_mode, seed=args.seed)
+    cfg = TrainStepConfig(num_slots=NUM_SLOTS, batch_size=BATCH, layout=lay, sparse_opt=opt)
+    tr = new_trainer(args, cfg, lay)
+    cm = CheckpointManager(root)
+    sup = PassSupervisor(ds, tr, checkpoint=cm, retry=RetryPolicy(backoff_s=0.0, sleep=lambda s: None), **sup_kw)
+    return SimpleNamespace(table=table, ds=ds, tr=tr, cm=cm, sup=sup, opt=opt, cfg=cfg)
+
+
+def same_stack(a, b, what):
+    """Host tables, params, Adam state and the last pass's AUC tables of two
+    stacks, bitwise; raises otherwise."""
+    auc_a, auc_b = a.tr._state.auc, b.tr._state.auc
+    if not same_tables(a.table, b.table):
+        raise AssertionError(f"{what}: the host tables differ")
+    if not same_dense(a.tr, b.tr):
+        raise AssertionError(f"{what}: the dense params or the Adam state differ")
+    if not (torch.equal(auc_a.pos, auc_b.pos) and torch.equal(auc_a.neg, auc_b.neg)):
+        raise AssertionError(f"{what}: the AUC tables differ")
+
+
+def same_chain(root_a, root_b, lay, opt, seed, what):
+    """Two published chains: the same files under the day (checkpoint.py's
+    names), every npz's arrays equal, and a resume of each into a fresh
+    table bitwise alike (npz members carry zip timestamps, so bytes are
+    not compared)."""
+    from paddlebox_tpu_torch.table import HostSparseTable
+    from paddlebox_tpu_torch.train import CheckpointManager
+
+    def files(root):
+        out = set()
+        for d, dirs, names in os.walk(root):
+            rel = os.path.relpath(d, root)
+            if rel.split(os.sep)[0] in ("obs", "quarantine"):
+                continue
+            out |= {os.path.join(rel, n) for n in names}
+        return out
+
+    fa, fb = files(root_a), files(root_b)
+    if fa != fb:
+        raise AssertionError(f"{what}: the chains hold different files: {sorted(fa ^ fb)[:8]}")
+    for rel in sorted(f for f in fa if f.endswith(".npz")):
+        with np.load(os.path.join(root_a, rel)) as x, np.load(os.path.join(root_b, rel)) as y:
+            if sorted(x.files) != sorted(y.files) or not all(np.array_equal(x[k], y[k]) for k in x.files):
+                raise AssertionError(f"{what}: {rel} differs")
+    ta, tb = (HostSparseTable(lay, opt, n_shards=64, seed=seed) for _ in range(2))
+    sa, sb = CheckpointManager(root_a).resume(ta), CheckpointManager(root_b).resume(tb)
+    if sa != sb or not same_tables(ta, tb):
+        raise AssertionError(f"{what}: the chains resume to different states ({sa} vs {sb})")
+    return len(fa)
+
+
+def ingest_check(args, lay, schema, tmp, files, extra, card):
+    """Phase 14's ingest: the day's first 4 files through a
+    MultiSlotDataGenerator ``pipe_command`` and through the native tier,
+    records and working-set keys bitwise; then a copy with a seeded 0.5%
+    of one file's lines corrupted, an intact ``.gz`` part and a truncated
+    one: the counts, the dead letter and the admission. Returns (the
+    quarantined files, the pre-cleaned files, numbers)."""
+    import gzip
+
+    from paddlebox_tpu_torch.data import BoxPSDataset, read_dead_letter
+    from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig
+
+    script = os.path.join(tmp, "relay.py")
+    with open(script, "w") as f:
+        f.write(RELAY_SCRIPT.format(path=os.path.join(REPO, "paddlebox_tpu_torch", "data", "data_generator.py"),
+                                    n_slots=NUM_SLOTS))
+    nums, loaded = {}, {}
+    for tier, kw in (("pipe", {"pipe_command": f"{sys.executable} {script}"}), ("native", {})):
+        ds = BoxPSDataset(schema, HostSparseTable(lay, SparseOptimizerConfig(), n_shards=64, seed=args.seed),
+                          batch_size=BATCH, **kw)
+        ds.set_filelist(files)
+        t0 = time.perf_counter()
+        ds.load_into_memory()
+        load_s = time.perf_counter() - t0
+        if (ds.store is None) != (tier == "pipe"):
+            raise AssertionError(f"the {tier} load took the wrong tier")
+        st = ds.stats
+        nums[f"{tier}_load_s"] = load_s
+        nums[f"{tier}_lines_per_s"] = st.lines / load_s
+        nums[f"{tier}_stats"] = {k: v for k, v in dataclasses.asdict(st).items() if k != "bad_by_file"}
+        if ds.store is not None:
+            vals, offs, fl = ds.store.u64_values, ds.store.u64_offsets, ds.store.f_values
+        else:
+            recs = ds.records
+            vals = np.concatenate([r.u64_values for r in recs])
+            offs = np.stack([r.u64_offsets for r in recs])
+            fl = np.concatenate([r.f_values for r in recs])
+        loaded[tier] = (vals, offs, fl, ds.ws.premerge(8))
+    for a, b in zip(loaded["pipe"], loaded["native"]):
+        if a.shape != b.shape or a.tobytes() != b.tobytes():
+            raise AssertionError("the pipe_command load differs from the native load (records or working-set keys)")
+    print(f"ingest: {len(files)} files through a MultiSlotDataGenerator pipe_command and through the native tier: "
+          f"records and {len(loaded['native'][3])} working-set keys bitwise alike; pipe {nums['pipe_load_s']:.3f} s "
+          f"({nums['pipe_lines_per_s']:.0f} lines/s), native {nums['native_load_s']:.3f} s "
+          f"({nums['native_lines_per_s']:.0f} lines/s); {card}", flush=True)
+
+    # the quarantined copy: 0.5% of file 0's lines corrupted in place, an
+    # intact .gz of an extra file and a truncated .gz of another
+    rng = np.random.default_rng(args.seed + 14)
+    with open(files[0]) as f:
+        lines = f.read().splitlines()
+    bad = np.sort(rng.choice(len(lines), int(round(len(lines) * 0.005)), replace=False))
+    corrupt = list(lines)
+    for i in bad:  # a label no float parser takes: both tiers reject the line
+        corrupt[i] = "1 not-a-float " + lines[i].split(" ", 2)[2]
+    qdir = os.path.join(tmp, "quarantined")
+    os.makedirs(qdir)
+    f0_bad = os.path.join(qdir, "part-000-corrupt.txt")
+    f0_clean = os.path.join(qdir, "part-000-clean.txt")
+    with open(f0_bad, "w") as f:
+        f.write("\n".join(corrupt) + "\n")
+    keep = np.ones(len(lines), bool)
+    keep[bad] = False
+    with open(f0_clean, "w") as f:
+        f.write("\n".join(np.asarray(lines, dtype=object)[keep]) + "\n")
+    gz_ok, gz_torn = os.path.join(qdir, "extra-0.txt.gz"), os.path.join(qdir, "extra-1.txt.gz")
+    with open(extra[0], "rb") as src, gzip.open(gz_ok, "wb") as dst:
+        dst.write(src.read())
+    with open(extra[1], "rb") as src:
+        whole = gzip.compress(src.read())
+    with open(gz_torn, "wb") as f:
+        f.write(whole[: len(whole) // 2])
+    quarantined = [f0_bad, *files[1:], gz_ok, gz_torn]
+    precleaned = [f0_clean, *files[1:], extra[0]]
+    ds = BoxPSDataset(schema, HostSparseTable(lay, SparseOptimizerConfig(), n_shards=64, seed=args.seed),
+                      batch_size=BATCH, quarantine_dir=os.path.join(tmp, "dead-letters"))
+    ds.set_date(PUB14_DATE)
+    ds.set_filelist(quarantined)
+    t0 = time.perf_counter()
+    ds.load_into_memory()
+    nums["quarantined_load_s"] = time.perf_counter() - t0
+    st = ds.stats
+    if (st.bad_lines, st.bad_files) != (len(bad), 1):
+        raise AssertionError(f"quarantine counted {st.bad_lines} bad lines and {st.bad_files} bad files, "
+                             f"injected {len(bad)} and 1")
+    dl = read_dead_letter(st.dead_letter)
+    got_lines = [(e["file"], e["line_no"], e["line"]) for e in dl["entries"] if e["kind"] == "line"]
+    want_lines = [(f0_bad, int(i) + 1, corrupt[i]) for i in bad]
+    got_files = [e["file"] for e in dl["entries"] if e["kind"] == "file"]
+    if got_lines != want_lines or got_files != [gz_torn]:
+        raise AssertionError("the dead letter does not hold exactly the corrupted lines and the torn part")
+    rep = ds.admission_report()
+    if rep["poisoned"]:
+        raise AssertionError(f"the quarantined pass was not admitted: {rep['detail']}")
+    nums["quarantine"] = {k: rep[k] for k in ("bad_lines", "bad_files", "lines", "files", "line_fraction",
+                                             "file_fraction")}
+    print(f"quarantine: {st.bad_lines} bad lines and {st.bad_files} bad file counted, exactly those injected; the "
+          f"dead letter holds exactly those lines and the torn part; admitted (line fraction "
+          f"{rep['line_fraction']:.5f}, file fraction {rep['file_fraction']:.3f}); PassStats "
+          f"{ {k: v for k, v in dataclasses.asdict(st).items() if k not in ('bad_by_file', 'dead_letter')} }",
+          flush=True)
+    return quarantined, precleaned, nums
+
+
+def resident_path_check(ck, tr, what, write=True):
+    """Both kernels (the gather alone with ``write=False``) against their
+    plain versions at the shape ``tr``'s last resident pass gave them: the
+    unique rows of its first step, built from the trainer's own
+    ResidentPass and index partition, into a copy of its trained device
+    table. Returns the max abs error."""
+    from paddlebox_tpu_torch.train import build_device_batch
+
+    res, part = tr._resident_cache, tr._idx_cache
+    if tr.last_feed != "resident" or res is None or part is None or part[0] is not res[2]:
+        raise AssertionError(f"{what}: the last pass left no resident pass to take the kernels' ids from "
+                             f"(feed {tr.last_feed})")
+    rows = build_device_batch(res[2], tr.cfg, part[2][0])["uniq_rows"]
+    tab = tr.trained_table_device().clone()
+    what = f"{what} R={tab.shape[0]} W={tab.shape[1]} U={rows.shape[0]} int32"
+    errs = [check_gather(ck, tab, rows, what)]
+    if write:
+        errs.append(check_write(ck, tab, rows, ck.pull_rows_ref(tab, rows) + 0.5, what))
+    return max(errs)
+
+
+def supervised_day(args, lay, schema, root, passes, ck, rules=()):
+    """One supervised ``run_day`` on a fresh stack, under ``rules`` of the
+    fault plan. Returns (stack, outs, wall s, launch counts, the plan,
+    the day's clock)."""
+    from paddlebox_tpu_torch.utils import faultinject as fault
+
+    s = sup_stack(args, lay, schema, root)
+    clock = _DayClock(s)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    with flags(resident_scan_batches=SUP_K), fault.inject(*rules) as plan:
+        t0 = time.perf_counter()
+        outs = s.sup.run_day(PUB14_DATE, passes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return s, outs, wall, dict(ck.launch_counts), plan, clock
+
+
+def bare_day(args, lay, schema, root, passes):
+    """The same passes through bare train_pass (no supervisor, no guard,
+    no saves), the classic boundary as a supervised pass has: (stack, wall
+    s)."""
+    s = sup_stack(args, lay, schema, root)
+    with flags(resident_scan_batches=SUP_K):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for files in passes:
+            s.ds.set_date(PUB14_DATE)
+            s.ds.set_filelist(files)
+            s.ds.load_into_memory()
+            s.ds.begin_pass(round_to=512)
+            s.tr.prepare_pass(s.ds)
+            s.tr.train_pass(s.ds)
+            s.ds.end_pass(s.tr.trained_table())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return s, wall
+
+
+def kernel_events(prof, kernel: str) -> int:
+    """Launches of ``kernel`` among the profiler's device events."""
+    return sum(e.count for e in prof.key_averages() if kernel in e.key)
+
+
+def observability(args, lay, schema, tmp, passes, quarantined, card, ck):
+    """Phase 14's observability: the PROFILER over a supervised pass (the
+    kick, the resident spans), the same pass with it off, a quarantined load (the dead letter), profiled passes on
+    the resident and the packer feed (the device spans), a carried
+    boundary (the splice) and 2 steps under ``device_trace``. Every span
+    of SPAN_NAMES must be in the exported trace, and the kernels in the
+    trace as many times as ``launch_counts``."""
+    from paddlebox_tpu_torch.data import BoxPSDataset
+    from paddlebox_tpu_torch.utils.trace import PROFILER, device_trace
+
+    nums = {}
+    sps = {}
+    PROFILER.reset()
+    for mode in ("on", "off"):
+        # no shrink threshold: the feed stage prefetches the next pass's rows
+        s = sup_stack(args, lay, schema, os.path.join(tmp, f"obs-{mode}"), shrink_threshold=0.0)
+        if mode == "on":
+            PROFILER.enable()
+        try:
+            with flags(resident_scan_batches=SUP_K):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs = s.sup.run_day(PUB14_DATE, passes[:1], publish=False)
+                torch.cuda.synchronize()
+                sps[mode] = sum(o["batches"] for o in outs) * BATCH / (time.perf_counter() - t0)
+        finally:
+            PROFILER.disable()
+        if mode == "on":
+            on = s
+    nums["samples_per_s_profiler_on"], nums["samples_per_s_profiler_off"] = sps["on"], sps["off"]
+    PROFILER.enable()
+    try:
+        # the dead letter's span
+        qds = BoxPSDataset(schema, on.table, batch_size=BATCH, quarantine_dir=os.path.join(tmp, "obs-dead"))
+        qds.set_filelist(quarantined)
+        qds.load_into_memory()
+        # the device spans on both flat feeds, then a carried boundary
+        ds, tr = on.ds, on.tr
+        ds.set_date(PUB14_DATE)
+        ds.set_filelist(passes[0])
+        ds.load_into_memory()
+        ds.begin_pass(round_to=512)
+        tr.train_pass(ds, n_batches=2, profile=True)
+        with flags(enable_resident_feed=0):
+            tr.train_pass(ds, n_batches=2, profile=True)
+        if tr.last_feed != "packer":
+            raise AssertionError(f"the profiled packer pass took the {tr.last_feed} feed")
+        # the next load while this pass is open: its feed stage pulls the
+        # new keys' rows (a kicked preload may find the pass ended first)
+        ds.set_filelist(passes[1])
+        ds.load_into_memory()
+        ds.end_pass(tr.trained_table_device())
+        ds.begin_pass(round_to=512)  # the splice
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        with device_trace(os.path.join(tmp, "device-trace")) as prof:
+            tr.train_pass(ds, n_batches=2)
+        counts = dict(ck.launch_counts)
+        ds.end_pass(None)
+        on.table.drain_pending()
+    finally:
+        PROFILER.disable()
+    events = {"pull_rows_cuda": kernel_events(prof, "gather_rows_kernel"),
+              "write_rows_cuda": kernel_events(prof, "write_rows_kernel")}
+    if events != counts or counts != {"pull_rows_cuda": 4, "write_rows_cuda": 2}:
+        raise AssertionError(f"device_trace over 2 steps names the kernels {events} times, launch_counts says {counts}")
+    trace_path = os.path.join(tmp, "supervised-trace.json")
+    n_events = PROFILER.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        spans = {}
+        for e in json.load(f)["traceEvents"]:
+            if e.get("ph") == "X":
+                spans[e["name"]] = spans.get(e["name"], 0) + 1
+    missing = [n for n in SPAN_NAMES if n not in spans]
+    if missing:
+        raise AssertionError(f"the chrome trace misses the spans {missing}")
+    PROFILER.reset()
+    nums["trace_events"] = n_events
+    nums["spans"] = dict(sorted(spans.items()))
+    nums["device_trace_kernel_events"] = events
+    print(f"observability: {n_events} trace events, every one of the {len(SPAN_NAMES)} spans present; samples/s "
+          f"{sps['on']:.0f} profiler on, {sps['off']:.0f} off; device_trace over 2 steps names the kernels {events} "
+          f"times, as launch_counts; {card}", flush=True)
+    return nums
+
+
+def auc_runner_check(args, s, schema, files, ck, card):
+    """``slots_shuffle`` over AUC_SLOTS on the trained table, one eval
+    pass each, beside the unshuffled eval pass; 1 gather an eval step.
+    Returns (launch counts, numbers, the gather's max abs error at the
+    eval path's shape)."""
+    from paddlebox_tpu_torch.data import BoxPSDataset
+
+    ds = BoxPSDataset(schema, s.table, batch_size=BATCH, shuffle_mode="local", seed=args.seed)
+    ds.set_date(PUB14_DATE)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    ds.begin_pass(round_to=512)
+    s.tr.set_test_mode(True)
+    aucs, secs = {}, {}
+    steps = 0
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    try:
+        for slot in (None, *AUC_SLOTS):
+            t0 = time.perf_counter()
+            if slot is not None:
+                ds.slots_shuffle([slot])
+            out = s.tr.train_pass(ds)
+            torch.cuda.synchronize()
+            secs[slot or "unshuffled"] = time.perf_counter() - t0
+            aucs[slot or "unshuffled"] = out["auc"]
+            steps += int(out["batches"])
+        counts = dict(ck.launch_counts)
+        # the eval path's gather at its own shape (an eval step writes no rows)
+        err = resident_path_check(ck, s.tr, "AUC runner eval path", write=False)
+        ds.slots_shuffle([])
+    finally:
+        s.tr.set_test_mode(False)
+    ds.end_pass(None, shrink=False)
+    if counts != {"pull_rows_cuda": steps, "write_rows_cuda": 0} or not all(np.isfinite(list(aucs.values()))):
+        raise AssertionError(f"AUC runner: launches {counts} for {steps} eval steps (want 1 gather each), "
+                             f"aucs {aucs}")
+    print(f"AUC runner: eval AUC unshuffled {aucs['unshuffled']:.5f}; "
+          + ", ".join(f"{k} shuffled {v:.5f}" for k, v in aucs.items() if k != "unshuffled")
+          + f"; {steps} eval steps, launches {counts}; {card}", flush=True)
+    return counts, {"auc": aucs, "seconds": secs, "eval_steps": steps}, err
+
+
+def stream_check(args, lay, schema, tmp, chunks, ck, card):
+    """The stream: a writer thread appends STREAM_RECORDS bench lines every
+    STREAM_EVERY_S s; a StreamSupervisor (STREAM_MICRO_S s micro-passes,
+    compaction every STREAM_COMPACT deltas) cuts them while a Follower
+    polls the chain; a ``stream.cut_publish`` fault crashes cut 2 with its
+    spool durable and untrained, the stack restarts from disk and the
+    stream goes on to STREAM_CUTS cuts. The final table and dense state
+    must be bitwise an uninterrupted run over the same spools. Returns
+    (launch counts, numbers, both kernels' max abs error at the stream's
+    shape)."""
+    import shutil
+    import threading
+
+    from paddlebox_tpu_torch.serve import Follower
+    from paddlebox_tpu_torch.train import StreamSupervisor
+    from paddlebox_tpu_torch.utils import faultinject as fault
+    from paddlebox_tpu_torch.utils.monitor import STAT_GET
+
+    stream_dir, keep = os.path.join(tmp, "stream"), os.path.join(tmp, "spools")
+    os.makedirs(stream_dir)
+    os.makedirs(keep)
+    root = os.path.join(tmp, "stream-ckpt")
+    cuts, steps = [], [0]
+
+    def watched(stack):
+        """Keep a copy of every spool the stack's supervisor trains (the
+        stream's cuts, a recovery's replay too), and count the steps."""
+        real = stack.sup.run_pass
+
+        def run_pass(files, *a, **kw):
+            (spool,) = files
+            dst = os.path.join(keep, os.path.basename(spool))
+            with open(spool, "rb") as f:
+                data = f.read()
+            if os.path.exists(dst):  # a replayed spool: the bytes first cut
+                with open(dst, "rb") as f:
+                    if f.read() != data:
+                        raise AssertionError(f"the replayed spool {spool} differs from the first")
+            shutil.copyfile(spool, dst)
+            cuts.append((int(os.path.basename(spool)[4:10]), data.count(b"\n")))
+            out = real(files, *a, **kw)
+            steps[0] += int(out["batches"])
+            return out
+
+        stack.sup.run_pass = run_pass
+        return stack
+
+    stop_writer = threading.Event()
+
+    def writer():
+        # the chunks in turn until the stream has its cuts
+        i = 0
+        while not stop_writer.wait(0.0 if i == 0 else STREAM_EVERY_S):
+            with open(chunks[i % len(chunks)]) as src, open(os.path.join(stream_dir, "events.txt"), "a") as dst:
+                dst.write(src.read())
+            i += 1
+
+    stretches0 = STAT_GET("stream.backlog_stretches")
+    fol = None
+    stop_fol = threading.Event()
+    fol_err = []
+    fresh = []  # the exact serve.freshness_s of each head commit
+
+    def poll():
+        n = fol.freshness_commits
+        fol.poll_once()
+        if fol.freshness_commits != n:
+            fresh.append(fol.last_freshness_s)
+
+    def follow():
+        while not stop_fol.wait(0.5):
+            try:
+                poll()
+            except Exception as e:  # raised in the main thread below
+                fol_err.append(e)
+                return
+
+    # no shuffle: a cut replayed after a restart has another pass_id, and
+    # the local shuffle's permutation is seeded by it
+    s = watched(sup_stack(args, lay, schema, root, shuffle_mode="none"))
+    fol = Follower(root, lay, s.opt, n_host_shards=64)
+    ss = StreamSupervisor(s.sup, stream_dir, PUB14_DATE, pattern="*.txt", micro_pass_s=STREAM_MICRO_S,
+                          compact_every=STREAM_COMPACT)
+    threads = [threading.Thread(target=writer, name="stream-writer"), threading.Thread(target=follow, name="follower")]
+    stop = threading.Event()  # the stream's deadline: a stalled stream fails instead of hanging
+    deadline = threading.Timer(STREAM_DEADLINE_S, stop.set)
+    deadline.start()
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    try:
+        with flags(resident_scan_batches=SUP_K):
+            with fault.inject(fault.fail_nth("stream.cut_publish", STREAM_FAULT_HIT)) as plan:
+                try:
+                    ss.run(stop)
+                except fault.InjectedFault:
+                    pass
+                else:
+                    raise AssertionError("the stream.cut_publish fault did not crash the stream")
+                if plan.failures("stream.cut_publish") != 1 or ss.cut_seq != 1:
+                    raise AssertionError("the stream did not crash at cut 2")
+            # the restart: a fresh stack from durable state only; recovery
+            # replays cut 2 from its durable spool
+            replays0 = STAT_GET("stream.replays")
+            s = watched(sup_stack(args, lay, schema, root, shuffle_mode="none"))
+            s.cm.resume(s.table, s.tr)
+            ss = StreamSupervisor(s.sup, stream_dir, PUB14_DATE, pattern="*.txt", micro_pass_s=STREAM_MICRO_S,
+                                  compact_every=STREAM_COMPACT)
+            if STAT_GET("stream.replays") != replays0 + 1 or ss.cut_seq != 2:
+                raise AssertionError("the restarted stream did not replay cut 2 from its spool")
+            while ss.cut_seq < STREAM_CUTS:
+                if stop.is_set():
+                    raise AssertionError(f"the stream cut {ss.cut_seq} micro-passes in {STREAM_DEADLINE_S} s")
+                ss.run(stop, max_cuts=1)
+    finally:
+        deadline.cancel()
+        stop_writer.set()
+        threads[0].join()
+        time.sleep(1.0)  # a last poll of the follower
+        stop_fol.set()
+        threads[1].join()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = dict(ck.launch_counts)
+    if fol_err:
+        raise fol_err[0]
+    if counts != {"pull_rows_cuda": 2 * steps[0], "write_rows_cuda": steps[0]}:
+        raise AssertionError(f"stream: launches {counts} for {steps[0]} steps: want 2 gathers and 1 writeback a step")
+    poll()
+    v = fol.version()
+    cur = s.cm.cursor()
+    if (v.date, v.delta_idx) != (cur["date"], cur["delta_idx"]) or not int(cur.get("compact") or 0):
+        raise AssertionError(f"the follower serves {v.date}/{v.delta_idx}, the chain is at {cur}")
+
+    # the uninterrupted run over the same spools
+    ref = sup_stack(args, lay, schema, os.path.join(tmp, "stream-ref"), shuffle_mode="none")
+    seqs = sorted({seq for seq, _ in cuts})
+    with flags(resident_scan_batches=SUP_K):
+        for seq in seqs:
+            ref.sup.run_pass([os.path.join(keep, f"cut-{seq:06d}.txt")], date=PUB14_DATE)
+    if seqs != list(range(1, ss.cut_seq + 1)):
+        raise AssertionError(f"the stream trained the cuts {seqs}")
+    if not (same_tables(s.table, ref.table) and same_dense(s.tr, ref.tr)):
+        raise AssertionError("the crashed and restarted stream differs from an uninterrupted run over its spools")
+    # both kernels at the shape of the stream's last cut
+    err = resident_path_check(ck, s.tr, "stream path")
+    if not fresh:
+        raise AssertionError("the follower committed no stream head")
+    # exact quantiles of the per-commit values (numpy's linear
+    # interpolation: over a handful of commits p99 sits near the max)
+    p50, p99 = (float(q) for q in np.percentile(fresh, (50, 99)))
+    records = {seq: r for seq, r in cuts}
+    nums = {
+        "cuts": ss.cut_seq, "records_a_cut": [records[q] for q in seqs], "steps": steps[0],
+        "backlog_stretches": STAT_GET("stream.backlog_stretches") - stretches0,
+        "freshness_s": fresh, "freshness_s_p50": p50, "freshness_s_p99": p99, "freshness_s_max": max(fresh),
+        "compact": int(cur.get("compact") or 0), "wall_s": wall,
+    }
+    print(f"stream: {ss.cut_seq} cuts ({nums['records_a_cut']} records), a stream.cut_publish crash at cut 2 "
+          f"replayed from its spool: exactly once, the final table and dense state bitwise an uninterrupted run "
+          f"over the same spools; serve.freshness_s exact over {len(fresh)} head commits: p50 {p50:.3f} s, "
+          f"p99 {p99:.3f} s, max {max(fresh):.3f} s ({[round(x, 3) for x in fresh]}); "
+          f"{nums['backlog_stretches']} backlog stretches; launches {counts}; {card}", flush=True)
+    return counts, nums, err
+
+
+def supervised_phase(args, dev, card, ck, lay, schema):
+    """Phase 14: the ingest tier, the supervised day, observability, the
+    AUC runner and the stream. Returns its launch counts by path and the
+    kernels' max abs error at its paths' shapes."""
+    from paddlebox_tpu_torch.obs.flight_recorder import FLIGHT_RECORDER
+    from paddlebox_tpu_torch.obs.metrics_writer import read_series
+    from paddlebox_tpu_torch.utils import faultinject as fault
+
+    t_phase = time.perf_counter()
+    nums, by_path = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_supervised_") as tmp, flags(fs_open_backoff_s=0.0):
+        rng = np.random.default_rng(args.seed + 14)
+        day_files, _ = write_bench_files(tmp, rng, SUP_PASSES * SUP_FILES + 2, "day14")
+        passes = [day_files[p * SUP_FILES : (p + 1) * SUP_FILES] for p in range(SUP_PASSES)]
+        extra = day_files[SUP_PASSES * SUP_FILES :]
+        chunks, _ = write_bench_files(tmp, rng, STREAM_CHUNKS, "stream14")
+
+        # 1. ingest
+        t0 = time.perf_counter()
+        quarantined, precleaned, nums["ingest"] = ingest_check(args, lay, schema, tmp, passes[0], extra, card)
+        nums["ingest_s"] = time.perf_counter() - t0
+
+        # 2. the supervised day: clean, then under one fault plan
+        t0 = time.perf_counter()
+        clean, outs_c, wall_c, counts_c, probe, clock = supervised_day(
+            args, lay, schema, os.path.join(tmp, "ckpt-clean"), passes, ck)
+        steps_c = sum(int(o["batches"]) for o in outs_c)
+        if clean.sup.incidents or counts_c != {"pull_rows_cuda": 2 * steps_c, "write_rows_cuda": steps_c} \
+                or steps_c != SUP_PASSES * SUP_FILES * RECORDS_PER_FILE // BATCH:
+            raise AssertionError(f"clean supervised day: incidents {clean.sup.incidents}, launches {counts_c} for "
+                                 f"{steps_c} steps")
+        # both kernels at the shape of the clean day's last pass
+        errs = [resident_path_check(ck, clean.tr, "supervised path")]
+        dispatches = probe.hits("step.device") // SUP_PASSES
+        save_fires = probe.hits("checkpoint.save") // SUP_PASSES
+        faulted, outs_f, wall_f, counts_f, plan, fclock = supervised_day(
+            args, lay, schema, os.path.join(tmp, "ckpt-faulted"), passes, ck,
+            rules=(
+                fault.fail_once("fs.open_read"),
+                # the dispatch of step 5 of pass 2 (SUP_K steps a dispatch)
+                fault.fail_nth("step.device", dispatches + (5 - 1) // SUP_K + 1),
+                fault.fail_nth("checkpoint.save", save_fires + 2),
+            ),
+        )
+        incidents = [(i.kind, i.action, i.attempt) for i in faulted.sup.incidents]
+        want = [("train_error", "revert_retry", 0), ("ckpt_save_error", "retry", 0)]
+        if incidents != want or [plan.failures(k) for k in ("fs.open_read", "step.device", "checkpoint.save")] \
+                != [1, 1, 1]:
+            raise AssertionError(f"faulted day: incidents {incidents}, want {want}")
+        steps_f = steps_c + (5 - 1) // SUP_K * SUP_K  # what the failed attempt trained before its revert
+        if counts_f != {"pull_rows_cuda": 2 * steps_f, "write_rows_cuda": steps_f}:
+            raise AssertionError(f"faulted day: launches {counts_f} for {steps_f} steps")
+        same_stack(faulted, clean, "the faulted supervised day against the clean one")
+        n_files = same_chain(clean.cm.root, faulted.cm.root, lay, clean.opt, args.seed, "the published chains")
+        if [o["loss"] for o in outs_f] != [o["loss"] for o in outs_c]:
+            raise AssertionError("the faulted day's pass losses differ from the clean day's")
+        # the supervisor dumps a bundle by itself only for a fatal incident
+        # (as the reference does): an operator dumps the ring on demand
+        bundle = FLIGHT_RECORDER.dump("chip_smoke_step_device", "step.device at step 5 of pass 2",
+                                      dir_path=os.path.join(tmp, "incidents"))
+        with open(bundle) as f:
+            kinds = [i["kind"] for i in json.load(f)["incidents"]]
+        if "supervisor:train_error" not in kinds:
+            raise AssertionError(f"the flight recorder's bundle holds no step.device incident: {kinds}")
+        series = [r["label"] for r in read_series(os.path.join(clean.cm.root, "obs"))]
+        if [x for x in series if x.startswith("pass:")] != [f"pass:{p + 1}" for p in range(SUP_PASSES)]:
+            raise AssertionError(f"the metric series reads back {series}")
+        bare, wall_b = bare_day(args, lay, schema, os.path.join(tmp, "ckpt-bare"), passes)
+        same_stack(bare, clean, "bare train_pass against the supervised day")
+        by_path["supervised"] = counts_c
+        samples = steps_c * BATCH
+        failed = [t for t, raised in fclock.attempts if raised]
+        torn = [t for t, raised in fclock.base + fclock.delta if raised]
+        if len(failed) != 1 or len(fclock.reverts) != 1 or len(torn) != 1:
+            raise AssertionError(f"faulted day: {len(failed)} failed attempts, {len(fclock.reverts)} reverts and "
+                                 f"{len(torn)} failed saves timed, want 1 each")
+        base_s, delta_s = [t for t, _ in clock.base], [t for t, _ in clock.delta]
+        nums["day"] = {
+            "samples_per_s_supervised": samples / wall_c, "samples_per_s_bare_train_pass": samples / wall_b,
+            "day_s_clean": wall_c, "day_s_faulted": wall_f, "retry_cost_s": fclock.retry_s(),
+            "failed_attempt_s": failed[0], "revert_s": fclock.reverts[0][0], "failed_save_s": torn[0],
+            "save_base_s": base_s, "save_delta_s": delta_s, "incidents": incidents,
+            "chain_files": n_files, "bundle_incident_kinds": kinds, "losses": [o["loss"] for o in outs_c],
+            "aucs": [o["auc"] for o in outs_c],
+        }
+        print(f"supervised day: {SUP_PASSES} passes, {steps_c} steps, launches {counts_c}; under an fs.open_read "
+              f"flake, a step.device fault at step 5 of pass 2 and a torn checkpoint save: incidents {incidents}, "
+              f"launches {counts_f}, table, params, Adam state, AUC tables and the published chain ({n_files} "
+              f"files) bitwise the clean day's; bare train_pass bitwise too. samples/s supervised "
+              f"{samples / wall_c:.0f} (its saves included), bare {samples / wall_b:.0f}; a flight-recorder bundle "
+              f"dumped on demand holds the step.device incident; the retries cost {fclock.retry_s():.3f} s (the "
+              f"failed attempt {failed[0]:.3f} s, its revert {fclock.reverts[0][0]:.3f} s, the torn save "
+              f"{torn[0]:.3f} s; the faulted day {wall_f:.3f} s, the clean {wall_c:.3f} s); save_base {base_s} s, "
+              f"save_delta {delta_s} s; {card}", flush=True)
+
+        # the quarantined pass under "degrade" against the pre-cleaned files
+        with flags(max_bad_line_fraction=0.0005):
+            deg = sup_stack(args, lay, schema, os.path.join(tmp, "ckpt-degrade"), on_poisoned="degrade")
+            out_d = deg.sup.run_pass(quarantined, date=PUB14_DATE)
+        pre = sup_stack(args, lay, schema, os.path.join(tmp, "ckpt-precleaned"))
+        out_p = pre.sup.run_pass(precleaned, date=PUB14_DATE)
+        if [(i.kind, i.action) for i in deg.sup.incidents] != [("data_poisoned", "degrade")] or pre.sup.incidents:
+            raise AssertionError(f"degrade: incidents {deg.sup.incidents} and {pre.sup.incidents}")
+        same_stack(deg, pre, "the quarantined pass under degrade against the pre-cleaned files")
+        if out_d["loss"] != out_p["loss"] or out_d["quarantined_bad_lines"] != nums["ingest"]["quarantine"]["bad_lines"]:
+            raise AssertionError("degrade: the loss or the loss accounting differs")
+        print(f"degrade: the quarantined pass ({deg.tr.last_feed} feed) is bitwise the pre-cleaned files' pass "
+              f"({pre.tr.last_feed} feed): table, dense, Adam, AUC tables and loss; {card}", flush=True)
+        nums["day_s"] = time.perf_counter() - t0
+
+        # 3. observability
+        t0 = time.perf_counter()
+        nums["observability"] = observability(args, lay, schema, tmp, passes[:2], quarantined, card, ck)
+        nums["observability_s"] = time.perf_counter() - t0
+
+        # 4. the AUC runner on the clean day's trained table
+        t0 = time.perf_counter()
+        by_path["auc_runner"], nums["auc_runner"], err = auc_runner_check(
+            args, clean, schema, passes[-1][:AUC_FILES], ck, card)
+        errs.append(err)
+        nums["auc_runner_s"] = time.perf_counter() - t0
+
+        # 5. the stream
+        t0 = time.perf_counter()
+        by_path["stream"], nums["stream"], err = stream_check(args, lay, schema, tmp, chunks, ck, card)
+        errs.append(err)
+        nums["stream_s"] = time.perf_counter() - t0
+    nums["phase_s"] = time.perf_counter() - t_phase
+    emit({"card": card, "phase": "supervised_day", **nums})
+    print(f"phase 14 (supervised day, ingest, observability, AUC runner, stream): {nums['phase_s']:.3f} s; {card}",
+          flush=True)
+    return by_path, max(errs)
 
 
 if __name__ == "__main__":

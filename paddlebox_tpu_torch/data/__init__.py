@@ -4,7 +4,9 @@ from paddlebox_tpu_torch.data.parser import parse_line, parse_logkey
 from paddlebox_tpu_torch.data.record_store import ColumnarRecords
 from paddlebox_tpu_torch.data.device_pack import BatchPacker, DeviceBatch, pack_batch
 from paddlebox_tpu_torch.data.pipeline import prefetch
-from paddlebox_tpu_torch.data.dataset import BoxPSDataset, PassStats
+from paddlebox_tpu_torch.data.dataset import BoxPSDataset, LocalShuffleRouter, PassStats
+from paddlebox_tpu_torch.data.quarantine import DataPoisonedError, QuarantineLog, read_dead_letter
+from paddlebox_tpu_torch.data.data_generator import DataGenerator, MultiSlotDataGenerator
 from paddlebox_tpu_torch.data.pv_instance import (
     PvInstance,
     PvPlan,
@@ -30,7 +32,13 @@ __all__ = [
     "BatchPacker",
     "prefetch",
     "BoxPSDataset",
+    "LocalShuffleRouter",
     "PassStats",
+    "DataPoisonedError",
+    "QuarantineLog",
+    "read_dead_letter",
+    "DataGenerator",
+    "MultiSlotDataGenerator",
     "PvInstance",
     "PvPlan",
     "merge_pv_instances",

@@ -5,15 +5,34 @@ Port of the JAX package's ``data/dataset.py`` for a single process:
     set_date -> set_filelist -> load_into_memory -> begin_pass
     -> batch_indices() / batches() / train -> end_pass(trained_table)
 
-- ``load_into_memory`` reads the part files in a thread pool. With the
-  flag ``enable_native_parser`` (the default) each file is parsed in one
-  native call (``csrc/slot_parser.cc``) into a ``ColumnarRecords`` chunk;
-  the chunks concatenate into ``store`` and a shuffle is a permutation
-  ``_order`` over it. With the flag off, each line goes through
-  ``parse_line`` into a ``SlotRecord`` list. A bad line raises either way
-  (strict mode). Shuffle modes are "none" and "local" (the JAX package's
-  permutation for the same seed and pass); every feasign feeds a fresh
-  ``PassWorkingSet``.
+- ``load_into_memory`` reads the part files in a thread pool, each on one
+  of two tiers (``_native_eligible``). The native tier (flag
+  ``enable_native_parser``, a local plain file, ``parse_line``, no pipe,
+  ``sample_rate`` 1) parses a file in one native call
+  (``csrc/slot_parser.cc``) into a ``ColumnarRecords`` chunk; the chunks
+  concatenate into ``store`` and a shuffle is a permutation ``_order``
+  over it. The Python tier (a ``pipe_command`` converter, a custom
+  ``line_parser`` with its optional ``begin_file(path)``, sampling, a
+  ``.gz`` or ``hdfs:``/``afs:`` path) reads lines through
+  ``BufferedLineFileReader`` into a ``SlotRecord`` list. Every feasign
+  feeds a fresh ``PassWorkingSet``.
+- Quarantine (flag ``data_quarantine``, ``data/quarantine.py``): a line
+  that fails to parse, and a whole file that cannot be read (truncated
+  gz, a dead converter), are captured instead of raised, counted in
+  ``PassStats`` and written to a dead-letter file under
+  ``quarantine_dir``; a missing file is not quarantined (the fs retry tier
+  owns it). The native tier's corrupt buffer is re-parsed line by line, so
+  both tiers count alike. ``begin_pass`` gates the pass on the corrupt
+  fraction (``admission_report``, ``check_admission``; ``DataPoisonedError``
+  unless ``admit_poisoned``); ``drop_pass_data`` abandons it. With the flag
+  off the first bad line raises. Fault site: ``data.file_read``.
+- Shuffle modes: "none", "local" (a permutation for the seed and pass),
+  and the global modes "search_id", "ins_id" and "random": with a
+  ``LocalShuffleRouter`` the datasets of several in-process nodes route
+  their records (``shuffle_route``) and exchange them, then permute what
+  they received; alone (``nranks`` 1, no router) a global mode is a local
+  permutation, as in the JAX package. ``slots_shuffle`` runs the AUC
+  runner's slot-shuffle eval (``metrics/auc_runner.py``).
 - ``preload_into_memory`` runs that load on a thread while the current
   pass trains (``wait_preload_done`` joins it). With the flag
   ``boundary_pipeline`` the load also premerges the staged working set's
@@ -74,26 +93,35 @@ after the splice, and before a save every rank calls
 :meth:`BoxPSDataset.flush_carried` (a save that reaches a pending mesh
 carrier raises rather than wait for ranks that never join).
 
-Not ported: quarantine, pipe converters, global shuffles across nodes, the
-multi-host working set and carrier (ROADMAP Queue 5), the transport (``num_pv_batches``
-counts the local pvs) and trace events.
+Spans (``utils/trace.py``): ``boundary.premerge``, ``boundary.stage_pull``,
+``boundary.writeback_kick``, ``boundary.end_pass_worker`` and
+``data.quarantine.dead_letter``.
+
+Not ported: the host transport (ROADMAP Queue 1 item 5.3): ``nranks > 1``
+without a router, a ``transport``, the multi-host working set and carrier,
+and the lockstep batch counts (``num_pv_batches`` counts the local pvs).
 """
 
 from __future__ import annotations
 
-import glob
+import hashlib
 import itertools
 import threading
 import time
 from concurrent.futures import Future, ThreadPoolExecutor
-from dataclasses import dataclass
-from typing import Callable, Iterator, List, Optional, Sequence
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from paddlebox_tpu_torch import config
 from paddlebox_tpu_torch.data.parser import parse_line
+from paddlebox_tpu_torch.data.quarantine import (
+    DataPoisonedError,
+    QuarantineLog,
+    resolve_quarantine_dir,
+)
 from paddlebox_tpu_torch.data.pv_instance import (
     PvInstance,
     build_pv_plan,
@@ -113,7 +141,10 @@ from paddlebox_tpu_torch.table.sparse_table import (
     WritebackCancelled,
 )
 from paddlebox_tpu_torch.utils.faultinject import fire
+from paddlebox_tpu_torch.utils.fs import fs_glob, fs_read_bytes_retry
+from paddlebox_tpu_torch.utils.line_reader import BufferedLineFileReader
 from paddlebox_tpu_torch.utils.monitor import STAT_ADD, STAT_OBSERVE, STAT_SET
+from paddlebox_tpu_torch.utils.trace import record_event
 
 config.define_flag(
     "enable_carried_table",
@@ -159,7 +190,79 @@ config.define_flag(
     "prefetched row",
 )
 
-_SHUFFLE_MODES = ("none", "local")
+_SHUFFLE_MODES = ("none", "local", "search_id", "ins_id", "random")
+
+
+def _ins_id_dest(ins_id: str, n_parts: int) -> int:
+    # the reference hashes with xxhash; blake2b keeps the JAX package's routing
+    return int.from_bytes(hashlib.blake2b(ins_id.encode(), digest_size=8).digest(), "little") % n_parts
+
+
+def shuffle_route(records: Sequence[SlotRecord], n_parts: int, mode: str, seed: int) -> List[int]:
+    """Destination part of each record (ShuffleData routing,
+    data_set.cc:1772-1791): "search_id" keeps a query's ads on one node,
+    "ins_id" spreads by an instance hash, "random" is uniform."""
+    if mode == "search_id":
+        return [r.search_id % n_parts for r in records]
+    if mode == "ins_id":
+        return [_ins_id_dest(r.ins_id, n_parts) for r in records]
+    if mode == "random":
+        return list(np.random.default_rng(seed).integers(0, n_parts, len(records)))
+    raise ValueError(f"unknown shuffle mode {mode!r}")
+
+
+def shuffle_route_store(store: ColumnarRecords, n_parts: int, mode: str, seed: int) -> np.ndarray:
+    """``shuffle_route`` over a columnar store: an int64 destination array."""
+    n = len(store)
+    if mode == "search_id":
+        return (store.search_ids % np.uint64(n_parts)).astype(np.int64)
+    if mode == "ins_id":
+        return np.array([_ins_id_dest(store.ins_id(i), n_parts) for i in range(n)], np.int64)
+    if mode == "random":
+        return np.random.default_rng(seed).integers(0, n_parts, n)
+    raise ValueError(f"unknown shuffle mode {mode!r}")
+
+
+class LocalShuffleRouter:
+    """The shuffle exchange between ``n_nodes`` datasets of one process
+    (the in-process form of ``boxps::PaddleShuffler``). A chunk is a
+    ``List[SlotRecord]`` or a ``ColumnarRecords``; the dataset normalizes
+    what it collects. A node collects its chunks in the order of the
+    nodes that sent them, whatever order their threads exchanged in (the
+    JAX package's router keeps arrival order, so its records' order
+    follows the thread race)."""
+
+    def __init__(self, n_nodes: int):
+        self.n_nodes = n_nodes
+        self._inboxes: List[list] = [[] for _ in range(n_nodes)]  # guarded-by: _cond
+        self._cond = threading.Condition()
+        self._done = 0  # guarded-by: _cond
+        self._collected = 0  # guarded-by: _cond
+
+    def exchange(self, from_node: int, parts: list) -> None:
+        """Deliver this node's chunks (one per destination) and mark it
+        done sending. A node that races into the next pass waits here until
+        every node collected the current one, so passes never mix."""
+        with self._cond:
+            self._cond.wait_for(lambda: self._done < self.n_nodes)
+            for dst, chunk in enumerate(parts):
+                if len(chunk):
+                    self._inboxes[dst].append((from_node, chunk))
+            self._done += 1
+            self._cond.notify_all()
+
+    def collect(self, node: int) -> list:
+        """Wait until every node exchanged, then take this node's chunks."""
+        with self._cond:
+            self._cond.wait_for(lambda: self._done >= self.n_nodes)
+            out = [chunk for _, chunk in sorted(self._inboxes[node], key=lambda fc: fc[0])]
+            self._inboxes[node] = []
+            self._collected += 1
+            if self._collected >= self.n_nodes:  # re-arm for the next pass
+                self._done = 0
+                self._collected = 0
+                self._cond.notify_all()
+        return out
 
 
 def _trained_to_host(arr, layout) -> Callable[[], np.ndarray]:
@@ -192,11 +295,23 @@ class _WritebackKick:
 
 @dataclass
 class PassStats:
-    """Counts of one pass's load."""
+    """Counts of one pass's load, alike on the native and Python tiers:
+    ``lines`` every non-empty line seen (parsed + benign + bad),
+    ``parsed`` the lines that gave a record, ``skipped_benign`` the lines
+    the parser returned None for (a record without feasigns, a '#' cache
+    line), ``bad_lines`` the quarantined parse failures, ``bad_files`` the
+    part files skipped whole (unreadable, truncated, a dead converter)."""
 
     files: int = 0
+    lines: int = 0
     records: int = 0  # records kept for the pass
     keys: int = 0  # unique feasigns in the working set (set at begin_pass)
+    parsed: int = 0
+    skipped_benign: int = 0
+    bad_lines: int = 0
+    bad_files: int = 0
+    bad_by_file: Dict[str, int] = field(default_factory=dict)
+    dead_letter: Optional[str] = None
     # the load's wall seconds: reading and parsing the files, the shuffle
     # (concatenation and permutation), feeding the working set its keys
     read_s: float = 0.0
@@ -231,11 +346,21 @@ class BoxPSDataset:
         shuffle_mode: str = "none",
         seed: int = 0,
         n_mesh_shards: int = 1,
+        rank: int = 0,
+        nranks: int = 1,
+        router: Optional[LocalShuffleRouter] = None,
+        transport=None,
+        pipe_command: Optional[str] = None,
+        line_parser: Optional[Callable[[str, SlotSchema], Optional[SlotRecord]]] = None,
+        drop_remainder: bool = True,
+        quarantine_dir: Optional[str] = None,
     ):
         if shuffle_mode not in _SHUFFLE_MODES:
+            raise ValueError(f"shuffle_mode {shuffle_mode!r} not in {_SHUFFLE_MODES}")
+        if transport is not None or (nranks > 1 and router is None):
             raise NotImplementedError(
-                f"shuffle_mode {shuffle_mode!r}: only {_SHUFFLE_MODES} are ported (global "
-                "shuffles across nodes: ROADMAP Queue 5)"
+                "a dataset over several hosts (transport=, or nranks > 1 without a "
+                "LocalShuffleRouter) needs the host transport: ROADMAP Queue 1 item 5.3"
             )
         self.schema = schema
         self.table = table
@@ -243,6 +368,24 @@ class BoxPSDataset:
         self.read_threads = read_threads
         self.shuffle_mode = shuffle_mode
         self.seed = seed
+        # this node's slice of the file list (rank-strided) and, with a
+        # router, its place in the in-process shuffle exchange
+        self.rank = rank
+        self.nranks = nranks
+        self.router = router
+        self.pipe_command = pipe_command
+        self.line_parser = line_parser or parse_line
+        self.drop_remainder = drop_remainder
+        # where dead-letter files land (None: the data_quarantine_dir flag,
+        # then a temp dir); a PassSupervisor with a checkpoint sets
+        # <checkpoint root>/quarantine
+        self.quarantine_dir = quarantine_dir
+        self._dead_letter_seq = 0  # written by the one load in flight
+        self._loading_qlog: Optional[QuarantineLog] = None  # the load in flight's
+        self._stats_lock = threading.Lock()
+        self._loading_stats = PassStats()  # guarded-by: _stats_lock
+        self._auc_runner = None  # the pass's AucRunner, built by slots_shuffle
+        self._auc_runner_pass = None
         self.n_mesh_shards = n_mesh_shards  # the mesh's world size; 1 = one device
         # the mesh plan a mesh trainer bound at its first pass (None: one device)
         self.mesh_plan = None
@@ -329,11 +472,13 @@ class BoxPSDataset:
         self.pass_id += 1
 
     def set_filelist(self, files: Sequence[str]) -> None:
-        """The part files of the pass; glob patterns expand in sorted order."""
+        """The part files of the pass (glob patterns expand in sorted
+        order); this node reads its rank-strided slice (dualbox striping,
+        data_set.cc:1452-1464)."""
         expanded: List[str] = []
         for f in files:
-            expanded.extend(sorted(glob.glob(f)) if any(c in f for c in "*?[") else [f])
-        self._filelist = expanded
+            expanded.extend(fs_glob(f) if any(c in f for c in "*?[") else [f])
+        self._filelist = expanded[self.rank :: self.nranks]
 
     def set_current_phase(self, phase: int) -> None:
         """1 = the join phase (pv-merged batches), 0 = the update phase."""
@@ -433,44 +578,152 @@ class BoxPSDataset:
 
     # ---- load ------------------------------------------------------------
 
-    def _native_eligible(self) -> bool:
-        # the native parser reads every line; line sampling needs the
-        # line-by-line reader
-        return bool(config.get_flag("enable_native_parser")) and (
-            config.get_flag("sample_rate") >= 1.0
+    def _native_eligible(self, path: str) -> bool:
+        """The native tier takes a file when nothing needs the line-by-line
+        reader: no pipe converter, the stock parser, every line kept, a
+        local plain path."""
+        return (
+            self.pipe_command is None
+            and self.line_parser is parse_line
+            and config.get_flag("sample_rate") >= 1.0
+            and bool(config.get_flag("enable_native_parser"))
+            and not path.startswith(("hdfs:", "afs:"))
+            and not path.endswith(".gz")
         )
+
+    def _parse_lines(self, path: str, numbered_lines, qlog) -> list:
+        """Parse (line_no, line) pairs with per-line quarantine: the one
+        line-accounting path of the Python tier and of the native tier's
+        corrupt-buffer fallback, so both count alike."""
+        out = []
+        n_lines = n_parsed = n_benign = 0
+        for line_no, line in numbered_lines:
+            if not line:
+                continue
+            n_lines += 1
+            try:
+                rec = self.line_parser(line, self.schema)
+            except Exception as e:  # quarantined and counted
+                if qlog is None:  # strict mode: the first bad line raises
+                    raise
+                qlog.quarantine_line(path, line_no, line, e)
+                continue
+            if rec is None:
+                n_benign += 1
+            else:
+                n_parsed += 1
+                out.append(rec)
+        with self._stats_lock:
+            st = self._loading_stats
+            st.lines += n_lines
+            st.parsed += n_parsed
+            st.skipped_benign += n_benign
+        return out
 
     def _read_one(self, path: str):
         """One part file -> a ColumnarRecords chunk (native tier) or a
-        SlotRecord list (Python tier). The first bad line raises; a record
-        without feasigns is skipped."""
-        if self._native_eligible():
+        SlotRecord list (Python tier). With quarantine on, a file that
+        fails as a whole (unreadable, truncated gz, a dead converter) is
+        quarantined and gives an empty chunk, except a missing file: that
+        is a transient fault the fs retry tier owns, and dropping it would
+        starve the pass quietly."""
+        qlog = self._loading_qlog
+        try:
+            fire("data.file_read")
+            return self._read_one_inner(path, qlog)
+        except FileNotFoundError:
+            raise
+        except Exception as e:  # quarantined and counted
+            if qlog is None:
+                raise
+            qlog.quarantine_file(path, e)
+            # an empty columnar chunk keeps a pass that could be columnar so
+            if self._native_eligible(path):
+                return ColumnarRecords.empty(self.schema.num_sparse, self.schema.num_float)
+            return []
+
+    def _read_one_inner(self, path: str, qlog):
+        if self._native_eligible(path):
             from paddlebox_tpu_torch.utils import native
 
-            with open(path, "rb") as f:
-                return native.parse_buffer_columnar(f.read(), self.schema)
-        out = []
-        with open(path, encoding="utf-8") as f:
-            for line in f:
-                line = line.rstrip("\n")
-                rec = parse_line(line, self.schema) if line else None
-                if rec is not None:
-                    out.append(rec)
-        return out
+            data = fs_read_bytes_retry(path)
+            nstats: dict = {}
+            try:
+                chunk = native.parse_buffer_columnar(data, self.schema, nstats)
+            except ValueError:
+                if qlog is None:
+                    raise
+                # the native parser rejects the whole buffer at its first
+                # bad line: re-parse line by line so each bad line is
+                # quarantined alone, and re-wrap columnar
+                recs = self._parse_lines(
+                    path, enumerate(data.decode("utf-8", errors="replace").splitlines(), 1), qlog
+                )
+                return ColumnarRecords.from_records(recs, self.schema)
+            with self._stats_lock:
+                st = self._loading_stats
+                skipped = nstats.get("skipped", 0)
+                st.lines += len(chunk) + skipped
+                st.parsed += len(chunk)
+                st.skipped_benign += skipped
+            return chunk
+        # a per-file seed decorrelates the sampling of part files. The JAX
+        # package's expression, copied so both packages keep the same lines
+        # within one process; str hashes change from process to process
+        # (ROADMAP Queue 3)
+        seed = hash((self.seed, self.pass_id, path)) & 0x7FFFFFFF
+        begin_file = getattr(self.line_parser, "begin_file", None)
+        if begin_file is not None:  # per-file parser state (cache lines)
+            begin_file(path)
+        reader = BufferedLineFileReader(path, converter=self.pipe_command, seed=seed)
+        # lines_read counts before the reader yields: the 1-based number of
+        # the line in flight
+        return self._parse_lines(path, ((reader.lines_read, line) for line in reader), qlog)
 
     def _shuffle_records(self, records: List[SlotRecord]) -> List[SlotRecord]:
-        if self.shuffle_mode == "none":
+        mode = self.shuffle_mode
+        if mode == "none":
             return records
         rng = np.random.default_rng(self.seed + self.pass_id)
+        if mode != "local" and self.router is not None:
+            dests = shuffle_route(records, self.router.n_nodes, mode, self.seed + self.pass_id)
+            parts: List[List[SlotRecord]] = [[] for _ in range(self.router.n_nodes)]
+            for r, d in zip(records, dests):
+                parts[d].append(r)
+            self.router.exchange(self.rank, parts)
+            records = [
+                r
+                for chunk in self.router.collect(self.rank)
+                for r in (chunk.records() if isinstance(chunk, ColumnarRecords) else chunk)
+            ]
         order = rng.permutation(len(records))
         return [records[i] for i in order]
 
     def _shuffle_store(self, store: ColumnarRecords):
-        """Columnar shuffle: a permutation of the store, no data moved. The
-        same permutation ``_shuffle_records`` applies to a record list."""
-        if self.shuffle_mode == "none":
+        """Columnar shuffle: routing moves arrays between nodes; the local
+        order is a permutation of the store (no data moved), the same one
+        ``_shuffle_records`` applies to a record list."""
+        mode = self.shuffle_mode
+        if mode == "none":
             return store, None, []
         rng = np.random.default_rng(self.seed + self.pass_id)
+        if mode != "local" and self.router is not None:
+            n = self.router.n_nodes
+            dests = shuffle_route_store(store, n, mode, self.seed + self.pass_id)
+            self.router.exchange(self.rank, [store.select(np.nonzero(dests == d)[0]) for d in range(n)])
+            chunks = self.router.collect(self.rank)
+            cols = [c for c in chunks if isinstance(c, ColumnarRecords)]
+            lists = [c for c in chunks if not isinstance(c, ColumnarRecords)]
+            if lists:  # a node sent records: the pass becomes a record list
+                records = [r for c in lists for r in c]
+                for c in cols:
+                    records.extend(c.records())
+                order = rng.permutation(len(records))
+                return None, None, [records[i] for i in order]
+            store = (
+                ColumnarRecords.concat(cols) if len(cols) > 1
+                else cols[0] if cols else ColumnarRecords.empty(store.n_sparse, store.n_float)
+            )
         return store, rng.permutation(len(store)), []
 
     def _normalize_and_shuffle(self, parts: list):
@@ -486,8 +739,9 @@ class BoxPSDataset:
         return None, None, self._shuffle_records(records)
 
     def load_into_memory(self) -> None:
-        """Threaded read -> shuffle -> staged pass data + working-set keys,
-        then the boundary feed stage (:meth:`_stage_boundary_prefetch`).
+        """Threaded read (with quarantine) -> shuffle -> staged pass data
+        and working-set keys, then the boundary feed stage
+        (:meth:`_stage_boundary_prefetch`).
 
         Loads into a staging slot, so it can run while the previous pass
         trains; ``begin_pass`` consumes it. When no pass is open the load
@@ -498,11 +752,25 @@ class BoxPSDataset:
         if self._preload_thread is not None and threading.current_thread() is not self._preload_thread:
             raise RuntimeError("preload in flight; wait_preload_done first")
         stats = PassStats(files=len(self._filelist))
+        with self._stats_lock:
+            self._loading_stats = stats
+        self._loading_qlog = QuarantineLog() if config.get_flag("data_quarantine") else None
+        if any(self._native_eligible(p) for p in self._filelist):
+            from paddlebox_tpu_torch.utils import native
+
+            # a native tier that cannot build raises here, never as a
+            # quarantined file
+            native.load()
         parts: list = []
         t0 = time.perf_counter()
-        if self._filelist:
-            with ThreadPoolExecutor(max_workers=max(1, self.read_threads)) as pool:
-                parts = list(pool.map(self._read_one, self._filelist))
+        try:
+            if self._filelist:
+                with ThreadPoolExecutor(max_workers=max(1, self.read_threads)) as pool:
+                    parts = list(pool.map(self._read_one, self._filelist))
+        finally:
+            qlog, self._loading_qlog = self._loading_qlog, None
+        if qlog is not None:
+            self._settle_quarantine(stats, qlog)
         t1 = time.perf_counter()
         store, order, records = self._normalize_and_shuffle(parts)
         t2 = time.perf_counter()
@@ -534,7 +802,8 @@ class BoxPSDataset:
         self._boundary_prefetch = None
         fire("boundary.premerge")
         t0 = time.perf_counter()
-        merged = ws.premerge(int(config.get_flag("boundary_merge_threads")))
+        with record_event("boundary.premerge", "boundary"):
+            merged = ws.premerge(int(config.get_flag("boundary_merge_threads")))
         premerge_s = time.perf_counter() - t0
         STAT_SET("boundary.premerge_s", premerge_s)
         STAT_OBSERVE("boundary.premerge_s", premerge_s)
@@ -569,7 +838,8 @@ class BoxPSDataset:
             carrier.wait_push()
         fire("boundary.stage_pull")
         t0 = time.perf_counter()
-        rows, epoch = table.prefetch_rows(need)
+        with record_event("boundary.stage_pull", "boundary"):
+            rows, epoch = table.prefetch_rows(need)
         pull_s = time.perf_counter() - t0
         STAT_SET("boundary.prefetch_pull_s", pull_s)
         STAT_OBSERVE("boundary.prefetch_pull_s", pull_s)
@@ -581,6 +851,84 @@ class BoxPSDataset:
         """Drop a staged load that was not begun, and its prefetch."""
         self._staged = None
         self._boundary_prefetch = None
+
+    # ---- quarantine and admission ------------------------------------------
+
+    def _settle_quarantine(self, stats: PassStats, qlog: QuarantineLog) -> None:
+        """Fold the load's quarantine log into its PassStats, write the
+        dead-letter file when anything was quarantined, and set the
+        ``data.quarantine.*`` gauges."""
+        qlog.settle(stats)
+        if qlog.total:
+            self._dead_letter_seq += 1
+            name = f"pass-{self.date or 'na'}-{self.pass_id:04d}-r{self.rank}-{self._dead_letter_seq:03d}"
+            with record_event("data.quarantine.dead_letter", "data"):
+                stats.dead_letter = qlog.write(
+                    resolve_quarantine_dir(self.quarantine_dir),
+                    name,
+                    meta={
+                        "date": self.date, "pass_id": self.pass_id, "rank": self.rank,
+                        "files": stats.files, "lines": stats.lines,
+                    },
+                )
+            STAT_ADD("data.quarantine.dead_letter_files")
+        STAT_SET("data.quarantine.bad_lines", stats.bad_lines)
+        STAT_SET("data.quarantine.bad_files", stats.bad_files)
+        if stats.bad_lines:
+            STAT_ADD("data.quarantine.bad_lines_total", stats.bad_lines)
+        if stats.bad_files:
+            STAT_ADD("data.quarantine.bad_files_total", stats.bad_files)
+
+    def admission_report(self) -> Dict:
+        """The bounded-loss verdict for the pass about to begin (the staged
+        load when one is pending, else the live one): ``poisoned`` when
+        quarantine is on and a corrupt fraction passes its threshold
+        (``max_bad_line_fraction``, ``max_bad_file_fraction``)."""
+        st = self._staged[4] if self._staged is not None else self.stats
+        max_lf = float(config.get_flag("max_bad_line_fraction"))
+        max_ff = float(config.get_flag("max_bad_file_fraction"))
+        lf = st.bad_lines / max(1, st.lines)
+        ff = st.bad_files / max(1, st.files)
+        poisoned = bool(config.get_flag("data_quarantine")) and (lf > max_lf or ff > max_ff)
+        parts = []
+        if lf > max_lf:
+            parts.append(
+                f"{st.bad_lines}/{st.lines} lines quarantined ({lf:.5f} > max_bad_line_fraction {max_lf:.5f})"
+            )
+        if ff > max_ff:
+            parts.append(
+                f"{st.bad_files}/{st.files} part files quarantined ({ff:.5f} > max_bad_file_fraction {max_ff:.5f})"
+            )
+        detail = ""
+        if poisoned:
+            detail = "pass data poisoned: " + "; ".join(parts)
+            if st.dead_letter:
+                detail += f"; dead-letter: {st.dead_letter}"
+        return {
+            "poisoned": poisoned, "detail": detail, "line_fraction": lf, "file_fraction": ff,
+            "bad_lines": st.bad_lines, "bad_files": st.bad_files, "lines": st.lines,
+            "files": st.files, "dead_letter": st.dead_letter,
+        }
+
+    def check_admission(self) -> Dict:
+        """Raise DataPoisonedError when the pending pass is over the
+        thresholds; the report otherwise."""
+        rep = self.admission_report()
+        if rep["poisoned"]:
+            raise DataPoisonedError(rep["detail"], report=rep, dead_letter=rep["dead_letter"])
+        return rep
+
+    def drop_pass_data(self) -> None:
+        """Abandon the loaded pass that was not begun (the supervisor's
+        ``skip_pass``): the staged slot, the published records and the
+        working set go; the table is untouched."""
+        self.discard_staged()
+        if not self._in_pass:
+            self.store = None
+            self._order = None
+            self._records = []
+            self.ws = None
+            self.stats = PassStats()
 
     def _publish(self, staged) -> None:
         with self._pass_lock:
@@ -635,7 +983,7 @@ class BoxPSDataset:
                 "and the next drain_pending retries them"
             ) from err
 
-    def begin_pass(self, round_to: int = 512, enable_revert: bool = False, trainer=None):
+    def begin_pass(self, round_to: int = 512, enable_revert: bool = False, trainer=None, admit_poisoned: bool = False):
         """Consume the staged load, finalize the working set against the
         host table, and return the pass table for the device
         (BeginFeedPass + EndFeedPass + BeginPass): a numpy [1, cap, width]
@@ -646,7 +994,12 @@ class BoxPSDataset:
         PassGuard (Confirm/Revert parity, fleet_wrapper.h:319-321): the
         pass keys' pre-train rows and, with ``trainer``, its dense params
         and optimizer state are snapshotted so :meth:`revert_pass` can
-        reject everything the pass publishes; end_pass confirms."""
+        reject everything the pass publishes; end_pass confirms.
+
+        The admission gate: a pass whose load quarantined more than the
+        thresholds allow raises :class:`DataPoisonedError` before anything
+        is finalized or armed, its staged data kept, unless
+        ``admit_poisoned`` (the supervisor's ``degrade`` policy)."""
         # a pending end_pass writes the host table; finalize reads it
         self.wait_end_pass()
         self._raise_pending_flush_error()
@@ -655,6 +1008,8 @@ class BoxPSDataset:
                 "previous pass is still open: call end_pass (or, after a failed "
                 "end_pass, retry it or revert_pass) first"
             )
+        if not admit_poisoned:
+            self.check_admission()
         if self._staged is not None:
             self._publish(self._staged)
             self._staged = None
@@ -713,7 +1068,8 @@ class BoxPSDataset:
         def run_kick():
             t0 = time.perf_counter()
             try:
-                ws.writeback(to_host(), cancel=kick.cancel)
+                with record_event("boundary.writeback_kick", "boundary"):
+                    ws.writeback(to_host(), cancel=kick.cancel)
                 kick.fut.set_result(time.perf_counter() - t0)
             except BaseException as e:  # surfaced by the end_pass worker or a revert
                 kick.fut.set_exception(e)
@@ -770,6 +1126,7 @@ class BoxPSDataset:
             self.store.invalidate_rows()  # its rows resolved against the old set
         self.device_table = None
         self._in_pass = False
+        self._auc_runner = None
 
     def end_pass(
         self,
@@ -856,6 +1213,7 @@ class BoxPSDataset:
         self.ws = None
         self.device_table = None
         self._in_pass = False
+        self._auc_runner = None  # its pools hold this pass's records
 
         prev_carrier, self._prev_boundary_carrier = self._prev_boundary_carrier, carrier
 
@@ -908,7 +1266,8 @@ class BoxPSDataset:
 
         def worker():
             try:
-                fut.set_result(run())
+                with record_event("boundary.end_pass_worker", "boundary"):
+                    fut.set_result(run())
             except BaseException as e:  # raised by wait_end_pass
                 fut.set_exception(e)
 
@@ -988,8 +1347,51 @@ class BoxPSDataset:
         return len(self._records)
 
     def num_batches(self) -> int:
-        """Full minibatches in this pass (the remainder is dropped)."""
-        return self.memory_data_size() // self.batch_size
+        """Minibatches in this pass: the full ones, and with
+        ``drop_remainder`` off one more for a remainder (served wrapped
+        around)."""
+        n = self.memory_data_size()
+        return n // self.batch_size + (0 if self.drop_remainder or not n % self.batch_size else 1)
+
+    # ---- the AUC runner's slot-shuffle eval ------------------------------
+
+    def slots_shuffle(self, slots) -> dict:
+        """Replace ``slots``' feasigns in the pass's records with pooled
+        candidates, for feature-importance eval (BoxPSDataset.slots_shuffle,
+        python dataset.py:1191-1210 -> BoxHelper::SlotsShuffle). The
+        AucRunner is built on first use in a pass over every used sparse
+        slot (pool capacity ``auc_runner_pool_size``, seed seed + pass_id);
+        an empty ``slots`` restores the records. A store-backed pass is
+        rebuilt from the rewritten records (the shuffle order baked in),
+        so the columnar feeds serve the shuffled keys; the candidates come
+        from the pass's own records, so they resolve in its working set."""
+        from paddlebox_tpu_torch.metrics.auc_runner import AucRunner
+
+        if not self.records:
+            raise RuntimeError("slots_shuffle needs in-memory records")
+        recs = self.records  # materializes the store's view
+        runner = self._auc_runner
+        if runner is None or self._auc_runner_pass != self.pass_id:
+            runner = AucRunner(
+                self.schema,
+                replaced_slots=[s.name for s in self.schema.used_sparse],
+                capacity=int(config.get_flag("auc_runner_pool_size")),
+                seed=self.seed + self.pass_id,
+            )
+            runner.observe(recs)
+            self._auc_runner = runner
+            self._auc_runner_pass = self.pass_id
+        out = runner.slots_shuffle(recs, set(slots))
+        if self.store is not None:
+            self.store = ColumnarRecords.from_records(recs, self.schema)
+            self._order = None
+            self.store.invalidate_rows()
+        return out
+
+    @property
+    def auc_runner_phase(self) -> int:
+        """The AucRunner's phase (flips at every slots_shuffle), 1 without one."""
+        return self._auc_runner.phase if self._auc_runner is not None else 1
 
     def _check_nonempty(self, n: int) -> bool:
         if self.memory_data_size() == 0:
@@ -1002,8 +1404,6 @@ class BoxPSDataset:
         """int64 [3]: hashes of the pass's sorted keys and of its record
         order (the store's shuffle order, or the record list's keys in
         order), and the batch size. Ranks of one mesh must agree on it."""
-        import hashlib
-
         def h(*arrays) -> int:
             d = hashlib.blake2b(digest_size=8)
             for a in arrays:

@@ -1,4 +1,5 @@
 from paddlebox_tpu_torch.metrics.auc import AucState, auc_compute, auc_init, auc_psum, auc_update
+from paddlebox_tpu_torch.metrics.auc_runner import AucRunner, CandidatePool
 from paddlebox_tpu_torch.metrics.registry import (
     CmatchRankMaskMetricMsg,
     CmatchRankMetricMsg,
@@ -10,6 +11,8 @@ from paddlebox_tpu_torch.metrics.registry import (
 )
 
 __all__ = [
+    "AucRunner",
+    "CandidatePool",
     "AucState",
     "auc_init",
     "auc_update",

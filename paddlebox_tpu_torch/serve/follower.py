@@ -190,6 +190,11 @@ class Follower:
         # poller thread, read by the health-beat thread.
         self.reanchoring = False
         self.epoch_reanchors = 0  # per-instance (serve.epoch_reanchors is global)
+        # the exact serve.freshness_s of the last head commit that carried a
+        # stream watermark, and how many such commits this follower made
+        # (the histogram keeps only log2 buckets)
+        self.last_freshness_s: Optional[float] = None
+        self.freshness_commits = 0
 
     def _fresh_staging(self) -> HostSparseTable:
         # seed is irrelevant: the staging table only ever load()s published
@@ -410,9 +415,10 @@ class Follower:
         if stream is not None and delta_idx == int(wm["delta_idx"]):
             oldest = stream.get("oldest_unix")
             if oldest is not None:
-                STAT_OBSERVE(
-                    "serve.freshness_s", max(0.0, time.time() - float(oldest))
-                )
+                fresh = max(0.0, time.time() - float(oldest))
+                STAT_OBSERVE("serve.freshness_s", fresh)
+                self.last_freshness_s = fresh
+                self.freshness_commits += 1
 
     def _load_dense(self, wm: Dict[str, Any]) -> None:
         dense = wm.get("dense")

@@ -43,7 +43,7 @@ a background thread; a save that reaches a pending mesh carrier raises
 (``HostSparseTable.drain_pending``).
 
 The multi-host carrier (``MultiHostCarrier``) is not ported (ROADMAP
-Queue 5).
+Queue 1 item 5.3).
 """
 
 from __future__ import annotations

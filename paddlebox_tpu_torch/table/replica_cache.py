@@ -2,9 +2,10 @@
 
 Port of the JAX package's ``table/replica_cache.py`` host half
 (GpuReplicaCache parity, box_wrapper.h:140-248): fixed-dim float rows
-are appended in blocks; ``host_array`` materialises them as one
-``[n, dim]`` array. The serving scoring table builds its versions on it.
-Single-row ``add_items``, the device replica (``to_device``), the
+are appended one at a time (``add_items``, the replica-cache line
+parser's ``#`` lines) or in blocks (``add_batch``); ``host_array``
+materialises them as one ``[n, dim]`` array. The serving scoring table
+builds its versions on it. The device replica (``to_device``), the
 ``pull_cache_value`` op and the string-keyed ``InputTable`` wait for a
 later slice.
 """
@@ -30,6 +31,24 @@ class ReplicaCache:
     def __len__(self) -> int:
         with self._lock:
             return len(self._rows)
+
+    def add_items(self, emb) -> int:
+        """Append one row; returns its id (AddItems parity, thread-safe).
+        A ``[1, dim]`` input squeezes; any other shape but ``(dim,)``
+        raises, both shapes named."""
+        row = np.asarray(emb, dtype=np.float32)
+        if row.ndim == 2 and row.shape[0] == 1:
+            row = row[0]
+        if row.ndim != 1:
+            raise ValueError(
+                f"add_items wants one row of shape ({self.dim},), got shape {row.shape} — "
+                "use add_batch for [n, dim] blocks"
+            )
+        if row.shape[0] != self.dim:
+            raise ValueError(f"row dim {row.shape[0]} != cache dim {self.dim}")
+        with self._lock:
+            self._rows.append(row)
+            return len(self._rows) - 1
 
     def add_batch(self, rows) -> np.ndarray:
         """Append a ``[n, dim]`` block in one locked operation; returns the

@@ -52,7 +52,11 @@ row's decayed show reaches ``ici_hot_show``. The classic finalize reads the
 show column of the rows it pulled, the spliced one the host table's
 ``shows_peek`` (side-effect free, maybe a pass stale).
 
-Not ported: the multi-host working set and carrier.
+Spans (``utils/trace.py``): ``boundary.dedup``, ``boundary.pull`` and
+``boundary.splice`` in ``finalize``.
+
+Not ported: the multi-host working set and carrier (ROADMAP Queue 1 item
+5.3).
 """
 
 from __future__ import annotations
@@ -74,6 +78,7 @@ from paddlebox_tpu_torch.utils.faultinject import InjectedFault
 from paddlebox_tpu_torch.utils.faultinject import fire as _fault_fire
 from paddlebox_tpu_torch.utils.fs import atomic_write
 from paddlebox_tpu_torch.utils.monitor import STAT_ADD, STAT_OBSERVE, STAT_SET
+from paddlebox_tpu_torch.utils.trace import record_event
 
 config.define_flag(
     "boundary_merge_threads", 4,
@@ -945,7 +950,7 @@ class PassWorkingSet:
         the very array this finalize merges, else dropped.
         """
         t0 = time.perf_counter()
-        with self._lock:
+        with self._lock, record_event("boundary.dedup", "boundary"):
             all_keys = merge_unique_keys(
                 self._key_chunks,
                 int(config.get_flag("boundary_merge_threads")),
@@ -983,11 +988,12 @@ class PassWorkingSet:
                 self._set_hot_rows(global_rows, table.shows_peek(all_keys))
             return self._finalize_spliced(table, carrier, all_keys, global_rows, ns, cap, prefetch)
         t0 = time.perf_counter()
-        rows = (
-            _rows_with_prefetch(table, all_keys, prefetch)
-            if len(all_keys)
-            else np.zeros((0, table.layout.width), dtype=np.float32)
-        )
+        with record_event("boundary.pull", "boundary"):
+            rows = (
+                _rows_with_prefetch(table, all_keys, prefetch)
+                if len(all_keys)
+                else np.zeros((0, table.layout.width), dtype=np.float32)
+            )
         STAT_SET("boundary.pull_s", time.perf_counter() - t0)
         if self._ici_adaptive() and len(all_keys):
             # the pulled rows' decayed show column is the exact hotness
@@ -1054,7 +1060,8 @@ class PassWorkingSet:
         def _pull_new():
             t0 = time.perf_counter()
             try:
-                pull["rows"] = _rows_with_prefetch(table, new_keys, prefetch)
+                with record_event("boundary.pull", "boundary"):
+                    pull["rows"] = _rows_with_prefetch(table, new_keys, prefetch)
             except BaseException as e:  # joined and raised below
                 pull["err"] = e
             pull["secs"] = time.perf_counter() - t0
@@ -1072,9 +1079,10 @@ class PassWorkingSet:
             return torch.from_numpy(np.ascontiguousarray(global_rows[mask] - base)).to(device)
 
         t0 = time.perf_counter()
-        dev = torch.zeros((n_rows, W), dtype=torch.float32, device=device)
-        if (common & mine).any():
-            write_rows(dev, ids(common & mine), carrier.rows_for(pos_in_old[common & mine]))
+        with record_event("boundary.splice", "boundary"):
+            dev = torch.zeros((n_rows, W), dtype=torch.float32, device=device)
+            if (common & mine).any():
+                write_rows(dev, ids(common & mine), carrier.rows_for(pos_in_old[common & mine]))
         STAT_SET("boundary.splice_s", time.perf_counter() - t0)
         if puller is not None:
             puller.join()

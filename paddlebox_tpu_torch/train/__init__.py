@@ -28,6 +28,15 @@ from paddlebox_tpu_torch.train.checkpoint import (
     verify_snapshot,
 )
 from paddlebox_tpu_torch.train.rollback import PassGuard
+from paddlebox_tpu_torch.train.supervisor import (
+    HealthGates,
+    Incident,
+    PassFailure,
+    PassRejected,
+    PassSupervisor,
+    RetryPolicy,
+)
+from paddlebox_tpu_torch.train.stream import DirectoryTailer, StreamLineageError, StreamSupervisor
 
 __all__ = [
     "TrainState",
@@ -54,6 +63,15 @@ __all__ = [
     "validate_watermark",
     "verify_snapshot",
     "PassGuard",
+    "HealthGates",
+    "Incident",
+    "PassFailure",
+    "PassRejected",
+    "PassSupervisor",
+    "RetryPolicy",
+    "DirectoryTailer",
+    "StreamLineageError",
+    "StreamSupervisor",
     "Adam",
     "AdamState",
     "AsyncDenseTable",

@@ -128,7 +128,15 @@ Every rank passes the same options. On a mesh:
   the step's globally reduced gradients. Replicated tables would drift:
   each applies its pushes on its own thread.
 
-Not ported (ROADMAP Queue 5): meshes over several hosts and their
+Spans (``utils/trace.py``, the JAX trainer's names): ``pack+upload`` on
+the packer feed's workers (when the profiler is enabled), ``feed_wait``
+and ``train_step_dispatch`` per batch of a host feed, ``resident_prepare``
+and ``superstep_dispatch`` on the resident feeds, and, only under
+``profile``, ``device_step`` / ``device_superstep``, the one span that
+waits for the device. The fault site ``step.device`` fires before every
+dispatch.
+
+Not ported (ROADMAP Queue 1 item 5.3): meshes over several hosts and their
 lockstep (``_pv_lockstep``).
 """
 
@@ -171,7 +179,9 @@ from paddlebox_tpu_torch.train.sharded_step import (
 from paddlebox_tpu_torch.train.train_step import TrainState, TrainStepConfig, make_train_step
 from paddlebox_tpu_torch.utils.device import DeviceLike, resolve_device
 from paddlebox_tpu_torch.utils.dump import DumpWorkerPool, dump_fields, dump_param
+from paddlebox_tpu_torch.utils.faultinject import fire as _fault_fire
 from paddlebox_tpu_torch.utils.fs import atomic_write
+from paddlebox_tpu_torch.utils.trace import PROFILER
 
 config.define_flag(
     "max_inflight_steps",
@@ -542,7 +552,15 @@ class CTRTrainer:
             # the ids' strings are built here, off the dispatch thread
             return self._host(arrays), self._host(aux), self._store_ids(store, idx)
 
-        for host, aux, ids in prefetch(dataset.batch_indices(n_batches), prep):
+        def prep_traced(idx):
+            # the worker thread's span: a trace shows the pack beside the
+            # device step (the copy to the device is the dispatch thread's)
+            if not PROFILER.enabled:
+                return prep(idx)
+            with PROFILER.record_event("pack+upload", "pack"):
+                return prep(idx)
+
+        for host, aux, ids in prefetch(dataset.batch_indices(n_batches), prep_traced):
             yield self._to_device(host), self._with_ids(self._to_device(aux), ids)
 
     def _pv_locked_plan(self, dataset: BoxPSDataset):
@@ -624,20 +642,32 @@ class CTRTrainer:
         while True:
             t0 = time.perf_counter()
             try:
-                feed, aux = next(it)
+                with PROFILER.record_event("feed_wait", "pass"):
+                    feed, aux = next(it)
             except StopIteration:
                 return
             finally:
                 tm["feed_wait_s"] += time.perf_counter() - t0
             if is_async:
                 holder["state"] = holder["state"]._replace(params=self._async_params(holder["state"].params))
+            # the chaos seam: a device failure of a step (out of memory, a
+            # lost card) surfaces here as a dispatch exception
+            _fault_fire("step.device")
             t0 = time.perf_counter()
-            holder["state"], m = step_fn(holder["state"], feed)
-            ev = self._mark()
+            with PROFILER.record_event("train_step_dispatch", "pass"):
+                holder["state"], m = step_fn(holder["state"], feed)
+                ev = self._mark()
             tm["step_dispatch_s"] += time.perf_counter() - t0
-            if ev is not None and (profile or max_inflight):
+            if profile:
+                # the only wait inside a span: asked for by profile
+                t0 = time.perf_counter()
+                with PROFILER.record_event("device_step", "device"):
+                    if ev is not None:
+                        ev.synchronize()
+                tm["device_step_s"] += time.perf_counter() - t0
+            elif ev is not None and max_inflight:
                 inflight.append(ev)
-                if profile or len(inflight) > max_inflight:
+                if len(inflight) > max_inflight:
                     t0 = time.perf_counter()
                     inflight.popleft().synchronize()
                     tm["device_step_s"] += time.perf_counter() - t0
@@ -761,22 +791,23 @@ class CTRTrainer:
         (per-batch attribution, as the JAX package does)."""
         t0 = time.perf_counter()
         pv_feed = w_dev = None
-        if use_pv:
-            rp, plan, pv_feed = self._pv_resident_prepare(dataset)
-            n = plan.n_batches if n_batches is None else min(plan.n_batches, n_batches)
-            # the registry reads the global batch (on a mesh, beside the
-            # rank's blocks the step reads)
-            feed_dev, rows_dev, w_dev = pv_feed.positions, pv_feed.global_idx, pv_feed.global_ins_weight
-        else:
-            rp = self._get_resident(dataset)
-            blocks = [np.asarray(b, dtype=np.int32) for b in dataset.batch_indices(n_batches)]
-            self._ensure_pads(rp, blocks)
-            feed_dev = rows_dev = self._index_partition(rp, blocks)
-            n = len(blocks)
-        sstep = self._resident_superstep(rp, eval_mode, pv_feed)
-        logkeys = None
-        if self.metric_registry is not None and dataset.store.ins_id_off is not None:
-            logkeys = rp.logkey_columns()
+        with PROFILER.record_event("resident_prepare", "pass"):
+            if use_pv:
+                rp, plan, pv_feed = self._pv_resident_prepare(dataset)
+                n = plan.n_batches if n_batches is None else min(plan.n_batches, n_batches)
+                # the registry reads the global batch (on a mesh, beside the
+                # rank's blocks the step reads)
+                feed_dev, rows_dev, w_dev = pv_feed.positions, pv_feed.global_idx, pv_feed.global_ins_weight
+            else:
+                rp = self._get_resident(dataset)
+                blocks = [np.asarray(b, dtype=np.int32) for b in dataset.batch_indices(n_batches)]
+                self._ensure_pads(rp, blocks)
+                feed_dev = rows_dev = self._index_partition(rp, blocks)
+                n = len(blocks)
+            sstep = self._resident_superstep(rp, eval_mode, pv_feed)
+            logkeys = None
+            if self.metric_registry is not None and dataset.store.ins_id_off is not None:
+                logkeys = rp.logkey_columns()
         host_idx = plan.idx if use_pv else blocks
         tm["feed_wait_s"] += time.perf_counter() - t0
         K = 1 if profile else max(1, int(config.get_flag("resident_scan_batches")))
@@ -793,13 +824,21 @@ class CTRTrainer:
                     ids_fut = ids_ex.submit(
                         lambda c0, k: [self._store_ids(dataset.store, host_idx[c0 + j]) for j in range(k)], c0, k
                     )
+                _fault_fire("step.device")  # the chaos seam (see the classic stepper)
                 t0 = time.perf_counter()
-                holder["state"], mstack = sstep(holder["state"], feed_dev[c0 : c0 + k])
-                ev = self._mark()
+                with PROFILER.record_event("superstep_dispatch", "pass"):
+                    holder["state"], mstack = sstep(holder["state"], feed_dev[c0 : c0 + k])
+                    ev = self._mark()
                 tm["step_dispatch_s"] += time.perf_counter() - t0
-                if ev is not None:
+                if profile:
+                    t0 = time.perf_counter()
+                    with PROFILER.record_event("device_superstep", "device"):
+                        if ev is not None:
+                            ev.synchronize()
+                    tm["device_step_s"] += time.perf_counter() - t0
+                elif ev is not None:
                     inflight.append(ev)
-                    if profile or len(inflight) > 1:  # one superstep ahead
+                    if len(inflight) > 1:  # one superstep ahead
                         t0 = time.perf_counter()
                         inflight.popleft().synchronize()
                         tm["device_step_s"] += time.perf_counter() - t0

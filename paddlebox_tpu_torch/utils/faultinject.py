@@ -61,10 +61,10 @@ Catalog of wired sites (see docs/ROBUSTNESS.md for the recovery matrix):
                             synthetic unreadable file (quarantined whole in
                             data_quarantine mode)
     backend.init            utils/backendguard.py  before each subprocess
-                            backend-init probe — an injected failure is a
-                            simulated wedged TPU runtime, exercising the
-                            watchdog + CPU-fallback path without owning a
-                            wedgeable chip
+                            CUDA-init probe — an injected failure is a
+                            simulated wedged device, exercising the
+                            watchdog, the retries and the typed error
+                            (there is no CPU fallback)
     serve.apply_delta       serve/scoring_table.py  commit(): after the next
                             scoring-table version is fully built, before the
                             atomic swap — a failure is a follower crash
