@@ -283,7 +283,32 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    day's samples/s supervised and bare, a retry's seconds, ``save_base``
    / ``save_delta`` s, the span counts, each slot's shuffled AUC, and the
    stream's ``serve.freshness_s`` p50 and p99, records a cut and backlog
-   stretches.
+   stretches;
+15. the multi-host day ("multihost"), at the same width on bench.py's data
+   from ``--seed + 15``: host processes of their own, each a rank of a
+   gloo world on cuda:0 (NCCL refuses two ranks a card) and a node of the
+   host plane (its own ``TcpTransport`` on a free 127.0.0.1 port), its
+   stripe of the files in its own ``HostSparseTable`` and
+   ``BoxPSDataset(transport=)``. Two hosts, 2,048 records each of the
+   4,096 global batch: a resident pass of 8 + 32 steps (K = 8), 8 packer
+   steps and 8 ZeRO-1 steps on its keys; an ``ins_id`` shuffle pass over
+   ``TcpShuffleRouter`` with 9 files against 7 (the short host wraps the
+   all-reduced batch count); two carried passes of 2 overlapping files a
+   host (a ``MultiHostCarrier`` splice); the ``PBOX_BENCH_PV`` join day
+   with 3 files against 1 (one join epoch, ghost batches on the short
+   host, and the update epoch); and a small config (2 files a host, batch
+   256, a (32, 16) tower, 4 steps) held against the same two hosts on the
+   CPU within phase 12's mesh bounds. Then four hosts, 8 + 8 resident
+   steps. Checked: the hosts' keys disjoint, their union the pass's
+   referenced keys and every host's rows and capacity a single-process
+   ``PassWorkingSet``'s exactly; every all-reduced count the same on every
+   host; 2 gathers + 1 writeback a step on every host; both kernels
+   bitwise at the owner's ids (this host's request buckets all-to-all'd).
+   Printed: samples/s and ms a step a host, the key exchange's seconds in
+   ``finalize``, the lockstep rounds' seconds and the transport's bytes
+   over a pass, the carried ``boundary_s``, a host's pack of its own
+   batch beside the replicated mesh's ``pack_sharded``, and both kernels
+   timed at the owner's shapes. A failing host fails the spawn.
 
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -686,7 +711,7 @@ def bench_logkey(search_id: int, cmatch: int, rank: int) -> str:
 
 
 def write_bench_files(tmpdir, rng, n_files=N_FILES, tag="part", reuse_pool=None, pv=False, n_slots=None,
-                      dense_dim=0):
+                      dense_dim=0, ins_ids=False):
     """bench.py's ``write_files``: ``n_files`` x RECORDS_PER_FILE slot
     lines, one key a slot (``n_slots``, NUM_SLOTS by default), a quarter
     from the hot head, the rest uniform, POS_FRAC positive; with
@@ -695,7 +720,9 @@ def write_bench_files(tmpdir, rng, n_files=N_FILES, tag="part", reuse_pool=None,
     records into queries of 1-4 ads, cmatch 222, ranks 1..n (bench.py's
     join-phase data); with ``dense_dim`` a float slot of that many values
     follows the label (log1p of exponential counts, as Criteo's numeric
-    columns are usually fed). Returns (files, this pass's cold keys)."""
+    columns are usually fed); with ``ins_ids`` an instance id column comes
+    first (``ins-<tag>-<file>-<line>``, for the ins_id shuffle). Returns
+    (files, this pass's cold keys)."""
     files, pool = [], []
     search_id = 1
     n_slots = n_slots or NUM_SLOTS
@@ -723,6 +750,8 @@ def write_bench_files(tmpdir, rng, n_files=N_FILES, tag="part", reuse_pool=None,
                     heads[i + r - 1] = f"1 {bench_logkey(search_id, 222, r)} "
                 search_id += 1
                 i += n_ads
+        if ins_ids:
+            heads = [f"1 ins-{tag}-{fi:03d}-{i:06d} " + h for i, h in enumerate(heads)]
         path = os.path.join(tmpdir, f"{tag}-{fi:03d}.txt")
         with open(path, "w") as f:
             for i in range(n):
@@ -925,10 +954,11 @@ def main() -> int:
     zoo_counts, dcn, zoo_err = timed("11 zoo", zoo_phase, args, dev, card, ck, lay)
     mesh_counts, owner, join_owner, mesh_err = timed("12-13 mesh", mesh_phases, args, dev, card, ck, lay)
     supervised_counts, sup_err = timed("14 supervised_day", supervised_phase, args, dev, card, ck, lay, schema)
+    multihost_counts, mh_owner, mh_err = timed("15 multihost", multihost_phase, args, dev, card, ck, lay)
     emit({"card": card, "phase_wall_s": walls, "script_s": time.perf_counter() - t_start})
 
     by_path = {"serve": serve_counts, **train["counts"], **published, "boundary": boundary_counts, **join_counts,
-               **zoo_counts, **mesh_counts, **supervised_counts}
+               **zoo_counts, **mesh_counts, **supervised_counts, **multihost_counts}
     emit({"kernels": [
         {
             "name": name,
@@ -943,8 +973,10 @@ def main() -> int:
             # dump and façade runs, then phase 12's NCCL and gloo mesh
             # worlds (every rank's main path), then phase 13's mesh join
             # and update, boundary, async and dump runs, then phase 14's
-            # supervised day, AUC runner and stream; serve_tier is phase
-            # 8's tiered serving
+            # supervised day, AUC runner and stream, then phase 15's host
+            # processes (every host's passes: the resident pass of two
+            # hosts and of four, packer, ZeRO-1, shuffle, carried, join and
+            # update); serve_tier is phase 8's tiered serving
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": err,
@@ -963,15 +995,18 @@ def main() -> int:
             # owner's (phase 13)
             "mesh_owner_shape": {w: owner[w][name] for w in owner},
             "mesh_join_owner_shape": {w: join_owner[w][name] for w in join_owner},
+            # and at the multi-host owner's (phase 15): a host's shard,
+            # hosts x K ids received over the mesh
+            "multihost_owner_shape": {w: mh_owner[w][name] for w in mh_owner},
             # the gather at the device scoring tier's shape (phase 8): one
             # shard's bucket of a full request
             **({"serve_tier_shape": tier_shape} if key == "gather" else {}),
         }
         for name, source, replaces, key, err in (
             ("pull_rows_cuda", "paddlebox_tpu_torch/ops/csrc/gather_rows.cu", GATHER_REPLACES, "gather",
-             max(max_err, train["gather_err"], join_err, zoo_err, mesh_err, sup_err)),
+             max(max_err, train["gather_err"], join_err, zoo_err, mesh_err, sup_err, mh_err)),
             ("write_rows_cuda", "paddlebox_tpu_torch/ops/csrc/write_rows.cu", WRITE_REPLACES, "write",
-             max(write_err, train["write_err"], join_err, zoo_err, mesh_err, sup_err)),
+             max(write_err, train["write_err"], join_err, zoo_err, mesh_err, sup_err, mh_err)),
         )
     ]})
     print(card, flush=True)
@@ -4850,6 +4885,626 @@ def supervised_phase(args, dev, card, ck, lay, schema):
     print(f"phase 14 (supervised day, ingest, observability, AUC runner, stream): {nums['phase_s']:.3f} s; {card}",
           flush=True)
     return by_path, max(errs)
+
+
+# ---- 15. the multi-host day: host processes of their own over the host plane
+
+MH_SEED = 15  # the phase's data seed offset
+MH_TIMED = 32  # resident steps of the two-host pass: one epoch of a host's 8 files
+MH_WARM = 8
+MH_PACKER = 8
+MH_ZERO = 8
+MH_SHUFFLE_FILES = (9, 7)  # the ins_id shuffle pass's unequal stripes
+MH_CARRIED_FILES = 2  # a host a pass, two passes
+MH_PV_FILES = (3, 1)  # the join day's unequal stripes
+MH_FOUR = 8  # steps of the four-host world
+MH_SMALL_FILES = 2  # a host, the card against the CPU
+MH_SMALL_BATCH = 256
+MH_SMALL_STEPS = 4
+MH_SMALL_HIDDEN = (32, 16)
+MH_TIMEOUT_S = 300.0
+MH_REPLICATED_PACK_MS = (20.5, 23.0)  # the single-host replicated mesh's pack_sharded a step (PERF.md §5)
+
+
+def host_list(mine, world):
+    """A file list whose every rank's stripe (``[rank::world]``) is
+    ``mine``: each rank hands its dataset its own list."""
+    return [f for f in mine for _ in range(world)]
+
+
+def _ports(n):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+class _HostPlaneMeter:
+    """Wall seconds of a transport's rounds, by kind (``ws-`` tags: the
+    key exchange; the rest: the lockstep), since ``reset`` and since the
+    start (``total``), and every ``allreduce_max``'s result by tag
+    (patched onto one rank's transport)."""
+
+    def __init__(self, tp):
+        self.reset()
+        self.results = {}
+        self.total = {"exchange_s": 0.0, "lockstep_s": 0.0}
+        a2a, arm = tp.alltoall, tp.allreduce_max
+
+        def alltoall(payloads, tag, timeout=None):
+            t0 = time.perf_counter()
+            out = a2a(payloads, tag, timeout)
+            key = "exchange_s" if tag.startswith("ws-") else "lockstep_s"
+            setattr(self, key, getattr(self, key) + time.perf_counter() - t0)
+            self.total[key] += time.perf_counter() - t0
+            self.rounds += 1
+            return out
+
+        def allreduce_max(value, tag, timeout=None):
+            out = arm(value, tag, timeout)
+            self.results.setdefault(tag, []).append(int(out))
+            return out
+
+        tp.alltoall, tp.allreduce_max = alltoall, allreduce_max
+
+    def reset(self):
+        self.exchange_s, self.lockstep_s, self.rounds = 0.0, 0.0, 0
+
+
+def _owner_ids(plan, rp, cfg, idx, shard, dev):
+    """The ids this rank's owner kernels see in one step: its request
+    buckets for ``idx`` (built on the card), all-to-all'd, give the pull's
+    received ids; the merge gathers each distinct one (then row 0) and
+    writes it back (then R, which writes nothing)."""
+    from paddlebox_tpu_torch.train import build_mesh_device_batch
+
+    req = build_mesh_device_batch(rp, cfg, idx, rp.ws.n_mesh_shards, rp.ws.capacity)["req_ranks"]
+    recv = plan.all_to_all(req).reshape(-1)
+    uniq = torch.unique(recv)
+    tail = recv.numel() - uniq.numel()
+    return {
+        "pull": recv,
+        "merge_old": torch.cat([uniq, torch.zeros(tail, dtype=uniq.dtype, device=dev)]),
+        "merge_write": torch.cat([uniq.long(), torch.full((tail,), shard.shape[0], dtype=torch.long, device=dev)]),
+    }
+
+
+def _owner_check(ck, shard, owner, what):
+    """Both kernels bitwise against their plain versions at the owner's ids."""
+    what = f"{what} owner R={shard.shape[0]} U={owner['pull'].numel()}"
+    return max(check_gather(ck, shard, owner["pull"], what + " pull ids"),
+               check_gather(ck, shard, owner["merge_old"], what + " merge old-row ids"),
+               check_write(ck, shard, owner["merge_write"], ck.pull_rows_ref(shard, owner["merge_old"]) + 0.5,
+                           what + " merge writeback ids"))
+
+
+def _mh_context(plan, spec):
+    """(transport, meter, layout, sparse config, dataset maker, trainer
+    maker) of one host process: its node of the host plane, on its own
+    endpoint."""
+    from paddlebox_tpu_torch.data import BoxPSDataset
+    from paddlebox_tpu_torch.models import DeepFM
+    from paddlebox_tpu_torch.parallel.transport import TcpShuffleRouter, TcpTransport
+    from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig, ValueLayout
+    from paddlebox_tpu_torch.train import Adam, CTRTrainer, TrainStepConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tp = TcpTransport(plan.rank, spec["endpoints"], timeout=MH_TIMEOUT_S)
+    meter = _HostPlaneMeter(tp)
+    lay = ValueLayout(embedx_dim=EMBEDX_DIM)
+    sparse_opt = SparseOptimizerConfig(embedx_threshold=0.0)
+
+    def dataset(mine, batch, date, schema=None, shuffle="none"):
+        table = HostSparseTable(lay, sparse_opt, n_shards=64, seed=spec["seed"])
+        ds = BoxPSDataset(schema or bench_schema(), table, batch_size=batch, n_mesh_shards=plan.world,
+                          rank=plan.rank, nranks=plan.world, shuffle_mode=shuffle, seed=spec["seed"],
+                          transport=tp, router=TcpShuffleRouter(tp))
+        ds.set_filelist(host_list(mine, plan.world))
+        ds.set_date(date)
+        return ds, table
+
+    def trainer(batch, hidden=HIDDEN, dense_opt=None, **cfg_kw):
+        cfg = TrainStepConfig(num_slots=NUM_SLOTS, batch_size=batch, layout=lay, sparse_opt=sparse_opt,
+                              auc_buckets=100_000, **cfg_kw)
+        model = DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=hidden,
+                       generator=torch.Generator().manual_seed(spec["seed"]))
+        t = CTRTrainer(model, cfg, dense_opt=dense_opt or Adam(1e-3), plan=plan)
+        t.init_params()
+        return t
+
+    return tp, meter, lay, sparse_opt, dataset, trainer
+
+
+def _mh_pass(plan, meter, name, fn, k=None):
+    """Run one pass's training: wall, launches (every kernel count from 0),
+    host-plane seconds and transport bytes; ``k`` steps: 2 gathers and 1
+    writeback a step, checked."""
+    from paddlebox_tpu_torch.ops import cuda_kernels as ck
+    from paddlebox_tpu_torch.utils.monitor import STAT_GET
+
+    dev = plan.device
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    ck.reset_launch_counts()
+    meter.reset()
+    b0 = STAT_GET("wire.host_bytes_sent")
+    t0 = time.perf_counter()
+    out, losses = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = dict(ck.launch_counts)
+    if k is not None and dev.type == "cuda" and (counts["pull_rows_cuda"] != 2 * k or counts["write_rows_cuda"] != k):
+        raise AssertionError(f"multihost rank {plan.rank} {name}: launches {counts} for {k} steps")
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"multihost rank {plan.rank} {name}: non-finite loss {losses.tolist()}")
+    return out, losses, {"wall_s": wall, "counts": counts, "lockstep_s": meter.lockstep_s,
+                         "exchange_s": meter.exchange_s, "rounds": meter.rounds,
+                         "host_bytes_sent": STAT_GET("wire.host_bytes_sent") - b0}
+
+
+def _pass_mark(meter):
+    """The host plane's totals now: (transport bytes sent, round seconds)."""
+    from paddlebox_tpu_torch.utils.monitor import STAT_GET
+
+    return STAT_GET("wire.host_bytes_sent"), dict(meter.total)
+
+
+def _pass_plane(meter, mark):
+    """A whole pass's host plane since ``mark``: the bytes it sent (the
+    shuffle, the key exchange, the lockstep) and its rounds' seconds."""
+    b, t = _pass_mark(meter)
+    return {"host_bytes_sent": b - mark[0], **{k: v - mark[1][k] for k, v in t.items()}}
+
+
+def _steps(t, data, k, **kw):
+    losses = []
+    out = t.train_pass(data, n_batches=k, on_batch=lambda i, m: losses.append(m["loss"]), **kw)
+    return out, torch.stack(losses).cpu()
+
+
+def _layout_dump(ws, table, arrays, prefix):
+    """A pass's layout and this host's table after end_pass."""
+    arrays[f"{prefix}_sorted_keys"] = ws.sorted_keys
+    arrays[f"{prefix}_rows"] = ws.row_of_sorted
+    table.drain_pending()
+    arrays[f"{prefix}_host_keys"] = np.sort(table.keys())
+
+
+def multihost_rank(plan, spec):
+    """Phase 15 on one host of the two-host world (spawned, one process a
+    host, gloo on cuda:0): the resident, packer and ZeRO-1 passes, the
+    ins_id shuffle pass, two carried passes, the join day, then the small
+    config the CPU world repeats. Checks what a host can check alone and
+    writes the rest to ``spec["out"]``; every transport closes in a
+    ``finally``."""
+    from paddlebox_tpu_torch.fleet import Zero1Optimizer
+    from paddlebox_tpu_torch.models import DeepFM, RankDeepFM
+    from paddlebox_tpu_torch.ops import cuda_kernels as ck
+    from paddlebox_tpu_torch.train import Adam, CTRTrainer, TrainStepConfig
+
+    n, r, dev = plan.world, plan.rank, plan.device
+    b = BATCH // n
+    tp, meter, lay, sparse_opt, dataset, trainer = _mh_context(plan, spec)
+    res, arrays = {"rank": r, "world": n}, {}
+    try:
+        # the main path: the striped pass, its key exchange, 32 resident steps
+        ds, table = dataset(spec["files"][r], b, "20260301")
+        mark = _pass_mark(meter)
+        t0 = time.perf_counter()
+        ds.load_into_memory()
+        res["load_into_memory_s"] = time.perf_counter() - t0
+        res["num_batches"] = ds.num_batches()
+        t0 = time.perf_counter()
+        ds.begin_pass(round_to=512)
+        res.update(begin_pass_s=time.perf_counter() - t0, exchange_s=ds.ws.exchange_s, cap=ds.ws.capacity,
+                   n_keys=ds.ws.n_keys, n_owned=int(sum(len(k) for k in ds.ws.owned_shard_keys)))
+        ws = ds.ws
+        tr = trainer(b)
+        tr.prepare_pass(ds, n_batches=MH_TIMED)
+        res["prepare_pass_s"] = tr.last_prepare_s
+        tr.train_pass(ds, n_batches=MH_WARM)
+        out, losses, res["resident"] = _mh_pass(plan, meter, "resident", lambda: _steps(tr, ds, MH_TIMED), MH_TIMED)
+        if tr.last_feed != "resident":
+            raise AssertionError(f"multihost rank {r}: the main pass took the {tr.last_feed} feed")
+        rp = tr._resident_cache[2]
+        res.update(resident_loss=out["loss"], auc=out["auc"], L_pad=rp.L_pad, K_pad=rp.K_pad,
+                   resident_losses=losses.tolist())
+        shard = tr._state.table
+        owner = _owner_ids(plan, rp, tr.cfg, tr._idx_cache[2][0], shard, dev)
+        res["kernel_err"] = _owner_check(ck, shard, owner, f"multihost 2 hosts rank {r}")
+        res["owner_R"] = shard.shape[0]
+        arrays.update({f"owner_{k}": v.cpu().numpy() for k, v in owner.items()})
+
+        # 8 packer steps, and the pack of this host's batch alone
+        with flags(enable_resident_feed=0):
+            tr.prepare_pass(ds, n_batches=MH_PACKER)
+            _, _, res["packer"] = _mh_pass(plan, meter, "packer", lambda: _steps(tr, ds, MH_PACKER), MH_PACKER)
+            if tr.last_feed != "packer":
+                raise AssertionError(f"multihost rank {r}: the packer pass took the {tr.last_feed} feed")
+            packer = tr._packer_cache[2]
+            idx = list(ds.batch_indices(MH_PACKER))
+            t0 = time.perf_counter()
+            for blk in idx:
+                packer.pack_sharded(blk, 1)
+            res.update(pack_ms_per_step=(time.perf_counter() - t0) / len(idx) * 1e3, packer_K=packer._K_pad,
+                       packer_L=packer._L_pad)
+
+        # ZeRO-1, 8 steps from the trained table
+        tr.handoff_table(ds)
+        ztr = trainer(b, dense_opt=Zero1Optimizer(Adam(1e-3), n_dev=n))
+        _, zl, res["zero"] = _mh_pass(plan, meter, "zero1", lambda: _steps(ztr, ds, MH_ZERO), MH_ZERO)
+        res["zero_losses"] = zl.tolist()
+        t0 = time.perf_counter()
+        ds.end_pass(ztr.trained_table(), shrink=False)
+        res["end_pass_s"] = time.perf_counter() - t0
+        res["main_pass_plane"] = _pass_plane(meter, mark)
+        _layout_dump(ws, table, arrays, "main")
+        del tr, ztr, ds, ws, rp, shard, owner
+
+        # the ins_id shuffle over TcpShuffleRouter, 9 files against 7: the
+        # short host wraps around the all-reduced batch count
+        from paddlebox_tpu_torch.data import SlotInfo, SlotSchema
+
+        ins_schema = SlotSchema([SlotInfo("label", type="float", dense=True, dim=1)]
+                                + [SlotInfo(f"s{i}") for i in range(NUM_SLOTS)], label_slot="label", parse_ins_id=True)
+        ds, table = dataset(spec["shuffle_files"][r], b, "20260302", schema=ins_schema, shuffle="ins_id")
+        mark = _pass_mark(meter)
+        t0 = time.perf_counter()
+        ds.load_into_memory()
+        res["shuffle_load_s"] = time.perf_counter() - t0
+        nb = ds.num_batches()
+        ds.begin_pass(round_to=512)
+        st = trainer(b)
+        st.prepare_pass(ds)
+        _, _, res["shuffle"] = _mh_pass(plan, meter, "shuffle", lambda: _steps(st, ds, None), nb)
+        res.update(shuffle_records=ds.memory_data_size(), shuffle_local_batches=ds.memory_data_size() // b,
+                   shuffle_batches=nb, shuffle_feed=st.last_feed)
+        ds.end_pass(st.trained_table(), shrink=False)
+        res["shuffle_pass_plane"] = _pass_plane(meter, mark)
+        del st, ds
+
+        # two carried passes of 2 overlapping files a host, one dataset
+        # (its carrier lives there) and one host table
+        car = {}
+        ctr = trainer(b)
+        ds, table = dataset(spec["carried_files"][0][r], b, "20260303")
+        for p, files in enumerate(spec["carried_files"]):
+            if p:
+                ds.set_filelist(host_list(files[r], n))
+                ds.set_date(f"2026030{3 + p}")
+            ds.load_into_memory()
+            t0 = time.perf_counter()
+            ds.begin_pass(round_to=512)
+            boundary_s = time.perf_counter() - t0
+            k = ds.num_batches()
+            ctr.prepare_pass(ds)
+            _, _, run = _mh_pass(plan, meter, f"carried pass {p + 1}", lambda: _steps(ctr, ds, k), k)
+            run.update(begin_pass_s=boundary_s, splice=ds.ws.boundary_stats, steps=k)
+            t0 = time.perf_counter()
+            ds.end_pass(ctr.trained_table_device())
+            run["end_pass_s"] = time.perf_counter() - t0
+            car[f"pass{p + 1}"] = run
+        if car["pass2"]["splice"] is None or car["pass2"]["splice"]["common"] == 0:
+            raise AssertionError(f"multihost rank {r}: the second pass did not splice the carried block")
+        t0 = time.perf_counter()
+        car["flush_keys"] = ds.flush_carried()
+        car["flush_s"] = time.perf_counter() - t0
+        res["carried"] = car
+        del ctr, ds
+
+        # the join day: one join epoch and the update epoch, 3 files against 1
+        ds, table = dataset(spec["pv_files"][r], b, "20260305", schema=pv_schema())
+        ds.load_into_memory()
+        ds.begin_pass(round_to=512)
+        ds.set_current_phase(1)
+        res["pvs"] = ds.preprocess_instance(max_rank=MAX_RANK)
+        res["local_pv_batches"] = ds.num_pv_batches(n_devices=1)
+        g = torch.Generator().manual_seed(spec["seed"])
+        model = RankDeepFM(DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN, generator=g),
+                           NUM_SLOTS * lay.pull_width, max_rank=MAX_RANK, generator=g)
+        jcfg = TrainStepConfig(num_slots=NUM_SLOTS, batch_size=b, layout=lay, sparse_opt=sparse_opt,
+                               auc_buckets=100_000, model_takes_rank_offset=True)
+        jtr = CTRTrainer(model, jcfg, dense_opt=Adam(1e-3), plan=plan)
+        jtr.init_params()
+        jout, _, res["join"] = _mh_pass(plan, meter, "join", lambda: _steps(jtr, ds, None))
+        res.update(join_batches=jout["batches"], join_ins=jout["ins_num"], join_feed=jtr.last_feed)
+        jtr.handoff_table(ds)
+        ds.set_current_phase(0)
+        ds.postprocess_instance()
+        utr = CTRTrainer(model, dataclasses.replace(jcfg, model_takes_rank_offset=False), dense_opt=Adam(1e-3),
+                         plan=plan)
+        utr.params = {k: v.clone() for k, v in jtr.params.items()}
+        utr.opt_state = utr.dense_opt.init(utr.params)
+        uout, _, res["update"] = _mh_pass(plan, meter, "update", lambda: _steps(utr, ds, None))
+        res.update(update_batches=uout["batches"], update_feed=utr.last_feed)
+        ds.end_pass(utr.trained_table(), shrink=False)
+        del jtr, utr, ds, model
+
+        res["small"], small_arrays = multihost_small(plan, spec, (tp, meter, lay, sparse_opt, dataset, trainer))
+        arrays.update(small_arrays)
+        res["allreduce_results"] = meter.results
+    finally:
+        tp.close()
+    np.savez(os.path.join(spec["out"], f"rank{r}.npz"), **arrays)
+    with open(os.path.join(spec["out"], f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def multihost_small(plan, spec, ctx=None):
+    """The small config on this world's device (the card, or the CPU):
+    2 files a host, a 256-record global batch, a (32, 16) tower, 4
+    resident steps, over the host's context (``_mh_context``; its own when
+    None). Returns (the losses, {every 16th owned key, its trained row})."""
+    own = ctx is None
+    tp, _, _, _, dataset, trainer = _mh_context(plan, spec) if own else ctx
+    try:
+        b = MH_SMALL_BATCH // plan.world
+        ds, table = dataset(spec["small_files"][plan.rank], b, "20260306")
+        ds.load_into_memory()
+        ds.begin_pass(round_to=512)
+        tr = trainer(b, hidden=MH_SMALL_HIDDEN)
+        _, losses = _steps(tr, ds, MH_SMALL_STEPS)
+        if tr.last_feed != "resident":
+            raise AssertionError(f"multihost small: the {tr.last_feed} feed")
+        # this host's one shard: its owned keys sit at rows 0.. in key order
+        owned, block = ds.ws.owned_shard_keys[0], tr.trained_table()[0]
+        pick = np.arange(0, len(owned), MESH_KEY_STRIDE)
+        ds.end_pass(None)
+        return {"losses": losses.tolist()}, {"small_keys": owned[pick], "small_rows": block[pick]}
+    finally:
+        if own:
+            tp.close()
+
+
+def multihost_cpu_rank(plan, spec):
+    """The small config on the CPU: the reference of the card's."""
+    r = plan.rank
+    res, arrays = multihost_small(plan, spec)
+    np.savez(os.path.join(spec["out"], f"rank{r}.npz"), **arrays)
+    with open(os.path.join(spec["out"], f"rank{r}.json"), "w") as f:
+        json.dump({"small": res}, f)
+
+
+def multihost_four_rank(plan, spec):
+    """The four-host world: the striped pass's key exchange and 8
+    resident steps at a 1024-record host batch."""
+    from paddlebox_tpu_torch.ops import cuda_kernels as ck
+
+    n, r, dev = plan.world, plan.rank, plan.device
+    b = BATCH // n
+    tp, meter, lay, sparse_opt, dataset, trainer = _mh_context(plan, spec)
+    res, arrays = {"rank": r, "world": n}, {}
+    try:
+        ds, table = dataset(spec["files"][r], b, "20260301")
+        mark = _pass_mark(meter)
+        ds.load_into_memory()
+        res["num_batches"] = ds.num_batches()
+        t0 = time.perf_counter()
+        ds.begin_pass(round_to=512)
+        res.update(begin_pass_s=time.perf_counter() - t0, exchange_s=ds.ws.exchange_s, cap=ds.ws.capacity)
+        ws = ds.ws
+        tr = trainer(b)
+        tr.prepare_pass(ds, n_batches=MH_FOUR)
+        tr.train_pass(ds, n_batches=RESIDENT_K)  # warm
+        out, losses, res["resident"] = _mh_pass(plan, meter, "resident", lambda: _steps(tr, ds, MH_FOUR), MH_FOUR)
+        if tr.last_feed != "resident":
+            raise AssertionError(f"multihost four rank {r}: the {tr.last_feed} feed")
+        rp = tr._resident_cache[2]
+        res.update(resident_losses=losses.tolist(), auc=out["auc"], L_pad=rp.L_pad, K_pad=rp.K_pad)
+        shard = tr._state.table
+        owner = _owner_ids(plan, rp, tr.cfg, tr._idx_cache[2][0], shard, dev)
+        res["kernel_err"] = _owner_check(ck, shard, owner, f"multihost 4 hosts rank {r}")
+        res["owner_R"] = shard.shape[0]
+        arrays.update({f"owner_{k}": v.cpu().numpy() for k, v in owner.items()})
+        ds.end_pass(tr.trained_table(), shrink=False)
+        res["main_pass_plane"] = _pass_plane(meter, mark)
+        _layout_dump(ws, table, arrays, "main")
+        res["allreduce_results"] = meter.results
+    finally:
+        tp.close()
+    np.savez(os.path.join(spec["out"], f"rank{r}.npz"), **arrays)
+    with open(os.path.join(spec["out"], f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+class _StubRows:
+    """A row source of zeros: a PassWorkingSet's layout without a table."""
+
+    def __init__(self, layout):
+        self.layout = layout
+
+    def pull_or_create(self, keys):
+        return np.zeros((len(keys), self.layout.width), np.float32)
+
+
+def _mh_layout_check(ranks, lay, what):
+    """The hosts' key sets are disjoint, their union the pass's referenced
+    keys, and every host's rows and capacity a single-process
+    PassWorkingSet's over the same keys, exactly."""
+    from paddlebox_tpu_torch.table import PassWorkingSet
+
+    n = len(ranks)
+    host = [rk["main_host_keys"] for rk in ranks]
+    for a in range(n):
+        for b in range(a + 1, n):
+            if len(np.intersect1d(host[a], host[b])):
+                raise AssertionError(f"{what}: hosts {a} and {b} hold common keys")
+    referenced = np.unique(np.concatenate([rk["main_sorted_keys"] for rk in ranks]))
+    if not np.array_equal(np.sort(np.concatenate(host)), referenced):
+        raise AssertionError(f"{what}: the hosts' keys are not the pass's referenced keys")
+    pws = PassWorkingSet(n_mesh_shards=n)
+    pws.add_keys(referenced)
+    pws.finalize(_StubRows(lay), round_to=512)
+    for r, rk in enumerate(ranks):
+        if rk["cap"] != pws.capacity:
+            raise AssertionError(f"{what}: host {r}'s capacity {rk['cap']} != {pws.capacity}")
+        if not np.array_equal(rk["main_rows"], pws.lookup(rk["main_sorted_keys"]).astype(np.int64)):
+            raise AssertionError(f"{what}: host {r}'s rows differ from the single-process working set's")
+    return len(referenced)
+
+
+def _mh_counters_check(ranks, what):
+    """Every host saw the same value of every all-reduced count."""
+    ref = ranks[0]["allreduce_results"]
+    for r, rk in enumerate(ranks[1:], 1):
+        if rk["allreduce_results"] != ref:
+            raise AssertionError(f"{what}: host {r}'s all-reduced counts differ from host 0's")
+    return sorted(ref)
+
+
+def multihost_phase(args, dev, card, ck, lay):
+    """Phase 15: the two-host world (the multi-host day and the small
+    config), the CPU world of the small config and the four-host world,
+    each a spawn of host processes with their own TcpTransport endpoints
+    on 127.0.0.1. Returns (launch counts by path, the kernels' numbers at
+    the owner shapes, the max abs error)."""
+    from paddlebox_tpu_torch.fleet.launch import spawn
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + MH_SEED)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multihost_") as tmp:
+        t0 = time.perf_counter()
+        files, pool = write_bench_files(tmp, rng, N_FILES, "mh")
+        ins_files, _ = write_bench_files(tmp, rng, sum(MH_SHUFFLE_FILES), "mhins", ins_ids=True)
+        car2, _ = write_bench_files(tmp, rng, 2 * MH_CARRIED_FILES, "mhcar", reuse_pool=pool)
+        pv_files, _ = write_bench_files(tmp, rng, sum(MH_PV_FILES), "mhpv", pv=True)
+        write_s = time.perf_counter() - t0
+
+        def stripes(fs, n):
+            return [fs[r::n] for r in range(n)]
+
+        s0 = MH_SHUFFLE_FILES[0]
+        car1 = files[: 2 * MH_CARRIED_FILES]
+        spec2 = {
+            "seed": args.seed + MH_SEED, "files": stripes(files, 2),
+            "shuffle_files": [ins_files[:s0], ins_files[s0:]],
+            "carried_files": [stripes(car1, 2), stripes(car2, 2)],
+            "pv_files": [pv_files[: MH_PV_FILES[0]], pv_files[MH_PV_FILES[0]:]],
+            "small_files": stripes(files[: 2 * MH_SMALL_FILES], 2),
+        }
+        worlds = {}
+        for name, world, device, fn in (("two_hosts", 2, "cuda:0", multihost_rank),
+                                        ("cpu", 2, "cpu", multihost_cpu_rank),
+                                        ("four_hosts", 4, "cuda:0", multihost_four_rank)):
+            out = os.path.join(tmp, name)
+            os.makedirs(out)
+            spec = dict(spec2, out=out, endpoints=[f"127.0.0.1:{p}" for p in _ports(world)])
+            if world == 4:
+                spec["files"] = stripes(files, 4)
+            t0 = time.perf_counter()
+            spawn(fn, world, f"file://{tmp}/rdv-{name}", backend="gloo", device=device, args=(spec,),
+                  timeout_s=MH_TIMEOUT_S)
+            worlds[name] = (_read_ranks(out, world), time.perf_counter() - t0)
+
+        two, two_wall = worlds["two_hosts"]
+        four, four_wall = worlds["four_hosts"]
+        counts, nums = {}, {"write_files_s": write_s}
+        for name, ranks, wall in (("two_hosts", two, two_wall), ("four_hosts", four, four_wall)):
+            what = f"multihost {name}"
+            n_ref = _mh_layout_check(ranks, lay, what)
+            tags = _mh_counters_check(ranks, what)
+            k = MH_TIMED if name == "two_hosts" else MH_FOUR
+            b = BATCH // len(ranks)
+            walls = [rk["resident"]["wall_s"] for rk in ranks]
+            nums[name] = {
+                "hosts": len(ranks), "spawn_wall_s": wall, "referenced_keys": n_ref, "cap": ranks[0]["cap"],
+                "samples_per_s_host": [b * k / w for w in walls], "ms_per_step_host": [w / k * 1e3 for w in walls],
+                "samples_per_s_global": BATCH * k / max(walls),
+                "exchange_s_host": [rk["exchange_s"] for rk in ranks],
+                "begin_pass_s_host": [rk["begin_pass_s"] for rk in ranks],
+                "resident_lockstep_s_host": [rk["resident"]["lockstep_s"] for rk in ranks],
+                "pass_plane_host": [rk["main_pass_plane"] for rk in ranks],
+                "num_batches": ranks[0]["num_batches"], "L_pad": ranks[0]["L_pad"], "K_pad": ranks[0]["K_pad"],
+                "allreduce_tags": tags, "resident_losses": ranks[0]["resident_losses"],
+            }
+            counts[f"multihost_{name}"] = {kn: sum(rk["resident"]["counts"][kn] for rk in ranks)
+                                            for kn in ("pull_rows_cuda", "write_rows_cuda")}
+            print(f"multihost {name}: {len(ranks)} host processes on cuda:0, each its own TcpTransport; keys "
+                  f"disjoint, their union the {n_ref} referenced keys, every host's rows the single-process working "
+                  f"set's exactly; all-reduced counts alike on every host ({len(tags)} tags); {k} resident steps "
+                  f"a host at {nums[name]['samples_per_s_global']:.0f} samples/s; {card}", flush=True)
+        for path in ("packer", "zero", "shuffle", "join", "update"):
+            counts[f"multihost_{path}"] = {kn: sum(rk[path]["counts"][kn] for rk in two)
+                                          for kn in ("pull_rows_cuda", "write_rows_cuda")}
+        counts["multihost_carried"] = {kn: sum(rk["carried"][p]["counts"][kn] for rk in two for p in ("pass1", "pass2"))
+                                       for kn in ("pull_rows_cuda", "write_rows_cuda")}
+
+        # the lockstep: the shuffle's short host wraps, the join day's ghosts
+        sb = [rk["shuffle_batches"] for rk in two]
+        local = [rk["shuffle_local_batches"] for rk in two]
+        if len(set(sb)) != 1 or sb[0] != max(local) or sum(rk["shuffle_records"] for rk in two) != \
+                sum(MH_SHUFFLE_FILES) * RECORDS_PER_FILE:
+            raise AssertionError(f"multihost shuffle: batches {sb}, local {local}")
+        jb = [rk["join_batches"] for rk in two]
+        lp = [rk["local_pv_batches"] for rk in two]
+        if len(set(jb)) != 1 or jb[0] != max(lp) or lp[0] == lp[1]:
+            raise AssertionError(f"multihost join: batches {jb}, local pv batches {lp}")
+        if len({rk["join_ins"] for rk in two}) != 1 or two[0]["join_ins"] != sum(MH_PV_FILES) * RECORDS_PER_FILE:
+            raise AssertionError(f"multihost join: instances {[rk['join_ins'] for rk in two]}")
+        for rk in two:
+            if (rk["shuffle_feed"], rk["join_feed"], rk["update_feed"]) != ("resident", "resident_pv", "resident"):
+                raise AssertionError(f"multihost: feeds {rk['shuffle_feed']}, {rk['join_feed']}, {rk['update_feed']}")
+
+        # the card against the CPU at the small config
+        cpu = worlds["cpu"][0]
+        keys = np.concatenate([rk["small_keys"] for rk in cpu])
+        order = np.argsort(keys)
+        ref_rows = np.concatenate([rk["small_rows"] for rk in cpu])[order]
+        tab_d, loss_d = _mesh_compare(
+            "multihost two hosts, card vs CPU", two[0]["small"]["losses"],
+            np.concatenate([rk["small_rows"] for rk in two]), np.concatenate([rk["small_keys"] for rk in two]),
+            cpu[0]["small"]["losses"], keys[order], ref_rows)
+        print(f"multihost two hosts: the small config on cuda:0 within the mesh bounds of the same hosts on the CPU "
+              f"(table {tab_d:.3g}, loss rel {loss_d:.3g}); {card}", flush=True)
+
+        r0 = two[0]
+        nums["two_hosts"].update({
+            "packer_ms_per_step": [rk["packer"]["wall_s"] / MH_PACKER * 1e3 for rk in two],
+            "pack_ms_per_step_host": [rk["pack_ms_per_step"] for rk in two],
+            "replicated_pack_sharded_ms_per_step": list(MH_REPLICATED_PACK_MS),
+            "packer_lockstep_s": [rk["packer"]["lockstep_s"] for rk in two],
+            "zero_ms_per_step": [rk["zero"]["wall_s"] / MH_ZERO * 1e3 for rk in two],
+            "zero_losses": r0["zero_losses"],
+            "shuffle": {"records_host": [rk["shuffle_records"] for rk in two], "batches": sb[0],
+                        "load_s_host": [rk["shuffle_load_s"] for rk in two],
+                        "ms_per_step_host": [rk["shuffle"]["wall_s"] / sb[0] * 1e3 for rk in two]},
+            "carried": [rk["carried"] for rk in two],
+            "join": {"local_pv_batches": lp, "batches": jb[0], "instances": r0["join_ins"],
+                     "join_s_host": [rk["join"]["wall_s"] for rk in two],
+                     "update_s_host": [rk["update"]["wall_s"] for rk in two],
+                     "lockstep_s_host": [rk["join"]["lockstep_s"] + rk["update"]["lockstep_s"] for rk in two]},
+            "shuffle_pass_plane_host": [rk["shuffle_pass_plane"] for rk in two],
+            "load_into_memory_s": [rk["load_into_memory_s"] for rk in two],
+            "prepare_pass_s": [rk["prepare_pass_s"] for rk in two], "end_pass_s": [rk["end_pass_s"] for rk in two],
+            "card_vs_cpu": {"table_max_abs": tab_d, "loss_max_rel": loss_d},
+        })
+        emit({"card": card, "phase": "multihost", **nums, "launches": counts})
+        car = r0["carried"]
+        plane = nums["two_hosts"]["pass_plane_host"]
+        print(f"multihost two hosts: resident {nums['two_hosts']['ms_per_step_host']} ms a step a host, key exchange "
+              f"{nums['two_hosts']['exchange_s_host']} s in finalize, lockstep rounds "
+              f"{[x['lockstep_s'] for x in plane]} s and host bytes {[x['host_bytes_sent'] for x in plane]} over the "
+              f"main pass (shuffle pass: {[x['host_bytes_sent'] for x in nums['two_hosts']['shuffle_pass_plane_host']]} "
+              f"bytes); the carried boundary_s {car['pass1']['end_pass_s'] + car['pass2']['begin_pass_s']:.3f} s "
+              f"(end_pass + the splicing begin_pass; the first pass's classic begin_pass "
+              f"{car['pass1']['begin_pass_s']:.3f} s); "
+              f"packing {nums['two_hosts']['pack_ms_per_step_host']} ms a step a host against the replicated mesh's "
+              f"pack_sharded {MH_REPLICATED_PACK_MS[0]}-{MH_REPLICATED_PACK_MS[1]} ms; {card}", flush=True)
+
+        # both kernels at the owners' shapes, timed here alone
+        owner = {name: owner_kernel_rows(args, dev, card, ck, lay, ranks[0], f"multihost_{name}_owner",
+                                         {"hosts": len(ranks)})
+                 for name, ranks in (("two_hosts", two), ("four_hosts", four))}
+        err = max(rk["kernel_err"] for rk in two + four)
+    print(f"phase 15 (multihost) in {time.perf_counter() - t_phase:.3f} s; {card}", flush=True)
+    return counts, owner, err
 
 
 if __name__ == "__main__":

@@ -97,9 +97,22 @@ Spans (``utils/trace.py``): ``boundary.premerge``, ``boundary.stage_pull``,
 ``boundary.writeback_kick``, ``boundary.end_pass_worker`` and
 ``data.quarantine.dead_letter``.
 
-Not ported: the host transport (ROADMAP Queue 1 item 5.3): ``nranks > 1``
-without a router, a ``transport``, the multi-host working set and carrier,
-and the lockstep batch counts (``num_pv_batches`` counts the local pvs).
+Over several hosts (``transport=``, a ``parallel.transport.TcpTransport``
+whose rank is this dataset's ``rank`` of ``nranks``) the dataset is one
+host's: it reads its stripe of the files and, in the global shuffle modes,
+routes records through a ``TcpShuffleRouter``. The port runs one process
+a card, so a host is one mesh rank: its transport rank is its mesh rank
+and it owns mesh shard ``rank``. The pass's working set is a
+``DistributedWorkingSet`` (``table/dist_ws.py``): keys are exchanged with
+their owners at ``begin_pass``, which returns this host's block [1, cap,
+width], and the host table holds only this host's keys. The counts every
+host must agree on go over the transport: ``num_batches`` all-reduces
+the batch count (the short host wraps around), ``num_pv_batches(
+global_count=True)`` the join phase's, ``end_pass`` the carry decision
+(``carry-gate``; a carried block is a ``MultiHostCarrier``), and the
+trainer the pad shapes. ``revert_pass`` bumps ``pass_epoch`` and discards
+the aborted attempt's exchange frames. The supervisor and the elastic
+membership over several hosts wait for ROADMAP Queue 1 item 5.3.
 """
 
 from __future__ import annotations
@@ -319,12 +332,9 @@ class PassStats:
     keys_s: float = 0.0
 
 
-def _working_set(
-    store: Optional[ColumnarRecords], records: List[SlotRecord], n_mesh_shards: int = 1
-) -> PassWorkingSet:
-    """A fresh working set fed every feasign of the pass (MergeInsKeys
+def _feed_keys(ws, store: Optional[ColumnarRecords], records: List[SlotRecord]):
+    """Feed a fresh working set every feasign of the pass (MergeInsKeys
     parity), from the columnar store or else the record list."""
-    ws = PassWorkingSet(n_mesh_shards=n_mesh_shards)
     if store is not None:
         ws.add_keys(store.u64_values)
     else:
@@ -357,10 +367,17 @@ class BoxPSDataset:
     ):
         if shuffle_mode not in _SHUFFLE_MODES:
             raise ValueError(f"shuffle_mode {shuffle_mode!r} not in {_SHUFFLE_MODES}")
-        if transport is not None or (nranks > 1 and router is None):
-            raise NotImplementedError(
-                "a dataset over several hosts (transport=, or nranks > 1 without a "
-                "LocalShuffleRouter) needs the host transport: ROADMAP Queue 1 item 5.3"
+        if nranks > 1 and router is None and transport is None:
+            raise ValueError(
+                "nranks > 1 stripes the files over several nodes: give them a "
+                "LocalShuffleRouter (nodes of one process) or a transport (several hosts)"
+            )
+        if transport is not None and (
+            getattr(transport, "n_ranks", None) != nranks or getattr(transport, "rank", None) != rank
+        ):
+            raise ValueError(
+                f"the transport must be rank {rank} of {nranks}, as the dataset is "
+                f"(got {getattr(transport, 'rank', None)} of {getattr(transport, 'n_ranks', None)})"
             )
         self.schema = schema
         self.table = table
@@ -373,6 +390,20 @@ class BoxPSDataset:
         self.rank = rank
         self.nranks = nranks
         self.router = router
+        # the host plane over several hosts (None: one host)
+        self.transport = transport
+        # bumped by every revert_pass: scopes the working-set exchange tags
+        # so a retried pass never consumes the aborted attempt's frames
+        self.pass_epoch = 0
+        # the key-ownership map (parallel.membership.OwnershipMap); None =
+        # the even split over every transport rank
+        self.ownership = None
+        # lockstep bookkeeping: the load generation (bumped by every
+        # publish), the agreed batch count of (pass, generation), and the
+        # carry gate's round counter
+        self._load_gen = 0
+        self._nb_lockstep = None
+        self._carry_seq = 0
         self.pipe_command = pipe_command
         self.line_parser = line_parser or parse_line
         self.drop_remainder = drop_remainder
@@ -551,11 +582,16 @@ class BoxPSDataset:
         return c[1][key]
 
     def num_pv_batches(self, n_devices: int = 1, global_count: bool = False) -> int:
-        """Join-phase batch count. The port has no transport, so
-        ``global_count`` gives the local count, as the JAX package does
-        without one."""
+        """Join-phase batch count; ``global_count`` all-reduces (max) it
+        over the transport, so every host runs the same number of mesh
+        collectives (the pv analog of ``num_batches``'s lockstep,
+        compute_thread_batch_nccl parity, data_set.cc:2069-2135). Without
+        a transport spanning hosts it is the local count."""
         self._need_pvs()
-        return count_pv_batches(self.pvs, self.batch_size, n_devices=n_devices)
+        n = count_pv_batches(self.pvs, self.batch_size, n_devices=n_devices)
+        if global_count and self.multi_host:
+            n = self.transport.allreduce_max(n, f"pv-count:{self.pass_id}")
+        return n
 
     def pv_batches(self, n_batches: Optional[int] = None, n_devices: int = 1, min_batches: int = 0):
         """Join-phase batches: (SlotBatch with ``rank_offset``, ins_weight
@@ -696,6 +732,8 @@ class BoxPSDataset:
                 for chunk in self.router.collect(self.rank)
                 for r in (chunk.records() if isinstance(chunk, ColumnarRecords) else chunk)
             ]
+        elif mode != "local" and self.nranks != 1:
+            raise RuntimeError("a global shuffle over several nodes needs a router")
         order = rng.permutation(len(records))
         return [records[i] for i in order]
 
@@ -724,6 +762,8 @@ class BoxPSDataset:
                 ColumnarRecords.concat(cols) if len(cols) > 1
                 else cols[0] if cols else ColumnarRecords.empty(store.n_sparse, store.n_float)
             )
+        elif mode != "local" and self.nranks != 1:
+            raise RuntimeError("a global shuffle over several nodes needs a router")
         return store, rng.permutation(len(store)), []
 
     def _normalize_and_shuffle(self, parts: list):
@@ -774,7 +814,7 @@ class BoxPSDataset:
         t1 = time.perf_counter()
         store, order, records = self._normalize_and_shuffle(parts)
         t2 = time.perf_counter()
-        ws = _working_set(store, records, self.n_mesh_shards)
+        ws = _feed_keys(self._new_working_set(), store, records)
         stats.read_s, stats.shuffle_s, stats.keys_s = t1 - t0, t2 - t1, time.perf_counter() - t2
         stats.records = len(store) if store is not None else len(records)
         self._staged = (store, order, records, ws, stats)
@@ -813,6 +853,9 @@ class BoxPSDataset:
         live, table = self.ws, self.table
         if (
             not config.get_flag("boundary_prefetch_pull")
+            # a pass over several hosts learns its owned keys only in the
+            # exchange: nothing to prefetch from this host's table
+            or not isinstance(ws, PassWorkingSet)
             or not self._in_pass
             or not len(merged)
             or live is None
@@ -933,6 +976,28 @@ class BoxPSDataset:
     def _publish(self, staged) -> None:
         with self._pass_lock:
             self.store, self._order, self._records, self.ws, self.stats = staged
+            # new data in memory: the lockstep batch count is agreed anew
+            self._load_gen += 1
+
+    @property
+    def multi_host(self) -> bool:
+        """True when a transport spans several hosts."""
+        return self.transport is not None and self.transport.n_ranks > 1
+
+    def _new_working_set(self):
+        """A fresh (not finalized) working set for this pass: the
+        key-exchange flavor when a transport spans hosts, else local. The
+        load and revert_pass share it, so their retrains never diverge."""
+        if self.multi_host:
+            from paddlebox_tpu_torch.table.dist_ws import DistributedWorkingSet
+
+            # n_mesh_shards is the GLOBAL shard count; ``ownership`` pins
+            # the key routing (None: the even split over every rank)
+            return DistributedWorkingSet(
+                self.transport, self.n_mesh_shards, pass_id=self.pass_id,
+                epoch=self.pass_epoch, ownership=self.ownership,
+            )
+        return PassWorkingSet(n_mesh_shards=self.n_mesh_shards)
 
     def preload_into_memory(self) -> None:
         """``load_into_memory`` on a thread, beside the current pass's
@@ -1121,7 +1186,12 @@ class BoxPSDataset:
             except Exception:
                 STAT_ADD("data.revert_preload_errors")
         self.discard_staged()
-        self.ws = _working_set(self.store, self._records, self.n_mesh_shards)
+        # a new epoch for the retrain: the aborted attempt's exchange frames
+        # still in flight must never reach the retried exchange
+        self.pass_epoch += 1
+        if self.transport is not None:
+            self.transport.discard_epochs_below(self.pass_epoch)
+        self.ws = _feed_keys(self._new_working_set(), self.store, self._records)
         if self.store is not None:
             self.store.invalidate_rows()  # its rows resolved against the old set
         self.device_table = None
@@ -1180,18 +1250,33 @@ class BoxPSDataset:
         else:
             kick = None
         carrier = None
-        if (
+        carry_ok = (
             isinstance(trained_table, torch.Tensor)
             and trained_table.dim() in (2, 3)
-            and config.get_flag("enable_carried_table")
+            and bool(config.get_flag("enable_carried_table"))
             and guard is None
             and kick is None
+        )
+        if isinstance(ws, PassWorkingSet):
             # a mesh carrier flushes with collectives, which the worker's
             # save_delta must not run: the shard goes back the classic way
-            and not (shard and need_save_delta)
-        ):
-            # the worker's decay_and_shrink notes the decay on the carrier
-            carrier = TableCarrier(trained_table, ws, table.layout, plan=self.mesh_plan if shard else None)
+            if carry_ok and not (shard and need_save_delta):
+                # the worker's decay_and_shrink notes the decay on the carrier
+                carrier = TableCarrier(trained_table, ws, table.layout, plan=self.mesh_plan if shard else None)
+        else:
+            # over several hosts the carry decision is locksteped, so every
+            # host takes the same boundary: the round runs for every pass,
+            # since a host that cannot carry must still answer
+            from paddlebox_tpu_torch.table.carrier import MultiHostCarrier
+
+            self._carry_seq += 1
+            agree = -ws.transport.allreduce_max(-int(carry_ok), f"carry-gate:{self._carry_seq}")
+            if agree:
+                # this host's block: splice, departures and flush stay local
+                carrier = MultiHostCarrier(
+                    trained_table, ws.owned_shard_keys, table.layout, ownership_epoch=ws.ownership.epoch
+                )
+        if carrier is not None:
             table.add_pending_carrier(carrier)
             # the previous boundary's carrier is superseded: its carried
             # keys live on in this one, its departures were pushed
@@ -1280,7 +1365,7 @@ class BoxPSDataset:
         """A mesh rank's shard [cap, width] of the open pass's table (raises
         when no mesh trainer bound the dataset to its plan)."""
         ws = self.ws
-        if not isinstance(trained_table, torch.Tensor) or ws is None or ws.n_mesh_shards == 1:
+        if not isinstance(trained_table, torch.Tensor) or not isinstance(ws, PassWorkingSet) or ws.n_mesh_shards == 1:
             return False
         if trained_table.numel() == ws.n_mesh_shards * ws.capacity * self.table.layout.width:
             return False
@@ -1346,12 +1431,29 @@ class BoxPSDataset:
             return len(self.store)
         return len(self._records)
 
-    def num_batches(self) -> int:
+    def num_batches(self, global_count: Optional[int] = None) -> int:
         """Minibatches in this pass: the full ones, and with
         ``drop_remainder`` off one more for a remainder (served wrapped
-        around)."""
+        around). Over several hosts the local count is all-reduced (max)
+        over the transport (compute_thread_batch_nccl parity,
+        data_set.cc:2069-2135), once a (pass, load): every host runs the
+        same count and the short one wraps around. ``global_count``
+        overrides it with a count agreed elsewhere."""
+        if global_count is not None:
+            return global_count
         n = self.memory_data_size()
-        return n // self.batch_size + (0 if self.drop_remainder or not n % self.batch_size else 1)
+        local = n // self.batch_size + (0 if self.drop_remainder or not n % self.batch_size else 1)
+        if not self.multi_host:
+            return local
+        # the cache key is alike on every host (pass and load generation
+        # advance in lockstep); a key on the LOCAL count would let one host
+        # skip the round another enters
+        key = (self.pass_id, self._load_gen)
+        if self._nb_lockstep is not None and self._nb_lockstep[0] == key:
+            return self._nb_lockstep[1]
+        agreed = self.transport.allreduce_max(local, f"nb:{key[0]}:{key[1]}")
+        self._nb_lockstep = (key, agreed)
+        return agreed
 
     # ---- the AUC runner's slot-shuffle eval ------------------------------
 

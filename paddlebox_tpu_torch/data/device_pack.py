@@ -18,7 +18,10 @@ global batch splits over the ranks (record ``i`` goes to rank ``i // b``)
 and each rank's unique rows are bucketed by owner shard into
 ``req_ranks`` [n_dev, n_shards, K] (the row within the shard), so the
 device side is ``all_to_all`` + gather (``parallel/sharded_pullpush.py``).
-Every rank packs the whole global batch and keeps its block.
+On one host every rank packs the whole global batch and keeps its
+block; over several hosts each rank packs only its own batch
+(``n_devices`` 1), the global batch being the hosts' blocks in rank
+order, and ``freeze_shapes(transport=)`` all-reduces the pads.
 ``BatchPacker`` freezes K from an exact scan of the pass's partition
 (``freeze_shapes(n_devices=)``, :func:`block_pad_stats`) before its
 prefetch threads start, so K is the same on every rank, whichever batch
@@ -433,7 +436,7 @@ class BatchPacker:
         # every native handle spawned, in any thread, for close()
         self._all_native: list = []  # guarded-by: _shape_lock
 
-    def freeze_shapes(self, batch_indices, n_devices: int = 0) -> None:
+    def freeze_shapes(self, batch_indices, n_devices: int = 0, transport=None) -> None:
         """Fix L_pad for a whole pass up front: every batch's key count is
         known exactly from the record key counts. Call with the pass's
         batch partition before the first pack.
@@ -444,13 +447,21 @@ class BatchPacker:
         the resident feed's ``ensure_sharded`` scan). Every rank freezes
         the same partition in the same order, so K is the same on every
         rank: ``all_to_all``'s equal splits need that, and a K that grew
-        as prefetch threads finished would differ by thread timing. The
-        multi-host branch (a transport that all-reduces the pads) is not
-        ported."""
+        as prefetch threads finished would differ by thread timing.
+
+        Over several hosts (a ``transport`` of more than one rank) each
+        host freezes its own partition, and L and K are all-reduced (max)
+        over the transport (``freeze-L``, ``freeze-K``), so every host packs
+        the same shapes and the mesh's collectives never see mismatched
+        ones (lockstep parity, compute_thread_batch_nccl
+        data_set.cc:2069-2135)."""
+        lockstep = transport is not None and transport.n_ranks > 1
         max_L = 1
         if not n_devices:
             for idx in batch_indices:
                 max_L = max(max_L, int(self._key_counts[np.asarray(idx)].sum()))
+            if lockstep:
+                max_L = transport.allreduce_max(max_L, "freeze-L")
             with self._shape_lock:
                 self._L_pad = max(self._L_pad, _round_bucket(max_L, self.bucket))
             return
@@ -467,6 +478,9 @@ class BatchPacker:
         max_L = max(max_L, int(L.max(initial=0)))
         # _route_sharded's own floor: one row a bucket, plus the pad slot
         max_bucket = max(1, int(bmax.max(initial=0)))
+        if lockstep:
+            max_L = transport.allreduce_max(max_L, "freeze-L")
+            max_bucket = transport.allreduce_max(max_bucket + 1, "freeze-K") - 1
         with self._shape_lock:
             self._L_pad = max(self._L_pad, _round_bucket(max_L, self.bucket))
             self._K_pad = max(self._K_pad, _round_bucket(max_bucket + 1, self.bucket))

@@ -12,11 +12,14 @@ run, ``resolve_rows`` translates the whole store once (a vectorized
 searchsorted), and batches then gather int32 rows and never touch uint64
 keys again.
 
-The wire format (``to_bytes``/``from_bytes``) is not ported yet.
+The wire format (``to_bytes``/``from_bytes``) is the JAX package's, byte
+for byte: the compact v2 header and raw column blocks, and a legacy v1
+``np.savez`` payload is still read. ``TcpShuffleRouter`` ships it.
 """
 
 from __future__ import annotations
 
+import struct
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -218,6 +221,119 @@ class ColumnarRecords:
             search_ids=self.search_ids[indices],
             cmatch=self.cmatch[indices],
             rank=self.rank[indices],
+            ins_id_off=ins_off, ins_id_chars=chars,
+        )
+
+    # ---- wire format (cross-process shuffle / working-set exchange) ------
+    #
+    # v2: one fixed header + raw column blocks in declared order. Column
+    # dtypes are pinned by the class contract, so the header only needs
+    # the shape scalars — no zip container, no per-array .npy headers, no
+    # CRC duplication (the transport frame CRC already covers the bytes).
+    # v1 (np.savez) payloads are still decoded: they start with the zip
+    # local-file magic "PK\x03\x04", which can never collide with _WIRE_MAGIC.
+
+    _WIRE_MAGIC = b"PBCR"
+    _WIRE_VERSION = 2
+    # magic, version, has_ins, n_sparse, n_float, n, n_u64, n_f, ins_chars
+    _WIRE_HDR = struct.Struct("<4sBBHHQQQQ")
+
+    def to_bytes(self) -> bytes:
+        """Serialize for the host transport (compact v2: header + raw
+        column blocks; versioned, self-describing, no pickle)."""
+        has_ins = self.ins_id_off is not None
+        parts = [
+            self._WIRE_HDR.pack(
+                self._WIRE_MAGIC, self._WIRE_VERSION, int(has_ins),
+                self.n_sparse, self.n_float, len(self),
+                len(self.u64_values), len(self.f_values),
+                len(self.ins_id_chars) if has_ins else 0,
+            ),
+            np.ascontiguousarray(self.u64_values, np.uint64).tobytes(),
+            np.ascontiguousarray(self.u64_offsets, np.uint32).tobytes(),
+            np.ascontiguousarray(self.u64_base, np.int64).tobytes(),
+            np.ascontiguousarray(self.f_values, np.float32).tobytes(),
+            np.ascontiguousarray(self.f_offsets, np.uint32).tobytes(),
+            np.ascontiguousarray(self.f_base, np.int64).tobytes(),
+            np.ascontiguousarray(self.search_ids, np.uint64).tobytes(),
+            np.ascontiguousarray(self.cmatch, np.int32).tobytes(),
+            np.ascontiguousarray(self.rank, np.int32).tobytes(),
+        ]
+        if has_ins:
+            parts.append(np.ascontiguousarray(self.ins_id_off, np.int64).tobytes())
+            parts.append(bytes(self.ins_id_chars))
+        return b"".join(parts)
+
+    @classmethod
+    def from_bytes(cls, data: bytes) -> "ColumnarRecords":
+        if data[:4] == cls._WIRE_MAGIC:
+            return cls._from_bytes_v2(data)
+        if data[:4] == b"PK\x03\x04":  # legacy np.savez container
+            import io
+
+            z = np.load(io.BytesIO(data))
+            ins_off = z["ins_id_off"] if "ins_id_off" in z.files else None
+            chars = z["ins_id_chars"].tobytes() if "ins_id_chars" in z.files else b""
+            return cls(
+                z["u64_values"], z["u64_offsets"], z["u64_base"],
+                z["f_values"], z["f_offsets"], z["f_base"],
+                search_ids=z["search_ids"], cmatch=z["cmatch"], rank=z["rank"],
+                ins_id_off=ins_off, ins_id_chars=chars,
+            )
+        raise ValueError(
+            f"not a ColumnarRecords wire payload (magic {data[:4]!r})"
+        )
+
+    @classmethod
+    def _from_bytes_v2(cls, data: bytes) -> "ColumnarRecords":
+        hdr = cls._WIRE_HDR
+        if len(data) < hdr.size:
+            raise ValueError("ColumnarRecords v2 payload shorter than header")
+        magic, ver, has_ins, n_sparse, n_float, n, n_u64, n_f, n_chars = (
+            hdr.unpack_from(data)
+        )
+        if ver != cls._WIRE_VERSION:
+            raise ValueError(f"ColumnarRecords wire version {ver} unsupported")
+        # one writable buffer: slices below are views into it, matching the
+        # fresh-array semantics of the npz path (slots_shuffle mutates
+        # u64_values in place on the eval path)
+        buf = bytearray(data)
+        off = [hdr.size]
+
+        def block(dtype, count):
+            dt = np.dtype(dtype)
+            end = off[0] + dt.itemsize * count
+            if end > len(buf):
+                raise ValueError(
+                    "ColumnarRecords v2 payload truncated: header declares "
+                    f"more column bytes than the {len(buf)}-byte buffer holds"
+                )
+            a = np.frombuffer(buf, dt, count=count, offset=off[0])
+            off[0] = end
+            return a
+
+        u64_values = block(np.uint64, n_u64)
+        u64_offsets = block(np.uint32, n * (n_sparse + 1)).reshape(n, n_sparse + 1)
+        u64_base = block(np.int64, n)
+        f_values = block(np.float32, n_f)
+        f_offsets = block(np.uint32, n * (n_float + 1)).reshape(n, n_float + 1)
+        f_base = block(np.int64, n)
+        search_ids = block(np.uint64, n)
+        cmatch = block(np.int32, n)
+        rank = block(np.int32, n)
+        ins_off = None
+        chars = b""
+        if has_ins:
+            ins_off = block(np.int64, n + 1)
+            chars = bytes(block(np.uint8, n_chars))
+        if off[0] != len(buf):
+            raise ValueError(
+                f"ColumnarRecords v2 payload holds {len(buf) - off[0]} "
+                "trailing bytes beyond the declared columns"
+            )
+        return cls(
+            u64_values, u64_offsets, u64_base, f_values, f_offsets, f_base,
+            search_ids=search_ids, cmatch=cmatch, rank=rank,
             ins_id_off=ins_off, ins_id_chars=chars,
         )
 

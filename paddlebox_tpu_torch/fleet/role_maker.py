@@ -7,14 +7,31 @@ torchrun's ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` / ``MASTER_PORT``
 first (where the JAX package reads its ``JAX_*`` dialect), then the
 reference's ``PADDLE_*`` names, and normalizes either into (rank, world,
 coordinator). ``init_distributed`` then creates the ``torch.distributed``
-process group over the coordinator, with a finite timeout.
+process group over the coordinator, with a finite timeout; the
+coordinator is any reachable ``host:port``, so the group spans machines.
+
+Over several hosts a rank is also a node of the host plane
+(``parallel/transport.py``): ``PADDLE_TRAINER_ENDPOINTS`` (the reference's
+comma-separated ``host:port`` list, one a rank in rank order) becomes
+``RoleMaker.endpoints``, and :meth:`RoleMaker.host_transport` builds this
+rank's ``TcpTransport`` over them. The port runs one process a card, so
+the transport rank, the mesh rank and the owner of mesh shard ``rank`` are
+one number::
+
+    role = init_distributed(backend="nccl")   # the device plane
+    transport = role.host_transport()         # the host plane
+    plan = make_mesh("nccl")
+    ds = BoxPSDataset(schema, table, b, n_mesh_shards=role.world,
+                      rank=role.rank, nranks=role.world, transport=transport,
+                      router=TcpShuffleRouter(transport))
+    trainer = CTRTrainer(model, cfg, plan=plan)
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -22,6 +39,8 @@ class RoleMaker:
     rank: int  # this process's index (worker_index parity)
     world: int  # number of processes (worker_num parity)
     coordinator: Optional[str] = None  # "host:port" of rank 0's store
+    # the host plane's "host:port" a rank, in rank order (None: no transport)
+    endpoints: Optional[Tuple[str, ...]] = None
 
     @property
     def is_first_worker(self) -> bool:
@@ -81,7 +100,29 @@ class RoleMaker:
                 f"{world_src}={world_raw!r} declares a multi-process role but no "
                 "coordinator is set (set MASTER_ADDR+MASTER_PORT or POD_IP+PADDLE_PORT)"
             )
-        return RoleMaker(rank=rank, world=world, coordinator=coord)
+        endpoints = None
+        raw_eps = e.get("PADDLE_TRAINER_ENDPOINTS")
+        if raw_eps:
+            endpoints = tuple(x.strip() for x in raw_eps.split(",") if x.strip())
+            if len(endpoints) != world:
+                raise ValueError(
+                    f"PADDLE_TRAINER_ENDPOINTS names {len(endpoints)} endpoints for world {world}"
+                )
+            for ep in endpoints:
+                host, _, port = ep.rpartition(":")
+                if not host or not 0 <= as_int("PADDLE_TRAINER_ENDPOINTS", port, "port") < 65536:
+                    raise ValueError(f"PADDLE_TRAINER_ENDPOINTS entry {ep!r} is not host:port")
+        return RoleMaker(rank=rank, world=world, coordinator=coord, endpoints=endpoints)
+
+    def host_transport(self, timeout: float = 120.0):
+        """This rank's node of the host plane: a ``TcpTransport`` over
+        ``endpoints`` (it binds its own entry and dials the others
+        lazily). Every rank builds one before the first pass."""
+        if self.endpoints is None:
+            raise ValueError("no host-plane endpoints: set PADDLE_TRAINER_ENDPOINTS (host:port a rank)")
+        from paddlebox_tpu_torch.parallel.transport import TcpTransport
+
+        return TcpTransport(self.rank, list(self.endpoints), timeout=timeout)
 
 
 def init_distributed(

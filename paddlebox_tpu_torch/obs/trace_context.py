@@ -3,10 +3,11 @@
 Port of the JAX package's ``obs/trace_context.py``. A rank opens a trace
 around a logical operation (a shuffle round, a verdict, a delta publish);
 every profiler span recorded inside picks up the ids as chrome-trace
-``args``. The host transport (ROADMAP Queue 1 item 5.3) will stamp them on
-its frames as a 24-byte header extension (``encode_ext`` /
-``decode_ext``), byte for byte the JAX package's, so a receiving rank's
-events carry the same trace_id.
+``args``. The host transport (``parallel/transport.py``, flag
+``transport_trace_frames``) stamps them on its frames as a 24-byte header
+extension (``encode_ext`` / ``decode_ext``), byte for byte the JAX
+package's, so a receiving rank's ``transport:deliver`` event carries the
+sender's trace_id, whichever package sent it.
 
 Context is per-thread (``threading.local``). Ids are random
 (``os.urandom``): 128-bit trace, 64-bit span, hex in args and fixed-width

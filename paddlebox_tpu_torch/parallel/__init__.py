@@ -1,11 +1,13 @@
 """The distributed tier: the process-group mesh and the sharded sparse
 pull/push over it.
 
-Port of the JAX package's ``parallel`` package, single host: a
+Port of the JAX package's ``parallel`` package: a
 ``torch.distributed`` process group (one rank a card) and its
 ``all_to_all`` / ``all_reduce`` / ``all_gather`` stand in for the JAX
-mesh's XLA collectives; the pass table is sharded over the ranks. The
-pipeline, ring attention, membership and transport modules are not ported.
+mesh's XLA collectives; the pass table is sharded over the ranks. The host
+plane over several hosts is ``transport`` (``TcpTransport``,
+``TcpShuffleRouter``) and ``membership`` (``OwnershipMap``). The pipeline
+and ring attention modules are not ported.
 """
 
 from paddlebox_tpu_torch.parallel.mesh import (
@@ -14,6 +16,8 @@ from paddlebox_tpu_torch.parallel.mesh import (
     destroy_mesh,
     local_slice,
     make_mesh,
+    put_axis1_blocks,
+    put_per_device_copies,
     put_replicated,
     put_sharded,
 )
@@ -25,6 +29,8 @@ __all__ = [
     "destroy_mesh",
     "local_slice",
     "make_mesh",
+    "put_axis1_blocks",
+    "put_per_device_copies",
     "put_replicated",
     "put_sharded",
     "sharded_pull",

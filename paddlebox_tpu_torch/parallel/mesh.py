@@ -36,9 +36,17 @@ Each collective adds one to :attr:`MeshPlan.calls` under its name, so a
 caller can count the collectives (and, under gloo on a card, the host
 syncs they imply) of a step.
 
-The JAX module's ``make_mesh_2d`` (pipeline x data) and its multi-host
-placements ``put_per_device_copies`` / ``put_axis1_blocks`` are not
-ported.
+Over several hosts the group spans machines (``fleet.init_distributed``
+gives its address) and each rank is also a node of the host plane
+(``parallel/transport.py``). The JAX package runs one process a host,
+which owns several devices and places its process-local blocks into
+global arrays (``put_per_device_copies``, ``put_axis1_blocks``, the local
+form of ``put_sharded``). The port runs one process a card, so every one
+of those placements reduces to "this rank's own block on its card": they
+are ported as that, and ``put_sharded`` takes either the global array
+(leading dim ``world``) or this rank's block (leading dim 1, what a
+``DistributedWorkingSet`` finalize returns). The JAX module's
+``make_mesh_2d`` (pipeline x data) is not ported.
 """
 
 from __future__ import annotations
@@ -207,15 +215,41 @@ def _as_tensor(x: Any) -> torch.Tensor:
 def put_sharded(plan: MeshPlan, x: Any) -> Any:
     """A global array (or a dict / tuple of them) with a leading [world]
     axis -> this rank's block ``x[rank]`` on the plan's device, without the
-    leading axis."""
+    leading axis. A leading dim of 1 is this rank's block already (the
+    multi-host local form) and is placed as it is."""
     if isinstance(x, dict):
         return {k: put_sharded(plan, v) for k, v in x.items()}
     if isinstance(x, (tuple, list)) and not isinstance(x, np.ndarray):
         return type(x)(put_sharded(plan, v) for v in x)
     t = _as_tensor(x)
-    if t.shape[0] != plan.world:
-        raise ValueError(f"put_sharded: leading dim {t.shape[0]} != world {plan.world}")
-    return t[plan.rank].to(plan.device, copy=True)
+    if t.shape[0] == plan.world:
+        return t[plan.rank].to(plan.device, copy=True)
+    if t.shape[0] == 1:
+        return t[0].to(plan.device, copy=True)
+    raise ValueError(
+        f"put_sharded: leading dim {t.shape[0]} is neither world {plan.world} nor this rank's block (1)"
+    )
+
+
+def put_per_device_copies(plan: MeshPlan, arr: np.ndarray) -> torch.Tensor:
+    """This host's array on this rank's card. The JAX function copies a
+    process's array onto each of its local devices as one global
+    ``[n_devices, ...]`` array (the multi-host resident feed: every host's
+    pass arrays differ); with one process a card the copy a device gets is
+    this rank's, so the result is ``arr`` on the plan's device."""
+    return _as_tensor(arr).to(plan.device, copy=True)
+
+
+def put_axis1_blocks(plan: MeshPlan, local: np.ndarray) -> torch.Tensor:
+    """Local ``[K, 1, ...]`` blocks -> this rank's ``[K, ...]`` on its
+    card. The JAX function assembles every host's ``[K, n_local_dev, ...]``
+    blocks into a global ``[K, n_dev, ...]`` array split on axis 1 (the
+    resident feed's per-chunk index blocks); a rank holds one device's
+    column, so it keeps axis 1's single entry."""
+    t = _as_tensor(local)
+    if t.dim() < 2 or t.shape[1] != 1:
+        raise ValueError(f"put_axis1_blocks: axis-1 dim of {tuple(t.shape)} != this rank's 1 device")
+    return t[:, 0].to(plan.device, copy=True)
 
 
 def put_replicated(plan: MeshPlan, x: Any) -> Any:
@@ -231,6 +265,7 @@ def put_replicated(plan: MeshPlan, x: Any) -> Any:
 def local_slice(plan: MeshPlan, x: torch.Tensor) -> np.ndarray:
     """This rank's block of an axis-0-sharded array -> the whole array
     [world, ...] on the host, every rank's block gathered (the JAX
-    function's single-process answer)."""
+    function's single-process answer). Over several hosts the trainer
+    keeps a rank's own block instead (``CTRTrainer.trained_table``)."""
     return plan.all_gather(x).cpu().numpy()
 

@@ -42,8 +42,13 @@ the dataset's boundary calls and ``BoxPSDataset.flush_carried``, never on
 a background thread; a save that reaches a pending mesh carrier raises
 (``HostSparseTable.drain_pending``).
 
-The multi-host carrier (``MultiHostCarrier``) is not ported (ROADMAP
-Queue 1 item 5.3).
+Over several hosts (``MultiHostCarrier``, a ``DistributedWorkingSet``
+pass) the port runs one process a card, so a host is one rank and owns
+exactly its own shard block: the carrier is one ``TableCarrier`` over that
+block (the JAX package keeps one a local device). The host tables are no
+longer replicas, so unlike the single-host mesh carrier it needs no
+``all_gather``: splice, departures and flush are all host-local, and it
+may flush on any thread.
 """
 
 from __future__ import annotations
@@ -241,3 +246,79 @@ class TableCarrier:
         self._flushed = True
         self.dev_flat = None
         return len(pos)
+
+
+class _ShardView:
+    """Key->row view over one host's shard block of a multi-host pass
+    table: the ``ws`` surface TableCarrier reads (``sorted_keys``,
+    ``row_of_sorted``, ``n_keys``). Rows are local to the block
+    (local_shard * cap + rank)."""
+
+    def __init__(self, keys_per_shard, cap: int):
+        ks, rows = [], []
+        for j, k in enumerate(keys_per_shard):
+            ks.append(k)
+            rows.append(j * cap + np.arange(len(k), dtype=np.int64))
+        keys = np.concatenate(ks) if ks else np.zeros(0, np.uint64)
+        lrows = np.concatenate(rows) if rows else np.zeros(0, np.int64)
+        order = np.argsort(keys)
+        self.sorted_keys = keys[order]
+        self.row_of_sorted = lrows[order]
+        self.n_keys = len(keys)
+
+
+class MultiHostCarrier:
+    """Per-host device-carried pass table over a DistributedWorkingSet.
+
+    The reference's EndPass keeps the device cache warm on EVERY node
+    (box_wrapper.cc:627-651); here the same holds because ownership is
+    structurally local: key -> mesh shard is a stable hash and shards pin
+    to ranks, so a key that survives into the next pass lands on the SAME
+    card, and a key that departs is owed to THIS host's table slice (the
+    working set's writeback is host-local by construction). The rank's
+    block is one ``TableCarrier`` (``part``) over a :class:`_ShardView`.
+
+    The registry surface (``flushed`` / ``note_decay`` / ``flush`` /
+    ``supersede`` / ``join_push`` / ``wait_push``) delegates to it, so
+    ``HostSparseTable.drain_pending`` and the decay bookkeeping treat this
+    like a single-device carrier; ``plan`` is None (no collective)."""
+
+    plan = None
+
+    def __init__(self, block: torch.Tensor, owned_shard_keys, layout, ownership_epoch: int = 0):
+        # block: this rank's trained shards, [spd, cap, W] or [spd * cap, W]
+        # (trained_table_device). owned_shard_keys: the ending pass's key
+        # lists, one a local shard (DistributedWorkingSet.owned_shard_keys),
+        # snapshotted into the view; the working set is not retained.
+        # ownership_epoch pins the shard->host placement: a later finalize
+        # under another epoch flushes instead of splicing.
+        self.layout = layout
+        self.ownership_epoch = int(ownership_epoch)
+        self.n_shards = len(owned_shard_keys)
+        width = block.shape[-1]
+        if block.numel() % (max(self.n_shards, 1) * width):
+            raise ValueError(
+                f"a block of shape {tuple(block.shape)} does not hold {self.n_shards} shards"
+            )
+        self.cap = block.numel() // (max(self.n_shards, 1) * width)
+        view = _ShardView(owned_shard_keys, self.cap)
+        self.part = TableCarrier(block.reshape(-1, width), view, layout)
+
+    @property
+    def flushed(self) -> bool:
+        return self.part.flushed
+
+    def note_decay(self, rate: float) -> None:
+        self.part.note_decay(rate)
+
+    def supersede(self) -> None:
+        self.part.supersede()
+
+    def join_push(self) -> None:
+        self.part.join_push()
+
+    def wait_push(self) -> None:
+        self.part.wait_push()
+
+    def flush(self, table) -> int:
+        return self.part.flush(table)

@@ -55,8 +55,9 @@ show column of the rows it pulled, the spliced one the host table's
 Spans (``utils/trace.py``): ``boundary.dedup``, ``boundary.pull`` and
 ``boundary.splice`` in ``finalize``.
 
-Not ported: the multi-host working set and carrier (ROADMAP Queue 1 item
-5.3).
+Over several hosts the pass working set is ``table/dist_ws.py``'s
+``DistributedWorkingSet`` (its carrier ``table/carrier.py``'s
+``MultiHostCarrier``): the same layout, each host holding its own keys.
 """
 
 from __future__ import annotations

@@ -45,6 +45,18 @@ batch, then runs the same per-rank body as the host-packed mesh feeds
 :func:`make_resident_pv_mesh_superstep`) uploads only this rank's block of
 a plan built for ``n_devices = world`` and builds the rank's batch from it
 the same way.
+
+Over several hosts (a ``ResidentPass`` built with ``plan=`` and a
+``transport=`` of more than one rank: ``per_device``) every rank holds a
+DIFFERENT pass, its host's records; the port runs one process a card, so
+each card carries its own host's arrays, the per-device copies of the
+JAX package's multi-host feed. Their sizes (``res-L-size``,
+``res-N-size``) and their representation (``res-rep``) are all-reduced
+over the transport so every host builds the same shapes, and
+``ensure_sharded`` all-reduces the pads (``res-L:<n>``, ``res-K:<n>``).
+A batch is then the rank's own [b] records (its block of the global
+batch, which is the hosts' blocks in rank order), and a pv plan is built
+for one device (``ResidentPvFeed(multi_host=True)``).
 """
 
 from __future__ import annotations
@@ -89,6 +101,8 @@ class ResidentPass:
         dense_dim: int = 0,
         label_slot: Optional[str] = None,
         bucket: Optional[int] = None,
+        plan=None,  # MeshPlan: needed only over several hosts
+        transport=None,  # the host plane: lockstep over several hosts
     ):
         self.store = store
         self.ws = ws
@@ -102,33 +116,49 @@ class ResidentPass:
         rows = store.resolve_rows(ws)
         self._host_rows = rows
         self._key_counts = store.key_counts()
+        self.transport = transport
+        # over several hosts every rank holds its own host's pass, padded
+        # to the sizes all-reduced over the transport
+        self.per_device = plan is not None and transport is not None and transport.n_ranks > 1
+        self._seq = 0  # ensure_sharded's lockstep round counter
+        if self.per_device:
+            L_max = transport.allreduce_max(len(rows), "res-L-size")
+            N_max = transport.allreduce_max(len(store), "res-N-size")
+        else:
+            L_max, N_max = len(rows), len(store)
 
-        def put(a: np.ndarray) -> torch.Tensor:
+        def put(a: np.ndarray, n: int) -> torch.Tensor:
+            if a.shape[0] != n:  # the lockstep pad: rows no batch reads
+                a = np.concatenate([a, np.zeros((n - a.shape[0],) + a.shape[1:], a.dtype)])
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-        self.rows = put(rows.astype(np.int32))
+        self.rows = put(rows.astype(np.int32), L_max)
         # per-slot counts fit uint8 in CTR data: [N, S] bytes + an [N] int32
         # base instead of an [N, S+1] int32 offset matrix, rebuilt per batch
         # by a cumsum on the device
         slot_counts = np.diff(store.u64_offsets.astype(np.int64), axis=1)
-        if slot_counts.size and slot_counts.max() <= 255:
-            self.base = put(store.u64_base.astype(np.int32))
-            self.counts = put(slot_counts.astype(np.uint8))
+        compact = bool(slot_counts.size and slot_counts.max() <= 255)
+        if self.per_device:
+            # one representation on every host
+            compact = transport.allreduce_max(0 if compact else 1, "res-rep") == 0
+        if compact:
+            self.base = put(store.u64_base.astype(np.int32), N_max)
+            self.counts = put(slot_counts.astype(np.uint8), N_max)
             self.off = None
         else:
             off = store.u64_base[:, None] + store.u64_offsets.astype(np.int64)
             self.base = self.counts = None
-            self.off = put(off.astype(np.int32))  # [N, S+1]
+            self.off = put(off.astype(np.int32), N_max)  # [N, S+1]
         label_name = label_slot or schema.label_slot
         if label_name is not None:
             labels = store.float_slot_matrix(schema.float_slot_index(label_name), 1)[:, 0]
         else:
             labels = np.zeros(len(store), np.float32)
-        self.labels = put(labels.astype(np.float32))
+        self.labels = put(labels.astype(np.float32), N_max)
         self.dense = None
         if dense_slot is not None and dense_dim:
             di = schema.float_slot_index(dense_slot)
-            self.dense = put(np.asarray(store.float_slot_matrix(di, dense_dim), np.float32))
+            self.dense = put(np.asarray(store.float_slot_matrix(di, dense_dim), np.float32), N_max)
         self._logkey_cols = None  # (cmatch, rank) on the device, uploaded on first use
         self.L_pad = 0
         self.U_pad = 0
@@ -312,8 +342,18 @@ def ensure_sharded(rp: ResidentPass, batch_indices, n_devices: int) -> None:
     for fp in work:
         L, bm = rp._mesh_cache[fp]
         max_L, max_bucket = max(max_L, L), max(max_bucket, bm)
-    rp.L_pad = max(rp.L_pad, _round_bucket(max_L, rp.bucket))
-    rp.K_pad = max(rp.K_pad, _round_bucket(max_bucket + 1, rp.bucket))
+    L = _round_bucket(max_L, rp.bucket)
+    K = _round_bucket(max_bucket + 1, rp.bucket)
+    tp = rp.transport
+    if rp.per_device:
+        # every host enters these rounds as often as the others (the
+        # prepare and stepper call sequence is alike), tagged by the
+        # ResidentPass's counter
+        rp._seq += 1
+        L = tp.allreduce_max(L, f"res-L:{rp._seq}")
+        K = tp.allreduce_max(K, f"res-K:{rp._seq}")
+    rp.L_pad = max(rp.L_pad, L)
+    rp.K_pad = max(rp.K_pad, K)
 
 
 def build_mesh_device_batch(
@@ -377,13 +417,15 @@ def make_resident_mesh_superstep(
     record indices, record ``i`` to rank ``i // b``); this rank builds its
     batch from its block and runs the mesh step body
     (``make_local_mesh_step``: the host-packed feeds' numerics). Metrics
-    come back stacked along a leading K axis."""
+    come back stacked along a leading K axis. Over several hosts
+    (``rp.per_device``) ``idx_block`` holds this host's own batches, [K, b]."""
     from paddlebox_tpu_torch.train.sharded_step import make_local_mesh_step
 
     local_step = make_local_mesh_step(model_apply, dense_opt, cfg, plan, eval_mode)
     ns, cap = rp.ws.n_mesh_shards, rp.ws.capacity
     b = cfg.batch_size
-    lo, hi = plan.rank * b, (plan.rank + 1) * b
+    blk = 0 if rp.per_device else plan.rank
+    lo, hi = blk * b, (blk + 1) * b
 
     def superstep(state, idx_block: torch.Tensor):
         ms = []
@@ -415,13 +457,17 @@ class ResidentPvFeed:
     beside the global ``idx`` and ``ins_weight`` (``global_idx``,
     ``global_ins_weight``, [n_b, B]: a metric registry reads the whole
     batch; a few MB a pass). On one device those are ``idx`` and
-    ``ins_weight``."""
+    ``ins_weight``. Over several hosts (``multi_host``) the plan is this
+    host's own, built for one device, and all of it is the rank's block."""
 
-    def __init__(self, plan, device: torch.device, mesh_plan=None):
+    def __init__(self, plan, device: torch.device, mesh_plan=None, multi_host: bool = False):
         idx, ro, w = plan.idx, plan.rank_offset, plan.ins_weight
-        if mesh_plan is None:
+        if mesh_plan is None or multi_host:
             if plan.n_devices != 1:
-                raise ValueError(f"a PvPlan blocked for {plan.n_devices} devices needs mesh_plan=")
+                raise ValueError(f"a PvPlan blocked for {plan.n_devices} devices needs a single-host mesh_plan=")
+            if mesh_plan is not None:
+                device = mesh_plan.device
+            mesh_plan = None
         else:
             if plan.n_devices != mesh_plan.world:
                 raise ValueError(f"PvPlan built for {plan.n_devices} devices, the mesh has {mesh_plan.world} ranks")

@@ -136,8 +136,36 @@ and ``superstep_dispatch`` on the resident feeds, and, only under
 waits for the device. The fault site ``step.device`` fires before every
 dispatch.
 
-Not ported (ROADMAP Queue 1 item 5.3): meshes over several hosts and their
-lockstep (``_pv_lockstep``).
+Over several hosts (the dataset's ``transport`` spans more than one rank)
+the port runs one process a card, so a host is one mesh rank: its
+transport rank is its mesh rank (checked) and it owns mesh shard ``rank``
+of the pass table, which it holds alone (a ``DistributedWorkingSet``
+pass). Each rank loads only its stripe of the files, so
+``dataset.batch_size`` is ``cfg.batch_size``, and the global batch is the
+hosts' blocks in rank order::
+
+    role = init_distributed(backend="nccl"); tp = role.host_transport()
+    plan = make_mesh("nccl")
+    dataset = BoxPSDataset(schema, table, b, n_mesh_shards=plan.world,
+                           rank=plan.rank, nranks=plan.world, transport=tp)
+    trainer = CTRTrainer(model, cfg, plan=plan)      # cfg.batch_size = b
+    ... the same pass loop; end_pass(trainer.trained_table())
+
+Every rank packs only its own batch (``n_devices`` 1) and the counts and
+shapes the ranks must share go over the transport, in the same order on
+every rank: the resident gate (``res-gate``: one rank that cannot take
+the resident feed sends all to the packer), the resident pass's sizes and
+pads, the packer's ``freeze-L`` / ``freeze-K``, the batch count and the
+join phase's (``_pv_locked_plan``: ``num_pv_batches(global_count=True)``,
+cached per pvs, so a rank that hits the cache skips the round on every
+rank alike; short hosts run ghost batches). The feeds are the store-backed
+ones ("resident", "packer", "resident_pv", "pv_packer"); a pass held as
+SlotRecords raises, as in the JAX package (its pads are not locksteped).
+``trained_table()`` is this rank's block [1, cap, width], which its
+``end_pass`` writes back into its own host table; ``trained_table_device()``
+its shard, which ``end_pass`` carries in a ``MultiHostCarrier``. A metric
+registry, a dump and async dense over several hosts wait for ROADMAP
+Queue 1 item 5.3, as does the supervisor.
 """
 
 from __future__ import annotations
@@ -297,6 +325,8 @@ class CTRTrainer:
 
         self._model_apply = model_apply
         self._digest_ws = None  # the working set whose replica digest was checked
+        self._multi_pass = False  # the last pass ran over several hosts
+        self._pv_minb_cache = None  # (pvs, n_dev, agreed batch count) over several hosts
         self._pads_ws = None  # the slow mesh feed's sticky pads: (ws, [K, L])
         if plan is None:
             self._step = make_train_step(model_apply, cfg, self.dense_opt)
@@ -459,6 +489,21 @@ class CTRTrainer:
         them (else None)."""
         return [store.ins_id(int(j)) for j in idx] if self._wants_ids(store) else None
 
+    def _multi(self, dataset: BoxPSDataset) -> bool:
+        """A mesh over several hosts: each rank packs only its own batch."""
+        return self.plan is not None and dataset.multi_host
+
+    def _n_pack(self, dataset: BoxPSDataset) -> int:
+        """The devices this rank packs batches for: none on one device (0),
+        every rank of a single-host mesh, its own block over several hosts."""
+        if self.plan is None:
+            return 0
+        return 1 if self._multi(dataset) else self.plan.world
+
+    def _lockstep(self, dataset: BoxPSDataset):
+        """The transport the pads are all-reduced over (None on one host)."""
+        return dataset.transport if self._multi(dataset) else None
+
     def _pack(self, batch, dataset: BoxPSDataset) -> Dict[str, np.ndarray]:
         """``pack_batch`` of a SlotBatch with the trainer's dense slot and
         pad bucket; on a mesh ``pack_batch_sharded`` of the global batch,
@@ -480,8 +525,10 @@ class CTRTrainer:
         return self._rank_block(db)
 
     def _rank_block(self, db) -> Dict[str, np.ndarray]:
-        """This rank's block of a ShardedDeviceBatch's arrays."""
-        return {k: v[self.plan.rank] for k, v in db.as_dict().items()}
+        """This rank's block of a ShardedDeviceBatch's arrays (its only one
+        when it packed for one device, over several hosts)."""
+        blk = 0 if db.req_ranks.shape[0] == 1 else self.plan.rank
+        return {k: v[blk] for k, v in db.as_dict().items()}
 
     def _slow_feed_iter(self, dataset: BoxPSDataset, n_batches, profile, tm):
         """Build, pack and copy each batch on the dispatch thread. With
@@ -539,8 +586,8 @@ class CTRTrainer:
         memory, so it is queued behind the steps and the host never waits
         for it."""
         packer = self._get_packer(dataset)
-        world = 0 if self.plan is None else self.plan.world
-        packer.freeze_shapes(dataset.batch_indices(n_batches), n_devices=world)
+        world = self._n_pack(dataset)
+        packer.freeze_shapes(dataset.batch_indices(n_batches), n_devices=world, transport=self._lockstep(dataset))
         store = dataset.store
 
         def prep(idx):
@@ -565,17 +612,31 @@ class CTRTrainer:
 
     def _pv_locked_plan(self, dataset: BoxPSDataset):
         """The pass's PvPlan, the one source of the join phase's gate,
-        prepare and feeds, blocked for the mesh's ranks (one device: 1).
-        A single host needs no lockstep ghost batches (``min_batches`` 0);
-        the multi-host lockstep is not ported."""
-        return dataset.pv_plan(1 if self.plan is None else self.plan.world, min_batches=0)
+        prepare and feeds, blocked for the devices this rank packs for (one
+        device, or over several hosts: 1; a single-host mesh: world). A
+        single host needs no ghost batches (``min_batches`` 0). Over several
+        hosts the global batch count is all-reduced (max) over the
+        transport once a (pvs, devices) and cached: every rank takes the
+        cache hit at the same call, so a rank never skips a round another
+        enters (the JAX package's rule), and short hosts pad with
+        all-ghost batches."""
+        n_dev = max(1, self._n_pack(dataset))
+        if not self._multi(dataset):
+            return dataset.pv_plan(n_dev, min_batches=0)
+        c = self._pv_minb_cache
+        if c is not None and c[0] is dataset.pvs and c[1] == n_dev:
+            min_b = c[2]
+        else:
+            min_b = dataset.num_pv_batches(n_devices=n_dev, global_count=True)
+            self._pv_minb_cache = (dataset.pvs, n_dev, min_b)
+        return dataset.pv_plan(n_dev, min_batches=min_b)
 
     def _pv_block(self, w: np.ndarray, ro: np.ndarray):
         """A global pv batch's ``ins_weight`` [B] and ``rank_offset`` [B, R]
         as this rank's blocks (the rank matrices are block-local already);
         unchanged on one device."""
-        if self.plan is None:
-            return w, ro
+        if self.plan is None or len(w) == self.cfg.batch_size:
+            return w, ro  # one device, or the rank's own batch (several hosts)
         b = len(w) // self.plan.world
         lo = self.plan.rank * b
         return w[lo : lo + b], ro[lo : lo + b]
@@ -587,8 +648,8 @@ class CTRTrainer:
         At most ``n_batches`` of the plan's batches (no wrap-around). On a
         mesh the global batch packs and this rank keeps its block."""
         packer = self._get_packer(dataset)
-        world = 0 if self.plan is None else self.plan.world
-        packer.freeze_shapes(plan.idx, n_devices=world)
+        world = self._n_pack(dataset)
+        packer.freeze_shapes(plan.idx, n_devices=world, transport=self._lockstep(dataset))
         store = dataset.store
         n = plan.n_batches if n_batches is None else min(plan.n_batches, n_batches)
 
@@ -682,13 +743,22 @@ class CTRTrainer:
         batch, so it stays on the host feeds. The join phase needs the
         pass's plan (every record's store index); a model that takes
         ``rank_offset`` stays off the flat tier, which has no rank matrix
-        to feed it."""
+        to feed it.
+
+        Over several hosts the inputs (store size, store presence) can
+        differ by host, and a split decision would send the hosts into
+        different lockstep rounds (the packer's freeze against the
+        resident pass's): every host takes the resident feed only when all
+        can (``res-gate``, one round a call; the call sequence is alike on
+        every host)."""
         ok = (
             bool(config.get_flag("enable_resident_feed"))
             and not is_async
             and dataset.store is not None
             and len(dataset.store.u64_values) < (1 << 31)
         )
+        if self._multi(dataset):
+            ok = dataset.transport.allreduce_max(0 if ok else 1, "res-gate") == 0
         if not ok:
             return False
         if use_pv:
@@ -710,7 +780,8 @@ class CTRTrainer:
         self._sstep_cache = {}
         rp = ResidentPass(
             dataset.store, dataset.ws, dataset.schema, self.device, dense_slot=self.dense_slot,
-            dense_dim=self.dense_dim, bucket=self.pack_bucket,
+            dense_dim=self.dense_dim, bucket=self.pack_bucket, plan=self.plan,
+            transport=self._lockstep(dataset),
         )
         if prev_uniq:
             rp._uniq_cache.update(prev_uniq)
@@ -733,7 +804,8 @@ class CTRTrainer:
         c = self._pv_feed_cache
         if c is None or c[0] is not plan or c[1] is not rp:
             self._pv_feed_cache = None  # the old plan's arrays go first
-            self._pv_feed_cache = (plan, rp, ResidentPvFeed(plan, self.device, mesh_plan=self.plan))
+            feed = ResidentPvFeed(plan, self.device, mesh_plan=self.plan, multi_host=rp.per_device)
+            self._pv_feed_cache = (plan, rp, feed)
         t.append(time.perf_counter())
         if parts is not None:
             names = ("resident_upload_s", "pv_plan_s", "pad_stats_s", "pv_upload_s")
@@ -892,7 +964,8 @@ class CTRTrainer:
                 self.last_prepare_parts = {k: b - a for k, a, b in zip(names, t, t[1:])}
             else:
                 self._get_packer(dataset).freeze_shapes(
-                    dataset.batch_indices(n_batches), n_devices=0 if self.plan is None else self.plan.world
+                    dataset.batch_indices(n_batches), n_devices=self._n_pack(dataset),
+                    transport=self._lockstep(dataset),
                 )
         finally:
             self.last_prepare_s = time.perf_counter() - t0
@@ -903,7 +976,7 @@ class CTRTrainer:
         if self.plan is None:
             rp.ensure(blocks)
         else:
-            ensure_sharded(rp, blocks, self.plan.world)
+            ensure_sharded(rp, blocks, 1 if rp.per_device else self.plan.world)
 
     def _check_replicas(self, dataset: BoxPSDataset) -> None:
         """Once a pass on a mesh: all-gather the ranks' replica digests
@@ -912,6 +985,9 @@ class CTRTrainer:
         before any step could route wrongly or wait on a collective the
         others never make. Binds the dataset to the plan."""
         if self.plan is None or self._digest_ws is dataset.ws:
+            return
+        if self._multi(dataset):
+            self._check_hosts(dataset)
             return
         if dataset.batch_size != self.cfg.batch_size * self.plan.world:
             raise ValueError(
@@ -944,6 +1020,53 @@ class CTRTrainer:
         dataset.mesh_plan = self.plan
         self._digest_ws = dataset.ws
 
+    def _check_hosts(self, dataset: BoxPSDataset) -> None:
+        """Once a pass over several hosts: the rank checks. Row placement
+        puts rank r's block at mesh shard r while the working set assigns
+        ownership by transport rank, so the two must be one number (else
+        every pull reads the wrong host's slice), and the rank must be live
+        in the ownership map. The datasets are not replicas, so there is
+        no digest to compare."""
+        tp, ws = dataset.transport, dataset.ws
+        if tp.rank != self.plan.rank or tp.n_ranks != self.plan.world:
+            raise RuntimeError(
+                f"transport rank {tp.rank} of {tp.n_ranks} != mesh rank {self.plan.rank} of "
+                f"{self.plan.world}: order the transport endpoints by mesh rank"
+            )
+        omap = ws.ownership
+        if not omap.is_live(tp.rank):
+            raise RuntimeError(
+                f"transport rank {tp.rank} is not in the live set of ownership epoch "
+                f"{omap.epoch} (live={list(omap.live_ranks)}): it must not train"
+            )
+        if omap.range_of(tp.rank) != (self.plan.rank, self.plan.rank + 1):
+            raise RuntimeError(
+                f"rank {tp.rank} owns mesh shards {omap.range_of(tp.rank)}; one process a "
+                f"card trains shard {self.plan.rank} only"
+            )
+        if dataset.store is None:
+            raise RuntimeError(
+                "training over several hosts needs the columnar store (its pad shapes "
+                "are locksteped over the transport): enable the native parser"
+            )
+        if dataset.batch_size != self.cfg.batch_size:
+            raise ValueError(
+                f"over several hosts the dataset's batch {dataset.batch_size} is this "
+                f"rank's block: cfg.batch_size {self.cfg.batch_size} must equal it"
+            )
+        if ws.n_mesh_shards != self.plan.world:
+            raise ValueError(
+                f"the working set has {ws.n_mesh_shards} mesh shards, the mesh "
+                f"{self.plan.world} ranks: BoxPSDataset(n_mesh_shards=world)"
+            )
+        if self.metric_registry is not None or self.dump_pool is not None or self.async_dense is not None:
+            raise NotImplementedError(
+                "a metric registry, a dump or async dense over several hosts: "
+                "ROADMAP Queue 1 item 5.3"
+            )
+        dataset.mesh_plan = self.plan
+        self._digest_ws = dataset.ws
+
     def train_pass(
         self,
         dataset: BoxPSDataset,
@@ -969,6 +1092,7 @@ class CTRTrainer:
         # weights, the update phase flat ones (data_feed.cc:2165-2198)
         use_pv = dataset.pv_merged and dataset.current_phase == 1
         self._check_replicas(dataset)
+        self._multi_pass = self._multi(dataset)
         state = self._make_state(dataset.device_table, ws_key=dataset.ws)
         tm = dict.fromkeys(_PROFILE_KEYS, 0.0)
         # AUC buckets accumulate across train_pass calls within one pass:
@@ -1196,9 +1320,14 @@ class CTRTrainer:
     def trained_table(self) -> np.ndarray:
         """The pass's trained table on the host, [rows, width], for
         ``dataset.end_pass``; on a mesh every rank's shard, all-gathered
-        into [world, cap, width] on every rank."""
+        into [world, cap, width] on every rank; over several hosts this
+        rank's block [1, cap, width], nothing gathered (its end_pass writes
+        it into this host's own table)."""
         if self._state is None:
             raise RuntimeError("no trained pass")
+        if self._multi_pass:
+            # this host's block: its end_pass writes it into its own table
+            return self._state.table.to("cpu", copy=True).numpy()[None]
         if self.plan is not None:
             return self.plan.all_gather(self._state.table).cpu().numpy()
         return self._state.table.to("cpu", copy=True).numpy()
@@ -1211,7 +1340,8 @@ class CTRTrainer:
         trainer never writes it again: the next pass trains a copy. On a
         mesh it is this rank's shard [cap, width]: its end_pass carries the
         shard, the departing rows all-gathered to every rank's host
-        table."""
+        table (over several hosts, in a ``MultiHostCarrier``: the departing
+        rows go to this host's own table, nothing gathered)."""
         if self._state is None:
             raise RuntimeError("no trained pass")
         return self._state.table
@@ -1229,6 +1359,8 @@ class CTRTrainer:
         if self._state is None:
             raise RuntimeError("no trained pass")
         t = self._state.table
-        if self.plan is not None:  # every rank's shard, so each rank picks its own
+        if self._multi_pass:
+            t = t[None]  # this host's block, on the device
+        elif self.plan is not None:  # every rank's shard, so each rank picks its own
             t = self.plan.all_gather(t)
         dataset.device_table = t.reshape(-1, dataset.ws.capacity, t.shape[-1])

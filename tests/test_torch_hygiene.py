@@ -50,7 +50,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
               "data.dataset", "data.device_pack", "serve.scoring_table", "serve.server",
               "obs.trace_context", "obs.flight_recorder", "obs.metrics_writer", "utils.trace",
               "utils.line_reader", "data.data_generator", "data.quarantine", "metrics.auc_runner",
-              "utils.backendguard", "train.supervisor", "train.stream"):
+              "utils.backendguard", "train.supervisor", "train.stream", "ops.host_codec",
+              "parallel.transport", "parallel.membership", "table.dist_ws", "data.record_store"):
         assert f"paddlebox_tpu_torch.{m}" in walked
 
 

@@ -422,9 +422,10 @@ def test_gates_and_backoff_units(pkg):
 
 
 def test_refusals_name_their_roadmap_item(tmp_path):
-    """What needs the host transport raises NotImplementedError naming
-    ROADMAP Queue 1 item 5.3; an explicit compile-cache directory names
-    item 6. A CPU trainer needs no backend probe."""
+    """What the supervisor still owes over several hosts raises
+    NotImplementedError naming ROADMAP Queue 1 item 5.3; an explicit
+    compile-cache directory names item 6. A CPU trainer needs no backend
+    probe."""
     st = _sup("torch", tmp_path, "ref")
     assert st.sup.backend_verdict is None
     sup_cls = ttrain.PassSupervisor
@@ -445,7 +446,10 @@ def test_refusals_name_their_roadmap_item(tmp_path):
         sup_cls(st.ds, st.tr)
     finally:
         tconfig.set_flag("compile_cache_dir", prev)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5.3"):
+    # the dataset over several hosts is ported: a striped dataset with
+    # neither a router nor a transport, or a transport that is not its
+    # rank of its nranks, is a misuse
+    with pytest.raises(ValueError, match="LocalShuffleRouter"):
         tdata.BoxPSDataset(st.ds.schema, st.table, B, nranks=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5.3"):
+    with pytest.raises(ValueError, match="transport must be rank 0 of 1"):
         tdata.BoxPSDataset(st.ds.schema, st.table, B, transport=object())
