@@ -277,7 +277,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    into a directory, a ``StreamSupervisor`` (3 s micro-passes, compaction
    every 3 deltas) and a ``Follower`` polling its chain; a
    ``stream.cut_publish`` fault crashes cut 2 with its spool durable, the
-   stack restarts from disk and replays it; after 6 cuts the table and
+   stack restarts from disk and replays it; after 4 cuts the table and
    dense state are bitwise an uninterrupted run over the same spools.
    Every training step launches 2 gathers and 1 writeback. Printed: the
    day's samples/s supervised and bare, a retry's seconds, ``save_base``
@@ -308,7 +308,40 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    ``finalize``, the lockstep rounds' seconds and the transport's bytes
    over a pass, the carried ``boundary_s``, a host's pack of its own
    batch beside the replicated mesh's ``pack_sharded``, and both kernels
-   timed at the owner's shapes. A failing host fails the spawn.
+   timed at the owner's shapes. A failing host fails the spawn;
+16. the supervisor over several ranks ("supervised_hosts"): two host
+   processes on cuda:0 as in phase 15 (bench.py's data from ``--seed +
+   16``, 2 files a host a pass, 2,048 records a host a step), each under
+   ``PassSupervisor(transport=)`` with its chain under ``rank_root``, run
+   ``run_day`` over 3 passes three times: clean; poisoned (2% of rank 1's
+   pass-2 lines unparsable, ``on_poisoned="skip_pass"``: both hosts drop
+   pass 2, each ending bitwise the clean day's pass 1); and faulted (rank
+   1's gate rejects pass 1's first attempt once, through a harness
+   subclass: rank 0 records ``peer_abort``, rank 1 ``gate_auc``, one
+   revert each, both epochs 1, and every pass's table, dense state, AUC
+   tables and AUC and the chain's arrays bitwise the clean day's). 2
+   gathers + 1 writeback a step on every host, the reverted attempt's
+   counted; both kernels bitwise at the owner's ids. Beside the spawn, in
+   threads of this process and without the card, the JAX package's two
+   elastic schedules through the port's supervisor over a real
+   ``HostSparseTable``, ``DistributedWorkingSet`` and ``TcpTransport``
+   (EL_RECORDS records a pass of EL_KEYS bench.py keys, embedx 16):
+   kill-rank (4 ranks, rank 1 dies at pass 1) and join-rank (rank 1 dies,
+   a new incarnation rejoins, 5 passes), each bitwise a fresh run (the
+   ownership-filtered merged digest, every pass's AUC). Printed: samples/s
+   over both hosts, the faulted attempt's s, the verdict rounds' s a pass,
+   the saves' s, the membership rounds', adoptions' and migrations' s and
+   keys;
+17. the serving fleet ("serve_fleet"): a full-width producer publishes a
+   base and a delta; a ``FleetStage`` mirrors them (a torn fetch under
+   ``serve.fleet_stage`` never writes the stage watermark); two
+   ``FleetFollower``s on cuda:0 and a ``FleetClient`` on a third transport
+   rank; FL_REQUESTS requests of 256-4,096 records, half at each version,
+   bitwise the trainer-direct scoring, one gather a served batch; the
+   hedge rescuing a stalled follower, drain and admit confirmed by the
+   follower's gossip, the typed overload refusal; the client's latencies
+   beside one ``ScoreServer``'s on the first FL_DIRECT requests, and the
+   gather at a follower's shape bitwise and timed.
 
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -349,7 +382,7 @@ MISS_FRAC = 0.01
 # records, each key drawn in proportion to the base's decayed show (the
 # tier's own selection signal), served one at a time by a server whose
 # batch is TIER_SERVE_BATCH records, the tier off and on in turns
-TIER_REQUESTS = 300
+TIER_REQUESTS = 150  # cut from 300 for the script's time
 TIER_SERVE_BATCH = 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 TIMING_REPS = 30
@@ -436,7 +469,7 @@ STREAM_CHUNKS = 6  # the writer's chunk files, appended in turn
 STREAM_EVERY_S = 2.0  # a chunk of RECORDS_PER_FILE records every 2 s
 STREAM_MICRO_S = 3.0  # stream_micro_pass_s
 STREAM_COMPACT = 3  # stream_compact_every
-STREAM_CUTS = 6
+STREAM_CUTS = 4  # cut from 6 for the script's time; the fourth still compacts
 STREAM_FAULT_HIT = 3  # stream.cut_publish's third fire: cut 2, its spool durable and untrained
 STREAM_DEADLINE_S = 240.0  # a stream that stalls fails here instead of hanging
 
@@ -955,10 +988,13 @@ def main() -> int:
     mesh_counts, owner, join_owner, mesh_err = timed("12-13 mesh", mesh_phases, args, dev, card, ck, lay)
     supervised_counts, sup_err = timed("14 supervised_day", supervised_phase, args, dev, card, ck, lay, schema)
     multihost_counts, mh_owner, mh_err = timed("15 multihost", multihost_phase, args, dev, card, ck, lay)
+    sh_counts, sh_owner, sh_err = timed("16 supervised_hosts", supervised_hosts_phase, args, dev, card, ck, lay)
+    fleet_counts, fleet_shape, fleet_err = timed("17 serve_fleet", serve_fleet_phase, args, dev, card, ck, lay,
+                                                 schema)
     emit({"card": card, "phase_wall_s": walls, "script_s": time.perf_counter() - t_start})
 
     by_path = {"serve": serve_counts, **train["counts"], **published, "boundary": boundary_counts, **join_counts,
-               **zoo_counts, **mesh_counts, **supervised_counts, **multihost_counts}
+               **zoo_counts, **mesh_counts, **supervised_counts, **multihost_counts, **sh_counts, **fleet_counts}
     emit({"kernels": [
         {
             "name": name,
@@ -976,7 +1012,11 @@ def main() -> int:
             # supervised day, AUC runner and stream, then phase 15's host
             # processes (every host's passes: the resident pass of two
             # hosts and of four, packer, ZeRO-1, shuffle, carried, join and
-            # update); serve_tier is phase 8's tiered serving
+            # update), then phase 16's supervised two-host days (clean,
+            # faulted with its reverted attempt, poisoned) and phase 17's
+            # fleet (its producer's passes and the followers' served
+            # batches at the base and at delta 1); serve_tier is phase 8's
+            # tiered serving
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": err,
@@ -998,15 +1038,20 @@ def main() -> int:
             # and at the multi-host owner's (phase 15): a host's shard,
             # hosts x K ids received over the mesh
             "multihost_owner_shape": {w: mh_owner[w][name] for w in mh_owner},
+            # and at the supervised two-host day's owner (phase 16)
+            "supervised_hosts_owner_shape": {w: sh_owner[w][name] for w in sh_owner},
+            # the gather at a fleet follower's shape (phase 17): a full
+            # served batch's working set
+            **({"serve_fleet_shape": fleet_shape} if key == "gather" else {}),
             # the gather at the device scoring tier's shape (phase 8): one
             # shard's bucket of a full request
             **({"serve_tier_shape": tier_shape} if key == "gather" else {}),
         }
         for name, source, replaces, key, err in (
             ("pull_rows_cuda", "paddlebox_tpu_torch/ops/csrc/gather_rows.cu", GATHER_REPLACES, "gather",
-             max(max_err, train["gather_err"], join_err, zoo_err, mesh_err, sup_err, mh_err)),
+             max(max_err, train["gather_err"], join_err, zoo_err, mesh_err, sup_err, mh_err, sh_err, fleet_err)),
             ("write_rows_cuda", "paddlebox_tpu_torch/ops/csrc/write_rows.cu", WRITE_REPLACES, "write",
-             max(write_err, train["write_err"], join_err, zoo_err, mesh_err, sup_err, mh_err)),
+             max(write_err, train["write_err"], join_err, zoo_err, mesh_err, sup_err, mh_err, sh_err)),
         )
     ]})
     print(card, flush=True)
@@ -5505,6 +5550,970 @@ def multihost_phase(args, dev, card, ck, lay):
         err = max(rk["kernel_err"] for rk in two + four)
     print(f"phase 15 (multihost) in {time.perf_counter() - t_phase:.3f} s; {card}", flush=True)
     return counts, owner, err
+
+
+# ---- 16. the supervisor over two host processes, and the elastic day -------
+
+SH_SEED = 16  # the phase's data seed offset
+SH_FILES = 2  # a host a pass: 16384 records, 8 steps of 2048
+SH_PASSES = 3  # a base and two deltas
+SH_DATE = "20260401"
+SH_POISON_FRAC = 0.02  # of rank 1's pass-2 lines: past max_bad_line_fraction (0.01)
+SH_FAULT_PASS = 2  # the supervisor's pass_seq of pass 1
+SH_TIMEOUT_S = 300.0
+EL_MESH = 8  # mesh shards of the elastic day (tests/test_elastic.py's N_MESH)
+EL_RECORDS = 40960  # records a pass: beside an H100 the schedules took 73 s at 65,536 and 56.5-60.8 s at 49,152; their bound is 60 s
+EL_KEYS = 16  # bench.py's keys a record
+EL_DATE = "20260402"
+EL_MEMBER_TIMEOUT_S = 30.0
+EL_PEER_DEAD_S = 2.0  # a rank silent this long is dead (the tests' 0.6 s, widened for the day's larger rounds)
+
+
+def _state_digest(table, tr):
+    """sha256 digests of a host's table (keys and rows), its dense params
+    and Adam state, and its AUC tables."""
+    table.drain_pending()
+    keys = np.sort(table.keys())
+    out = {}
+    h = hashlib.sha256(keys.tobytes())
+    h.update(np.ascontiguousarray(table.pull_or_create(keys)).tobytes())
+    out["table"] = h.hexdigest()
+    h = hashlib.sha256()
+    for k in sorted(tr.params):
+        h.update(tr.params[k].detach().cpu().numpy().tobytes())
+    st = tr.opt_state
+    h.update(st.count.cpu().numpy().tobytes())
+    for part in (st.mu, st.nu):
+        for k in sorted(part):
+            h.update(part[k].cpu().numpy().tobytes())
+    out["dense"] = h.hexdigest()
+    auc = tr._state.auc
+    out["auc"] = hashlib.sha256(auc.pos.cpu().numpy().tobytes() + auc.neg.cpu().numpy().tobytes()).hexdigest()
+    out["keys"] = len(keys)
+    return out
+
+
+def _host_day_supervisor():
+    """The port's PassSupervisor with the harness's clocks: each verdict
+    round, each attempt, each revert and each save timed, a state digest
+    after each pass, and an optional one-shot gate rejection at pass_seq
+    ``reject_pass`` (the harness's fault, as the JAX tests drive the gate
+    with a trainer double)."""
+    from paddlebox_tpu_torch.train import PassSupervisor
+    from paddlebox_tpu_torch.train.supervisor import PassRejected
+
+    class HostDaySupervisor(PassSupervisor):
+        reject_pass = None
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.after, self.saves, self.verdicts, self.attempts, self.reverts = [], [], [], [], []
+            exchange = self.coord.exchange_verdict
+
+            def timed(key, ok, detail="", fatal=False):
+                t0 = time.perf_counter()
+                out = exchange(key, ok, detail, fatal=fatal)
+                self.verdicts.append([key, time.perf_counter() - t0])
+                return out
+
+            self.coord.exchange_verdict = timed
+
+        def _attempt(self, n_batches, prefetch=None):
+            t0 = time.perf_counter()
+            try:
+                out = super()._attempt(n_batches, prefetch)
+                self.attempts.append([self._pass_seq, t0, time.perf_counter(), out.get("batches", 0.0)])
+                return out
+            except Exception:
+                self.attempts.append([self._pass_seq, t0, time.perf_counter(), None])
+                raise
+
+        def _revert(self, attempt, cause):
+            t0 = time.perf_counter()
+            super()._revert(attempt, cause)
+            self.reverts.append([self._pass_seq, t0, time.perf_counter()])
+
+        def _gate(self, out):
+            if self.reject_pass == self._pass_seq:
+                self.reject_pass = None
+                raise PassRejected("auc", "a one-shot rejection of the harness")
+            super()._gate(out)
+
+        def _save_checkpoint(self, mode):
+            t0 = time.perf_counter()
+            super()._save_checkpoint(mode)
+            self.saves.append([mode, time.perf_counter() - t0])
+
+        def run_pass(self, *a, **kw):
+            out = super().run_pass(*a, **kw)
+            self.after.append(_state_digest(self.table, self.tr))
+            return out
+
+    return HostDaySupervisor
+
+
+def _host_day(plan, spec, ctx, name, reject_pass=None, before_last_end=None):
+    """One supervised three-pass day on this host: its own table, dataset,
+    trainer and chain under ``rank_root(<day root>, rank)``. Every
+    train_pass is counted (a reverted attempt's steps launch the kernels
+    too); ``before_last_end(trainer)`` runs just before the last pass's
+    end_pass. Returns the day's record and the trainer."""
+    from paddlebox_tpu_torch.ops import cuda_kernels as ck
+    from paddlebox_tpu_torch.train import CheckpointManager, HealthGates, RetryPolicy
+    from paddlebox_tpu_torch.train.checkpoint import rank_root
+
+    tp, meter, lay, sparse_opt, dataset, trainer = ctx
+    n, r, dev = plan.world, plan.rank, plan.device
+    b = BATCH // n
+    passes = spec["passes"][name][r]
+    ds, table = dataset(passes[0], b, SH_DATE)
+    tr = trainer(b)
+    trained = []
+    train_pass, end_pass = tr.train_pass, ds.end_pass
+
+    def counted_train_pass(*a, **kw):
+        out = train_pass(*a, **kw)
+        trained.append(out["batches"])
+        return out
+
+    def hooked_end_pass(*a, **kw):
+        if before_last_end is not None and sup._pass_seq == SH_PASSES:
+            before_last_end(tr)
+        return end_pass(*a, **kw)
+
+    tr.train_pass, ds.end_pass = counted_train_pass, hooked_end_pass
+    root = os.path.join(spec["out"], name)
+    sup = _host_day_supervisor()(
+        ds, tr, checkpoint=CheckpointManager(rank_root(root, r)), gates=HealthGates(auc_min_history=99),
+        retry=RetryPolicy(backoff_s=0.0, sleep=lambda s: None), round_to=512, transport=tp,
+        on_poisoned="skip_pass",
+    )
+    if r == 1:
+        sup.reject_pass = reject_pass
+    torch.cuda.synchronize(dev)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = sup.run_day(SH_DATE, [host_list(files, n) for files in passes])
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    counts = dict(ck.launch_counts)
+    steps = sum(trained)
+    if counts["pull_rows_cuda"] != 2 * steps or counts["write_rows_cuda"] != steps:
+        raise AssertionError(f"supervised host {r} {name}: launches {counts} for {steps} steps")
+    failed = [a for a in sup.attempts if a[3] is None]
+    rec = {
+        "wall_s": wall, "counts": counts, "steps": steps, "epoch": sup.coord.epoch,
+        "confirmed_steps": sum(o["batches"] for o in outs if o is not None),
+        "incidents": [[i.kind, i.action, i.attempt, i.detail] for i in sup.incidents],
+        "outs": [None if o is None else {"batches": o["batches"], "loss": o["loss"], "auc": o["auc"]} for o in outs],
+        "after": sup.after, "saves": sup.saves, "verdicts": sup.verdicts,
+        "failed_attempt_s": [sup.reverts[i][2] - a[1] for i, a in enumerate(failed)],
+        "root": rank_root(root, r),
+    }
+    return rec, tr
+
+
+def supervised_hosts_rank(plan, spec):
+    """Phase 16 on one host of the two-host world (spawned, one process a
+    host, gloo on cuda:0): the clean, the poisoned and the faulted
+    supervised days, and both kernels at the owner's ids of the clean
+    day's last pass. Writes its record to ``spec["out"]``; the transport
+    closes in a ``finally``."""
+    from paddlebox_tpu_torch.ops import cuda_kernels as ck
+    from paddlebox_tpu_torch.table import SparseOptimizerConfig, ValueLayout
+
+    r, dev = plan.rank, plan.device
+    ctx = _mh_context(plan, spec)
+    tp = ctx[0]
+    res, arrays, held = {"rank": r}, {}, {}
+
+    def owner_ids(tr):
+        # this host's request buckets all-to-all'd: a collective, at the
+        # same point of the day on every host
+        held["shard"] = tr._state.table
+        held["owner"] = _owner_ids(plan, tr._resident_cache[2], tr.cfg, tr._idx_cache[2][0], held["shard"], dev)
+
+    try:
+        res["clean"], _ = _host_day(plan, spec, ctx, "clean", before_last_end=owner_ids)
+        res["kernel_err"] = _owner_check(ck, held["shard"], held["owner"], f"supervised hosts rank {r}")
+        res["owner_R"] = held["shard"].shape[0]
+        arrays.update({f"owner_{k}": v.cpu().numpy() for k, v in held.pop("owner").items()})
+        held.clear()
+        res["poison"], _ = _host_day(plan, spec, ctx, "poison")
+        # last: its revert raises the transport's stale-epoch floor, which a
+        # later day's dataset (its pass_epoch from 0) would fall under
+        res["fault"], _ = _host_day(plan, spec, ctx, "fault", reject_pass=SH_FAULT_PASS)
+        res["fault_chain_files"] = same_chain(res["clean"]["root"], res["fault"]["root"],
+                                              ValueLayout(embedx_dim=EMBEDX_DIM),
+                                              SparseOptimizerConfig(embedx_threshold=0.0), spec["seed"],
+                                              f"supervised host {r}: the faulted day's chain")
+    finally:
+        tp.close()
+    np.savez(os.path.join(spec["out"], f"rank{r}.npz"), **arrays)
+    with open(os.path.join(spec["out"], f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def _poisoned_copies(files, tmp, rng):
+    """Copies of ``files`` with SH_POISON_FRAC of each file's lines made
+    unparsable (a label that is no float), past the admission threshold."""
+    out = []
+    for path in files:
+        with open(path) as f:
+            lines = f.read().splitlines()
+        bad = rng.choice(len(lines), int(len(lines) * SH_POISON_FRAC), replace=False)
+        for i in bad:
+            lines[i] = "1 not-a-float " + lines[i].split(" ", 2)[2]
+        dst = os.path.join(tmp, "poisoned-" + os.path.basename(path))
+        with open(dst, "w") as f:
+            f.write("\n".join(lines) + "\n")
+        out.append(dst)
+    return out
+
+
+def _check_host_days(ranks):
+    """The faulted day bitwise the clean day, pass by pass; the poisoned
+    day's pass 2 dropped on both hosts and its end bitwise the clean day's
+    after pass 1; the incidents the JAX package's."""
+    for r, rk in enumerate(ranks):
+        clean, fault, poison = rk["clean"], rk["fault"], rk["poison"]
+        if any(i for i in clean["incidents"]) or clean["epoch"] != 0:
+            raise AssertionError(f"supervised host {r}: the clean day recorded {clean['incidents']}")
+        want = [["gate_auc", "revert_retry", 0]] if r == 1 else [["peer_abort", "revert_retry", 0]]
+        if [i[:3] for i in fault["incidents"]] != want or fault["epoch"] != 1 or len(fault["failed_attempt_s"]) != 1:
+            raise AssertionError(f"supervised host {r}: the faulted day recorded {fault['incidents']}, "
+                                 f"epoch {fault['epoch']}")
+        if fault["after"] != clean["after"]:
+            raise AssertionError(f"supervised host {r}: the faulted day's state differs from the clean day's "
+                                 f"({fault['after']} vs {clean['after']})")
+        if [o and o["auc"] for o in fault["outs"]] != [o and o["auc"] for o in clean["outs"]]:
+            raise AssertionError(f"supervised host {r}: the faulted day's AUCs differ")
+        if [i[:3] for i in poison["incidents"]] != [["data_poisoned", "skip", 0]] or poison["outs"][2] is not None:
+            raise AssertionError(f"supervised host {r}: the poisoned day recorded {poison['incidents']}, "
+                                 f"pass 2 {poison['outs'][2]}")
+        if r == 0 and "rank 1" not in poison["incidents"][0][3]:
+            raise AssertionError(f"supervised host 0: the poison verdict does not name rank 1: {poison['incidents']}")
+        if poison["after"][2] != clean["after"][1] or poison["after"][:2] != clean["after"][:2]:
+            raise AssertionError(f"supervised host {r}: the poisoned day does not end on the clean day's pass 1")
+
+
+# ---- the elastic day on the host plane (threads of this process, no card) --
+
+
+_EL_CACHE = {}
+
+
+def _el_records(seed, p):
+    """One pass's global records, the same for every membership: EL_KEYS
+    of bench.py's keys a record (a quarter from the hot head, the rest
+    uniform over KEY_SPACE) and a label, POS_FRAC positive."""
+    key = (seed, p)
+    if key not in _EL_CACHE:
+        rng = np.random.default_rng(1000 * seed + p)
+        hot = rng.integers(1, HOT_KEYS, (EL_RECORDS, EL_KEYS))
+        cold = rng.integers(1, KEY_SPACE, (EL_RECORDS, EL_KEYS))
+        keys = np.where(rng.random((EL_RECORDS, EL_KEYS)) < HOT_FRAC, hot, cold).astype(np.uint64)
+        _EL_CACHE[key] = (keys, (rng.random(EL_RECORDS) < POS_FRAC).astype(np.float32))
+    return _EL_CACHE[key]
+
+
+class _RankKilled(BaseException):
+    """A scheduled death: escapes every ``except Exception`` of the
+    supervisor, as a process's death does."""
+
+
+class _ElasticDS:
+    """The dataset double of the JAX package's elastic tests over a real
+    HostSparseTable and DistributedWorkingSet: record i of a pass goes to
+    ``sorted(live)[i % n_live]``, so a pass's records do not depend on the
+    membership."""
+
+    def __init__(self, transport, table, seed):
+        self.transport, self.table, self.seed = transport, table, seed
+        self.n_mesh_shards = EL_MESH
+        self.ownership = None
+        self.pass_epoch = 0
+        self._in_pass = False
+        self.pass_idx = -1
+        self.ws = self.dev = None
+
+    def set_date(self, date):
+        pass
+
+    def set_filelist(self, files):
+        self._files = list(files)
+
+    def load_into_memory(self):
+        self.pass_idx = int(self._files[0].rsplit("-", 1)[1])
+
+    def omap(self):
+        from paddlebox_tpu_torch.parallel.membership import OwnershipMap
+
+        return self.ownership or OwnershipMap.even(self.n_mesh_shards, self.transport.n_ranks)
+
+    def begin_pass(self, round_to=8, enable_revert=True, trainer=None):
+        from paddlebox_tpu_torch.table.dist_ws import DistributedWorkingSet
+
+        omap = self.omap()
+        live = list(omap.live_ranks)
+        keys, labels = _el_records(self.seed, self.pass_idx)
+        mine = np.nonzero(np.arange(EL_RECORDS) % len(live) == live.index(self.transport.rank))[0]
+        self.my_keys, self.my_labels = keys[mine], labels[mine]
+        ws = DistributedWorkingSet(self.transport, EL_MESH, pass_id=self.pass_idx, epoch=self.pass_epoch,
+                                   ownership=omap)
+        ws.add_keys(self.my_keys.reshape(-1))
+        self.dev = ws.finalize(self.table, round_to=8)
+        self.ws = ws
+        self._in_pass = True
+
+    def end_pass(self, table, shrink=True):
+        self.ws.writeback(self.dev)
+        self._in_pass = False
+
+    def revert_pass(self):
+        # the rows were only created (seeded a key), never trained
+        self.ws = self.dev = None
+        self._in_pass = False
+        self.pass_epoch += 1
+
+
+def _elastic_trainer(ds, recorder, kill_at=None):
+    """The trainer double: one deterministic transform of the pass's rows,
+    and a pred a record from its rows' global positions. A doomed rank
+    closes its transport and dies at the top of its kill pass."""
+
+    def train_pass(_ds, n_batches=None):
+        if kill_at is not None and ds.pass_idx == kill_at:
+            ds.transport.close()
+            raise _RankKilled()
+        ds.dev = ds.dev * np.float32(1.01) + np.float32(0.25)
+        rows = ds.ws.lookup(ds.my_keys.reshape(-1)).astype(np.int64).reshape(ds.my_keys.shape).sum(1)
+        recorder[(ds.transport.rank, ds.pass_idx)] = (((rows + ds.pass_idx) % 97) / 97.0).astype(np.float32), \
+            ds.my_labels
+        return {"batches": 1.0, "nan_batches": 0.0, "auc": 0.5}
+
+    return SimpleNamespace(
+        params=None, prepare_pass=lambda _ds, n: None, train_pass=train_pass, trained_table=lambda: None,
+        init_params=lambda *a, **k: None, load_dense=lambda path: None, drop_device_state=lambda: None,
+        save_dense=lambda path: np.savez(path, z=np.zeros(1, np.float32)),
+    )
+
+
+def _elastic_supervisor(tp, root, seed, recorder, clocks, kill_at=None):
+    from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig, ValueLayout
+    from paddlebox_tpu_torch.train import CheckpointManager, ElasticConfig, HealthGates, PassSupervisor, RetryPolicy
+    from paddlebox_tpu_torch.train.checkpoint import rank_root
+
+    class ElasticSupervisor(PassSupervisor):
+        """The port's supervisor, its membership rounds and admissions timed."""
+
+        def _membership_round(self, e):
+            t0 = time.perf_counter()
+            super()._membership_round(e)
+            clocks.append(("membership_round", tp.rank, time.perf_counter() - t0))
+
+        def _admit_joiner(self, joiner, omap):
+            t0 = time.perf_counter()
+            out = super()._admit_joiner(joiner, omap)
+            clocks.append(("admission", tp.rank, time.perf_counter() - t0))
+            return out
+
+        def _join_attempt(self, offer):
+            t0 = time.perf_counter()
+            out = super()._join_attempt(offer)
+            clocks.append(("admission", tp.rank, time.perf_counter() - t0))
+            return out
+
+    table = HostSparseTable(ValueLayout(embedx_dim=EMBEDX_DIM), SparseOptimizerConfig(embedx_threshold=0.0),
+                            n_shards=8, seed=0)
+    ds = _ElasticDS(tp, table, seed)
+    return ElasticSupervisor(
+        ds, _elastic_trainer(ds, recorder, kill_at), checkpoint=CheckpointManager(rank_root(root, tp.rank)),
+        gates=HealthGates(auc_min_history=99), retry=RetryPolicy(max_retries=2, backoff_s=0.0, sleep=lambda s: None),
+        round_to=8, transport=tp,
+        elastic=ElasticConfig(shared_root=root, member_timeout=EL_MEMBER_TIMEOUT_S),
+    )
+
+
+def _run_threads(fn, n, limit):
+    """``fn(rank)`` on a thread a rank; every failure raised, and a rank
+    still running after ``limit`` seconds a failure of its own."""
+    import threading
+
+    out, errs = [None] * n, []
+
+    def body(r):
+        try:
+            out[r] = fn(r)
+        except BaseException as e:  # re-raised below
+            errs.append((r, e))
+
+    ths = [threading.Thread(target=body, args=(r,), daemon=True) for r in range(n)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(limit)
+    if any(t.is_alive() for t in ths):
+        raise AssertionError(f"elastic day: a rank still ran after {limit} s")
+    if errs:
+        raise errs[0][1]
+    return out
+
+
+def _elastic_day(n, root, seed, passes, recorder, clocks, kill=None, rejoin=False):
+    """One elastic day of ``n`` ranks in threads, each its own
+    TcpTransport; ``kill`` = (rank, pass) dies at that pass's top, and with
+    ``rejoin`` a new incarnation of it joins once every survivor installed
+    the shrink. Returns (supervisors, results)."""
+    from paddlebox_tpu_torch.parallel.transport import TcpTransport
+
+    eps = [f"127.0.0.1:{p}" for p in _ports(n)]
+    tps = [TcpTransport(r, eps, timeout=60.0) for r in range(n)]
+    sups = [_elastic_supervisor(tps[r], root, seed, recorder, clocks,
+                                kill_at=kill[1] if kill and kill[0] == r else None) for r in range(n)]
+    files = [[f"pass-{p}"] for p in range(passes)]
+
+    def day(r):
+        if kill is None or r != kill[0]:
+            return sups[r].run_day(EL_DATE, files)
+        try:
+            sups[r].run_day(EL_DATE, files)
+        except _RankKilled:
+            if not rejoin:
+                return "killed"
+        else:
+            raise AssertionError(f"elastic day: rank {r} was not killed")
+        deadline = time.monotonic() + 120.0
+        while not all(sups[q].ds.ownership is not None and sups[q].ds.ownership.epoch >= 1
+                      for q in range(n) if q != r):
+            if time.monotonic() >= deadline:
+                raise AssertionError("elastic day: the survivors never installed the shrink")
+            time.sleep(0.02)
+        tps[r] = TcpTransport(r, eps, timeout=60.0)
+        sups[r] = _elastic_supervisor(tps[r], root, seed, recorder, clocks)
+        return sups[r].join_day(files, timeout=120.0)
+
+    try:
+        res = _run_threads(day, n, 300.0)
+    finally:
+        for t in tps:
+            t.close()
+    return sups, res
+
+
+def _merged_digest(sups, ranks):
+    """The ownership-filtered digest: every key once, under its owner."""
+    from paddlebox_tpu_torch.table.sparse_table import key_to_shard
+
+    keys, rows = [], []
+    for r in ranks:
+        s = sups[r]
+        lo, hi = s.ds.omap().range_of(r)
+        k = np.sort(s.table.keys())
+        sh = key_to_shard(k, EL_MESH)
+        k = k[(sh >= lo) & (sh < hi)]
+        keys.append(k)
+        rows.append(s.table.pull_or_create(k))
+    keys, rows = np.concatenate(keys), np.concatenate(rows)
+    order = np.argsort(keys, kind="stable")
+    if len(keys) != len(np.unique(keys)):
+        raise AssertionError("elastic day: ownership ranges overlap")
+    return keys[order], rows[order]
+
+
+def _pass_auc(recorder, p):
+    from paddlebox_tpu_torch.metrics.auc import auc_compute, auc_init, auc_update
+
+    entries = [v for (r, pp), v in sorted(recorder.items()) if pp == p]
+    preds = torch.from_numpy(np.concatenate([e[0] for e in entries]))
+    labels = torch.from_numpy(np.concatenate([e[1] for e in entries]))
+    return auc_compute(auc_update(auc_init(1000, device="cpu"), preds, labels))
+
+
+def _timed_membership(clocks):
+    """Adoptions and migrations timed (and their keys counted) while the
+    schedules run: the supervisor calls them through the module."""
+    from paddlebox_tpu_torch.parallel import membership
+
+    adopt, migrate = membership.adopt_dead_shards, membership.migrate_ranges
+
+    def adopt_timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = adopt(*a, **kw)
+        clocks.append(("adoption", a[5], time.perf_counter() - t0, int(out)))
+        return out
+
+    def migrate_timed(tp, *a, **kw):
+        t0 = time.perf_counter()
+        out = migrate(tp, *a, **kw)
+        clocks.append(("migration", tp.rank, time.perf_counter() - t0, int(out["recv_keys"]), int(out["sent_keys"])))
+        return out
+
+    def restore():
+        membership.adopt_dead_shards, membership.migrate_ranges = adopt, migrate
+
+    membership.adopt_dead_shards, membership.migrate_ranges = adopt_timed, migrate_timed
+    return restore
+
+
+def elastic_schedules(args, tmp, card):
+    """tools/chaos_probe.py's two elastic schedules through the port's
+    supervisor on the host plane: kill-rank (4 ranks, rank 1 dies at pass
+    1, 3 passes) against a fresh 3-rank run, and join-rank (rank 1 dies at
+    pass 1 and a new incarnation rejoins, 5 passes) against a fresh 4-rank
+    run; each bitwise (the ownership-filtered merged digest and every
+    pass's AUC). Returns its numbers."""
+    seed = args.seed + SH_SEED
+    nums = {"records_a_pass": EL_RECORDS, "keys_a_record": EL_KEYS, "mesh_shards": EL_MESH}
+    t_all = time.perf_counter()
+    for name, n, passes, kill, rejoin, fresh_n in (("kill_rank", 4, 3, (1, 1), False, 3),
+                                                  ("join_rank", 4, 5, (1, 1), True, 4)):
+        clocks, rec, rec_f = [], {}, {}
+        restore = _timed_membership(clocks)
+        try:
+            with flags(transport_peer_dead_s=EL_PEER_DEAD_S, transport_heartbeat_s=0.05):
+                t0 = time.perf_counter()
+                sups, res = _elastic_day(n, os.path.join(tmp, f"el-{name}"), seed, passes, rec, clocks, kill, rejoin)
+                day_s = time.perf_counter() - t0
+        finally:
+            restore()
+        live = list(range(n)) if rejoin else [r for r in range(n) if r != kill[0]]
+        if not rejoin and res[kill[0]] != "killed":
+            raise AssertionError(f"elastic {name}: rank {kill[0]} was not killed")
+        for r in live:
+            omap = sups[r].ds.ownership
+            if omap is None or list(omap.live_ranks) != live or omap.epoch != (2 if rejoin else 1):
+                raise AssertionError(f"elastic {name}: rank {r} ends on {omap}")
+            if r != kill[0] and (len(res[r]) != passes or any(o is None for o in res[r])):
+                raise AssertionError(f"elastic {name}: rank {r} trained {res[r]}")
+        t0 = time.perf_counter()
+        sups_f, res_f = _elastic_day(fresh_n, os.path.join(tmp, f"el-{name}-fresh"), seed, passes, rec_f, [])
+        fresh_s = time.perf_counter() - t0
+        ek, ev = _merged_digest(sups, live)
+        fk, fv = _merged_digest(sups_f, list(range(fresh_n)))
+        if not (np.array_equal(ek, fk) and np.array_equal(ev, fv)):
+            raise AssertionError(f"elastic {name}: the merged digest differs from a fresh {fresh_n}-rank run")
+        aucs = [_pass_auc(rec, p)["auc"] for p in range(passes)]
+        if aucs != [_pass_auc(rec_f, p)["auc"] for p in range(passes)]:
+            raise AssertionError(f"elastic {name}: the per-pass AUCs differ from the fresh run's")
+        deaths = [i.detail for r in live if r != kill[0] for i in sups[r].incidents
+                  if i.kind == "rank_death" and i.action == "revert_retry"]
+        adopted = [c[3] for c in clocks if c[0] == "adoption"]
+        nums[name] = {
+            "ranks": n, "passes": passes, "day_s": day_s, "fresh_run_s": fresh_s, "merged_keys": len(ek),
+            "aucs": aucs, "membership_round_s": [c[2] for c in clocks if c[0] == "membership_round"],
+            "adoption_s": [c[2] for c in clocks if c[0] == "adoption"], "adopted_keys": adopted,
+            "admission_s": [c[2] for c in clocks if c[0] == "admission"],
+            "migration_s": [c[2] for c in clocks if c[0] == "migration"],
+            "migrated_keys": [c[3] for c in clocks if c[0] == "migration"], "death_incidents": deaths,
+        }
+        print(f"elastic {name}: {n} ranks, {passes} passes of {EL_RECORDS} records, bitwise a fresh {fresh_n}-rank "
+              f"run ({len(ek)} keys, every pass's AUC); membership rounds {nums[name]['membership_round_s']} s, "
+              f"adoptions {nums[name]['adoption_s']} s of {sum(adopted)} keys, migrations "
+              f"{nums[name]['migration_s']} s of {nums[name]['migrated_keys']} keys; the day {day_s:.3f} s "
+              f"(host plane only, no card); {card}", flush=True)
+    nums["schedules_s"] = time.perf_counter() - t_all
+    return nums
+
+
+def supervised_hosts_phase(args, dev, card, ck, lay):
+    """Phase 16: the coordinated two-host day (a spawn of two host
+    processes on cuda:0, each its own TcpTransport, under PassSupervisor)
+    clean, poisoned and faulted, and beside it the elastic schedules on
+    the host plane. Returns (launch counts by path, the kernels at the owner's
+    shape, the max abs error)."""
+    from paddlebox_tpu_torch.fleet.launch import spawn
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + SH_SEED)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_suphosts_") as tmp:
+        t0 = time.perf_counter()
+        groups, pool = [], None
+        for p in range(SH_PASSES):
+            fs, cold = write_bench_files(tmp, rng, 2 * SH_FILES, f"sh{p}", reuse_pool=pool)
+            pool = cold if pool is None else pool
+            groups.append([fs[r::2] for r in range(2)])
+        poisoned = [list(g) for g in groups]
+        poisoned[2] = [groups[2][0], _poisoned_copies(groups[2][1], tmp, rng)]
+        write_s = time.perf_counter() - t0
+        passes = {"clean": [[g[r] for g in groups] for r in range(2)],
+                  "fault": [[g[r] for g in groups] for r in range(2)],
+                  "poison": [[g[r] for g in poisoned] for r in range(2)]}
+        out = os.path.join(tmp, "hosts")
+        os.makedirs(out)
+        spec = {"seed": args.seed + SH_SEED, "passes": passes, "out": out,
+                "endpoints": [f"127.0.0.1:{p}" for p in _ports(2)]}
+        # the elastic schedules (threads of this process, no card) run
+        # beside the host processes; a failure there is raised after the spawn
+        elastic = {}
+
+        def schedules():
+            try:
+                elastic["nums"] = elastic_schedules(args, tmp, card)
+            except BaseException as e:  # re-raised below
+                elastic["error"] = e
+
+        import threading
+
+        el_thread = threading.Thread(target=schedules, name="elastic-schedules")
+        el_thread.start()
+        t0 = time.perf_counter()
+        try:
+            spawn(supervised_hosts_rank, 2, f"file://{tmp}/rdv-suphosts", backend="gloo", device="cuda:0",
+                  args=(spec,), timeout_s=SH_TIMEOUT_S)
+        finally:
+            spawn_s = time.perf_counter() - t0
+            el_thread.join(SH_TIMEOUT_S)
+        if el_thread.is_alive():
+            raise AssertionError(f"elastic schedules still ran after {SH_TIMEOUT_S} s")
+        if "error" in elastic:
+            raise elastic["error"]
+        ranks = _read_ranks(out, 2)
+        _check_host_days(ranks)
+        counts = {f"supervised_hosts_{d}": {k: sum(rk[d]["counts"][k] for rk in ranks)
+                                            for k in ("pull_rows_cuda", "write_rows_cuda")}
+                  for d in ("clean", "fault", "poison")}
+        nums = {"write_files_s": write_s, "spawn_wall_s": spawn_s}
+        for d in ("clean", "fault", "poison"):
+            walls = [rk[d]["wall_s"] for rk in ranks]
+            verdicts = [rk[d]["verdicts"] for rk in ranks]
+            nums[d] = {
+                "wall_s_host": walls, "steps_host": [rk[d]["steps"] for rk in ranks],
+                # the samples of confirmed passes over the day's wall
+                "samples_per_s_global": sum(rk[d]["confirmed_steps"] for rk in ranks) * (BATCH // 2) / max(walls),
+                "verdict_round_s_a_pass": [sum(v[1] for v in vs) / SH_PASSES for vs in verdicts],
+                "verdict_rounds": [len(vs) for vs in verdicts],
+                "saves_s_host": [rk[d]["saves"] for rk in ranks],
+                "failed_attempt_s_host": [rk[d]["failed_attempt_s"] for rk in ranks],
+                "aucs": [o and o["auc"] for o in ranks[0][d]["outs"]],
+                "incidents_host": [[i[:3] for i in rk[d]["incidents"]] for rk in ranks],
+            }
+        nums["chain_files_compared"] = [rk["fault_chain_files"] for rk in ranks]
+        print(f"supervised hosts: clean {nums['clean']['samples_per_s_global']:.0f} samples/s over both hosts, "
+              f"faulted {nums['fault']['samples_per_s_global']:.0f}; the faulted attempt (its steps, the verdict "
+              f"round and the revert) {nums['fault']['failed_attempt_s_host']} s a host; verdict rounds "
+              f"{nums['clean']['verdict_round_s_a_pass']} s a pass a host; saves {nums['clean']['saves_s_host']}; "
+              f"the faulted and the poisoned days bitwise their clean references; {card}", flush=True)
+        owner = {"two_hosts": owner_kernel_rows(args, dev, card, ck, lay, ranks[0], "supervised_hosts_owner",
+                                                {"hosts": 2})}
+        err = max(rk["kernel_err"] for rk in ranks)
+        nums["elastic"] = elastic["nums"]
+        emit({"card": card, "phase": "supervised_hosts", **nums, "launches": counts})
+    print(f"phase 16 (supervised_hosts) in {time.perf_counter() - t_phase:.3f} s; {card}", flush=True)
+    return counts, owner, err
+
+
+# ---- 17. the serving fleet on the card ---------------------------------------
+
+FL_SEED = 17  # the phase's data seed offset
+FL_FILES = 2  # a pass: 16384 records; the base, then one delta
+FL_REQUESTS = 300  # half at the base, half at delta 1
+FL_DIRECT = 60  # of the base's requests, also sent to one ScoreServer directly (phase 5's measurement)
+FL_MIN_RECORDS, FL_MAX_RECORDS = 256, BATCH
+# the fleet shares this process with the whole script: a collector or GIL
+# pause of a few seconds is no dead follower, so the view's horizon is wide
+FL_FLAGS = dict(serve_health_beat_s=0.05, serve_health_dead_s=30.0, serve_client_retries=4,
+                serve_client_backoff_s=0.02, serve_request_timeout_ms=60000.0, transport_heartbeat_s=0.05)
+FL_HEDGE_MS = 100.0  # the hedge check's budget
+FL_STALL_S = 1.5  # the stalled follower's delay, well past FL_HEDGE_MS
+
+
+def _request(rng, keys, n):
+    """A request of ``n`` records as ``make_records`` draws them: its
+    slot-format lines (a label, then one key a slot) and the SlotRecords
+    they parse to."""
+    records = make_records(rng, keys, n)
+    mat = np.stack([r.u64_values for r in records]).astype(str)
+    labels = [f"1 {float(r.f_values[0])} 1 " for r in records]
+    return [lb + " 1 ".join(row) for lb, row in zip(labels, mat.tolist())], records
+
+
+def _split(preds, sizes):
+    return np.split(preds, np.cumsum(sizes)[:-1])
+
+
+def _wait(cond, what, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() >= deadline:
+            raise AssertionError(f"serve fleet: {what} within {timeout} s")
+        time.sleep(0.02)
+
+
+def serve_fleet_phase(args, dev, card, ck, lay, schema):
+    """Phase 17: a FleetStage mirroring a full-width DeepFM chain (a base
+    and one delta), two FleetFollowers on cuda:0 (each its own Follower,
+    ScoreServer and Scorer) and a FleetClient on a third transport rank:
+    FL_REQUESTS requests of 256-4096 records bitwise the trainer-direct
+    scoring at the base and at delta 1, one gather a served batch; the
+    hedge, drain and admit, the typed overload refusal and a torn stage
+    fetch; the client's latencies beside one ScoreServer's on the first
+    FL_DIRECT of the same requests, and the gather at the follower's
+    shape. Returns (launch counts by path, the gather's numbers, its max
+    abs error)."""
+    from paddlebox_tpu_torch.models import DeepFM
+    from paddlebox_tpu_torch.parallel.transport import TcpTransport
+    from paddlebox_tpu_torch.serve import (
+        FleetClient, FleetFollower, FleetStage, Follower, ScoreServer, Scorer, ServeOverloadError, table_source,
+    )
+    from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig
+    from paddlebox_tpu_torch.train import CheckpointManager, TrainStepConfig, read_watermark
+    from paddlebox_tpu_torch.utils import faultinject as fault
+    from paddlebox_tpu_torch.utils.monitor import STAT_GET
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + FL_SEED)
+    nums, counts = {}, {}
+    opt = SparseOptimizerConfig()
+    cfg = TrainStepConfig(num_slots=NUM_SLOTS, batch_size=BATCH, layout=lay, sparse_opt=opt)
+
+    def scorer():
+        return Scorer(DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
+                             generator=torch.Generator().manual_seed(args.seed)), cfg, device="cuda")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp, flags(**FL_FLAGS):
+        root, stage_dir = os.path.join(tmp, "ckpt"), os.path.join(tmp, "stage")
+        files0, pool = write_bench_files(tmp, rng, FL_FILES, "fl0")
+        files1, _ = write_bench_files(tmp, rng, FL_FILES, "fl1", reuse_pool=pool)
+        table = HostSparseTable(lay, opt, n_shards=64, seed=args.seed)
+        trainer = new_trainer(args, cfg, lay)
+        mgr = CheckpointManager(root)
+        counts["serve_fleet_train"], _, _ = day_pass(args, schema, table, trainer, files0, ck, "fleet base pass")
+        t0 = time.perf_counter()
+        mgr.save_base(PUB_DATE, table, trainer)
+        nums["save_base_s"] = time.perf_counter() - t0
+
+        # a torn stage fetch never surfaces a partial version
+        torn_dir = os.path.join(tmp, "stage-torn")
+        torn = FleetStage(root, torn_dir)
+        with fault.inject(fault.fail_always("serve.fleet_stage", times=2)) as plan:
+            for _ in range(2):
+                try:
+                    torn.stage_once()
+                except fault.InjectedFault:
+                    pass
+                else:
+                    raise AssertionError("serve fleet: the torn stage fetch did not fail")
+                if read_watermark(torn_dir) is not None:
+                    raise AssertionError("serve fleet: a torn stage fetch wrote the stage watermark")
+            if not torn.stage_once() or read_watermark(torn_dir) != read_watermark(root):
+                raise AssertionError("serve fleet: the retried stage fetch did not catch up")
+        if plan.failures("serve.fleet_stage") != 2:
+            raise AssertionError("serve fleet: the stage fault site fired wrong")
+
+        stage = FleetStage(root, stage_dir)
+        t0 = time.perf_counter()
+        stage.stage_once()
+        nums["stage_base_s"] = time.perf_counter() - t0
+        eps = [f"127.0.0.1:{p}" for p in _ports(3)]
+        tps = [TcpTransport(r, eps, timeout=60.0) for r in range(3)]
+        fleet = {}
+        client = None
+        try:
+            for r in (1, 2):
+                fol = Follower(stage_dir, lay, opt, n_host_shards=64, trainer=new_trainer(args, cfg, lay))
+                fleet[r] = FleetFollower(tps[r], 0, fol, scorer(), schema, poll_interval_s=0.05, device="cuda")
+                fleet[r].start()
+            client = FleetClient(tps[0], [1, 2], schema)
+            client.start()
+            _wait(lambda: all(ff.follower.version().delta_idx == 0 for ff in fleet.values()), "the followers at the base")
+            _wait(lambda: client.view.queryable() == [1, 2], "both followers queryable")
+            keys = np.sort(table.keys())
+            spread = keys[rng.permutation(len(keys))]
+            sizes = rng.integers(FL_MIN_RECORDS, FL_MAX_RECORDS + 1, FL_REQUESTS)
+            _, warm = _request(rng, spread, BATCH)
+            for ff in fleet.values():  # the batch shape's first forward on each follower's scorer
+                ff.server.scorer.score_records(warm, schema, table_source(lay, PeekSource(table)), trainer.params)
+            ref_scorer = scorer()
+            runs, lat_fleet, lat_direct = {}, [], []
+            for idx, half in ((0, sizes[: FL_REQUESTS // 2]), (1, sizes[FL_REQUESTS // 2:])):
+                if idx == 1:
+                    counts["serve_fleet_train_delta"], _, _ = day_pass(args, schema, table, trainer, files1, ck,
+                                                                       "fleet delta pass", need_save_delta=False)
+                    t0 = time.perf_counter()
+                    mgr.save_delta(PUB_DATE, table, trainer)
+                    nums["save_delta_s"] = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    stage.stage_once()
+                    nums["stage_delta_s"] = time.perf_counter() - t0
+                    _wait(lambda: all(ff.follower.version().delta_idx == 1 for ff in fleet.values()),
+                          "the followers at delta 1")
+                    _wait(lambda: client.view.queryable() == [1, 2], "both followers queryable at delta 1")
+                reqs = [_request(rng, spread, int(n)) for n in half]
+                torch.cuda.synchronize()
+                ck.reset_launch_counts()
+                b0 = STAT_GET("serve.batches")
+                with flags(serve_hedge_ms=0.0):  # the parity run: no hedged duplicates
+                    served = []
+                    for lines, _ in reqs:
+                        t0 = time.perf_counter()
+                        preds, meta = client.score_lines(lines)
+                        lat_fleet.append((time.perf_counter() - t0) * 1e3)
+                        served.append((preds, meta))
+                torch.cuda.synchronize()
+                c = dict(ck.launch_counts)
+                n_batches = STAT_GET("serve.batches") - b0
+                if c["pull_rows_cuda"] != n_batches or c["write_rows_cuda"] != 0 or n_batches != len(reqs):
+                    raise AssertionError(f"serve fleet delta {idx}: launches {c} for {n_batches} batches of "
+                                         f"{len(reqs)} requests: want one gather a served batch")
+                counts[f"serve_fleet_delta{idx}"] = c
+                # the trainer-direct scoring of every request at once (a record's
+                # pred does not depend on the batch it rides in: phase 5)
+                want = _split(ref_scorer.score_records([r for _, recs in reqs for r in recs], schema,
+                                                       table_source(lay, PeekSource(table)), trainer.params,
+                                                       trainer.opt_state), [len(recs) for _, recs in reqs])
+                srcs = set()
+                for (lines, _), (preds, meta), w in zip(reqs, served, want):
+                    if meta["delta_idx"] != idx or not np.array_equal(preds, w):
+                        raise AssertionError(f"serve fleet: a request of {len(lines)} records at delta {idx} is not "
+                                             f"the trainer-direct scoring (served at {meta['delta_idx']})")
+                    srcs.add(meta["src"])
+                if srcs != {1, 2}:
+                    raise AssertionError(f"serve fleet: delta {idx}'s requests were served by {srcs} only")
+                runs[f"delta{idx}"] = {"requests": len(reqs), "batches": n_batches, "launches": c,
+                                       "records": int(sum(half))}
+                print(f"serve fleet: {len(reqs)} requests at delta {idx} through the client, preds bitwise the "
+                      f"trainer-direct scoring, one gather a served batch ({c}); {card}", flush=True)
+                if idx == 0:
+                    # the first FL_DIRECT of them through one ScoreServer over
+                    # follower 1's follower, phase 5's measurement
+                    srv = ScoreServer(fleet[1].follower, scorer(), schema, device="cuda")
+                    srv.start()
+                    try:
+                        for _, recs in reqs[:FL_DIRECT]:
+                            t0 = time.perf_counter()
+                            srv.score(recs, timeout=300.0)
+                            lat_direct.append((time.perf_counter() - t0) * 1e3)
+                    finally:
+                        srv.stop()
+            nums["requests"] = runs
+            nums["latency_ms"] = {"fleet_client": request_ms(lat_fleet),
+                                  "fleet_client_first": request_ms(lat_fleet[:FL_DIRECT]),
+                                  "one_score_server_first": request_ms(lat_direct),
+                                  "fleet_client_histogram": client.latency_percentiles()}
+
+            # the hedge: follower 1 stalls, the client re-sends to follower 2
+            real = fleet[1].server.scorer.score_records
+
+            def stalled(*a, **kw):
+                time.sleep(FL_STALL_S)
+                return real(*a, **kw)
+
+            fleet[1].server.scorer.score_records = stalled
+            h0 = STAT_GET("serve.hedges")
+            hedged = []
+            lines, recs = _request(rng, spread, 512)
+            want = ref_scorer.score_records(recs, schema, table_source(lay, PeekSource(table)), trainer.params,
+                                            trainer.opt_state)
+            try:
+                with flags(serve_hedge_ms=FL_HEDGE_MS):
+                    for _ in range(2):  # round robin: follower 1 is the primary within two
+                        t0 = time.perf_counter()
+                        preds, meta = client.score_lines(lines)
+                        hedged.append((time.perf_counter() - t0) * 1e3)
+                        if not np.array_equal(preds, want):
+                            raise AssertionError("serve fleet: a hedged answer differs")
+            finally:
+                fleet[1].server.scorer.score_records = real
+            if STAT_GET("serve.hedges") <= h0 or max(hedged) >= FL_STALL_S * 1e3:
+                raise AssertionError(f"serve fleet: the hedge did not rescue the stalled follower ({hedged} ms)")
+            nums["hedge"] = {"request_ms": hedged, "stall_ms": FL_STALL_S * 1e3, "hedge_ms": FL_HEDGE_MS,
+                             "hedges": STAT_GET("serve.hedges") - h0}
+            time.sleep(FL_STALL_S)  # the stalled answer lands, and is counted away
+
+            # drain, then admit, each confirmed by the follower's own gossip
+            t0 = time.perf_counter()
+            if not client.drain(1, wait_s=30.0) or client.view.gossip_state(1) not in ("draining", "drained"):
+                raise AssertionError("serve fleet: the drain was not confirmed by follower 1's gossip")
+            drain_s = time.perf_counter() - t0
+            for _ in range(4):
+                _, meta = client.score_lines(_request(rng, spread, 256)[0])
+                if meta["src"] != 2:
+                    raise AssertionError("serve fleet: a drained follower answered")
+            t0 = time.perf_counter()
+            if not client.admit(1, wait_s=30.0):
+                raise AssertionError("serve fleet: the admit was not confirmed by follower 1's gossip")
+            _wait(lambda: client.view.queryable() == [1, 2], "follower 1 back in rotation")
+            nums["drain_s"], nums["admit_s"] = drain_s, time.perf_counter() - t0
+
+            # overload: past serve_shed_queue_depth the follower's server refuses, typed
+            srv = fleet[2].server
+            recs = _request(rng, spread, 256)[1]
+            real2 = srv.scorer.score_records
+
+            def slow(*a, **kw):
+                time.sleep(0.3)
+                return real2(*a, **kw)
+
+            srv.scorer.score_records = slow
+            shed0 = STAT_GET("serve.shed_requests")
+            pend, refused = [], None
+            try:
+                with flags(serve_shed_queue_depth=1):
+                    pend.append(srv.submit(recs))
+                    time.sleep(0.05)
+                    try:
+                        for _ in range(8):
+                            pend.append(srv.submit(recs))
+                    except ServeOverloadError as e:
+                        refused = str(e)
+                for p in pend:
+                    p.result(60.0)
+            finally:
+                srv.scorer.score_records = real2
+            if refused is None or STAT_GET("serve.shed_requests") <= shed0:
+                raise AssertionError("serve fleet: overload was not refused with ServeOverloadError")
+            nums["overload"] = {"admitted": len(pend), "refused": refused}
+        finally:
+            if client is not None:
+                client.stop()
+            for ff in fleet.values():
+                ff.stop()
+            for t in tps:
+                t.close()
+
+        # the gather at a follower's shape: a full served batch's working set
+        from paddlebox_tpu_torch import config as pconfig
+        from paddlebox_tpu_torch.data import build_batch, pack_batch
+        from paddlebox_tpu_torch.serve import version_source
+        from paddlebox_tpu_torch.table import PassWorkingSet
+
+        full = make_records(rng, spread, BATCH)
+        batch = build_batch(full, schema)
+        ws = PassWorkingSet(n_mesh_shards=1)
+        ws.add_keys(batch.keys)
+        v = fleet[1].follower.version()
+        tab = torch.from_numpy(ws.finalize(version_source(lay, v), round_to=pconfig.get_flag("serve_row_bucket"))
+                               .reshape(-1, lay.width)).to(dev)
+        db = pack_batch(batch, ws, schema, bucket=pconfig.get_flag("serve_key_bucket"))
+        uniq = torch.from_numpy(db.uniq_rows).to(dev)
+        R, W = tab.shape
+        U = uniq.shape[0]
+        err = check_gather(ck, tab, uniq, f"serve fleet follower R={R} W={W} U={U}")
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        med, warm_l2 = time_fns({"kernel": lambda: ck.pull_rows_cuda(tab, uniq),
+                                 "plain": lambda: ck.pull_rows_ref(tab, uniq),
+                                 "library": lambda: torch.index_select(tab, 0, uniq)}, flush)
+        moved = 2 * U * W * 4 + 4 * U
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        shape = {"R": R, "U": U, "n_uniq": db.n_uniq, "ms": med["kernel"], "plain_ms": med["plain"],
+                 "library_ms": med["library"], "bound_ms": bound, "bytes": moved, "bound_share": bound / med["kernel"],
+                 "sector_floor_ms": sector_floor_ms(uniq, R, W, False), "warm_l2_ms": warm_l2["kernel"],
+                 "warm_l2_plain_ms": warm_l2["plain"], "warm_l2_library_ms": warm_l2["library"]}
+        emit({"card": card, "kernel": "pull_rows_cuda", "path": "serve_fleet", "W": W, **shape, "reps": TIMING_REPS,
+              "l2": "cold"})
+        emit({"card": card, "phase": "serve_fleet", **nums, "launches": counts})
+        lat = nums["latency_ms"]
+        first, one = lat["fleet_client_first"], lat["one_score_server_first"]
+        print(f"serve fleet: client p50 {lat['fleet_client']['p50']:.3f} / p99 {lat['fleet_client']['p99']:.3f} "
+              f"/ mean {lat['fleet_client']['mean']:.3f} ms over {FL_REQUESTS} requests; on the first {FL_DIRECT} "
+              f"p50 {first['p50']:.3f} / p99 {first['p99']:.3f} / mean {first['mean']:.3f} ms against one "
+              f"ScoreServer's p50 {one['p50']:.3f} / p99 {one['p99']:.3f} / mean {one['mean']:.3f} ms on the same "
+              f"requests; hedge {nums['hedge']['request_ms']} "
+              f"ms under a {FL_STALL_S * 1e3:.0f} ms stall; drain {nums['drain_s']:.3f} s, admit "
+              f"{nums['admit_s']:.3f} s; {card}", flush=True)
+    print(f"phase 17 (serve_fleet) in {time.perf_counter() - t_phase:.3f} s; {card}", flush=True)
+    return counts, shape, err
 
 
 if __name__ == "__main__":

@@ -111,8 +111,9 @@ the batch count (the short host wraps around), ``num_pv_batches(
 global_count=True)`` the join phase's, ``end_pass`` the carry decision
 (``carry-gate``; a carried block is a ``MultiHostCarrier``), and the
 trainer the pad shapes. ``revert_pass`` bumps ``pass_epoch`` and discards
-the aborted attempt's exchange frames. The supervisor and the elastic
-membership over several hosts wait for ROADMAP Queue 1 item 5.3.
+the aborted attempt's exchange frames. A ``PassSupervisor`` over several
+hosts votes on each load, poison verdict and pass over the transport; its
+elastic membership installs a shrunk or grown ``ownership`` here.
 """
 
 from __future__ import annotations
@@ -1107,7 +1108,16 @@ class BoxPSDataset:
             from paddlebox_tpu_torch.train.rollback import PassGuard
 
             self._guard = PassGuard(self.table, trainer)
-            self._guard.begin(self.ws.sorted_keys)
+            if self.multi_host:
+                # the rows this host's writeback touches are the pass keys
+                # it owns, whichever host referenced them; the keys its own
+                # records reference live on their owners' tables (a
+                # snapshot of those would create them here and miss the
+                # owned keys only a peer referenced)
+                owned = self.ws.owned_shard_keys
+                self._guard.begin(np.concatenate(owned) if owned else np.zeros(0, np.uint64))
+            else:
+                self._guard.begin(self.ws.sorted_keys)
         return self.device_table
 
     def kick_writeback(self, trained_table) -> None:

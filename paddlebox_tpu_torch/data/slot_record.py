@@ -99,6 +99,29 @@ class SlotBatch:
         return seg
 
 
+def _slot_major(values, offsets, n_slots: int, dtype):
+    """Gather per-record, per-slot value ranges into one slot-major array.
+
+    ``values[i]`` holds record i's flat values and ``offsets[i]`` its
+    ``n_slots + 1`` slot boundaries. Returns (the values slot by slot, each
+    slot's records in order; int32 [n_slots, batch + 1] global offsets).
+    One vectorized gather instead of a copy a (record, slot)."""
+    bs = len(values)
+    offs = np.stack(offsets).astype(np.int64).reshape(bs, n_slots + 1)
+    lens = np.diff(offs, axis=1).T  # [n_slots, batch]
+    rec_base = np.concatenate([[0], np.cumsum([len(v) for v in values])[:-1]]).astype(np.int64)
+    starts = (rec_base[None, :] + offs[:, :-1].T).reshape(-1)
+    flat_lens = lens.reshape(-1)
+    total = int(flat_lens.sum())
+    flat = np.concatenate(values).astype(dtype, copy=False)
+    idx = np.arange(total, dtype=np.int64) + np.repeat(starts - (np.cumsum(flat_lens) - flat_lens), flat_lens)
+    out_offsets = np.zeros((n_slots, bs + 1), dtype=np.int64)
+    np.cumsum(lens, axis=1, out=out_offsets[:, 1:])
+    slot_base = np.concatenate([[0], np.cumsum(out_offsets[:, -1])[:-1]]).astype(np.int64)
+    out_offsets += slot_base[:, None]
+    return flat[idx], out_offsets.astype(np.int32)
+
+
 def build_batch(records: Sequence[SlotRecord], schema: SlotSchema) -> SlotBatch:
     """Concatenate records into a slot-major columnar batch.
 
@@ -107,36 +130,17 @@ def build_batch(records: Sequence[SlotRecord], schema: SlotSchema) -> SlotBatch:
     """
     bs = len(records)
     ns, nf = schema.num_sparse, schema.num_float
-
-    key_offsets = np.zeros((ns, bs + 1), dtype=np.int32)
-    float_offsets = np.zeros((nf, bs + 1), dtype=np.int32)
-
-    # first pass: lengths
-    for i, rec in enumerate(records):
-        u_lens = np.diff(rec.u64_offsets)
-        f_lens = np.diff(rec.f_offsets)
-        key_offsets[:, i + 1] = u_lens
-        float_offsets[:, i + 1] = f_lens
-    # prefix-sum rows, then make slot-major global offsets
-    np.cumsum(key_offsets, axis=1, out=key_offsets)
-    np.cumsum(float_offsets, axis=1, out=float_offsets)
-    slot_key_base = np.concatenate([[0], np.cumsum(key_offsets[:, -1])]).astype(np.int64)
-    slot_f_base = np.concatenate([[0], np.cumsum(float_offsets[:, -1])]).astype(np.int64)
-
-    keys = np.empty(int(slot_key_base[-1]), dtype=np.uint64)
-    floats = np.empty(int(slot_f_base[-1]), dtype=np.float32)
-    for i, rec in enumerate(records):
-        for s in range(ns):
-            v = rec.slot_keys(s)
-            dst = slot_key_base[s] + key_offsets[s, i]
-            keys[dst : dst + len(v)] = v
-        for s in range(nf):
-            v = rec.slot_floats(s)
-            dst = slot_f_base[s] + float_offsets[s, i]
-            floats[dst : dst + len(v)] = v
-    # rebase offsets to global (slot-major) coordinates
-    key_offsets += slot_key_base[:-1, None].astype(np.int32)
-    float_offsets += slot_f_base[:-1, None].astype(np.int32)
+    if bs:
+        keys, key_offsets = _slot_major(
+            [r.u64_values for r in records], [r.u64_offsets for r in records], ns, np.uint64
+        )
+        floats, float_offsets = _slot_major(
+            [r.f_values for r in records], [r.f_offsets for r in records], nf, np.float32
+        )
+    else:
+        keys, floats = np.empty(0, dtype=np.uint64), np.empty(0, dtype=np.float32)
+        key_offsets = np.zeros((ns, 1), dtype=np.int32)
+        float_offsets = np.zeros((nf, 1), dtype=np.int32)
 
     has_meta = schema.parse_ins_id or schema.parse_logkey
     return SlotBatch(

@@ -29,6 +29,9 @@ from paddlebox_tpu_torch.train.checkpoint import (
 )
 from paddlebox_tpu_torch.train.rollback import PassGuard
 from paddlebox_tpu_torch.train.supervisor import (
+    CoordinatedAbort,
+    ElasticConfig,
+    EpochCoordinator,
     HealthGates,
     Incident,
     PassFailure,
@@ -63,6 +66,9 @@ __all__ = [
     "validate_watermark",
     "verify_snapshot",
     "PassGuard",
+    "CoordinatedAbort",
+    "ElasticConfig",
+    "EpochCoordinator",
     "HealthGates",
     "Incident",
     "PassFailure",

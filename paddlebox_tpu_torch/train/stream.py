@@ -52,8 +52,11 @@ file's new byte range is consumed; ``stream.cut_publish`` fires at the
 two cut crash windows (intent durable / published but cursor stale);
 ``ckpt.compact`` lives in checkpoint.py.
 
-Not ported (ROADMAP Queue 1 item 5.3): streaming ranks that fence each cut
-with a verdict round (``stream_cut_round``, ``stream_confirm_round``).
+Coordinated streaming ranks (a supervisor with a coordinator) fence each
+cut with two verdict rounds on the host transport: ``stream_cut_round``
+before training (every rank agrees that cut N happens) and
+``stream_confirm_round`` after the publish (every rank's delta N is
+durable). A peer's no aborts the cut before anything trains.
 """
 
 from __future__ import annotations
@@ -69,7 +72,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from paddlebox_tpu_torch import config
 from paddlebox_tpu_torch.table.sparse_table import HostSparseTable
-from paddlebox_tpu_torch.train.checkpoint import _file_crc32
+from paddlebox_tpu_torch.train.checkpoint import MembershipEpochError, _file_crc32
 from paddlebox_tpu_torch.utils.faultinject import fire as _fault_fire
 from paddlebox_tpu_torch.utils.fs import atomic_write
 from paddlebox_tpu_torch.utils.monitor import STAT_ADD, STAT_OBSERVE
@@ -226,24 +229,21 @@ class DirectoryTailer:
 
 # ---- micro-pass boundary protocol ----------------------------------------
 #
-# Coordinated streaming ranks fence each cut with a verdict round before
-# training and a confirm round after publish. One process needs neither:
-# its exactly-once story is the durable cursor. The rounds exist only for
-# a coordinator, which needs the host transport.
+# Coordinated streaming ranks fence each cut with the verdict vocabulary of
+# every other boundary (ctl:verdict:<key>@e<N>, through
+# EpochCoordinator.exchange_verdict): a cut round before training and a
+# confirm round after publish. A single-rank stream (coord is None) skips
+# both; its exactly-once story is the durable cursor.
 
 
 def stream_cut_round(coord, cut_seq: int, ok: bool = True, detail: str = ""):
     """The epoch-fenced agreement that micro-pass ``cut_seq`` is cut."""
-    raise NotImplementedError(
-        "stream_cut_round is a verdict round between ranks: the coordinator of ROADMAP Queue 1 item 5.3"
-    )
+    return coord.exchange_verdict(f"stream-cut:{cut_seq}", ok, detail)
 
 
 def stream_confirm_round(coord, cut_seq: int, ok: bool = True, detail: str = ""):
     """The epoch-fenced confirmation that ``cut_seq``'s publish is durable."""
-    raise NotImplementedError(
-        "stream_confirm_round is a verdict round between ranks: the coordinator of ROADMAP Queue 1 item 5.3"
-    )
+    return coord.exchange_verdict(f"stream-confirm:{cut_seq}", ok, detail)
 
 
 class StreamSupervisor:
@@ -454,13 +454,22 @@ class StreamSupervisor:
             "oldest_unix": None if oldest_unix is None else float(oldest_unix),
             "records": int(records),
         }
+        coord = self.sup.coord
+        if coord is not None:
+            ok, detail = stream_cut_round(coord, seq)
+            if not ok:
+                raise RuntimeError(f"stream cut {seq} aborted by a peer: {detail}")
         cur = self.mgr.cursor()
         # the stream date's first publish anchors a base; each later cut is
-        # a minute-level delta
+        # a minute-level delta. An elastic epoch flip re-anchors through the
+        # supervisor (_force_base, MembershipEpochError): the cadence bends
+        # and the stream resumes from the cursor
         mode = "base" if cur is None or cur["date"] != self.date else "delta"
         t0 = self.clock()
         self.sup.run_pass([spool], date=self.date, save=mode)
         STAT_OBSERVE("stream.cut_train_s", self.clock() - t0)
+        if coord is not None:
+            stream_confirm_round(coord, seq)
         self.maybe_compact()
 
     # ---- compaction ------------------------------------------------------
@@ -472,6 +481,8 @@ class StreamSupervisor:
         cur = self.mgr.cursor()
         if cur is None or cur["date"] != self.date:
             return None
+        if int(cur.get("ownership_epoch", 0)) != int(self.mgr.ownership_epoch):
+            return None  # mid-flip: the next cut re-anchors first
         behind = int(cur["delta_idx"]) - int(cur.get("compact") or 0)
         if behind < self.compact_every:
             return None
@@ -479,7 +490,13 @@ class StreamSupervisor:
         scratch = HostSparseTable(
             table.layout, table.opt, n_shards=table.n_shards, seed=0
         )
-        return self.mgr.compact(self.date, scratch)
+        try:
+            return self.mgr.compact(self.date, scratch)
+        except MembershipEpochError:
+            # an epoch flip landed between the cursor read and the fold:
+            # the compact waits for the re-anchor, as a delta would
+            STAT_ADD("stream.compact_deferred")
+            return None
 
     # ---- production loop -------------------------------------------------
 

@@ -163,9 +163,12 @@ ones ("resident", "packer", "resident_pv", "pv_packer"); a pass held as
 SlotRecords raises, as in the JAX package (its pads are not locksteped).
 ``trained_table()`` is this rank's block [1, cap, width], which its
 ``end_pass`` writes back into its own host table; ``trained_table_device()``
-its shard, which ``end_pass`` carries in a ``MultiHostCarrier``. A metric
-registry, a dump and async dense over several hosts wait for ROADMAP
-Queue 1 item 5.3, as does the supervisor.
+its shard, which ``end_pass`` carries in a ``MultiHostCarrier``. A
+``PassSupervisor`` over several hosts takes each rank's transport and
+keeps the ranks' passes in lockstep through its verdict exchange. Async
+dense, a metric registry and a dump over several hosts are refused, as
+the JAX trainer cannot run them over several processes either (ROADMAP
+Queue 4).
 """
 
 from __future__ import annotations
@@ -1040,9 +1043,14 @@ class CTRTrainer:
                 f"{omap.epoch} (live={list(omap.live_ranks)}): it must not train"
             )
         if omap.range_of(tp.rank) != (self.plan.rank, self.plan.rank + 1):
+            # an elastic shrink or grow hands a rank several shards (or
+            # none); rank r's block sits at mesh shard r, and neither this
+            # trainer nor the JAX one (process i's block at shard i) can
+            # place more than one, so the elastic day runs on the host plane
             raise RuntimeError(
-                f"rank {tp.rank} owns mesh shards {omap.range_of(tp.rank)}; one process a "
-                f"card trains shard {self.plan.rank} only"
+                f"rank {tp.rank} owns mesh shards {omap.range_of(tp.rank)} of ownership epoch "
+                f"{omap.epoch}: one process a card places only its own shard {self.plan.rank}, "
+                "so a rank whose range an elastic membership change moved cannot train on the mesh"
             )
         if dataset.store is None:
             raise RuntimeError(
@@ -1059,10 +1067,22 @@ class CTRTrainer:
                 f"the working set has {ws.n_mesh_shards} mesh shards, the mesh "
                 f"{self.plan.world} ranks: BoxPSDataset(n_mesh_shards=world)"
             )
-        if self.metric_registry is not None or self.dump_pool is not None or self.async_dense is not None:
+        if self.async_dense is not None:
+            # as the JAX package's train/trainer.py:108-115 refuses it:
+            # each process would push globally reduced gradients into its
+            # own host table
             raise NotImplementedError(
-                "a metric registry, a dump or async dense over several hosts: "
-                "ROADMAP Queue 1 item 5.3"
+                "async dense over several hosts is refused, as the JAX trainer refuses it over "
+                "several processes: ROADMAP Queue 4 item 1"
+            )
+        if self.metric_registry is not None or self.dump_pool is not None:
+            # the JAX trainer feeds the step's global outputs to the registry
+            # and the dump (its train/trainer.py:1221-1228, 1234-1245); over
+            # several processes those arrays span devices no one process
+            # can address, so it cannot run either
+            raise NotImplementedError(
+                "a metric registry or a dump over several hosts reads the global batch's outputs, "
+                "which the JAX trainer cannot fetch over several processes: ROADMAP Queue 4 item 2"
             )
         dataset.mesh_plan = self.plan
         self._digest_ws = dataset.ws

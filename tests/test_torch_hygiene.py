@@ -51,7 +51,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
               "obs.trace_context", "obs.flight_recorder", "obs.metrics_writer", "utils.trace",
               "utils.line_reader", "data.data_generator", "data.quarantine", "metrics.auc_runner",
               "utils.backendguard", "train.supervisor", "train.stream", "ops.host_codec",
-              "parallel.transport", "parallel.membership", "table.dist_ws", "data.record_store"):
+              "parallel.transport", "parallel.membership", "table.dist_ws", "data.record_store",
+              "serve.fleet"):
         assert f"paddlebox_tpu_torch.{m}" in walked
 
 

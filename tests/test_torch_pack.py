@@ -113,3 +113,28 @@ def test_merge_unique_keys_threaded_byte_equal():
     chunks = [np.unique(rng.integers(0, 1 << 40, 100_000).astype(np.uint64)) for _ in range(3)]
     _assert_same(merge_unique_keys(chunks, threads=4), jmerge_unique_keys(chunks, threads=4))
     _assert_same(merge_unique_keys(chunks, threads=4), np.unique(np.concatenate(chunks)))
+
+
+@pytest.mark.parametrize("n_records", [0, 1, 37])
+def test_build_batch_byte_equal(n_records):
+    """The slot-major batch, byte for byte the JAX package's: slots of 0-3
+    keys, a float slot of 0-2 values, and an empty batch."""
+    from paddlebox_tpu.data.slot_record import SlotRecord as JSlotRecord
+    from paddlebox_tpu_torch.data.slot_record import SlotRecord
+
+    rng = np.random.default_rng(n_records)
+    infos = [("w", "float"), ("s0", "uint64"), ("s1", "uint64"), ("s2", "uint64")]
+    jschema = JSlotSchema([JSlotInfo(n, type=t) for n, t in infos])
+    schema = SlotSchema([SlotInfo(n, type=t) for n, t in infos])
+    recs, jrecs = [], []
+    for _ in range(n_records):
+        u_off = np.concatenate([[0], np.cumsum(rng.integers(0, 4, 3))]).astype(np.uint32)
+        f_off = np.concatenate([[0], np.cumsum(rng.integers(0, 3, 1))]).astype(np.uint32)
+        u = rng.integers(1, 1 << 62, int(u_off[-1]), dtype=np.uint64)
+        f = rng.random(int(f_off[-1])).astype(np.float32)
+        recs.append(SlotRecord(u64_values=u, u64_offsets=u_off, f_values=f, f_offsets=f_off))
+        jrecs.append(JSlotRecord(u64_values=u, u64_offsets=u_off, f_values=f, f_offsets=f_off))
+    got, want = build_batch(recs, schema), jbuild_batch(jrecs, jschema)
+    assert got.batch_size == want.batch_size == n_records
+    for name in ("keys", "key_offsets", "float_values", "float_offsets"):
+        _assert_same(getattr(got, name), getattr(want, name))

@@ -372,8 +372,22 @@ def test_backlog_stretches_cadence_and_recovers(tmp_path, pkg):
 
 
 def test_coordinator_rounds_are_refused():
+    """The stream's rounds are ported: no longer refused, each is one
+    verdict exchange on its tag, the JAX package's
+    (``tests/test_torch_coordinator.py`` runs them over a wire)."""
+    from paddlebox_tpu.train import stream as jstream
     from paddlebox_tpu_torch.train import stream
 
-    for fn in (stream.stream_cut_round, stream.stream_confirm_round):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5.3"):
-            fn(object(), 1)
+    class Coord:
+        def __init__(self):
+            self.calls = []
+
+        def exchange_verdict(self, key, ok, detail=""):
+            self.calls.append((key, ok, detail))
+            return ok, detail
+
+    port, ref = Coord(), Coord()
+    for mod, coord in ((stream, port), (jstream, ref)):
+        assert mod.stream_cut_round(coord, 1) == (True, "")
+        assert mod.stream_confirm_round(coord, 1, False, "torn") == (False, "torn")
+    assert port.calls == ref.calls == [("stream-cut:1", True, ""), ("stream-confirm:1", False, "torn")]

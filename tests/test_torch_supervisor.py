@@ -422,21 +422,25 @@ def test_gates_and_backoff_units(pkg):
 
 
 def test_refusals_name_their_roadmap_item(tmp_path):
-    """What the supervisor still owes over several hosts raises
-    NotImplementedError naming ROADMAP Queue 1 item 5.3; an explicit
-    compile-cache directory names item 6. A CPU trainer needs no backend
-    probe."""
+    """The supervisor over several ranks is ported: a transport of several
+    ranks makes a coordinator, a mesh trainer needs its rank's transport
+    (ValueError naming why), and ``join_day`` needs elastic mode and a
+    coordinator. An explicit compile-cache directory still raises
+    NotImplementedError naming ROADMAP Queue 1 item 6. A CPU trainer needs
+    no backend probe."""
     st = _sup("torch", tmp_path, "ref")
     assert st.sup.backend_verdict is None
     sup_cls = ttrain.PassSupervisor
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5.3"):
-        sup_cls(st.ds, st.tr, transport=SimpleNamespace(n_ranks=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5.3"):
-        sup_cls(st.ds, st.tr, elastic=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5.3"):
-        sup_cls(st.ds, SimpleNamespace(plan=SimpleNamespace(world=2), device=torch.device("cpu")))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5.3"):
-        st.sup.join_day(DATE, [])
+    assert sup_cls(st.ds, st.tr, transport=SimpleNamespace(n_ranks=2, rank=0)).coord is not None
+    assert sup_cls(st.ds, st.tr, transport=SimpleNamespace(n_ranks=1, rank=0)).coord is None
+    mesh_tr = SimpleNamespace(plan=SimpleNamespace(world=2, rank=1), device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="needs transport="):
+        sup_cls(st.ds, mesh_tr)
+    with pytest.raises(ValueError, match="transport rank 0 of 2 != mesh rank 1 of 2"):
+        sup_cls(st.ds, mesh_tr, transport=SimpleNamespace(n_ranks=2, rank=0))
+    assert sup_cls(st.ds, mesh_tr, transport=SimpleNamespace(n_ranks=2, rank=1)).coord is not None
+    with pytest.raises(ValueError, match="join_day requires elastic mode"):
+        st.sup.join_day([])
     prev = tconfig.get_flag("compile_cache_dir")
     try:
         tconfig.set_flag("compile_cache_dir", str(tmp_path / "cc"))
