@@ -341,7 +341,33 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    hedge rescuing a stalled follower, drain and admit confirmed by the
    follower's gossip, the typed overload refusal; the client's latencies
    beside one ``ScoreServer``'s on the first FL_DIRECT requests, and the
-   gather at a follower's shape bitwise and timed.
+   gather at a follower's shape bitwise and timed;
+18. the long tail ("long_tail"), at full width: the extended pull
+   (``use_expand``) on ``ValueLayout(embedx_dim=16, expand_embed_dim=8)``
+   (its width printed) with ``tests/test_replica_cache.py``'s expand model
+   over bench.py's data from ``--seed + 18`` (2 files, 16,384 records, 4
+   steps a feed): the resident feed at K = 4 and K = 1, the packer and the
+   slow feed and a packer twin with the plain gather and writeback give
+   bitwise-equal tables, params, Adam moments and losses; 2 gathers + 1
+   writeback a step; the expand block and its g2 column train on the
+   touched rows; a resident superstep makes no host sync; the card is
+   within phase 6's bounds of the port's CPU path; both kernels timed at
+   this W. In phase 12's spawned worlds (NCCL and gloo) the same trainer
+   takes 4 resident steps on the mesh, within phase 12's bounds of one
+   device fed the same global batches, both kernels bitwise at the
+   owner's ids. ``pull_cache_value`` on a 1,048,576 x 16 ``ReplicaCache``
+   at 4,096 x 39 ids (with ids at and past both ends) launches one
+   ``pull_rows_cuda``, bitwise its plain version and the host rows where
+   they are defined, NaN elsewhere, and an ``InputTable`` with its miss
+   row answers as ``lookup_input``; the gather there is timed beside
+   ``index_select``. The CONV, PCOC and per-slot-threshold seqpools,
+   their transforms, ``batch_fc`` and ``fused_concat`` at the flagship
+   shape against the CPU path; the strategy's ``recompute`` bitwise the
+   plain DeepFM over a superstep, ``amp``'s logits against the CPU path
+   within AMP_ULPS bf16 ulps, and ``gradient_merge`` (k = 4) over 8
+   steps: params bitwise unchanged on the mini-steps that do not emit,
+   the emitting ones within phase 6's params bound of the CPU path, no
+   host sync in a ``MultiSteps`` superstep.
 
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -355,12 +381,14 @@ import argparse
 import contextlib
 import copy
 import dataclasses
+import faulthandler
 import hashlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 import warnings
@@ -985,16 +1013,18 @@ def main() -> int:
     boundary_counts = timed("9 boundary", boundary_phase, args, card, ck, lay, schema, train)
     join_counts, join_err = timed("10 join_update", join_update_phase, args, dev, card, ck, pull_push, lay)
     zoo_counts, dcn, zoo_err = timed("11 zoo", zoo_phase, args, dev, card, ck, lay)
-    mesh_counts, owner, join_owner, mesh_err = timed("12-13 mesh", mesh_phases, args, dev, card, ck, lay)
+    mesh_counts, owner, join_owner, mesh_err, mesh18 = timed("12-13 mesh", mesh_phases, args, dev, card, ck, lay)
     supervised_counts, sup_err = timed("14 supervised_day", supervised_phase, args, dev, card, ck, lay, schema)
     multihost_counts, mh_owner, mh_err = timed("15 multihost", multihost_phase, args, dev, card, ck, lay)
     sh_counts, sh_owner, sh_err = timed("16 supervised_hosts", supervised_hosts_phase, args, dev, card, ck, lay)
     fleet_counts, fleet_shape, fleet_err = timed("17 serve_fleet", serve_fleet_phase, args, dev, card, ck, lay,
                                                  schema)
+    lt_counts, lt_shapes, lt_err = timed("18 long_tail", long_tail_phase, args, dev, card, ck, pull_push, mesh18)
     emit({"card": card, "phase_wall_s": walls, "script_s": time.perf_counter() - t_start})
 
     by_path = {"serve": serve_counts, **train["counts"], **published, "boundary": boundary_counts, **join_counts,
-               **zoo_counts, **mesh_counts, **supervised_counts, **multihost_counts, **sh_counts, **fleet_counts}
+               **zoo_counts, **mesh_counts, **supervised_counts, **multihost_counts, **sh_counts, **fleet_counts,
+               **lt_counts}
     emit({"kernels": [
         {
             "name": name,
@@ -1015,7 +1045,10 @@ def main() -> int:
             # update), then phase 16's supervised two-host days (clean,
             # faulted with its reverted attempt, poisoned) and phase 17's
             # fleet (its producer's passes and the followers' served
-            # batches at the base and at delta 1); serve_tier is phase 8's
+            # batches at the base and at delta 1), then phase 18's extended
+            # trainer (its four feeds), the replica cache's pull_cache_value,
+            # the strategy's recompute and gradient_merge runs and the
+            # extended mesh in phase 12's worlds; serve_tier is phase 8's
             # tiered serving
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
@@ -1046,12 +1079,16 @@ def main() -> int:
             # the gather at the device scoring tier's shape (phase 8): one
             # shard's bucket of a full request
             **({"serve_tier_shape": tier_shape} if key == "gather" else {}),
+            # both kernels at the extended training shape (phase 18, W with
+            # the expand block), and the gather at pull_cache_value's
+            "expand_train_shape": lt_shapes["expand_train"][name],
+            **({"replica_cache_shape": lt_shapes["replica_cache"]} if key == "gather" else {}),
         }
         for name, source, replaces, key, err in (
             ("pull_rows_cuda", "paddlebox_tpu_torch/ops/csrc/gather_rows.cu", GATHER_REPLACES, "gather",
-             max(max_err, train["gather_err"], join_err, zoo_err, mesh_err, sup_err, mh_err, sh_err, fleet_err)),
+             max(max_err, train["gather_err"], join_err, zoo_err, mesh_err, sup_err, mh_err, sh_err, fleet_err, lt_err)),
             ("write_rows_cuda", "paddlebox_tpu_torch/ops/csrc/write_rows.cu", WRITE_REPLACES, "write",
-             max(write_err, train["write_err"], join_err, zoo_err, mesh_err, sup_err, mh_err, sh_err)),
+             max(write_err, train["write_err"], join_err, zoo_err, mesh_err, sup_err, mh_err, sh_err, lt_err)),
         )
     ]})
     print(card, flush=True)
@@ -3529,11 +3566,13 @@ MESH_TAGS = {"nccl": {"backend": "nccl", "ranks_per_card": 1},
              "gloo": {"backend": "gloo", "ranks_per_card": MESH_GLOO_RANKS}}
 
 
-def mesh_ranks(plan, spec12, spec13):
-    """Phases 12 and 13 on one rank of a world, in one spawned process (the
-    process, its CUDA context and its collectives' set-up are paid once)."""
+def mesh_ranks(plan, spec12, spec13, spec18):
+    """Phases 12 and 13, and phase 18's extended mesh, on one rank of a
+    world, in one spawned process (the process, its CUDA context and its
+    collectives' set-up are paid once)."""
     mesh_rank(plan, spec12)
     mesh_join_rank(plan, spec13)
+    mesh_expand_rank(plan, spec18)
 
 
 def _read_ranks(out, world):
@@ -3549,35 +3588,39 @@ def _read_ranks(out, world):
 def mesh_phases(args, dev, card, ck, lay):
     """Phases 12 and 13 in the NCCL world (one rank a card) and the gloo
     world of two ranks on cuda:0, one spawn a world running both phases'
-    rank functions. Returns the launch counts by path, the kernels'
-    numbers at phase 12's and phase 13's owner shapes and their max abs
-    error."""
+    rank functions and phase 18's extended mesh. Returns the launch counts
+    by path, the kernels' numbers at phase 12's and phase 13's owner
+    shapes, their max abs error, and phase 18's mesh results."""
     from paddlebox_tpu_torch.fleet.launch import spawn
 
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
         p12 = mesh_prepare(args, dev, lay, tmp)
         p13 = mesh_join_prepare(args, dev, lay, tmp)
-        worlds12, worlds13 = {}, {}
+        p18 = mesh_expand_prepare(args, dev, p12["files"][:LT_FILES])
+        worlds12, worlds13, worlds18 = {}, {}, {}
         for name, backend, world, device, per_card in MESH_WORLDS:
             world = world or min(torch.cuda.device_count(), MESH_NCCL_MAX)
             outs = []
-            for phase in ("12", "13"):
+            for phase in ("12", "13", "18"):
                 outs.append(os.path.join(tmp, f"{name}-{phase}"))
                 os.makedirs(outs[-1])
             spec12 = {"files": p12["files"], "seed": args.seed + 8, "out": outs[0], "ranks_per_card": per_card}
             spec13 = {"pv_files": p13["pv_files"], "boundary_files": p13["boundary_files"],
                       "seed": args.seed + MESH_JOIN_SEED, "out": outs[1], "ranks_per_card": per_card}
+            spec18 = {"files": p18["files"], "seed": args.seed + LT_SEED, "out": outs[2], "ranks_per_card": per_card}
             t0 = time.perf_counter()
             spawn(mesh_ranks, world, f"file://{tmp}/rdv-{name}", backend=backend, device=device,
-                  args=(spec12, spec13), timeout_s=MESH_TIMEOUT_S)
+                  args=(spec12, spec13, spec18), timeout_s=MESH_TIMEOUT_S)
             wall = time.perf_counter() - t0
             worlds12[name] = (_read_ranks(outs[0], world), wall)
             worlds13[name] = (_read_ranks(outs[1], world), wall)
+            worlds18[name] = (_read_ranks(outs[2], world), wall)
         counts, owner, err = mesh_report(args, dev, card, ck, lay, worlds12, p12)
         counts13, join_owner, err13 = mesh_join_report(args, dev, card, ck, lay, worlds13, p13)
+        mesh18 = mesh_expand_report(card, worlds18, p18)
     print(f"phases 12-13 (mesh) in {time.perf_counter() - t_phase:.3f} s; {card}", flush=True)
-    return {**counts, **counts13}, owner, join_owner, max(err, err13)
+    return {**counts, **counts13}, owner, join_owner, max(err, err13), mesh18
 
 
 def mesh_prepare(args, dev, lay, tmp):
@@ -6215,6 +6258,9 @@ FL_MIN_RECORDS, FL_MAX_RECORDS = 256, BATCH
 FL_FLAGS = dict(serve_health_beat_s=0.05, serve_health_dead_s=30.0, serve_client_retries=4,
                 serve_client_backoff_s=0.02, serve_request_timeout_ms=60000.0, transport_heartbeat_s=0.05)
 FL_HEDGE_MS = 100.0  # the hedge check's budget
+FL_DIAG_STATS = ("serve.request_loop_errors", "serve.fleet_deaths", "serve.client_retries", "serve.late_responses",
+                 "transport.reader_disconnects", "transport.heartbeat_errors", "transport.incarnation_resets",
+                 "transport.frame_stalls")
 FL_STALL_S = 1.5  # the stalled follower's delay, well past FL_HEDGE_MS
 
 
@@ -6256,6 +6302,7 @@ def serve_fleet_phase(args, dev, card, ck, lay, schema):
     from paddlebox_tpu_torch.serve import (
         FleetClient, FleetFollower, FleetStage, Follower, ScoreServer, Scorer, ServeOverloadError, table_source,
     )
+    from paddlebox_tpu_torch.serve.fleet import ServeRequestError
     from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig
     from paddlebox_tpu_torch.train import CheckpointManager, TrainStepConfig, read_watermark
     from paddlebox_tpu_torch.utils import faultinject as fault
@@ -6264,6 +6311,7 @@ def serve_fleet_phase(args, dev, card, ck, lay, schema):
     t_phase = time.perf_counter()
     rng = np.random.default_rng(args.seed + FL_SEED)
     nums, counts = {}, {}
+    stalls0 = STAT_GET("transport.frame_stalls")  # frame bodies the transport dropped and replayed
     opt = SparseOptimizerConfig()
     cfg = TrainStepConfig(num_slots=NUM_SLOTS, batch_size=BATCH, layout=lay, sparse_opt=opt)
 
@@ -6347,7 +6395,40 @@ def serve_fleet_phase(args, dev, card, ck, lay, schema):
                     served = []
                     for lines, _ in reqs:
                         t0 = time.perf_counter()
-                        preds, meta = client.score_lines(lines)
+                        try:
+                            preds, meta = client.score_lines(lines)
+                        except ServeRequestError:
+                            # what the client saw when it gave up, for the log
+                            print(f"serve fleet: a request of {len(lines)} lines failed after "
+                                  f"{time.perf_counter() - t0:.3f} s; view {client.view.snapshot()}, followers "
+                                  f"in flight {[ff.inflight() for ff in fleet.values()]}, gossiped "
+                                  f"{[client.view.gossip_state(r) for r in fleet]}; {card}", flush=True)
+                            print(f"serve fleet: cuda memory allocated {torch.cuda.memory_allocated()} reserved "
+                                  f"{torch.cuda.memory_reserved()}; threads {[t.name for t in threading.enumerate()]}",
+                                  flush=True)
+                            now = time.monotonic()
+                            for r, tp in enumerate(tps):
+                                print(f"serve fleet: transport {r}: dead {sorted(tp._dead)}, silent s "
+                                      f"{ {k: round(now - v, 3) for k, v in tp._last_seen.items()} }, inbox "
+                                      f"{sorted(tp._inbox)}", flush=True)
+                            for r, tp in enumerate(tps):
+                                socks = {f"to{d}": lk.sock for d, lk in tp._links.items() if lk.sock is not None}
+                                socks.update({f"in{i}": c for i, c in enumerate(list(tp._conns))})
+                                desc = {}
+                                for k, sk in socks.items():
+                                    fd = sk.fileno()
+                                    try:
+                                        desc[k] = (fd, os.readlink(f"/proc/self/fd/{fd}"), sk.getsockname()[1],
+                                                   sk.getpeername()[1])
+                                    except OSError as e:
+                                        desc[k] = (fd, repr(e))
+                                print(f"serve fleet: transport {r} sockets {desc}; retained "
+                                      f"{ {d: len(lk.retained) for d, lk in tp._links.items()} }", flush=True)
+                            print(f"serve fleet: client marked dead {sorted(client._marked_dead)}; stats "
+                                  f"{ {k: STAT_GET(k) for k in FL_DIAG_STATS} }",
+                                  flush=True)
+                            faulthandler.dump_traceback(file=sys.stdout, all_threads=True)
+                            raise
                         lat_fleet.append((time.perf_counter() - t0) * 1e3)
                         served.append((preds, meta))
                 torch.cuda.synchronize()
@@ -6502,6 +6583,7 @@ def serve_fleet_phase(args, dev, card, ck, lay, schema):
                  "warm_l2_plain_ms": warm_l2["plain"], "warm_l2_library_ms": warm_l2["library"]}
         emit({"card": card, "kernel": "pull_rows_cuda", "path": "serve_fleet", "W": W, **shape, "reps": TIMING_REPS,
               "l2": "cold"})
+        nums["transport_frame_stalls"] = STAT_GET("transport.frame_stalls") - stalls0
         emit({"card": card, "phase": "serve_fleet", **nums, "launches": counts})
         lat = nums["latency_ms"]
         first, one = lat["fleet_client_first"], lat["one_score_server_first"]
@@ -6514,6 +6596,584 @@ def serve_fleet_phase(args, dev, card, ck, lay, schema):
               f"{nums['admit_s']:.3f} s; {card}", flush=True)
     print(f"phase 17 (serve_fleet) in {time.perf_counter() - t_phase:.3f} s; {card}", flush=True)
     return counts, shape, err
+
+
+
+# ---- 18. the long tail: the extended pull, the replica cache, the ops and the strategy
+
+LT_SEED = 18  # the phase's data seed offset
+LT_FILES = 2  # x RECORDS_PER_FILE: 16384 records, 4 steps of 4096 a feed
+LT_STEPS = 4
+LT_K = 4  # resident_scan_batches of the phase's resident runs
+LT_EXPAND = 8  # expand_embed_dim: the reference compiles {0-8, 64} (SURVEY.md B3, box_wrapper.cc:444-457)
+CACHE_ROWS, CACHE_DIM = 1 << 20, 16  # a 64 MiB replica cache
+INPUT_KEYS = 4096  # the InputTable's keys besides its miss row
+GM_K, GM_STEPS = 4, 8  # gradient_merge: k_steps, mini-steps
+# card vs CPU for the ops: the seqpools sum each segment in key order on
+# both and take the same logs (a log may round by an ulp on either);
+# batch_fc is a matmul whose sums cuBLAS and the CPU order differently
+OPS_POOL_RTOL, OPS_POOL_ATOL = 1e-6, 1e-6
+OPS_FC_RTOL, OPS_FC_ATOL = 1e-5, 1e-5
+# amp against the CPU path: both run the model's matmuls and sums in bf16,
+# which cuBLAS and the CPU accumulate in other orders; the bound is this
+# many bf16 ulps (2**-7 relative) at the logits' largest magnitude
+AMP_ULPS = 4
+
+
+class ExpandModel(torch.nn.Module):
+    """``tests/test_replica_cache.py``'s expand model: a linear term over
+    the slot features plus one over the pooled expand embeddings, fp32,
+    its weights drawn from ``seed``. The JAX package ships no expand model,
+    so the port does not either."""
+
+    def __init__(self, n_slots, pull_width, expand_dim, seed):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.w = torch.nn.Parameter(torch.randn(n_slots * pull_width, generator=g) * 0.05)
+        self.we = torch.nn.Parameter(torch.randn(n_slots * expand_dim, generator=g) * 0.05)
+
+    def forward(self, slot_feats, dense=None, expand=None):
+        b = slot_feats.shape[0]
+        return slot_feats.reshape(b, -1) @ self.w + expand.reshape(b, -1) @ self.we
+
+
+def lt_layout():
+    from paddlebox_tpu_torch.table import ValueLayout
+
+    return ValueLayout(embedx_dim=EMBEDX_DIM, expand_embed_dim=LT_EXPAND)
+
+
+def lt_dataset(seed, files, n_mesh_shards=1):
+    """bench.py's tier over the phase's files: the native store and parser,
+    an expand layout, ``begin_pass(round_to=512)``."""
+    from paddlebox_tpu_torch.data import BoxPSDataset
+    from paddlebox_tpu_torch.table import HostSparseTable, SparseOptimizerConfig
+
+    table = HostSparseTable(lt_layout(), SparseOptimizerConfig(embedx_threshold=0.0), n_shards=64, seed=seed)
+    ds = BoxPSDataset(bench_schema(), table, batch_size=BATCH, shuffle_mode="local", seed=seed,
+                      n_mesh_shards=n_mesh_shards)
+    ds.set_filelist(files)
+    ds.load_into_memory()
+    ds.begin_pass(round_to=512)
+    return ds
+
+
+def lt_trainer(seed, device="cuda", dense_opt=None, plan=None, world=1):
+    """The extended trainer at full width: ExpandModel, ``use_expand``."""
+    from paddlebox_tpu_torch.table import SparseOptimizerConfig
+    from paddlebox_tpu_torch.train import Adam, CTRTrainer, TrainStepConfig
+
+    lay = lt_layout()
+    cfg = TrainStepConfig(num_slots=NUM_SLOTS, batch_size=BATCH // world, layout=lay,
+                          sparse_opt=SparseOptimizerConfig(embedx_threshold=0.0), auc_buckets=100_000,
+                          use_expand=True)
+    model = ExpandModel(NUM_SLOTS, lay.pull_width, lay.expand_dim, seed)
+    tr = CTRTrainer(model, cfg, dense_opt=dense_opt or Adam(1e-3), device=None if plan else device, plan=plan)
+    tr.init_params()
+    return tr
+
+
+def lt_state(tr):
+    """(table, params, first moments, second moments) of a trainer, on the host."""
+    adam = tr._state.opt_state
+    return (tr.trained_table(), {k: v.cpu() for k, v in tr.params.items()},
+            {k: v.cpu() for k, v in adam.mu.items()}, {k: v.cpu() for k, v in adam.nu.items()})
+
+
+def lt_same(a, b) -> bool:
+    return (a[0].tobytes() == b[0].tobytes()
+            and all(torch.equal(a[i][k], b[i][k]) for i in (1, 2, 3) for k in a[1]))
+
+
+def mesh_expand_prepare(args, dev, files):
+    """Phase 18's one-device reference for its mesh run: the extended
+    trainer's 4 packer steps over phase 12's first files."""
+    seed = args.seed + LT_SEED
+    ds = lt_dataset(seed, files)
+    with flags(enable_resident_feed=0):
+        one = lt_trainer(seed, device=dev)
+        losses = []
+        one.train_pass(ds, n_batches=LT_STEPS, on_batch=lambda i, m: losses.append(float(m["loss"])))
+    keys, rows = _mesh_key_rows(one, ds, LT_STEPS)
+    del one, ds
+    torch.cuda.empty_cache()
+    return {"files": files, "ref": (losses, keys, rows)}
+
+
+def mesh_expand_rank(plan, spec):
+    """Phase 18 on one rank of phase 12's worlds: the extended trainer on
+    the mesh, LT_STEPS resident steps (K = LT_K) from its replica of the
+    files; 2 gathers + 1 writeback a step; both kernels bitwise at the
+    owner's ids of the expand shard."""
+    from paddlebox_tpu_torch.ops import cuda_kernels as ck
+
+    n, r, dev = plan.world, plan.rank, plan.device
+    tag = _mesh_tag(plan.backend, spec["ranks_per_card"])
+    ds = lt_dataset(spec["seed"], spec["files"], n_mesh_shards=n)
+    tr = lt_trainer(spec["seed"], plan=plan, world=n)
+    with flags(resident_scan_batches=LT_K):
+        tr.prepare_pass(ds, n_batches=LT_STEPS)
+        losses = []
+        torch.cuda.synchronize(dev)
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr.train_pass(ds, n_batches=LT_STEPS, on_batch=lambda i, m: losses.append(m["loss"]))
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        counts = dict(ck.launch_counts)
+    if tr.last_feed != "resident":
+        raise AssertionError(f"expand mesh {tag}: the trainer took the {tr.last_feed} feed")
+    if counts["pull_rows_cuda"] != 2 * LT_STEPS or counts["write_rows_cuda"] != LT_STEPS:
+        raise AssertionError(f"expand mesh {tag} rank {r}: launches {counts} for {LT_STEPS} steps")
+    losses = torch.stack(losses).cpu()
+    if not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"expand mesh {tag} rank {r}: non-finite loss {losses.tolist()}")
+    keys, rows = _mesh_key_rows(tr, ds, LT_STEPS)
+    shard = tr._state.table
+    with flags(enable_resident_feed=0):
+        first = next(ds.batch_indices(1))
+        packer = tr._get_packer(ds)
+        packer.freeze_shapes([first], n_devices=n)
+        db = packer.pack_sharded(first, n)
+    recv = torch.from_numpy(np.ascontiguousarray(db.req_ranks[:, r, :].reshape(-1))).to(dev)
+    uniq = torch.unique(recv)
+    tail = recv.numel() - uniq.numel()
+    old_ids = torch.cat([uniq, torch.zeros(tail, dtype=uniq.dtype, device=dev)])
+    write_ids = torch.cat([uniq.long(), torch.full((tail,), shard.shape[0], dtype=torch.long, device=dev)])
+    what = f"expand mesh {tag} rank {r} owner R={shard.shape[0]} W={shard.shape[1]} U={recv.numel()}"
+    kerr = max(check_gather(ck, shard, recv, what + " pull ids"),
+               check_gather(ck, shard, old_ids, what + " merge old-row ids"),
+               check_write(ck, shard, write_ids, ck.pull_rows_ref(shard, old_ids) + 0.5, what + " merge writeback ids"))
+    res = {"rank": r, "losses": losses.tolist(), "counts": counts, "wall_s": wall, "kernel_err": kerr,
+           "W": int(shard.shape[1]), "owner_R": int(shard.shape[0]), "owner_U": int(recv.numel())}
+    np.savez(os.path.join(spec["out"], f"rank{r}.npz"), four_keys=keys, four_rows=rows)
+    with open(os.path.join(spec["out"], f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def mesh_expand_report(card, worlds, prep):
+    """Phase 18's mesh checks: each world's ranks alike and within phase
+    12's bounds of one device fed the same global batches."""
+    ref_losses, ref_keys, ref_rows = prep["ref"]
+    counts, nums = {}, {}
+    for name, (ranks, _) in worlds.items():
+        tag = _mesh_tag(**MESH_TAGS[name])
+        for rk in ranks:
+            if rk["losses"] != ranks[0]["losses"]:
+                raise AssertionError(f"expand mesh {tag}: the ranks' losses differ")
+        keys, first = np.unique(np.concatenate([rk["four_keys"] for rk in ranks]), return_index=True)
+        rows = np.concatenate([rk["four_rows"] for rk in ranks])[first]
+        tab_d, loss_d = _mesh_compare(f"expand mesh {tag} vs one device", ranks[0]["losses"], rows, keys,
+                                      ref_losses, ref_keys, ref_rows)
+        counts[f"expand_mesh_{name}"] = {k: sum(rk["counts"][k] for rk in ranks)
+                                         for k in ("pull_rows_cuda", "write_rows_cuda")}
+        nums[name] = {"world": len(ranks), "W": ranks[0]["W"], "owner_R": ranks[0]["owner_R"],
+                      "owner_U": ranks[0]["owner_U"], "losses": ranks[0]["losses"],
+                      "samples_per_s_all": BATCH * LT_STEPS / max(rk["wall_s"] for rk in ranks),
+                      "vs_one_device": {"table_max_abs": tab_d, "loss_max_rel": loss_d},
+                      "launches": counts[f"expand_mesh_{name}"]}
+        print(f"expand mesh {tag} world {len(ranks)}: {LT_STEPS} resident steps, 2 gathers and 1 writeback a step "
+              f"on every rank, both kernels bitwise at the owner's ids (W={ranks[0]['W']}), within bounds of one "
+              f"device (table {tab_d:.3g}, loss rel {loss_d:.3g}); {card}", flush=True)
+    err = max(rk["kernel_err"] for ranks, _ in worlds.values() for rk in ranks)
+    return {"counts": counts, "nums": nums, "err": err}
+
+
+def kernel_shape_row(ck, dev, card, tab, rows, path, n_uniq, write):
+    """One kernel timed at ``rows`` of ``tab``, cold and warm, beside its
+    plain version and the library call, with the byte bound and the
+    sector floor."""
+    R, W = tab.shape
+    U = rows.shape[0]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    if write:
+        kname = "write_rows_cuda"
+        new_rows = ck.pull_rows_ref(tab, rows) + 0.5  # padding-row repeats stay identical
+        err = check_write(ck, tab, rows, new_rows, f"{path} R={R} W={W} U={U}")
+        pristine, rows64 = tab.clone(), rows.long()
+        fns = {"kernel": lambda: ck.write_rows_cuda(tab, rows, new_rows),
+               "plain": lambda: ck.write_rows_ref(tab, rows, new_rows),
+               "library": lambda: tab.index_copy_(0, rows64, new_rows)}
+        restore = lambda: tab.copy_(pristine)
+    else:
+        kname = "pull_rows_cuda"
+        err = check_gather(ck, tab, rows, f"{path} R={R} W={W} U={U}")
+        fns = {"kernel": lambda: ck.pull_rows_cuda(tab, rows), "plain": lambda: ck.pull_rows_ref(tab, rows),
+               "library": lambda: torch.index_select(tab, 0, rows)}
+        restore = None
+    med, warm = time_fns(fns, flush, restore)
+    moved = 2 * U * W * 4 + 4 * U
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    row = {"R": R, "W": W, "U": U, "n_uniq": n_uniq, "ms": med["kernel"], "plain_ms": med["plain"],
+           "library_ms": med["library"], "bound_ms": bound, "bytes": moved, "bound_share": bound / med["kernel"],
+           "sector_floor_ms": sector_floor_ms(rows, R, W, write), "warm_l2_ms": warm["kernel"],
+           "warm_l2_plain_ms": warm["plain"], "warm_l2_library_ms": warm["library"]}
+    emit({"card": card, "kernel": kname, "path": path, **row, "reps": TIMING_REPS, "l2": "cold"})
+    return row, err
+
+
+def expand_trainer_check(args, dev, card, ck, pull_push, ds):
+    """The extended trainer on one card: the four feeds from one state, a
+    plain-kernel twin, the launches, the expand block trained, the host
+    syncs of a superstep, the CPU path and samples/s. Returns (counts by
+    path, numbers, the trainer of the resident run)."""
+    seed = args.seed + LT_SEED
+    lay = lt_layout()
+    table0 = ds.device_table.reshape(-1, lay.width).copy()
+    counts, runs = {}, {}
+    feeds = (("expand_resident", dict(resident_scan_batches=LT_K), ds, "resident"),
+             ("expand_resident_k1", dict(resident_scan_batches=1), ds, "resident"),
+             ("expand_packer", dict(enable_resident_feed=0), ds, "packer"),
+             ("expand_slow", {}, records_view(ds, LT_STEPS), "slow"))
+    trainers = {}
+    for name, kw, data, want in feeds:
+        with flags(**kw):
+            tr = lt_trainer(seed, device=dev)
+            out, losses, wall, counts[name] = timed_pass(tr, data, LT_STEPS, ck)
+            if tr.last_feed != want:
+                raise AssertionError(f"{name}: the trainer took the {tr.last_feed} feed, not {want}")
+            check_path(name, out, losses, counts[name], LT_STEPS)
+            runs[name] = (*lt_state(tr), losses)
+            trainers[name] = tr
+    saved = pull_push.pull_rows_cuda, pull_push.write_rows_cuda
+    pull_push.pull_rows_cuda, pull_push.write_rows_cuda = ck.pull_rows_ref, ck.write_rows_ref
+    try:
+        with flags(enable_resident_feed=0):
+            twin = lt_trainer(seed, device=dev)
+            ck.reset_launch_counts()
+            tl = []
+            twin.train_pass(ds, n_batches=LT_STEPS, on_batch=lambda i, m: tl.append(m["loss"]))
+            plain_counts = dict(ck.launch_counts)
+    finally:
+        pull_push.pull_rows_cuda, pull_push.write_rows_cuda = saved
+    if any(plain_counts.values()):
+        raise AssertionError(f"the plain twin launched kernels: {plain_counts}")
+    runs["packer, plain gather and writeback"] = (*lt_state(twin), torch.stack(tl).cpu())
+    ref = runs["expand_resident"]
+    for name, got in runs.items():
+        if not (lt_same(got, ref) and got[4].numpy().tobytes() == ref[4].numpy().tobytes()):
+            raise AssertionError(f"expand: {LT_STEPS} steps through {name} differ from the resident feed's")
+    print(f"expand (W={lay.width}): {LT_STEPS} steps from one state through {', '.join(runs)} give bitwise-equal "
+          f"tables, params, Adam moments and losses; {card}", flush=True)
+    t1 = ref[0].reshape(-1, lay.width)
+    ec = slice(lay.expand_col, lay.expand_col + lay.expand_dim)
+    moved = np.abs(t1[:, ec] - table0[:, ec]).max(axis=1) > 0
+    touched = t1[:, lay.SHOW] > table0[:, lay.SHOW]
+    # the expand block moves only on touched rows, and on all of them but
+    # those whose summed expand gradient is exactly 0; its g2 grows with it
+    if moved.sum() < 0.999 * touched.sum() or (moved & ~touched).any() \
+            or not (t1[moved, lay.expand_g2_col] > table0[moved, lay.expand_g2_col]).all():
+        raise AssertionError(f"expand: the expand block moved on {int(moved.sum())} rows, "
+                             f"{int(touched.sum())} touched")
+    # the host syncs of one resident superstep, on the resident run's trainer
+    tr = trainers["expand_resident"]
+    rp = tr._resident_cache[2]
+    with flags(resident_scan_batches=LT_K):
+        sstep = tr._resident_superstep(rp, False)
+    idx_dev = tr._idx_cache[2][:LT_K]
+    state = tr._state
+    n_syncs, sites = host_syncs(lambda: sstep(state, idx_dev))
+    if n_syncs:
+        raise AssertionError(f"expand: a resident superstep made {n_syncs} host syncs: {sites}")
+    # the port's CPU path on the same data
+    with flags(enable_resident_feed=0):
+        cpu = lt_trainer(seed, device="cpu")
+        cl = []
+        cpu.train_pass(ds, n_batches=LT_STEPS, on_batch=lambda i, m: cl.append(float(m["loss"])))
+    c = lt_state(cpu)
+    tab_err = float(np.abs(ref[0] - c[0]).max())
+    tab_ok = np.allclose(ref[0], c[0], rtol=SMALL_TABLE_RTOL, atol=SMALL_TABLE_ATOL)
+    par_err = max(float((ref[1][k] - c[1][k]).abs().max()) for k in c[1])
+    rl = ref[4].numpy().astype(np.float64)
+    loss_err = float(np.max(np.abs(rl - np.array(cl)) / np.abs(np.array(cl))))
+    print(f"expand card vs CPU ({LT_STEPS} packer steps, full width): table max |diff| {tab_err:.3e} (rtol "
+          f"{SMALL_TABLE_RTOL}, atol {SMALL_TABLE_ATOL}), params {par_err:.3e} (atol {SMALL_PARAMS_ATOL}), loss rel "
+          f"{loss_err:.3e} (rtol {SMALL_LOSS_RTOL}); {card}", flush=True)
+    if not (tab_ok and par_err <= SMALL_PARAMS_ATOL and loss_err <= SMALL_LOSS_RTOL):
+        raise AssertionError("expand: the card and the CPU path disagree")
+    # samples/s of the resident feed, after its first pass
+    with flags(resident_scan_batches=LT_K):
+        _, _, wall, _ = timed_pass(tr, ds, LT_STEPS, ck)
+    nums = {"W": lay.width, "records": RECORDS_PER_FILE * LT_FILES, "steps": LT_STEPS,
+            "feeds_bitwise": list(runs), "superstep_host_syncs": n_syncs,
+            "resident_samples_per_s": BATCH * LT_STEPS / wall,
+            "vs_cpu": {"table_max_abs": tab_err, "params_max_abs": par_err, "loss_max_rel": loss_err}}
+    return counts, nums, tr
+
+
+def replica_cache_check(args, dev, card, ck):
+    """``pull_cache_value`` on a 64 MiB ``ReplicaCache`` and on an
+    ``InputTable`` with its miss row: one ``pull_rows_cuda`` a call,
+    bitwise the plain version and the host rows wherever they are
+    defined, NaN rows elsewhere; timed beside ``index_select``."""
+    from paddlebox_tpu_torch.table import InputTable, ReplicaCache, pull_cache_value
+    from paddlebox_tpu_torch.table.replica_cache import cache_row_ids, pull_cache_value_ref
+
+    rng = np.random.default_rng(args.seed + LT_SEED)
+    R, W = CACHE_ROWS, CACHE_DIM
+    cache = ReplicaCache(W)
+    cache.add_batch(rng.standard_normal((R, W), dtype=np.float32))
+    t0 = time.perf_counter()
+    dev_cache = cache.to_device(device=dev)
+    torch.cuda.synchronize()
+    to_device_s = time.perf_counter() - t0
+    ids = rng.integers(0, R, (BATCH, NUM_SLOTS))
+    edge = np.array([-1, R, R + 7, -R, -R - 1, R - 1, 0, 2 * R, -2 * R])
+    ids.reshape(-1)[: len(edge)] = edge
+    wild = rng.random((BATCH, NUM_SLOTS)) < 0.01  # 1% anywhere in [-2R, 2R)
+    ids = np.where(wild, rng.integers(-2 * R, 2 * R, (BATCH, NUM_SLOTS)), ids)
+    ids_t = torch.from_numpy(ids).to(dev)
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    got = pull_cache_value(dev_cache, ids_t)  # the main path
+    torch.cuda.synchronize()
+    counts = dict(ck.launch_counts)
+    if counts != {"pull_rows_cuda": 1, "write_rows_cuda": 0}:
+        raise AssertionError(f"pull_cache_value launched {counts}, want one pull_rows_cuda")
+    rows = cache_row_ids(ids_t, R)
+    plain = pull_cache_value_ref(dev_cache, rows).reshape(got.shape)
+    if got.cpu().numpy().tobytes() != plain.cpu().numpy().tobytes():
+        raise AssertionError("pull_cache_value on the card != its plain version")
+    defined = (ids >= -R) & (ids < R)
+    g = got.cpu().numpy()
+    if not (np.array_equal(g[defined], cache.host_array()[ids[defined]]) and np.isnan(g[~defined]).all()):
+        raise AssertionError("pull_cache_value != the host rows where they are defined, NaN elsewhere")
+    # the InputTable: its miss row 0, the miss counter, the host lookup
+    it = InputTable(W)
+    vecs = rng.standard_normal((INPUT_KEYS, W), dtype=np.float32)
+    for i in range(INPUT_KEYS):
+        it.add_index_data(f"ad-{i}", vecs[i])
+    n = len(it)
+    if it.get_index_offset("ad-absent") != 0 or it.miss != 1 or it.get_index_offset("ad-7") != 8:
+        raise AssertionError("InputTable: the miss row or the row ids are wrong")
+    ids2 = rng.integers(-n - 3, n + 3, (BATCH, NUM_SLOTS))
+    ids2.reshape(-1)[:3] = [0, -1, n]
+    got2 = pull_cache_value(it.to_device(device=dev), torch.from_numpy(ids2).to(dev)).cpu().numpy()
+    ok2 = (ids2 >= -n) & (ids2 < n)
+    if not (np.array_equal(got2[ok2], it.lookup_input(ids2[ok2])) and np.isnan(got2[~ok2]).all()
+            and not got2.reshape(-1, W)[0].any()):
+        raise AssertionError("pull_cache_value on the InputTable != lookup_input where it is defined")
+    print(f"replica cache: pull_cache_value over {R} x {W} rows at {BATCH} x {NUM_SLOTS} ids ({int((~defined).sum())} "
+          f"outside [-R, R)) launches one pull_rows_cuda, bitwise its plain version and the host rows, NaN outside; "
+          f"InputTable ({n} rows with its miss row) bitwise lookup_input; {card}", flush=True)
+    # timings: the kernel at the wrapped ids, the whole wrapper, the plain
+    # version and index_select at the same ids (clamped into the table)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    clamped = rows.clamp(0, R - 1)
+    med, warm = time_fns({"kernel": lambda: ck.pull_rows_cuda(dev_cache, rows),
+                          "wrapper": lambda: pull_cache_value(dev_cache, ids_t),
+                          "plain": lambda: pull_cache_value_ref(dev_cache, rows),
+                          "library": lambda: torch.index_select(dev_cache, 0, clamped)}, flush)
+    U = rows.numel()
+    moved = 2 * U * W * 4 + 4 * U
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    shape = {"R": R, "W": W, "U": U, "ms": med["kernel"], "wrapper_ms": med["wrapper"], "plain_ms": med["plain"],
+             "library_ms": med["library"], "bound_ms": bound, "bytes": moved, "bound_share": bound / med["kernel"],
+             "sector_floor_ms": sector_floor_ms(rows, R, W, False), "warm_l2_ms": warm["kernel"],
+             "warm_l2_wrapper_ms": warm["wrapper"], "warm_l2_plain_ms": warm["plain"],
+             "warm_l2_library_ms": warm["library"], "to_device_s": to_device_s, "mem_used_mb": cache.mem_used_mb()}
+    emit({"card": card, "kernel": "pull_rows_cuda", "path": "replica_cache", **shape, "reps": TIMING_REPS,
+          "l2": "cold"})
+    return {"replica_cache": counts}, shape
+
+
+def ops_check(args, dev, card):
+    """The CONV / PCOC / per-slot-threshold seqpools, their transforms,
+    ``batch_fc`` and ``fused_concat`` at the flagship shape on the card
+    against the port's CPU path."""
+    from paddlebox_tpu_torch import ops
+
+    rng = np.random.default_rng(args.seed + LT_SEED + 1)
+    S, B, D = NUM_SLOTS, BATCH, EMBEDX_DIM
+    L = S * B + S * B // 4  # a key a (slot, instance) and a quarter more
+    seg = rng.permutation(np.concatenate([np.arange(S * B), rng.integers(0, S * B, L - S * B)])).astype(np.int32)
+
+    def recs(width):
+        return np.abs(rng.standard_normal((L, width), dtype=np.float32))
+
+    thr = np.linspace(0.05, 0.5, S).astype(np.float32)
+    pooled_conv = np.abs(rng.standard_normal((B, S, 3 + D), dtype=np.float32))
+    pooled_pcoc = np.abs(rng.standard_normal((B, S, 4 + 3 + D), dtype=np.float32))
+    x = rng.standard_normal((B, S * D), dtype=np.float32)
+    w = rng.standard_normal((D, S * 8), dtype=np.float32)
+    b = rng.standard_normal((S * 8,), dtype=np.float32)
+    xs = [rng.standard_normal((B, 3 + D), dtype=np.float32) for _ in range(S)]
+    conv, pcoc, diff = recs(3 + D), recs(4 + 3 + D), recs(3 + D)
+    cases = {
+        "cvm_with_conv_transform": (lambda t: ops.cvm_with_conv_transform(t(pooled_conv)), "pool"),
+        "cvm_with_conv_transform show_filter": (
+            lambda t: ops.cvm_with_conv_transform(t(pooled_conv), show_filter=True), "pool"),
+        "cvm_with_pcoc_transform": (lambda t: ops.cvm_with_pcoc_transform(t(pooled_pcoc), pclk_num=3), "pool"),
+        "fused_seqpool_cvm_with_conv": (
+            lambda t: ops.fused_seqpool_cvm_with_conv(t(conv), t(seg), S, B, show_filter=True), "pool"),
+        "fused_seqpool_cvm_with_pcoc": (
+            lambda t: ops.fused_seqpool_cvm_with_pcoc(t(pcoc), t(seg), S, B, pclk_num=3), "pool"),
+        "fused_seqpool_cvm_with_diff_thres": (
+            lambda t: ops.fused_seqpool_cvm_with_diff_thres(t(diff), t(seg), S, B, t(thr)), "pool"),
+        "batch_fc": (lambda t: ops.batch_fc(t(x), t(w), t(b), S), "fc"),
+        "fused_concat": (lambda t: ops.fused_concat([t(a) for a in xs], 3, D), "exact"),
+    }
+    errs = {}
+    for name, (fn, kind) in cases.items():
+        got = fn(lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)).cpu()
+        want = fn(lambda a: torch.from_numpy(np.ascontiguousarray(a)))
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(want.shape)}, or non-finite")
+        errs[name] = float((got - want).abs().max())
+        rtol, atol = {"pool": (OPS_POOL_RTOL, OPS_POOL_ATOL), "fc": (OPS_FC_RTOL, OPS_FC_ATOL),
+                      "exact": (0.0, 0.0)}[kind]
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            raise AssertionError(f"{name}: card vs CPU max |diff| {errs[name]} past rtol {rtol} atol {atol}")
+    print(f"ops at the flagship shape (B={B}, S={S}, D={D}, {L} keys): card vs CPU max |diff| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f" (seqpools rtol {OPS_POOL_RTOL} atol {OPS_POOL_ATOL}, batch_fc rtol {OPS_FC_RTOL} atol {OPS_FC_ATOL}, "
+          f"fused_concat exact); {card}", flush=True)
+    return errs
+
+
+def strategy_check(args, dev, card, ck, ds, tr):
+    """``recompute`` bitwise the plain model over a superstep; ``amp``
+    against the CPU path; ``gradient_merge`` (k = GM_K) over GM_STEPS
+    steps through ``CTRTrainer``: params bitwise unchanged on the
+    mini-steps that do not emit, the emitting steps within phase 6's
+    params bound of the CPU path, and a resident superstep with
+    ``MultiSteps`` making no host sync."""
+    from torch.func import functional_call
+
+    from paddlebox_tpu_torch.fleet import DistributedStrategy
+    from paddlebox_tpu_torch.models import DeepFM
+    from paddlebox_tpu_torch.train import Adam, MultiSteps, make_resident_superstep
+
+    lay = lt_layout()
+    seed = args.seed + LT_SEED
+    # DeepFM at the flagship width over the expand table (its plain pull)
+    cfg = dataclasses.replace(tr.cfg, use_expand=False)
+    model = DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
+                   generator=torch.Generator().manual_seed(seed)).to(dev)
+    plain_apply = lambda p, x, d: functional_call(model, p, (x, d))
+    rp = tr._resident_cache[2]
+    idx = tr._idx_cache[2][:LT_STEPS]
+    table0 = ds.device_table.reshape(-1, lay.width).copy()
+    params0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt0 = Adam(1e-3).init(params0)
+    counts, out = {}, {}
+    for name, strat in (("plain", None), ("recompute", DistributedStrategy(recompute=True))):
+        apply = plain_apply if strat is None else strat.apply(cfg, Adam(1e-3), model_apply=plain_apply)[2]
+        sstep = make_resident_superstep(apply, Adam(1e-3), cfg, rp)
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        st, m = sstep(fresh_state(table0, params0, opt0, dev), idx)
+        torch.cuda.synchronize()
+        counts[f"strategy_{name}"] = dict(ck.launch_counts)
+        out[name] = (st, m["loss"].cpu())
+    for name in ("plain", "recompute"):
+        c = counts[f"strategy_{name}"]
+        if c["pull_rows_cuda"] != 2 * LT_STEPS or c["write_rows_cuda"] != LT_STEPS:
+            raise AssertionError(f"strategy {name}: launches {c} for {LT_STEPS} steps")
+        if not bool(torch.isfinite(out[name][1]).all()):
+            raise AssertionError(f"strategy {name}: non-finite loss")
+    (a, la), (b, lb) = out["plain"], out["recompute"]
+    if not (same_state(a, b) and torch.equal(la, lb)):
+        raise AssertionError("recompute: the superstep differs from the plain model's")
+    # amp: the bf16 model on the card against the CPU path, on pulled features
+    amp_apply = DistributedStrategy(amp=True).apply(cfg, Adam(1e-3), model_apply=plain_apply)[2]
+    cpu_model = DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
+                       generator=torch.Generator().manual_seed(seed))
+    cpu_apply = DistributedStrategy(amp=True).apply(
+        cfg, Adam(1e-3), model_apply=lambda p, x, d: functional_call(cpu_model, p, (x, d)))[2]
+    g = torch.Generator().manual_seed(seed)
+    # at the scale of pulled features after the CVM (logits of order 1)
+    feats = 0.1 * torch.randn((BATCH, NUM_SLOTS, lay.pull_width), generator=g)
+    got = amp_apply({k: v.to(dev) for k, v in params0.items()}, feats.to(dev), None).cpu()
+    want = cpu_apply({k: v.cpu() for k, v in params0.items()}, feats, None)
+    amp_err = float((got - want).abs().max())
+    top = float(want.abs().max())
+    amp_bound = AMP_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+    print(f"amp: the bf16 DeepFM's logits at [{BATCH}, {NUM_SLOTS}, {lay.pull_width}] card vs CPU max |diff| "
+          f"{amp_err:.4g} (bound {amp_bound:.4g}: {AMP_ULPS} bf16 ulps at |logit| <= {top:.3g}); {card}", flush=True)
+    if got.dtype != torch.float32 or not amp_err <= amp_bound:
+        raise AssertionError(f"amp: card vs CPU {amp_err} past {amp_bound}")
+    # gradient_merge through the trainer, one step a train_pass
+    merged = {}
+    for device in (dev, "cpu"):
+        opt = DistributedStrategy(gradient_merge=True, gradient_merge_configs={"k_steps": GM_K}).apply(
+            tr.cfg, Adam(1e-3))[1]
+        if not isinstance(opt, MultiSteps):
+            raise AssertionError("gradient_merge did not give MultiSteps")
+        t = lt_trainer(seed, device=device, dense_opt=opt)
+        prev = {k: v.cpu() for k, v in t.params.items()}
+        snaps = []
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        with flags(resident_scan_batches=1):
+            for i in range(GM_STEPS):
+                t.train_pass(ds, n_batches=1)
+                cur = {k: v.cpu() for k, v in t.params.items()}
+                same = all(torch.equal(cur[k], prev[k]) for k in cur)
+                if same != bool((i + 1) % GM_K):
+                    raise AssertionError(f"gradient_merge on {device}: mini-step {i + 1} params "
+                                         f"{'unchanged' if same else 'moved'}")
+                snaps.append(cur)
+                prev = cur
+        if device == dev:
+            counts["strategy_gradient_merge"] = c = dict(ck.launch_counts)
+            if c["pull_rows_cuda"] != 2 * GM_STEPS or c["write_rows_cuda"] != GM_STEPS:
+                raise AssertionError(f"gradient_merge: launches {c} for {GM_STEPS} steps")
+            rpm = t._resident_cache[2]
+            with flags(resident_scan_batches=LT_K):
+                sstep = t._resident_superstep(rpm, False)
+            state, idx_m = t._state, t._idx_cache[2][:LT_K]
+            gm_syncs, gm_sites = host_syncs(lambda: sstep(state, idx_m))
+            if gm_syncs:
+                raise AssertionError(f"gradient_merge: a resident superstep made {gm_syncs} host syncs: {gm_sites}")
+        merged[str(device)] = snaps
+    gm_err = max(float((merged[str(dev)][i][k] - merged["cpu"][i][k]).abs().max())
+                 for i in range(GM_K - 1, GM_STEPS, GM_K) for k in merged["cpu"][i])
+    if gm_err > SMALL_PARAMS_ATOL:
+        raise AssertionError(f"gradient_merge: the emitting steps' params card vs CPU {gm_err} > {SMALL_PARAMS_ATOL}")
+    print(f"strategy: recompute bitwise the plain DeepFM over a {LT_STEPS}-step superstep; gradient_merge "
+          f"(k={GM_K}) over {GM_STEPS} steps: params bitwise unchanged on mini-steps 1-3 and 5-7, steps 4 and 8 "
+          f"within {SMALL_PARAMS_ATOL} of the CPU path (max |diff| {gm_err:.3e}), 0 host syncs in a MultiSteps "
+          f"superstep; {card}", flush=True)
+    return counts, {"amp_logits_max_abs": amp_err, "amp_bound": amp_bound, "gradient_merge_params_max_abs": gm_err,
+                    "gradient_merge_superstep_host_syncs": gm_syncs}
+
+
+def long_tail_phase(args, dev, card, ck, pull_push, mesh18):
+    """Phase 18: the extended trainer at full width, the replica cache,
+    the ops and the strategy on the card, and the extended mesh's results
+    (run in phase 12's worlds). Returns (launch counts by path, the
+    kernels' rows at the phase's shapes, max abs error)."""
+    from paddlebox_tpu_torch.train import build_device_batch
+
+    t_phase = time.perf_counter()
+    lay = lt_layout()
+    print(f"phase 18: ValueLayout(embedx_dim={EMBEDX_DIM}, expand_embed_dim={LT_EXPAND}).width = {lay.width}",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lt_") as tmp:
+        files, _ = write_bench_files(tmp, np.random.default_rng(args.seed + LT_SEED), LT_FILES, "lt")
+        ds = lt_dataset(args.seed + LT_SEED, files)
+    counts, nums, tr = expand_trainer_check(args, dev, card, ck, pull_push, ds)
+    # both kernels at the extended training shape: a resident batch's rows
+    rp = tr._resident_cache[2]
+    tab = torch.from_numpy(ds.device_table.reshape(-1, lay.width).copy()).to(dev)
+    rows = build_device_batch(rp, tr.cfg, tr._idx_cache[2][0])["uniq_rows"]
+    n_uniq = int((rows != rp.pad_row).sum())
+    shapes = {}
+    shapes["pull_rows_cuda"], gerr = kernel_shape_row(ck, dev, card, tab, rows, "expand_train", n_uniq, False)
+    shapes["write_rows_cuda"], werr = kernel_shape_row(ck, dev, card, tab, rows, "expand_train", n_uniq, True)
+    cache_counts, cache_shape = replica_cache_check(args, dev, card, ck)
+    counts.update(cache_counts)
+    op_errs = ops_check(args, dev, card)
+    strat_counts, strat = strategy_check(args, dev, card, ck, ds, tr)
+    counts.update(strat_counts)
+    counts.update(mesh18["counts"])
+    phase_s = time.perf_counter() - t_phase
+    emit({"card": card, "phase": "long_tail", "expand": nums, "expand_mesh": mesh18["nums"],
+          "replica_cache": cache_shape, "ops_card_vs_cpu_max_abs": op_errs, "strategy": strat,
+          "launches": counts, "phase_s": phase_s})
+    print(f"phase 18 (long_tail) in {phase_s:.3f} s, its mesh runs in phase 12's spawns; {card}", flush=True)
+    return counts, {"expand_train": shapes, "replica_cache": cache_shape}, max(gerr, werr, mesh18["err"])
 
 
 if __name__ == "__main__":

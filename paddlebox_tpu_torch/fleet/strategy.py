@@ -9,29 +9,69 @@ one of the port's mechanisms:
 | a_sync                    | dense_sync_mode="async" (host AsyncDenseTable)|
 | a_sync_configs.k_steps>0  | dense_sync_mode="kstep" + param_sync_step     |
 | localsgd(+k_steps)        | dense_sync_mode="kstep" + param_sync_step     |
-| sharding (ZeRO)           | Zero1Optimizer wrap of the dense Adam         |
-| recompute                 | not ported: ROADMAP Queue 1 item 6            |
-| amp                       | not ported: ROADMAP Queue 1 item 6            |
+| sharding (ZeRO)           | Zero1Optimizer wrap of the dense optimizer    |
+| recompute                 | torch.utils.checkpoint around model apply     |
+| amp                       | the dense model computed in bf16              |
 | pipeline(+micro_batch)    | not ported: ROADMAP Queue 1 item 6            |
-| gradient_merge(+k_steps)  | not ported: ROADMAP Queue 1 item 6            |
+| gradient_merge(+k_steps)  | MultiSteps accumulation (train/dense_opt.py)  |
 
-``apply()`` folds the flags into a TrainStepConfig and an optimizer; a flag
-whose mechanism is not ported raises ``NotImplementedError`` there.
+``apply()`` folds the flags into a TrainStepConfig, an optimizer and a
+model apply function; ``pipeline``, whose mechanism is not ported, raises
+``NotImplementedError`` there. ``recompute`` is the counterpart of
+``jax.checkpoint``: the forward's activations are recomputed in the
+backward (``use_reentrant=False``), which gives the same gradients.
+``amp`` is the JAX package's ``bf16_apply``: every fp32 tensor of the
+params and the arguments is cast to bf16, the model runs on those, and
+its outputs come back as fp32. ``gradient_merge`` wraps the dense
+optimizer in :class:`~paddlebox_tpu_torch.train.dense_opt.MultiSteps`
+(``optax.MultiSteps``), inside ZeRO-1's chunking when ``sharding`` is
+set too, as the JAX package nests them.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Any, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
-from paddlebox_tpu_torch.train.dense_opt import Adam
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from paddlebox_tpu_torch.train.dense_opt import Adam, MultiSteps, tree_map
 
 _NOT_PORTED = {
-    "recompute": "activation recompute of the dense model",
-    "amp": "the bf16 dense model",
     "pipeline": "pipeline stages over a pp axis (make_mesh_2d)",
-    "gradient_merge": "gradient accumulation over k steps",
 }
+
+
+def _bf16(t: Any) -> Any:
+    """An fp32 tensor as bf16; anything else as it is."""
+    return t.to(torch.bfloat16) if isinstance(t, torch.Tensor) and t.dtype == torch.float32 else t
+
+
+def _fp32(t: Any) -> Any:
+    return t.to(torch.float32) if isinstance(t, torch.Tensor) else t
+
+
+def recompute_apply(model_apply: Callable) -> Callable:
+    """``model_apply`` whose activations are recomputed in the backward
+    (``jax.checkpoint``'s counterpart)."""
+
+    def apply(params, *args, **kw):
+        return checkpoint(model_apply, params, *args, use_reentrant=False, **kw)
+
+    return apply
+
+
+def bf16_apply(model_apply: Callable) -> Callable:
+    """``model_apply`` computed in bf16: the fp32 params and arguments cast
+    to bf16, the outputs cast back to fp32 (the JAX package's
+    ``bf16_apply``)."""
+
+    def apply(params, *args, **kw):
+        out = model_apply(tree_map(_bf16, params), *[tree_map(_bf16, a) for a in args], **kw)
+        return tree_map(_fp32, out)
+
+    return apply
 
 
 @dataclass
@@ -102,15 +142,23 @@ class DistributedStrategy:
         axis_name: str = "dp",
     ) -> Tuple["TrainStepConfig", Any, Any]:
         """Fold the strategy into (cfg, optimizer, model_apply). A set flag
-        whose mechanism is not ported raises ``NotImplementedError``."""
+        whose mechanism is not ported raises ``NotImplementedError``.
+        ``recompute`` and ``amp`` wrap ``model_apply`` when one is given
+        (``recompute`` inside ``amp``, as the JAX package nests them)."""
         for flag, what in _NOT_PORTED.items():
             if getattr(self, flag):
                 raise NotImplementedError(
                     f"strategy.{flag} ({what}) is not ported: ROADMAP Queue 1 item 6"
                 )
         cfg = replace(cfg, dense_sync_mode=self.dense_sync_mode, param_sync_step=self.k_steps)
+        if self.gradient_merge:
+            dense_opt = MultiSteps(dense_opt, self.gradient_merge_configs.get("k_steps", 4))
         if self.sharding:
             from paddlebox_tpu_torch.fleet.zero import Zero1Optimizer
 
             dense_opt = Zero1Optimizer(dense_opt, axis_name=axis_name, n_dev=n_dev)
+        if model_apply is not None and self.recompute:
+            model_apply = recompute_apply(model_apply)
+        if model_apply is not None and self.amp:
+            model_apply = bf16_apply(model_apply)
         return cfg, dense_opt, model_apply

@@ -14,19 +14,24 @@ in its layout (an ``nn.Linear`` weight as [in, out]), the order
 a ZeRO state converts across packages. Adam is elementwise, so the
 chunked update is the unchunked one.
 
-The state of a rank is an ``AdamState`` whose moments hold one tensor,
-``"flat"`` [c], its chunk; ``init_stacked`` builds all n ([n] counts,
-[n, c] moments), as the JAX package does.
+The inner optimizer is the port's :class:`Adam`, or a
+:class:`MultiSteps` around it (the strategy's ``gradient_merge`` with
+``sharding``: JAX's ``Zero1Optimizer(optax.MultiSteps(adam, k))``). The
+state of a rank is the inner optimizer's state over one tensor,
+``"flat"`` [c], its chunk (an ``AdamState`` whose moments hold it, and for
+``MultiSteps`` also its ``acc_grads``); ``init_stacked`` builds all n,
+every leaf with a leading [n] axis ([n] counts, [n, c] moments), as the
+JAX package's ``vmap`` of the inner ``init`` does.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from paddlebox_tpu_torch.train.dense_opt import Adam, AdamState
+from paddlebox_tpu_torch.train.dense_opt import tree_leaves, tree_map
 
 Params = Dict[str, torch.Tensor]
 
@@ -68,9 +73,10 @@ def unravel(flat: torch.Tensor, like: Params) -> Params:
 
 
 class Zero1Optimizer:
-    """Chunked wrapper over the port's elementwise :class:`Adam`."""
+    """Chunked wrapper over the port's elementwise :class:`Adam` (or a
+    :class:`MultiSteps` of it)."""
 
-    def __init__(self, inner: Adam, axis_name: str = "dp", n_dev: int = 1):
+    def __init__(self, inner: Any, axis_name: str = "dp", n_dev: int = 1):
         self.inner = inner
         self.axis_name = axis_name
         self.n_dev = n_dev
@@ -106,25 +112,25 @@ class Zero1Optimizer:
         c = -(-n // self.n_dev)
         return F.pad(flat, (0, c * self.n_dev - n)).reshape(self.n_dev, c), n
 
-    def init_stacked(self, params: Params) -> AdamState:
-        """Every chunk's state, stacked: count [n_dev], moments [n_dev, c]."""
+    def init_stacked(self, params: Params) -> Any:
+        """Every chunk's state, stacked: each leaf [n_dev, ...] (count
+        [n_dev], moments [n_dev, c])."""
         chunks, _ = self._chunks(params)
-        return AdamState(
-            count=torch.zeros((self.n_dev,), dtype=torch.int32, device=chunks.device),
-            mu={"flat": torch.zeros_like(chunks)},
-            nu={"flat": torch.zeros_like(chunks)},
-        )
+        per_chunk = [self.inner.init({"flat": chunks[r]}) for r in range(self.n_dev)]
+        return tree_map(lambda *xs: torch.stack(xs), *per_chunk)
 
     @staticmethod
-    def local_state(stacked: AdamState, rank: int) -> AdamState:
+    def local_state(stacked: Any, rank: int) -> Any:
         """Chunk ``rank``'s state of a stacked one."""
-        return AdamState(
-            count=stacked.count[rank].clone(),
-            mu={"flat": stacked.mu["flat"][rank].clone()},
-            nu={"flat": stacked.nu["flat"][rank].clone()},
-        )
+        return tree_map(lambda t: t[rank].clone(), stacked)
 
-    def update_local(self, plan, grads: Params, state_local: AdamState) -> Tuple[Params, AdamState]:
+    @staticmethod
+    def is_stacked(state: Any) -> bool:
+        """A stacked state (every chunk's) rather than one rank's: its
+        leading scalar leaf carries the [n_dev] axis."""
+        return tree_leaves(state)[0].dim() == 1
+
+    def update_local(self, plan, grads: Params, state_local: Any) -> Tuple[Params, Any]:
         """(the whole update, this rank's new chunk state). ``grads`` are
         the mesh's reduced grads, the same on every rank."""
         gchunks, n = self._chunks(grads)

@@ -24,7 +24,10 @@ the JAX package's ``(params, optax.adam state)`` tree as ``leaf_0`` ..
 ``leaf_{n-1}``; :func:`dense_leaf_names` spells that order out (a JAX
 tree flatten sorts dict keys and walks lists by index), and
 :func:`dense_to_jax_leaves` / :func:`dense_from_jax_leaves` carry the
-port's params and :class:`AdamState` to and from it.
+port's params and :class:`AdamState` to and from it. A gradient-merging
+trainer's state (``optax.MultiSteps(adam, k)``, the port's
+``MultiStepsState``) flattens to ``mini_step``, ``gradient_step``, Adam's
+leaves, then ``acc_grads``.
 
 A JAX mesh state crosses too (``mesh_*``): the ``[n, cap, W]`` table to a
 rank's block, kstep's stacked params and moments (a leading [n] replica
@@ -42,7 +45,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from paddlebox_tpu_torch.train.dense_opt import AdamState
+from paddlebox_tpu_torch.train.dense_opt import AdamState, MultiStepsState, tree_map
 
 
 def _t(a: Any) -> torch.Tensor:
@@ -189,74 +192,112 @@ def _is_zero(state: AdamState) -> bool:
     return set(state.mu) == {"flat"}
 
 
-def dense_leaf_names(params: Dict[str, torch.Tensor], zero: bool = False) -> List[str]:
+def dense_leaf_names(
+    params: Dict[str, torch.Tensor], zero: bool = False, multi_steps: bool = False
+) -> List[str]:
     """The key path of every leaf of ``(params, optax.adam(lr).init(params))``
     as the JAX package flattens it, for a port zoo model's ``params``: the
-    params, then Adam's ``count``, its first moments and
-    its second moments in the params' order (the learning-rate stage's
-    empty state has no leaf)."""
+    params, then Adam's ``count``, its first moments and its second
+    moments in the params' order (the learning-rate stage's empty state has
+    no leaf). With ``multi_steps`` the state is ``optax.MultiSteps(adam,
+    k)``'s: ``mini_step``, ``gradient_step``, Adam's leaves, then
+    ``acc_grads`` in the params' order (its ``skip_state`` is empty)."""
     keys = ["".join(f"[{p!r}]" for p in path) for path in _leaf_paths(params_to_jax(params))]
-    if zero:  # the stacked chunk state's three leaves
-        return [f"[0]{k}" for k in keys] + ["[1][0].count", "[1][0].mu", "[1][0].nu"]
-    return (
-        [f"[0]{k}" for k in keys] + ["[1][0].count"]
-        + [f"[1][0].mu{k}" for k in keys] + [f"[1][0].nu{k}" for k in keys]
-    )
+    adam = "[1].inner_opt_state[0]" if multi_steps else "[1][0]"
+    moments = [""] if zero else keys  # the stacked chunk state: one flat leaf each
+    names = [f"[0]{k}" for k in keys]
+    if multi_steps:
+        names += ["[1].mini_step", "[1].gradient_step"]
+    names += [f"{adam}.count"] + [f"{adam}.mu{k}" for k in moments] + [f"{adam}.nu{k}" for k in moments]
+    if multi_steps:
+        names += [f"[1].acc_grads{k}" for k in moments]
+    return names
 
 
-def dense_to_jax_leaves(params: Dict[str, torch.Tensor], state: AdamState) -> List[np.ndarray]:
-    """The port's params and Adam state -> the JAX package's dense leaves
-    (numpy, JAX's [in, out] layout), in :func:`dense_leaf_names`' order."""
+def _adam_leaves(state: AdamState, paths: List[tuple]) -> List[np.ndarray]:
+    if _is_zero(state):
+        return [_n(state.count).astype(np.int32), _n(state.mu["flat"]), _n(state.nu["flat"])]
+    count, mu, nu = adam_state_to_optax(state)
+    return [count] + [_get(mu, p) for p in paths] + [_get(nu, p) for p in paths]
+
+
+def dense_to_jax_leaves(params: Dict[str, torch.Tensor], state: Any) -> List[np.ndarray]:
+    """The port's params and optimizer state (an :class:`AdamState` or a
+    ``MultiStepsState`` of one, each either whole or ZeRO-1's stacked
+    chunk state) -> the JAX package's dense leaves (numpy, JAX's [in, out]
+    layout), in :func:`dense_leaf_names`' order."""
     tree = params_to_jax(params)
     paths = _leaf_paths(tree)
-    if _is_zero(state):
-        return [_get(tree, p) for p in paths] + [
-            _n(state.count).astype(np.int32), _n(state.mu["flat"]), _n(state.nu["flat"])
-        ]
-    count, mu, nu = adam_state_to_optax(state)
-    return (
-        [_get(tree, p) for p in paths] + [count]
-        + [_get(mu, p) for p in paths] + [_get(nu, p) for p in paths]
+    leaves = [_get(tree, p) for p in paths]
+    if not isinstance(state, MultiStepsState):
+        return leaves + _adam_leaves(state, paths)
+    inner = state.inner_opt_state
+    if _is_zero(inner):
+        acc = [_n(state.acc_grads["flat"])]
+    else:
+        acc_tree = params_to_jax(state.acc_grads)
+        acc = [_get(acc_tree, p) for p in paths]
+    steps = [_n(state.mini_step).astype(np.int32), _n(state.gradient_step).astype(np.int32)]
+    return leaves + steps + _adam_leaves(inner, paths) + acc
+
+
+def _adam_from_leaves(leaves: Sequence[np.ndarray], ref: Dict[str, Any], zero: bool) -> AdamState:
+    """An :class:`AdamState` (on the host) from its JAX-ordered leaves."""
+    if zero:
+        return AdamState(
+            count=torch.from_numpy(np.array(leaves[0], dtype=np.int32)),
+            mu={"flat": _t(leaves[1])},
+            nu={"flat": _t(leaves[2])},
+        )
+    k = len(_leaf_paths(ref))
+    return adam_state_from_optax(
+        leaves[0], _tree_from_leaves(ref, leaves[1 : k + 1]), _tree_from_leaves(ref, leaves[k + 1 : 2 * k + 1])
     )
 
 
 def dense_from_jax_leaves(
     leaves: Sequence[np.ndarray], like: Dict[str, torch.Tensor], device: torch.device
-) -> Tuple[Dict[str, torch.Tensor], AdamState]:
+) -> Tuple[Dict[str, torch.Tensor], Any]:
     """The inverse of :func:`dense_to_jax_leaves`: JAX-ordered dense leaves
-    -> (params, AdamState) on ``device`` for a model whose params look like
-    ``like``. Raises ``ValueError`` on a leaf count or a shape that
-    differs."""
+    -> (params, optimizer state) on ``device`` for a model whose params
+    look like ``like``. The leaf count and the rank of the first state
+    leaf tell the four kinds apart: Adam (3k + 1 leaves for k params),
+    MultiSteps of Adam (4k + 3), and ZeRO-1's stacked states of each (k +
+    3, k + 6, their first state leaf [n]). Raises ``ValueError`` on a leaf
+    count or a shape that differs."""
     ref = params_to_jax(like)
     paths = _leaf_paths(ref)
     k = len(paths)
-    if len(leaves) == k + 3 and np.ndim(leaves[k]) == 1:  # a ZeRO-1 stacked state
-        params = {n: t.to(device) for n, t in params_from_jax(_tree_from_leaves(ref, leaves[:k])).items()}
-        return params, AdamState(
-            count=torch.from_numpy(np.array(leaves[k], dtype=np.int32)).to(device),
-            mu={"flat": _t(leaves[k + 1]).to(device)},
-            nu={"flat": _t(leaves[k + 2]).to(device)},
-        )
-    if len(leaves) != 3 * k + 1:
+    n = len(leaves)
+    zero = n > k and np.ndim(leaves[k]) == 1
+    kinds = {(True, k + 3): False, (True, k + 6): True, (False, 3 * k + 1): False, (False, 4 * k + 3): True}
+    if (zero, n) not in kinds:
         raise ValueError(
-            f"checkpoint holds {len(leaves)} leaves but the current (params, "
-            f"opt_state) tree has {3 * k + 1}"
+            f"checkpoint holds {n} leaves but the current (params, opt_state) tree has "
+            f"{3 * k + 1} (Adam) or {4 * k + 3} (MultiSteps of Adam)"
         )
+    multi = kinds[(zero, n)]
     want = [np.shape(_get(ref, p)) for p in paths]
-    for got, w in zip(leaves, want + [()] + want + want):
-        if np.shape(got) != w:
-            raise ValueError(f"dense checkpoint shape mismatch {w} vs {np.shape(got)}")
-
-    def tree(part):
-        return _tree_from_leaves(ref, part)
-
-    state = adam_state_from_optax(leaves[k], tree(leaves[k + 1 : 2 * k + 1]), tree(leaves[2 * k + 1 :]))
-    params = {n: t.to(device) for n, t in params_from_jax(tree(leaves[:k])).items()}
-    return params, AdamState(
-        count=state.count.to(device),
-        mu={n: t.to(device) for n, t in state.mu.items()},
-        nu={n: t.to(device) for n, t in state.nu.items()},
-    )
+    if not zero:
+        state_shapes = [()] + want + want + (want if multi else [])
+        for got, w in zip(leaves, want + ([(), ()] if multi else []) + state_shapes):
+            if np.shape(got) != w:
+                raise ValueError(f"dense checkpoint shape mismatch {w} vs {np.shape(got)}")
+    params = {name: t.to(device) for name, t in params_from_jax(_tree_from_leaves(ref, leaves[:k])).items()}
+    rest = list(leaves[k:])
+    if multi:
+        mini, grad_step, rest = rest[0], rest[1], rest[2:]
+    n_adam = 3 if zero else 2 * k + 1
+    state: Any = _adam_from_leaves(rest[:n_adam], ref, zero)
+    if multi:
+        acc = {"flat": _t(rest[n_adam])} if zero else params_from_jax(_tree_from_leaves(ref, rest[n_adam:]))
+        state = MultiStepsState(
+            mini_step=torch.from_numpy(np.array(mini, dtype=np.int32)),
+            gradient_step=torch.from_numpy(np.array(grad_step, dtype=np.int32)),
+            inner_opt_state=state,
+            acc_grads=acc,
+        )
+    return params, tree_map(lambda t: t.to(device), state)
 
 
 # ---- a JAX mesh state -> one rank's -----------------------------------------

@@ -33,8 +33,15 @@ def linear_init(
 
 
 def linear_apply(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``x @ w + b`` in the input's dtype (fp32 on the model's head)."""
-    return torch.matmul(x, lin.weight.t()) + lin.bias
+    """``x @ w + b`` in the input's dtype (fp32 on the model's head). Under
+    the strategy's ``amp`` the weights arrive as bf16 while an fp32 input
+    may not: the product then runs in the wider dtype, as JAX promotes
+    mixed operands."""
+    w = lin.weight
+    if w.dtype != x.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return torch.matmul(x, w.t()) + lin.bias
 
 
 def mlp_init(in_dim: int, hidden: Sequence[int], generator: torch.Generator) -> nn.ModuleList:

@@ -1,8 +1,12 @@
-"""CTR-specific dense ops: rank_attention.
+"""CTR-specific dense ops: rank_attention, batch_fc, fused_concat.
 
-Port of ``rank_attention`` from the JAX package's ``ops/ctr_ops.py``
-(position-aware attention over pv-merged ad lists; the reference's
-operators/rank_attention_op.cu). The JAX package leaves it to XLA as a
+Port of the JAX package's ``ops/ctr_ops.py``. ``batch_fc`` (a per-channel
+FC, the reference's batch_fc_op.cu) is one batched matrix product and
+``fused_concat`` (fused_concat_op.cu) a column slice and concatenation;
+the JAX package leaves both to XLA, and they are plain PyTorch here.
+
+``rank_attention`` (position-aware attention over pv-merged ad lists; the
+reference's operators/rank_attention_op.cu): the JAX package leaves it to XLA as a
 gather and an einsum; here it is a ``torch.autograd.Function`` whose
 backward has a fixed reduction order, so a join step gives the same bits
 on every run on the card:
@@ -18,11 +22,11 @@ on every run on the card:
   dump segment), never through an accumulating scatter. The parameter's
   gradient is ``x_exp^T`` times the one-hot-by-pair output gradient, a
   matmul: a pair block no instance uses gets exactly zero.
-
-``batch_fc`` and ``fused_concat`` are not ported.
 """
 
 from __future__ import annotations
+
+from typing import Sequence
 
 import torch
 
@@ -107,3 +111,29 @@ def rank_attention(
     Absent peers and rankless instances contribute zero.
     """
     return _RankAttention.apply(x, rank_offset, rank_param, max_rank)
+
+
+def batch_fc(
+    x: torch.Tensor,  # [B, batchcount * in_feat]
+    w: torch.Tensor,  # [in_feat, batchcount * out_feat]
+    bias: torch.Tensor,  # [batchcount * out_feat]
+    batchcount: int,
+) -> torch.Tensor:
+    """Per-channel FC -> [B, batchcount * out_feat]: channel k maps
+    ``x[:, k*in : (k+1)*in]`` through ``w[:, k*out : (k+1)*out]`` plus its
+    bias (the reference's strided BatchedGEMM and row add,
+    batch_fc_op.cu:121-188), every channel in one batched matmul."""
+    B = x.shape[0]
+    in_feat = x.shape[1] // batchcount
+    out_feat = w.shape[1] // batchcount
+    xb = x.reshape(B, batchcount, in_feat).transpose(0, 1)  # [k, B, in]
+    wb = w.reshape(in_feat, batchcount, out_feat).transpose(0, 1)  # [k, in, out]
+    out = torch.bmm(xb, wb).transpose(0, 1)  # [B, k, out]
+    return (out + bias.reshape(1, batchcount, out_feat)).reshape(B, -1)
+
+
+def fused_concat(xs: Sequence[torch.Tensor], offset: int, length: int) -> torch.Tensor:
+    """Columns [offset, offset + length) of every [B, D] input, side by
+    side -> [B, n * length] (fused_concat_op.cu:207-260): typically the
+    embedx block of several pulled slot tensors in one op."""
+    return torch.cat([x[:, offset : offset + length] for x in xs], dim=1)

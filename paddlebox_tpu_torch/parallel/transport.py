@@ -143,9 +143,17 @@ def _tag_epoch(tag: str) -> Optional[int]:
     return int(m.group(1)) if m else None
 
 
-def _recv_exact(sock: socket.socket, n: int) -> bytes:
+def _recv_exact(sock: socket.socket, n: int, deadline: Optional[float] = None) -> bytes:
+    """``n`` bytes off ``sock``; with a monotonic ``deadline`` the whole
+    read raises ``socket.timeout`` past it, however the bytes trickle in
+    (the socket is left in timeout mode)."""
     buf = bytearray()
     while len(buf) < n:
+        if deadline is not None:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise socket.timeout(f"{len(buf)} of {n} bytes by the deadline")
+            sock.settimeout(left)
         chunk = sock.recv(min(1 << 20, n - len(buf)))
         if not chunk:
             raise ConnectionError("peer closed mid-frame")
@@ -373,7 +381,21 @@ class TcpTransport:
                 )
                 ext_len = EXT_LEN if kind & _KIND_FLAG_TRACE else 0
                 kind &= _KIND_MASK
-                body = _recv_exact(conn, ext_len + tag_len + n)
+                # a body that stalls for the failure detector's horizon is
+                # dropped with its connection: the sender's resync replays
+                # the frame whole. Left blocking, a stalled body would eat
+                # the peer's later beats as body bytes and starve this
+                # side's detector of them for good
+                stall_s = float(config.get_flag("transport_peer_dead_s"))
+                try:
+                    body = _recv_exact(
+                        conn, ext_len + tag_len + n,
+                        time.monotonic() + stall_s if stall_s > 0 else None,
+                    )
+                except socket.timeout:
+                    STAT_ADD("transport.frame_stalls")
+                    raise
+                conn.settimeout(None)
                 with self._cond:
                     self._last_seen[src] = time.monotonic()
                 if zlib.crc32(body) != crc:

@@ -1,7 +1,7 @@
 from paddlebox_tpu_torch.table.value_layout import FeatureType, ValueLayout
 from paddlebox_tpu_torch.table.sparse_table import HostSparseTable, PassWorkingSet, SpillIOError
 from paddlebox_tpu_torch.table.optimizers import SparseOptimizerConfig
-from paddlebox_tpu_torch.table.replica_cache import ReplicaCache
+from paddlebox_tpu_torch.table.replica_cache import InputTable, ReplicaCache, pull_cache_value
 
 __all__ = [
     "ValueLayout",
@@ -11,4 +11,6 @@ __all__ = [
     "SpillIOError",
     "SparseOptimizerConfig",
     "ReplicaCache",
+    "InputTable",
+    "pull_cache_value",
 ]

@@ -1,4 +1,4 @@
-from paddlebox_tpu_torch.train.dense_opt import Adam, AdamState
+from paddlebox_tpu_torch.train.dense_opt import Adam, AdamState, MultiSteps, MultiStepsState
 from paddlebox_tpu_torch.train.async_dense import AsyncDenseTable
 from paddlebox_tpu_torch.train.train_step import TrainState, TrainStepConfig, make_train_step
 from paddlebox_tpu_torch.train.resident_step import (
@@ -80,5 +80,7 @@ __all__ = [
     "StreamSupervisor",
     "Adam",
     "AdamState",
+    "MultiSteps",
+    "MultiStepsState",
     "AsyncDenseTable",
 ]

@@ -9,7 +9,7 @@ Port of the JAX package's ``train/rollback.py``. A pass mutates exactly
 
 ``PassGuard.begin`` snapshots both right after ``begin_pass`` builds the
 working set: the rows on the host, and a host copy of the trainer's
-``params`` dict and :class:`AdamState`. ``revert`` pushes the rows back
+``params`` dict and optimizer state. ``revert`` pushes the rows back
 (undoing any partial or complete writeback), restores the dense side onto
 the trainer's device and drops the trainer's device-side caches;
 ``confirm`` drops the snapshot. end_pass's decay and shrink run after the
@@ -23,15 +23,11 @@ from typing import Any, Optional
 
 import numpy as np
 
-from paddlebox_tpu_torch.train.dense_opt import AdamState
+from paddlebox_tpu_torch.train.dense_opt import tree_map
 
 
-def _on(state: AdamState, device) -> AdamState:
-    return AdamState(
-        count=state.count.to(device, copy=True),
-        mu={k: v.to(device, copy=True) for k, v in state.mu.items()},
-        nu={k: v.to(device, copy=True) for k, v in state.nu.items()},
-    )
+def _on(state: Any, device) -> Any:
+    return tree_map(lambda t: t.to(device, copy=True), state)
 
 
 class PassGuard:
@@ -42,7 +38,7 @@ class PassGuard:
         self.trainer = trainer
         self._keys: Optional[np.ndarray] = None
         self._vals: Optional[np.ndarray] = None
-        self._dense: Optional[tuple] = None  # (params, AdamState) on the host
+        self._dense: Optional[tuple] = None  # (params, optimizer state) on the host
 
     @property
     def armed(self) -> bool:

@@ -39,9 +39,10 @@ came. Under ``dense_sync_mode="async"`` the step leaves params and
 optimizer state as they came and returns the globally reduced dense
 gradients as ``metrics["gparams"]`` (the same on every rank); the
 trainer pushes them to the one ``AsyncDenseTable`` (rank 0's) and
-broadcasts its params before the next step.
-
-Not ported: ``use_expand`` (ROADMAP Queue 1 item 6).
+broadcasts its params before the next step. With ``cfg.use_expand`` the
+pull and the push carry the expand block over the same ``all_to_all``
+(``extended=True``; the quantised wires send it as its own section), as
+the JAX package's ``extended=cfg.use_expand`` does.
 """
 
 from __future__ import annotations
@@ -54,11 +55,12 @@ from paddlebox_tpu_torch.fleet.zero import Zero1Optimizer
 from paddlebox_tpu_torch.metrics.auc import AucState, auc_update
 from paddlebox_tpu_torch.parallel.mesh import MeshPlan, put_replicated, put_sharded
 from paddlebox_tpu_torch.parallel.sharded_pullpush import sharded_pull, sharded_push
-from paddlebox_tpu_torch.train.dense_opt import AdamState
+from paddlebox_tpu_torch.train.dense_opt import tree_map
 from paddlebox_tpu_torch.train.train_step import (
     TrainState,
     TrainStepConfig,
     adjusted_loss_weight,
+    check_expand,
     local_forward,
     local_forward_backward,
     scale_and_merge_grads,
@@ -92,12 +94,8 @@ def _div(x: torch.Tensor, n: float) -> torch.Tensor:
     return torch.div(x, torch.full((), n, dtype=x.dtype, device=x.device))
 
 
-def _where_state(finite: torch.Tensor, new: AdamState, old: AdamState) -> AdamState:
-    return AdamState(
-        count=torch.where(finite, new.count, old.count),
-        mu={k: torch.where(finite, v, old.mu[k]) for k, v in new.mu.items()},
-        nu={k: torch.where(finite, v, old.nu[k]) for k, v in new.nu.items()},
-    )
+def _where_state(finite: torch.Tensor, new: Any, old: Any) -> Any:
+    return tree_map(lambda a, b: torch.where(finite, a, b), new, old)
 
 
 def _check_mesh_cfg(cfg: TrainStepConfig, dense_opt, plan: MeshPlan) -> None:
@@ -106,8 +104,7 @@ def _check_mesh_cfg(cfg: TrainStepConfig, dense_opt, plan: MeshPlan) -> None:
             f"cfg.axis_name {cfg.axis_name!r} != mesh axis {plan.axis!r}; the sharded "
             "step always runs its collectives over the plan's axis"
         )
-    if cfg.use_expand:
-        raise NotImplementedError("use_expand is not ported (ROADMAP Queue 1 item 6)")
+    check_expand(cfg)
     if isinstance(dense_opt, Zero1Optimizer):
         if cfg.dense_sync_mode == "async":
             raise ValueError(
@@ -128,15 +125,15 @@ def init_sharded_train_state(
     params: Dict[str, torch.Tensor],
     dense_opt,
     auc_buckets: int = 100_000,
-    opt_state: Optional[AdamState] = None,  # carried between passes; None = fresh
+    opt_state: Any = None,  # carried between passes; None = fresh
     local_dense: bool = False,  # kstep: per-rank dense replicas
 ) -> TrainState:
     """This rank's mesh state: its table block (a copy), copies of the
     params and optimizer state on its card, zero AUC tables, step 0.
 
     With a :class:`Zero1Optimizer` the optimizer state is this rank's
-    chunk: of ``opt_state`` when given (stacked [n, ...] counts and
-    moments, or this rank's own), else of a fresh ``init_stacked``."""
+    chunk: of ``opt_state`` when given (stacked, every leaf [n, ...], or
+    this rank's own), else of a fresh ``init_stacked``."""
     dev = plan.device
     table = put_sharded(plan, table) if len(table.shape) == 3 else put_replicated(plan, table)
     params = put_replicated(plan, params)
@@ -145,12 +142,12 @@ def init_sharded_train_state(
             raise ValueError("ZeRO sharding and kstep local replicas conflict")
         dense_opt.check_axis(plan.axis, plan.world)
         st = opt_state if opt_state is not None else dense_opt.init_stacked(params)
-        if st.count.dim() == 1:  # stacked: this rank's chunk
+        if Zero1Optimizer.is_stacked(st):  # stacked: this rank's chunk
             st = Zero1Optimizer.local_state(st, plan.rank)
         opt = st
     else:
         opt = opt_state if opt_state is not None else dense_opt.init(params)
-    opt = AdamState(*put_replicated(plan, tuple(opt)))
+    opt = tree_map(lambda t: put_replicated(plan, t), opt)
     return TrainState(
         table=table,
         params=params,
@@ -185,9 +182,10 @@ def make_local_mesh_step(
 
     def pulled_flat(state: TrainState, batch: Dict[str, torch.Tensor]):
         pulled = sharded_pull(
-            plan, state.table, batch["req_ranks"], lay, opt.embedx_threshold, cfg.pull_scale
-        )  # [n*K, PW]
-        return pulled.index_select(0, batch["inverse"].long())  # [L, PW]
+            plan, state.table, batch["req_ranks"], lay, opt.embedx_threshold, cfg.pull_scale,
+            extended=cfg.use_expand,
+        )  # [n*K, PW(+E)]
+        return pulled.index_select(0, batch["inverse"].long())  # [L, PW(+E)]
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):

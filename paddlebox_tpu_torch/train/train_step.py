@@ -32,17 +32,21 @@ import torch
 import torch.nn.functional as F
 
 from paddlebox_tpu_torch.metrics.auc import AucState, auc_update
-from paddlebox_tpu_torch.ops.pull_push import pull_sparse_rows, push_sparse_rows
-from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm, segment_sum
+from paddlebox_tpu_torch.ops.pull_push import (
+    pull_sparse_rows,
+    pull_sparse_rows_extended,
+    push_sparse_rows,
+)
+from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm, segment_sum, sum_pool
 from paddlebox_tpu_torch.table.optimizers import SparseOptimizerConfig
 from paddlebox_tpu_torch.table.value_layout import ValueLayout
-from paddlebox_tpu_torch.train.dense_opt import Adam, AdamState
+from paddlebox_tpu_torch.train.dense_opt import Adam, tree_map
 
 
 class TrainState(NamedTuple):
     table: torch.Tensor  # [rows, width] pass working-set (a mesh rank's shard)
     params: Any  # dense model params (the model's state_dict)
-    opt_state: Any  # dense optimizer state (train/dense_opt.AdamState)
+    opt_state: Any  # dense optimizer state (train/dense_opt: AdamState, MultiStepsState)
     auc: AucState
     step: torch.Tensor  # int32 scalar
     # steps dispatched, counted on the host: the mesh's kstep cadence,
@@ -105,7 +109,17 @@ def local_forward(
     With ``ins_weight`` the loss is the weighted sum over ``loss_denom``
     (default: the weight sum, at least 1), else the mean. With
     ``cfg.model_takes_rank_offset`` the model is called as
-    ``model_apply(params, slot_feats, dense, rank_offset)``."""
+    ``model_apply(params, slot_feats, dense, rank_offset)``. With
+    ``cfg.use_expand`` the trailing ``expand_dim`` columns of ``flat`` are
+    the expand embeddings: they are sum-pooled by (slot, instance), the pad
+    segments dropped, and reach the model as its last positional argument,
+    [b, S, E]."""
+    extra = (rank_offset,) if cfg.model_takes_rank_offset else ()
+    if cfg.use_expand:
+        E = cfg.layout.expand_dim
+        pooled = sum_pool(flat[:, -E:], segments, cfg.num_slots, cfg.batch_size)  # [S, b, E]
+        extra = extra + (pooled.permute(1, 0, 2),)
+        flat = flat[:, :-E]
     slot_feats = fused_seqpool_cvm(
         flat,
         segments,
@@ -114,7 +128,6 @@ def local_forward(
         use_cvm=cfg.use_cvm,
         clk_filter=cfg.clk_filter,
     )
-    extra = (rank_offset,) if cfg.model_takes_rank_offset else ()
     logits = model_apply(params, slot_feats, dense, *extra)
     if ins_weight is None:
         loss = F.binary_cross_entropy_with_logits(logits, labels)
@@ -229,6 +242,15 @@ def adjusted_loss_weight(
     return loss_w, denom
 
 
+def check_expand(cfg: TrainStepConfig) -> None:
+    """``use_expand`` needs a layout with an expand block."""
+    if cfg.use_expand and cfg.layout.expand_dim == 0:
+        raise ValueError(
+            "use_expand needs a layout with an expand block (ValueLayout(expand_embed_dim > 0), "
+            "not SHARE_EMBEDDING)"
+        )
+
+
 def make_train_step(
     model_apply: Callable,
     cfg: TrainStepConfig,
@@ -250,23 +272,34 @@ def make_train_step(
     ``dense_opt``; under "async" the host's ``AsyncDenseTable`` owns the
     dense optimizer: the step returns params and opt_state as they came
     and its dense gradients as ``metrics["gparams"]`` (an eval step never
-    does). ``use_expand`` and ``axis_name`` (a mesh) are not ported.
+    does). With ``cfg.use_expand`` the step pulls with the extended pull
+    (pull_box_extended_sparse): the pulled records carry the expand block
+    as trailing columns, the model gets the pooled expand embeddings as its
+    last argument, and the push trains the expand block with its own g2.
+    A mesh's step is :func:`~paddlebox_tpu_torch.train.sharded_step.
+    make_sharded_train_step`: a ``cfg.axis_name`` here raises.
     """
-    if cfg.use_expand or cfg.axis_name is not None:
-        raise NotImplementedError(
-            "use_expand is not ported (ROADMAP Queue 1 item 6); a mesh's step (axis_name) is "
+    if cfg.axis_name is not None:
+        raise ValueError(
+            f"cfg.axis_name={cfg.axis_name!r} names a mesh axis: a mesh's step is "
             "train/sharded_step.py's make_sharded_train_step"
         )
+    check_expand(cfg)
     lay, opt = cfg.layout, cfg.sparse_opt
+
+    def pull(table: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+        """[U, PW] records, or [U, PW + E] with the expand block."""
+        if cfg.use_expand:
+            rec, exp = pull_sparse_rows_extended(table, rows, lay, opt.embedx_threshold, cfg.pull_scale)
+            return torch.cat([rec, exp], dim=1)
+        return pull_sparse_rows(table, rows, lay, opt.embedx_threshold, cfg.pull_scale)
 
     if eval_mode:
 
         @torch.no_grad()
         def eval_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-            pulled_u = pull_sparse_rows(
-                state.table, batch["uniq_rows"], lay, opt.embedx_threshold, cfg.pull_scale
-            )  # [U, PW]
-            flat = pulled_u.index_select(0, batch["inverse"].long())  # [L, PW]
+            pulled_u = pull(state.table, batch["uniq_rows"])  # [U, PW(+E)]
+            flat = pulled_u.index_select(0, batch["inverse"].long())  # [L, PW(+E)]
             labels = batch["labels"]
             # the instance weights weigh the loss and mask the AUC, as in
             # training; AdjustInsWeight is a training-only rule
@@ -307,10 +340,8 @@ def make_train_step(
         ins_weight = batch.get("ins_weight")
         U = uniq_rows.shape[0]
 
-        pulled_u = pull_sparse_rows(
-            state.table, uniq_rows, lay, opt.embedx_threshold, cfg.pull_scale
-        )  # [U, PW]
-        flat = pulled_u.index_select(0, inverse.long())  # [L, PW]
+        pulled_u = pull(state.table, uniq_rows)  # [U, PW(+E)]
+        flat = pulled_u.index_select(0, inverse.long())  # [L, PW(+E)]
 
         loss_w, loss_denom = ins_weight, None
         if cfg.adjust_ins_weight is not None:
@@ -352,10 +383,8 @@ def make_train_step(
         if finite is not None and not is_async:
             # skipped batch: dense params and optimizer moments stay put
             new_params = {k: torch.where(finite, v, state.params[k]) for k, v in new_params.items()}
-            new_opt_state = AdamState(
-                count=torch.where(finite, new_opt_state.count, state.opt_state.count),
-                mu={k: torch.where(finite, v, state.opt_state.mu[k]) for k, v in new_opt_state.mu.items()},
-                nu={k: torch.where(finite, v, state.opt_state.nu[k]) for k, v in new_opt_state.nu.items()},
+            new_opt_state = tree_map(
+                lambda new, old: torch.where(finite, new, old), new_opt_state, state.opt_state
             )
 
         auc_mask = None if ins_weight is None else (ins_weight > 0)

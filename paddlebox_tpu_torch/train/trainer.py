@@ -177,7 +177,7 @@ import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -190,7 +190,7 @@ from paddlebox_tpu_torch.data.pipeline import prefetch
 from paddlebox_tpu_torch.fleet.zero import Zero1Optimizer
 from paddlebox_tpu_torch.metrics.auc import AucState, auc_compute, auc_init, auc_psum
 from paddlebox_tpu_torch.train.async_dense import AsyncDenseTable
-from paddlebox_tpu_torch.train.dense_opt import Adam, AdamState
+from paddlebox_tpu_torch.train.dense_opt import Adam, MultiStepsState, tree_map
 from paddlebox_tpu_torch.metrics.registry import MetricRegistry
 from paddlebox_tpu_torch.parallel.mesh import MeshPlan
 from paddlebox_tpu_torch.train.resident_step import (
@@ -229,12 +229,8 @@ _PROFILE_KEYS = ("feed_wait_s", "step_dispatch_s", "device_step_s", "host_metric
 _SLOW_FEED_KEYS = ("build_batch_s", "pack_batch_s", "h2d_s")
 
 
-def _clone_opt_state(st: AdamState) -> AdamState:
-    return AdamState(
-        count=st.count.clone(),
-        mu={k: v.clone() for k, v in st.mu.items()},
-        nu={k: v.clone() for k, v in st.nu.items()},
-    )
+def _clone_opt_state(st: Any) -> Any:
+    return tree_map(torch.clone, st)
 
 
 class CTRTrainer:
@@ -303,7 +299,7 @@ class CTRTrainer:
         self.dump_params_at_end = dump_params_at_end
         self.box = box
         self.params: Optional[Dict[str, torch.Tensor]] = None
-        self.opt_state: Optional[AdamState] = None
+        self.opt_state: Any = None  # the dense optimizer's state (AdamState, MultiStepsState)
         self._state: Optional[TrainState] = None
         self._state_ws = None
         self._packer_cache = None  # (store, ws, BatchPacker)
@@ -386,7 +382,8 @@ class CTRTrainer:
     def save_dense(self, path: str) -> None:
         """Dense checkpoint (boxps_trainer.cc:123-131 parity) in the JAX
         package's format: ``leaf_0`` .. ``leaf_{n-1}`` of its ``(params,
-        optax.adam state)`` tree, weights as [in, out], plus a ``treedef``
+        optax state)`` tree (Adam's, or ``MultiSteps`` of Adam's), weights
+        as [in, out], plus a ``treedef``
         string naming each leaf. Written through ``atomic_write``, so a
         crash cannot tear a file a cursor already names."""
         from paddlebox_tpu_torch.models.convert import dense_leaf_names, dense_to_jax_leaves
@@ -397,14 +394,18 @@ class CTRTrainer:
         with atomic_write(path, "wb") as f:
             np.savez_compressed(
                 f,
-                treedef=";".join(dense_leaf_names(self.params, zero=isinstance(self.dense_opt, Zero1Optimizer))),
+                treedef=";".join(dense_leaf_names(
+                    self.params, zero=isinstance(self.dense_opt, Zero1Optimizer),
+                    multi_steps=isinstance(self.opt_state, MultiStepsState),
+                )),
                 **{f"leaf_{i}": x for i, x in enumerate(leaves)},
             )
 
     def load_dense(self, path: str) -> None:
         """Read a dense checkpoint of either package onto ``self.device``;
         raises ``ValueError`` on a leaf count or a shape that differs from
-        the current params. Drops the device-side caches."""
+        the current params, or an optimizer state of another kind than
+        this trainer's. Drops the device-side caches."""
         from paddlebox_tpu_torch.models.convert import dense_from_jax_leaves
 
         if self.params is None:
@@ -413,7 +414,13 @@ class CTRTrainer:
         with np.load(path, allow_pickle=False) as data:
             n_saved = sum(1 for k in data.files if k.startswith("leaf_"))
             leaves = [data[f"leaf_{i}"] for i in range(n_saved)]
-        self.params, self.opt_state = dense_from_jax_leaves(leaves, self.params, self.device)
+        params, opt_state = dense_from_jax_leaves(leaves, self.params, self.device)
+        if type(opt_state) is not type(self.opt_state):
+            raise ValueError(
+                f"the checkpoint holds a {type(opt_state).__name__} but this trainer's dense "
+                f"optimizer keeps a {type(self.opt_state).__name__}"
+            )
+        self.params, self.opt_state = params, opt_state
         self.drop_device_state()
 
     # ---- pass loop -------------------------------------------------------
@@ -1249,26 +1256,12 @@ class CTRTrainer:
         chunk states are all-gathered into the stacked state."""
         plan = self.plan
         if isinstance(self.dense_opt, Zero1Optimizer):
-            st = state.opt_state
             self.params = state.params
-            self.opt_state = AdamState(
-                count=plan.all_gather(st.count),
-                mu={"flat": plan.all_gather(st.mu["flat"])},
-                nu={"flat": plan.all_gather(st.nu["flat"])},
-            )
+            self.opt_state = tree_map(plan.all_gather, state.opt_state)
             return state
         if self.cfg.dense_sync_mode == "kstep" and not eval_mode:
             state = kstep_sync_params(state, plan)
-            st = state.opt_state
-
-            def rank0(t):
-                return plan.all_gather(t)[0]
-
-            self.opt_state = AdamState(
-                count=rank0(st.count),
-                mu={k: rank0(v) for k, v in st.mu.items()},
-                nu={k: rank0(v) for k, v in st.nu.items()},
-            )
+            self.opt_state = tree_map(lambda t: plan.all_gather(t)[0], state.opt_state)
         else:
             self.opt_state = state.opt_state
         self.params = state.params

@@ -1,5 +1,5 @@
-"""Host-side utilities: stats, fault injection, device selection, the
-native host tier (``native``)."""
+"""Host-side utilities: stats, stage timers, fault injection, device
+selection, the native host tier (``native``)."""
 
 from paddlebox_tpu_torch.utils.faultinject import (  # noqa: F401
     InjectedFault,
@@ -15,3 +15,4 @@ from paddlebox_tpu_torch.utils.monitor import (  # noqa: F401
     STAT_OBSERVE,
     STAT_RESET,
 )
+from paddlebox_tpu_torch.utils.timer import ScopedTimer, Timer, TimerRegistry  # noqa: F401

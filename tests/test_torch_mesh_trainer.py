@@ -281,11 +281,11 @@ def test_replica_digest_raises_when_a_rank_loads_other_files(ranks):
 
 def test_mesh_refusals(tmp_path):
     """What the mesh still refuses, on a plan that never runs a
-    collective: ``use_expand`` raises ``NotImplementedError`` naming its
-    ROADMAP item; async dense without a table on rank 0, async with
-    ZeRO-1, ZeRO-1 without a plan and a rank's table shard at end_pass on
-    a dataset no mesh trainer bound are ``ValueError``s. Async dense, a
-    rank-offset model and a metric registry are taken."""
+    collective: ``use_expand`` on a layout without an expand block, async
+    dense without a table on rank 0, async with ZeRO-1, ZeRO-1 without a
+    plan and a rank's table shard at end_pass on a dataset no mesh trainer
+    bound are ``ValueError``s. Async dense, a rank-offset model, a metric
+    registry and ``use_expand`` on an expand layout are taken."""
     import dataclasses
 
     from paddlebox_tpu_torch.fleet import Zero1Optimizer
@@ -297,8 +297,10 @@ def test_mesh_refusals(tmp_path):
     plan1 = MeshPlan(rank=1, world=2, device=torch.device("cpu"), backend="gloo")
     lay = ValueLayout(embedx_dim=D)
     cfg = TrainStepConfig(num_slots=S, batch_size=B // 2, layout=lay, auc_buckets=1000)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="expand block"):
         CTRTrainer(Tower(), dataclasses.replace(cfg, use_expand=True), plan=plan)
+    CTRTrainer(Tower(), dataclasses.replace(cfg, use_expand=True, layout=ValueLayout(embedx_dim=D, expand_embed_dim=2)),
+               plan=plan)
     acfg = dataclasses.replace(cfg, dense_sync_mode="async")
     with pytest.raises(ValueError, match="AsyncDenseTable"):
         CTRTrainer(Tower(), acfg, plan=plan)

@@ -141,15 +141,22 @@ def test_eval_step_with_ins_weight_matches_jax(adjust):
 
 
 def test_train_mode_is_not_ported_yet():
-    """Training is ported, its async dense mode too; the expand and mesh
-    variants are not, and say so."""
+    """Training is ported, its async dense mode and the extended pull too:
+    ``use_expand`` builds a step on a layout with an expand block and
+    raises ``ValueError`` on one without; a mesh axis (``axis_name``) is a
+    misuse, a ``ValueError`` naming the mesh's step builder."""
     lay = ValueLayout(embedx_dim=D)
     cfg = TrainStepConfig(num_slots=S, batch_size=B, layout=lay, dense_sync_mode="async")
     assert callable(make_train_step(lambda p, x, d: x, cfg, None, eval_mode=False))
-    for kw in ({"use_expand": True}, {"axis_name": "dp"}):
-        cfg = TrainStepConfig(num_slots=S, batch_size=B, layout=lay, **kw)
-        with pytest.raises(NotImplementedError):
-            make_train_step(lambda p, x, d: x, cfg, Adam(1e-3), eval_mode=False)
+    cfg = TrainStepConfig(num_slots=S, batch_size=B, layout=ValueLayout(embedx_dim=D, expand_embed_dim=2),
+                          use_expand=True)
+    assert callable(make_train_step(lambda p, x, d, e: x, cfg, Adam(1e-3), eval_mode=False))
+    with pytest.raises(ValueError, match="expand block"):
+        make_train_step(lambda p, x, d, e: x, TrainStepConfig(num_slots=S, batch_size=B, layout=lay, use_expand=True),
+                        Adam(1e-3))
+    cfg = TrainStepConfig(num_slots=S, batch_size=B, layout=lay, axis_name="dp")
+    with pytest.raises(ValueError, match="make_sharded_train_step"):
+        make_train_step(lambda p, x, d: x, cfg, Adam(1e-3), eval_mode=False)
     cfg = TrainStepConfig(num_slots=S, batch_size=B, layout=lay)
     with pytest.raises(ValueError, match="dense optimizer"):
         make_train_step(lambda p, x, d: x, cfg, eval_mode=False)

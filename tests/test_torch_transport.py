@@ -23,6 +23,7 @@ limit.
 
 from __future__ import annotations
 
+import select
 import socket
 import struct
 import threading
@@ -448,3 +449,61 @@ def test_version_mismatch_is_typed():
         assert isinstance(err, ttransport.ProtocolError) and "v2" in str(err)
     finally:
         close_all(ts)
+
+
+def test_stalled_frame_body_drops_the_connection_and_the_resync_delivers():
+    """A frame whose body stops arriving mid-way (a sender that keeps the
+    connection but sends only beats after a partial frame) is dropped with
+    its connection after the failure detector's horizon, though the
+    trickle never idles a single read that long; the frame was never
+    delivered, so a reconnect replays it whole and it lands once."""
+    from paddlebox_tpu_torch.utils.monitor import STAT_GET
+
+    T = ttransport
+    prev = config.get_flag("transport_peer_dead_s")
+    config.set_flag("transport_peer_dead_s", 0.6)
+    set_both(transport_heartbeat_s=0.0)
+    eps = [f"127.0.0.1:{p}" for p in _free_ports(2)]
+    t0 = T.TcpTransport(0, eps, timeout=10.0)
+    payload = b"x" * 4000
+    body = b"t" + payload
+    frame = T._FRAME.pack(1, T._KIND_DATA, T._CODEC_RAW, 1, len(payload), zlib.crc32(body)) + body
+    beat = T._FRAME.pack(0, T._KIND_HEARTBEAT, T._CODEC_RAW, 0, T._ACK.size, zlib.crc32(T._ACK.pack(0)))
+    beat += T._ACK.pack(0)
+
+    def connect():
+        s = socket.create_connection(("127.0.0.1", t0.port), timeout=5.0)
+        s.sendall(T._HELLO.pack(T._MAGIC, T._VERSION, 1))
+        buf = b""
+        while len(buf) < T._HELLO_REPLY.size:
+            buf += s.recv(T._HELLO_REPLY.size - len(buf))
+        return s, T._HELLO_REPLY.unpack(buf)[2]
+
+    try:
+        stalls = STAT_GET("transport.frame_stalls")
+        s, delivered = connect()
+        assert delivered == 0
+        s.sendall(frame[: T._FRAME.size + 100])
+        t_start = time.monotonic()
+        dropped = False
+        while time.monotonic() - t_start < 5.0:
+            # the receiver never writes after its handshake reply: readable
+            # means it closed the connection
+            if select.select([s], [], [], 0.05)[0]:
+                dropped = True
+                break
+            s.sendall(beat)  # a trickle: every read returns before the horizon
+        assert dropped, "the stalled connection was not dropped"
+        assert 0.5 <= time.monotonic() - t_start < 5.0
+        assert STAT_GET("transport.frame_stalls") == stalls + 1
+        with pytest.raises((T.TransportTimeout, T.PeerDeadError)):
+            t0.recv("t", 1, timeout=0.2)  # the stalled frame never landed (rank 1 is silent by now)
+        s.close()
+        s2, delivered = connect()
+        assert delivered == 0  # so the resync replays seq 1
+        s2.sendall(frame)
+        assert t0.recv("t", 1, timeout=5.0) == payload
+        s2.close()
+    finally:
+        config.set_flag("transport_peer_dead_s", prev)
+        t0.close()
