@@ -367,7 +367,24 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    within AMP_ULPS bf16 ulps, and ``gradient_merge`` (k = 4) over 8
    steps: params bitwise unchanged on the mini-steps that do not emit,
    the emitting ones within phase 6's params bound of the CPU path, no
-   host sync in a ``MultiSteps`` superstep.
+   host sync in a ``MultiSteps`` superstep;
+19. pipeline parallelism ("pipeline") at the width of DeepFM's dense
+   tower, 741 -> 512 -> 256 -> 128 -> 1, as heterogeneous stages
+   (``hetero_mlp_stage_init``; two stages are [[741, 512, 256], [256,
+   128, 1]]), BATCH as 4 microbatches of 1024 from ``--seed + 19``, MSE
+   of the output lane against tanh targets, 8 Adam steps (lr 1e-4, eps
+   1e-3): in phase 12's worlds with pp = the world (the NCCL world of one
+   rank a card shifts to itself when there is one card; the gloo world of
+   2 on cuda:0), and in a new gloo world of 4 on cuda:0, pp 2 x dp 2 (``make_mesh_2d``), with
+   plain Adam and with ZeRO-1 from ``DistributedStrategy(pipeline=True,
+   sharding=True, pipeline_configs={"micro_batch": 4, "dp_degree":
+   2})``. Each run is held against the unpadded tower in order on one
+   device (loss rtol 5e-5; weights rtol 5e-4, atol 5e-5; the padding
+   exactly 0, the gates untouched), ZeRO-1 against plain Adam (rtol 1e-6,
+   atol 1e-7), the 2 x 2 world's first loss against the 2-rank world's
+   (rtol 2e-5); a step's shifts and all-reduces are the tests' count, and
+   no kernel launches. Each world's median ms a step and samples/s are
+   printed.
 
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -1013,13 +1030,15 @@ def main() -> int:
     boundary_counts = timed("9 boundary", boundary_phase, args, card, ck, lay, schema, train)
     join_counts, join_err = timed("10 join_update", join_update_phase, args, dev, card, ck, pull_push, lay)
     zoo_counts, dcn, zoo_err = timed("11 zoo", zoo_phase, args, dev, card, ck, lay)
-    mesh_counts, owner, join_owner, mesh_err, mesh18 = timed("12-13 mesh", mesh_phases, args, dev, card, ck, lay)
+    mesh_counts, owner, join_owner, mesh_err, mesh18, mesh19 = timed("12-13 mesh", mesh_phases, args, dev, card, ck,
+                                                                     lay)
     supervised_counts, sup_err = timed("14 supervised_day", supervised_phase, args, dev, card, ck, lay, schema)
     multihost_counts, mh_owner, mh_err = timed("15 multihost", multihost_phase, args, dev, card, ck, lay)
     sh_counts, sh_owner, sh_err = timed("16 supervised_hosts", supervised_hosts_phase, args, dev, card, ck, lay)
     fleet_counts, fleet_shape, fleet_err = timed("17 serve_fleet", serve_fleet_phase, args, dev, card, ck, lay,
                                                  schema)
     lt_counts, lt_shapes, lt_err = timed("18 long_tail", long_tail_phase, args, dev, card, ck, pull_push, mesh18)
+    timed("19 pipeline", pipeline_phase, args, dev, card, mesh19)
     emit({"card": card, "phase_wall_s": walls, "script_s": time.perf_counter() - t_start})
 
     by_path = {"serve": serve_counts, **train["counts"], **published, "boundary": boundary_counts, **join_counts,
@@ -3566,13 +3585,14 @@ MESH_TAGS = {"nccl": {"backend": "nccl", "ranks_per_card": 1},
              "gloo": {"backend": "gloo", "ranks_per_card": MESH_GLOO_RANKS}}
 
 
-def mesh_ranks(plan, spec12, spec13, spec18):
-    """Phases 12 and 13, and phase 18's extended mesh, on one rank of a
-    world, in one spawned process (the process, its CUDA context and its
-    collectives' set-up are paid once)."""
+def mesh_ranks(plan, spec12, spec13, spec18, spec19):
+    """Phases 12 and 13, phase 18's extended mesh and phase 19's pipeline
+    over the world, on one rank of a world, in one spawned process (the
+    process, its CUDA context and its collectives' set-up are paid once)."""
     mesh_rank(plan, spec12)
     mesh_join_rank(plan, spec13)
     mesh_expand_rank(plan, spec18)
+    pipeline_rank(plan, spec19)
 
 
 def _read_ranks(out, world):
@@ -3588,9 +3608,10 @@ def _read_ranks(out, world):
 def mesh_phases(args, dev, card, ck, lay):
     """Phases 12 and 13 in the NCCL world (one rank a card) and the gloo
     world of two ranks on cuda:0, one spawn a world running both phases'
-    rank functions and phase 18's extended mesh. Returns the launch counts
-    by path, the kernels' numbers at phase 12's and phase 13's owner
-    shapes, their max abs error, and phase 18's mesh results."""
+    rank functions, phase 18's extended mesh and phase 19's pipeline.
+    Returns the launch counts by path, the kernels' numbers at phase 12's
+    and phase 13's owner shapes, their max abs error, phase 18's mesh
+    results and phase 19's worlds."""
     from paddlebox_tpu_torch.fleet.launch import spawn
 
     t_phase = time.perf_counter()
@@ -3598,29 +3619,31 @@ def mesh_phases(args, dev, card, ck, lay):
         p12 = mesh_prepare(args, dev, lay, tmp)
         p13 = mesh_join_prepare(args, dev, lay, tmp)
         p18 = mesh_expand_prepare(args, dev, p12["files"][:LT_FILES])
-        worlds12, worlds13, worlds18 = {}, {}, {}
+        worlds12, worlds13, worlds18, worlds19 = {}, {}, {}, {}
         for name, backend, world, device, per_card in MESH_WORLDS:
             world = world or min(torch.cuda.device_count(), MESH_NCCL_MAX)
             outs = []
-            for phase in ("12", "13", "18"):
+            for phase in ("12", "13", "18", "19"):
                 outs.append(os.path.join(tmp, f"{name}-{phase}"))
                 os.makedirs(outs[-1])
             spec12 = {"files": p12["files"], "seed": args.seed + 8, "out": outs[0], "ranks_per_card": per_card}
             spec13 = {"pv_files": p13["pv_files"], "boundary_files": p13["boundary_files"],
                       "seed": args.seed + MESH_JOIN_SEED, "out": outs[1], "ranks_per_card": per_card}
             spec18 = {"files": p18["files"], "seed": args.seed + LT_SEED, "out": outs[2], "ranks_per_card": per_card}
+            spec19 = {"kind": "pp", "seed": args.seed, "out": outs[3]}
             t0 = time.perf_counter()
             spawn(mesh_ranks, world, f"file://{tmp}/rdv-{name}", backend=backend, device=device,
-                  args=(spec12, spec13, spec18), timeout_s=MESH_TIMEOUT_S)
+                  args=(spec12, spec13, spec18, spec19), timeout_s=MESH_TIMEOUT_S)
             wall = time.perf_counter() - t0
             worlds12[name] = (_read_ranks(outs[0], world), wall)
             worlds13[name] = (_read_ranks(outs[1], world), wall)
             worlds18[name] = (_read_ranks(outs[2], world), wall)
+            worlds19[name] = (_read_ranks(outs[3], world), wall)
         counts, owner, err = mesh_report(args, dev, card, ck, lay, worlds12, p12)
         counts13, join_owner, err13 = mesh_join_report(args, dev, card, ck, lay, worlds13, p13)
         mesh18 = mesh_expand_report(card, worlds18, p18)
     print(f"phases 12-13 (mesh) in {time.perf_counter() - t_phase:.3f} s; {card}", flush=True)
-    return {**counts, **counts13}, owner, join_owner, max(err, err13), mesh18
+    return {**counts, **counts13}, owner, join_owner, max(err, err13), mesh18, worlds19
 
 
 def mesh_prepare(args, dev, lay, tmp):
@@ -5000,15 +5023,49 @@ def host_list(mine, world):
     return [f for f in mine for _ in range(world)]
 
 
+_PORTS_GIVEN = set()
+_PORTS_LOCK = threading.Lock()
+
+
 def _ports(n):
+    """``n`` free loopback ports for TcpTransport listeners, each handed
+    out once a run. They are drawn below the kernel's ephemeral range: a
+    port that ``bind(0)`` picked and closed can be taken, before its
+    listener binds it, by any outbound connection of the run (the gloo
+    worlds' pairs run beside the elastic days), while a port below the
+    range is never assigned by the kernel. A rejoining rank re-binds its
+    own endpoint, which stays safe for the same reason."""
+    import random
     import socket
 
-    socks = [socket.socket() for _ in range(n)]
-    for s in socks:
-        s.bind(("127.0.0.1", 0))
-    ports = [s.getsockname()[1] for s in socks]
-    for s in socks:
-        s.close()
+    lo = 32768
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        pass
+    first = max(1024, lo - 12000)
+    if lo - first < 1000:
+        raise RuntimeError(f"no port range below the ephemeral range, which starts at {lo}")
+    rng = random.Random(os.getpid())
+    ports = []
+    with _PORTS_LOCK:
+        for _ in range(50 * n):
+            if len(ports) == n:
+                break
+            p = rng.randrange(first, lo)
+            if p in _PORTS_GIVEN:
+                continue
+            with socket.socket() as s:
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                try:
+                    s.bind(("127.0.0.1", p))
+                except OSError:
+                    continue
+            _PORTS_GIVEN.add(p)
+            ports.append(p)
+    if len(ports) < n:
+        raise RuntimeError(f"found {len(ports)} of {n} free ports in [{first}, {lo})")
     return ports
 
 
@@ -7174,6 +7231,257 @@ def long_tail_phase(args, dev, card, ck, pull_push, mesh18):
           "launches": counts, "phase_s": phase_s})
     print(f"phase 18 (long_tail) in {phase_s:.3f} s, its mesh runs in phase 12's spawns; {card}", flush=True)
     return counts, {"expand_train": shapes, "replica_cache": cache_shape}, max(gerr, werr, mesh18["err"])
+
+
+
+# ---- 19. pipeline parallelism: the GPipe step over a pp axis, pp x dp, ZeRO-1
+
+PP_SEED = 19  # the phase's seed offset: the stages' weights and the data
+PP_TOWER = (NUM_SLOTS * (3 + EMBEDX_DIM),) + HIDDEN + (1,)  # DeepFM's dense tower: 741 -> 512 -> 256 -> 128 -> 1
+PP_MICRO = 4  # micro_batch: BATCH as 4 microbatches of 1024
+PP_STEPS = 8
+PP_LR = 1e-4  # Adam at 1e-3 moves the relu output below 0 for every sample in one step
+# Adam's eps: at optax's 1e-8 the step is lr * sign(g) for any |g| >> 1e-8, so
+# a gradient element near 0 whose sign fp32 summation order decides (cuBLAS
+# sums the padded [741, 741] and the unpadded [741, 512] products apart)
+# parts the two runs by 2 lr a step, past the weight bound. At 1e-3 the
+# update is smooth in g and the comparison holds the schedule's arithmetic
+PP_EPS = 1e-3
+PP_2D = (2, 2)  # the new gloo world on cuda:0: pp x dp
+PP_TIMEOUT_S = 120.0  # the spawned groups' timeout, well under the default 300 s
+# tests/test_pipeline_hetero.py's bounds against the unpadded net on one
+# device; tests/test_pipeline.py's for ZeRO-1 against plain Adam and for
+# pp x dp against the 1-D pipeline
+PP_LOSS_RTOL, PP_W_RTOL, PP_W_ATOL = 5e-5, 5e-4, 5e-5
+PP_ZERO_RTOL, PP_ZERO_ATOL = 1e-6, 1e-7
+PP_FIRST_RTOL = 2e-5
+
+
+def pp_widths(n_pp):
+    """The tower's 4 layers cut into ``n_pp`` stages, the earlier stages
+    taking the extra layer: 2 stages are [[741, 512, 256], [256, 128, 1]]."""
+    n_layers = len(PP_TOWER) - 1
+    sizes = [n_layers // n_pp + (1 if i < n_layers % n_pp else 0) for i in range(n_pp)]
+    cuts = np.cumsum([0] + sizes)
+    return [list(PP_TOWER[cuts[i] : cuts[i + 1] + 1]) for i in range(n_pp)]
+
+
+def pp_stages(seed, n_pp):
+    """(padded stages, unpadded layers) of the tower cut into ``n_pp``
+    stages; the layers are drawn in order, so every cut is one network."""
+    from paddlebox_tpu_torch.parallel import hetero_mlp_stage_init
+
+    return hetero_mlp_stage_init(torch.Generator().manual_seed(seed + PP_SEED), pp_widths(n_pp))
+
+
+def pp_data(seed):
+    """x [PP_MICRO, BATCH / PP_MICRO, 741] and tanh targets for lane 0."""
+    rng = np.random.default_rng(seed + PP_SEED)
+    mb = BATCH // PP_MICRO
+    x = rng.normal(size=(PP_MICRO, mb, PP_TOWER[0])).astype(np.float32)
+    return x, np.tanh(rng.normal(size=(PP_MICRO, mb, 1))).astype(np.float32)
+
+
+def pp_loss(y, tgt):
+    """tests/test_pipeline_hetero.py's loss: MSE of the output lane against tanh targets."""
+    return ((y[..., :1] - tgt) ** 2).mean()
+
+
+def pp_run(mesh, spec, opt, seed, x, t, dp_axis=None):
+    """PP_STEPS steps on this rank: (losses, stage params, ms a step,
+    the first step's collectives by axis, kernel launches)."""
+    from paddlebox_tpu_torch.ops import cuda_kernels as ck
+    from paddlebox_tpu_torch.parallel import hetero_mlp_stage_apply, init_pipeline_state, make_pipeline_train_step
+
+    pp = mesh.along(spec.axis_name)
+    stages, _ = pp_stages(seed, pp.world)
+    state = init_pipeline_state(mesh, stages, opt, axis=spec.axis_name, dp_axis=dp_axis)
+    step = make_pipeline_train_step(hetero_mlp_stage_apply, pp_loss, opt, spec, mesh, dp_axis=dp_axis)
+    axes = [a for a in (spec.axis_name, dp_axis) if a]
+    losses, ms, calls = [], [], []
+    ck.reset_launch_counts()
+    for _ in range(PP_STEPS):
+        mesh.reset_calls()
+        torch.cuda.synchronize(pp.device)
+        t0 = time.perf_counter()
+        state, loss = step(state, x, t)
+        losses.append(float(loss))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        calls.append({a: dict(mesh.along(a).calls) for a in axes})
+    if any(c != calls[0] for c in calls):
+        raise AssertionError(f"pipeline: the steps' collectives differ: {calls}")
+    params = {k: v.cpu().numpy() for k, v in state[0].items()}
+    return losses, params, ms, calls[0], dict(ck.launch_counts)
+
+
+def pipeline_rank(plan, spec):
+    """Phase 19 on one rank of a spawned world: the pipeline over the whole
+    world as ``pp`` (``kind`` "pp"), or the pp x dp world run with plain
+    Adam and with ZeRO-1 from the strategy (``kind`` "2d"). Writes the
+    losses, this rank's stage params, its ms a step, the collectives and
+    the kernel launches to ``spec["out"]``."""
+    from paddlebox_tpu_torch.fleet import DistributedStrategy, Zero1Optimizer
+    from paddlebox_tpu_torch.parallel import make_mesh_2d
+    from paddlebox_tpu_torch.train import Adam
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    x, t = (torch.from_numpy(a).to(plan.device) for a in pp_data(spec["seed"]))
+    res, arrs = {"rank": plan.rank, "world": plan.world, "backend": plan.backend}, {}
+    # the groups of the pipeline's axes time out after PP_TIMEOUT_S, so a
+    # hung shift fails the spawn well before the world's own timeout
+    if spec["kind"] == "pp":  # pp = the world, over a group of its own
+        mesh = make_mesh_2d(plan.world, 1, backend=plan.backend, device=plan.device, timeout_s=PP_TIMEOUT_S)
+        strategy = DistributedStrategy(pipeline=True, pipeline_configs={"micro_batch": PP_MICRO})
+        runs = {"adam": (Adam(PP_LR, eps=PP_EPS), None)}
+    else:
+        mesh = make_mesh_2d(*PP_2D, backend=plan.backend, device=plan.device, timeout_s=PP_TIMEOUT_S)
+        strategy = DistributedStrategy(pipeline=True, sharding=True,
+                                       pipeline_configs={"micro_batch": PP_MICRO, "dp_degree": PP_2D[1]})
+        runs = {"adam": (Adam(PP_LR, eps=PP_EPS), "dp"),
+                "zero": (Zero1Optimizer(Adam(PP_LR, eps=PP_EPS), axis_name="dp", n_dev=strategy.pipeline_dp_degree),
+                         "dp")}
+    spec_pp = strategy.pipeline_spec()
+    res["pp_rank"], res["n_pp"] = mesh.along("pp").rank, mesh.along("pp").world
+    for name, (opt, dp_axis) in runs.items():
+        losses, params, ms, calls, launches = pp_run(mesh, spec_pp, opt, spec["seed"], x, t, dp_axis)
+        res[name] = {"losses": losses, "ms": ms, "calls": calls, "launches": launches}
+        arrs.update({f"{name}:{k}": v for k, v in params.items()})
+    np.savez(os.path.join(spec["out"], f"rank{plan.rank}.npz"), **arrs)
+    with open(os.path.join(spec["out"], f"rank{plan.rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def pp_reference(seed, dev, x, t):
+    """The unpadded tower in order on one device with the port's Adam:
+    (losses, the trained layers as numpy (w, b))."""
+    from paddlebox_tpu_torch.train import Adam
+
+    _, raw = pp_stages(seed, 1)
+    layers = {f"{i}:{k}": torch.from_numpy(a).to(dev) for i, wb in enumerate(raw[0]) for k, a in zip("wb", wb)}
+    opt = Adam(PP_LR, eps=PP_EPS)
+    state = opt.init(layers)
+    xs, ts = torch.from_numpy(x).to(dev), torch.from_numpy(t).to(dev)
+    losses = []
+    for _ in range(PP_STEPS):
+        p = {k: v.detach().requires_grad_(True) for k, v in layers.items()}
+
+        def net(h):
+            for i in range(len(raw[0])):
+                h = torch.relu(h @ p[f"{i}:w"] + p[f"{i}:b"])
+            return h
+
+        loss = torch.stack([pp_loss(net(xs[i]), ts[i]) for i in range(PP_MICRO)]).mean()
+        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        upd, state = opt.update(grads, state)
+        layers = {k: layers[k] + upd[k] for k in layers}
+        losses.append(float(loss.detach()))
+    return losses, [(layers[f"{i}:w"].cpu().numpy(), layers[f"{i}:b"].cpu().numpy()) for i in range(len(raw[0]))]
+
+
+def pp_check_world(what, ranks, run, ref_losses, ref_layers):
+    """A world's run against the one-device reference: every rank's losses
+    alike, within PP_LOSS_RTOL; each stage's real blocks within the weight
+    bounds, its padding exactly 0 and its gates untouched. Returns
+    (loss max rel, weight max abs)."""
+    r0 = ranks[0][run]["losses"]
+    for rk in ranks:
+        if rk[run]["losses"] != r0:
+            raise AssertionError(f"pipeline {what}: the ranks' losses differ")
+    loss_d = float(np.max(np.abs(np.array(r0) - ref_losses) / np.abs(ref_losses)))
+    if loss_d > PP_LOSS_RTOL:
+        raise AssertionError(f"pipeline {what}: losses {r0} vs one device {ref_losses}: rel {loss_d} > {PP_LOSS_RTOL}")
+    n_pp = ranks[0]["n_pp"]
+    widths = pp_widths(n_pp)
+    first = np.cumsum([0] + [len(w) - 1 for w in widths])
+    w_d = 0.0
+    for rk in ranks:
+        s = rk["pp_rank"]
+        w, b, g = rk[f"{run}:w"], rk[f"{run}:b"], rk[f"{run}:g"]
+        L = w.shape[0]
+        if g.tolist() != [1.0] * (len(widths[s]) - 1) + [0.0] * (L - len(widths[s]) + 1):
+            raise AssertionError(f"pipeline {what} rank {rk['rank']}: the gates moved: {g.tolist()}")
+        for l in range(len(widths[s]) - 1):
+            d_in, d_out = widths[s][l], widths[s][l + 1]
+            rw, rb = ref_layers[first[s] + l]
+            for got, want in ((w[l, :d_in, :d_out], rw), (b[l, :d_out], rb)):
+                w_d = max(w_d, float(np.abs(got - want).max()))
+                if not np.allclose(got, want, rtol=PP_W_RTOL, atol=PP_W_ATOL):
+                    raise AssertionError(f"pipeline {what} rank {rk['rank']} layer {l}: weights off the one-device "
+                                         f"run by {np.abs(got - want).max()}")
+            if w[l, d_in:].any() or w[l, :, d_out:].any() or b[l, d_out:].any():
+                raise AssertionError(f"pipeline {what} rank {rk['rank']} layer {l}: the padding moved")
+        for l in range(len(widths[s]) - 1, L):
+            if w[l].any() or b[l].any():
+                raise AssertionError(f"pipeline {what} rank {rk['rank']} gated layer {l}: moved")
+    return loss_d, w_d
+
+
+def pipeline_phase(args, dev, card, worlds):
+    """Phase 19: the GPipe step at the width of DeepFM's dense tower, in
+    phase 12's worlds (``worlds``: pp = the world) and in a new gloo world
+    of pp 2 x dp 2 on cuda:0, plain Adam and ZeRO-1; each against the
+    unpadded tower on one device. Returns the phase's numbers."""
+    from paddlebox_tpu_torch.fleet.launch import spawn
+
+    t_phase = time.perf_counter()
+    x, t = pp_data(args.seed)
+    ref_losses, ref_layers = pp_reference(args.seed, dev, x, t)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp:
+        spec = {"kind": "2d", "seed": args.seed, "out": tmp}
+        t0 = time.perf_counter()
+        spawn(pipeline_rank, PP_2D[0] * PP_2D[1], f"file://{tmp}/rdv", backend="gloo", device="cuda:0",
+              args=(spec,), timeout_s=PP_TIMEOUT_S)
+        worlds = {**worlds, "gloo_2x2": (_read_ranks(tmp, PP_2D[0] * PP_2D[1]), time.perf_counter() - t0)}
+    nums = {}
+    for name, (ranks, wall) in worlds.items():
+        n_pp = ranks[0]["n_pp"]
+        n_dp = len(ranks) // n_pp
+        for run in [r for r in ("adam", "zero") if r in ranks[0]]:
+            what = f"{name} {run} (pp {n_pp} x dp {n_dp})"
+            loss_d, w_d = pp_check_world(what, ranks, run, ref_losses, ref_layers)
+            shifts = 2 * (PP_MICRO + n_pp - 2)
+            want = {"pp": {"shift": shifts, "all_reduce": 1}}
+            if n_dp > 1:
+                want["dp"] = {"all_reduce": 1, "all_gather": 1 if run == "zero" else 0}
+            for rk in ranks:
+                got = {a: {k: rk[run]["calls"][a][k] for k in want[a]} for a in want}
+                if got != want:
+                    raise AssertionError(f"pipeline {what} rank {rk['rank']}: collectives {got}, want {want}")
+                if any(rk[run]["launches"].values()):
+                    raise AssertionError(f"pipeline {what}: launched kernels {rk[run]['launches']}")
+            step_ms = float(np.median([max(rk[run]["ms"][i] for rk in ranks) for i in range(1, PP_STEPS)]))
+            nums[f"{name}_{run}"] = {
+                "n_pp": n_pp, "n_dp": n_dp, "widths": pp_widths(n_pp), "losses": ranks[0][run]["losses"],
+                "vs_one_device": {"loss_max_rel": loss_d, "weights_max_abs": w_d},
+                "step_ms_median": step_ms, "first_step_ms": max(rk[run]["ms"][0] for rk in ranks),
+                "samples_per_s": BATCH / step_ms * 1e3, "shift_calls_per_step": shifts, "kernel_launches": 0,
+                "spawn_wall_s": wall,
+            }
+            print(f"pipeline {what}: {PP_STEPS} steps of {PP_MICRO} x {BATCH // PP_MICRO} at {PP_TOWER}, within bounds "
+                  f"of one device (loss rel {loss_d:.3g}, weights {w_d:.3g}), padding 0; median {step_ms:.3f} ms a "
+                  f"step, {BATCH / step_ms * 1e3:.0f} samples/s, {shifts} shifts a step, 0 kernel launches; {card}",
+                  flush=True)
+    z, a = worlds["gloo_2x2"][0], "gloo_2x2"
+    zd = 0.0
+    for rk in z:
+        zd = max(zd, float(np.max(np.abs(np.array(rk["zero"]["losses"]) - rk["adam"]["losses"])
+                                  / np.abs(rk["adam"]["losses"]))))
+        if zd > PP_ZERO_RTOL:
+            raise AssertionError(f"pipeline {a} rank {rk['rank']}: ZeRO-1 losses off plain Adam's by rel {zd}")
+        for k in ("w", "b", "g"):
+            if not np.allclose(rk[f"zero:{k}"], rk[f"adam:{k}"], rtol=PP_ZERO_RTOL, atol=PP_ZERO_ATOL):
+                raise AssertionError(f"pipeline {a} rank {rk['rank']}: ZeRO-1 {k} off plain Adam's")
+    first2 = worlds["gloo"][0][0]["adam"]["losses"][0]
+    first_d = abs(z[0]["adam"]["losses"][0] - first2) / abs(first2)
+    if first_d > PP_FIRST_RTOL:
+        raise AssertionError(f"pipeline: the 2x2 world's first loss is off the 2-rank pp world's by rel {first_d}")
+    phase_s = time.perf_counter() - t_phase
+    emit({"card": card, "phase": "pipeline", "tower": PP_TOWER, "micro_batch": PP_MICRO, "steps": PP_STEPS,
+          "worlds": nums, "zero_vs_adam_max_rel": zd, "first_loss_2x2_vs_pp2_rel": first_d,
+          "reference_losses": ref_losses, "phase_s": phase_s})
+    print(f"phase 19 (pipeline) in {phase_s:.3f} s, its pp worlds in phase 12's spawns; {card}", flush=True)
+    return nums
 
 
 if __name__ == "__main__":

@@ -12,12 +12,17 @@ one of the port's mechanisms:
 | sharding (ZeRO)           | Zero1Optimizer wrap of the dense optimizer    |
 | recompute                 | torch.utils.checkpoint around model apply     |
 | amp                       | the dense model computed in bf16              |
-| pipeline(+micro_batch)    | not ported: ROADMAP Queue 1 item 6            |
+| pipeline(+micro_batch)    | PipelineSpec over a 'pp' axis (pipeline_spec) |
 | gradient_merge(+k_steps)  | MultiSteps accumulation (train/dense_opt.py)  |
 
 ``apply()`` folds the flags into a TrainStepConfig, an optimizer and a
-model apply function; ``pipeline``, whose mechanism is not ported, raises
-``NotImplementedError`` there. ``recompute`` is the counterpart of
+model apply function. ``pipeline`` selects another step builder
+(``parallel/pipeline.py``): ``apply()`` refuses it with a ``ValueError``,
+as the JAX package's does, and ``pipeline_spec()`` gives its
+``PipelineSpec``; with ``pipeline_configs['dp_degree'] > 1`` the stages
+repeat over a dp axis (``make_mesh_2d``), and ``sharding`` then means a
+``Zero1Optimizer`` over that axis, handed to ``make_pipeline_train_step``.
+``recompute`` is the counterpart of
 ``jax.checkpoint``: the forward's activations are recomputed in the
 backward (``use_reentrant=False``), which gives the same gradients.
 ``amp`` is the JAX package's ``bf16_apply``: every fp32 tensor of the
@@ -37,11 +42,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from paddlebox_tpu_torch.train.dense_opt import Adam, MultiSteps, tree_map
-
-_NOT_PORTED = {
-    "pipeline": "pipeline stages over a pp axis (make_mesh_2d)",
-}
-
 
 def _bf16(t: Any) -> Any:
     """An fp32 tensor as bf16; anything else as it is."""
@@ -141,15 +141,17 @@ class DistributedStrategy:
         n_dev: int = 1,
         axis_name: str = "dp",
     ) -> Tuple["TrainStepConfig", Any, Any]:
-        """Fold the strategy into (cfg, optimizer, model_apply). A set flag
-        whose mechanism is not ported raises ``NotImplementedError``.
+        """Fold the strategy into (cfg, optimizer, model_apply).
         ``recompute`` and ``amp`` wrap ``model_apply`` when one is given
-        (``recompute`` inside ``amp``, as the JAX package nests them)."""
-        for flag, what in _NOT_PORTED.items():
-            if getattr(self, flag):
-                raise NotImplementedError(
-                    f"strategy.{flag} ({what}) is not ported: ROADMAP Queue 1 item 6"
-                )
+        (``recompute`` inside ``amp``, as the JAX package nests them).
+        ``pipeline`` does not fold into a TrainStepConfig: take
+        ``pipeline_spec()`` to ``make_pipeline_train_step`` instead."""
+        if self.pipeline:
+            raise ValueError(
+                "pipeline=True selects a different step builder: use "
+                "strategy.pipeline_spec() with "
+                "paddlebox_tpu_torch.parallel.make_pipeline_train_step"
+            )
         cfg = replace(cfg, dense_sync_mode=self.dense_sync_mode, param_sync_step=self.k_steps)
         if self.gradient_merge:
             dense_opt = MultiSteps(dense_opt, self.gradient_merge_configs.get("k_steps", 4))
@@ -162,3 +164,14 @@ class DistributedStrategy:
         if model_apply is not None and self.amp:
             model_apply = bf16_apply(model_apply)
         return cfg, dense_opt, model_apply
+
+    def pipeline_spec(self, axis_name: str = "pp"):
+        """The ``PipelineSpec`` of ``pipeline_configs``, for
+        ``make_pipeline_train_step``. ``pipeline_configs['dp_degree'] > 1``
+        selects pipeline x data: build the plan with ``make_mesh_2d(n_pp,
+        dp_degree)`` and pass ``dp_axis='dp'`` to the step builder."""
+        from paddlebox_tpu_torch.parallel.pipeline import PipelineSpec
+
+        if not self.pipeline:
+            raise ValueError("strategy.pipeline is False")
+        return PipelineSpec(n_micro=self.pipeline_configs.get("micro_batch", 4), axis_name=axis_name)

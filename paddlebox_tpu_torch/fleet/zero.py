@@ -82,12 +82,13 @@ class Zero1Optimizer:
         self.n_dev = n_dev
 
     # Not the optimizer interface: picking a chunk needs the mesh, so this
-    # optimizer runs only inside the sharded step.
+    # optimizer runs only inside the sharded or the pipeline step.
     def init(self, params):
         raise RuntimeError(
             "Zero1Optimizer state is mesh-sharded: it runs inside "
-            "make_sharded_train_step (state from init_sharded_train_state). "
-            "For one device use the inner optimizer."
+            "make_sharded_train_step (state from init_sharded_train_state) "
+            "or make_pipeline_train_step with dp_axis (state from "
+            "init_pipeline_state). For one device use the inner optimizer."
         )
 
     def update(self, grads, state):

@@ -36,6 +36,14 @@ moments [n, c] of the params raveled in the JAX order,
 ``fleet/zero.py``) to chunk [rank]. A ZeRO dense file holds the params,
 then the stacked count, first and second moments; the port's stacked
 state (``{"flat": [n, c]}`` moments) writes and reads it.
+
+A JAX pipeline state (``parallel/pipeline.py``'s ``init_pipeline_state``)
+stacks its stages: params and optax Adam's moments carry a leading
+[n_pp] stage axis, and under ZeRO-1 the chunk state a leading
+[n_pp, n_dp] (count [n_pp, n_dp], moments [n_pp, n_dp, c]).
+:func:`pipeline_stage_from_jax` gives a rank its stage's (params, state),
+or its (stage, chunk)'s; :func:`pipeline_state_to_jax` stacks every
+rank's back.
 """
 
 from __future__ import annotations
@@ -308,12 +316,24 @@ def mesh_table_block(table: Any, rank: int) -> torch.Tensor:
     return _t(np.asarray(table)[rank])
 
 
+def _pick(tree: Any, i: int) -> Any:
+    """Entry ``i`` of every leaf's leading axis of a params tree."""
+    return _tree_from_leaves(tree, [np.asarray(x)[i] for _, x in _leaves_with_paths(tree)])
+
+
+def _stack(trees: Sequence[Any]) -> Any:
+    """Params trees of one structure, stacked leaf by leaf on a new leading axis."""
+    leaves = [[x for _, x in _leaves_with_paths(t)] for t in trees]
+    return _tree_from_leaves(trees[0], [np.stack(xs) for xs in zip(*leaves)])
+
+
 def mesh_kstep_replica(params: Dict[str, Any], count: Any, mu: Dict[str, Any], nu: Dict[str, Any], rank: int):
     """Rank ``rank``'s replica of a JAX kstep state, whose params and Adam
     moments carry a leading [n] replica axis (numpy leaves): (params,
     AdamState) in the port's naming."""
-    pick = lambda tree: _tree_from_leaves(tree, [np.asarray(x)[rank] for _, x in _leaves_with_paths(tree)])
-    return params_from_jax(pick(params)), adam_state_from_optax(np.asarray(count)[rank], pick(mu), pick(nu))
+    return params_from_jax(_pick(params, rank)), adam_state_from_optax(
+        np.asarray(count)[rank], _pick(mu, rank), _pick(nu, rank)
+    )
 
 
 def mesh_zero_chunk(count: Any, mu: Any, nu: Any, rank: int) -> AdamState:
@@ -323,3 +343,32 @@ def mesh_zero_chunk(count: Any, mu: Any, nu: Any, rank: int) -> AdamState:
         mu={"flat": _t(np.asarray(mu)[rank])},
         nu={"flat": _t(np.asarray(nu)[rank])},
     )
+
+
+def pipeline_stage_from_jax(params: Dict[str, Any], count: Any, mu: Any, nu: Any, stage: int,
+                            chunk: Any = None) -> Tuple[Dict[str, torch.Tensor], AdamState]:
+    """Stage ``stage``'s (params, AdamState) of a JAX pipeline state
+    (numpy leaves): params, count [n_pp] and moments stacked on the stage
+    axis. With ``chunk`` (ZeRO-1) the state is chunk ``(stage, chunk)``'s
+    of count [n_pp, n_dp] and moments [n_pp, n_dp, c]."""
+    if chunk is None:
+        return mesh_kstep_replica(params, count, mu, nu, stage)
+    return params_from_jax(_pick(params, stage)), mesh_zero_chunk(
+        np.asarray(count)[stage], np.asarray(mu)[stage], np.asarray(nu)[stage], chunk
+    )
+
+
+def pipeline_state_to_jax(stages: Sequence[Tuple[Dict[str, torch.Tensor], Any]]):
+    """The inverse of :func:`pipeline_stage_from_jax`: ``stages`` in stage
+    order, each ``(params, state)`` where ``state`` is the stage's
+    AdamState, or under ZeRO-1 the list of its chunks' AdamStates in dp
+    order. Returns ``(params, count, mu, nu)`` stacked as the JAX state
+    holds them (numpy)."""
+    params = _stack([params_to_jax(p) for p, _ in stages])
+    if isinstance(stages[0][1], AdamState):
+        count, mu, nu = zip(*(adam_state_to_optax(st) for _, st in stages))
+        return params, np.stack(count), _stack(mu), _stack(nu)
+    count = np.array([[int(c.count) for c in chunks] for _, chunks in stages], dtype=np.int32)
+    mu, nu = (np.stack([np.stack([_n(getattr(c, m)["flat"]) for c in chunks]) for _, chunks in stages])
+              for m in ("mu", "nu"))
+    return params, count, mu, nu

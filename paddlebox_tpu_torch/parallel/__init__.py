@@ -6,8 +6,10 @@ Port of the JAX package's ``parallel`` package: a
 ``all_to_all`` / ``all_reduce`` / ``all_gather`` stand in for the JAX
 mesh's XLA collectives; the pass table is sharded over the ranks. The host
 plane over several hosts is ``transport`` (``TcpTransport``,
-``TcpShuffleRouter``) and ``membership`` (``OwnershipMap``). The pipeline
-and ring attention modules are not ported.
+``TcpShuffleRouter``) and ``membership`` (``OwnershipMap``). ``pipeline``
+is the GPipe schedule over a ``pp`` axis (``make_mesh(..., axis="pp")``,
+or ``make_mesh_2d`` for pipeline x data). Ring and Ulysses attention are
+not ported yet.
 """
 
 from paddlebox_tpu_torch.parallel.mesh import (
@@ -16,10 +18,19 @@ from paddlebox_tpu_torch.parallel.mesh import (
     destroy_mesh,
     local_slice,
     make_mesh,
+    make_mesh_2d,
     put_axis1_blocks,
     put_per_device_copies,
     put_replicated,
     put_sharded,
+)
+from paddlebox_tpu_torch.parallel.pipeline import (
+    PipelineSpec,
+    hetero_mlp_stage_apply,
+    hetero_mlp_stage_init,
+    init_pipeline_state,
+    make_pipeline_train_step,
+    pipeline_forward,
 )
 from paddlebox_tpu_torch.parallel.sharded_pullpush import sharded_pull, sharded_push, sharded_serve_pull
 
@@ -29,6 +40,7 @@ __all__ = [
     "destroy_mesh",
     "local_slice",
     "make_mesh",
+    "make_mesh_2d",
     "put_axis1_blocks",
     "put_per_device_copies",
     "put_replicated",
@@ -36,4 +48,10 @@ __all__ = [
     "sharded_pull",
     "sharded_push",
     "sharded_serve_pull",
+    "PipelineSpec",
+    "hetero_mlp_stage_apply",
+    "hetero_mlp_stage_init",
+    "pipeline_forward",
+    "make_pipeline_train_step",
+    "init_pipeline_state",
 ]

@@ -12,8 +12,8 @@ keeps the JAX package's single-host semantics:
   holds ``table[r]``, and the sparse pull/push ride ``all_to_all``;
 - dense gradients are all-reduced over ``dp``.
 
-:class:`MeshPlan` owns the four collectives the port runs, and nothing
-else in the port calls ``torch.distributed`` for data:
+:class:`MeshPlan` owns every collective the port runs, and nothing else
+in the port calls ``torch.distributed`` for data:
 
 - :meth:`MeshPlan.all_to_all`: ``[world, ...]`` blocks, equal splits over
   dim 0; row ``d`` of the result is the block rank ``d`` sent here, which
@@ -22,7 +22,8 @@ else in the port calls ``torch.distributed`` for data:
 - :meth:`MeshPlan.all_gather`, stacking every rank's tensor on a new
   leading axis;
 - :meth:`MeshPlan.broadcast`, one rank's tensor on every rank, bit for
-  bit (async dense hands rank 0's table params to every rank with it).
+  bit (async dense hands rank 0's table params to every rank with it);
+- :meth:`MeshPlan.shift`, the pipeline's stage hop (below).
 
 The backend is an explicit argument. ``nccl`` runs one rank a card,
 rank ``r`` on ``cuda:r``, and refuses a world larger than the visible
@@ -45,15 +46,34 @@ form of ``put_sharded``). The port runs one process a card, so every one
 of those placements reduces to "this rank's own block on its card": they
 are ported as that, and ``put_sharded`` takes either the global array
 (leading dim ``world``) or this rank's block (leading dim 1, what a
-``DistributedWorkingSet`` finalize returns). The JAX module's
-``make_mesh_2d`` (pipeline x data) is not ported.
+``DistributedWorkingSet`` finalize returns).
+
+The pipeline (``parallel/pipeline.py``) adds two pieces:
+
+- :meth:`MeshPlan.shift`, the cyclic ``lax.ppermute`` with ``perm =
+  [(i, (i + 1) % n)]``: rank ``r``'s tensor arrives on rank ``(r + 1) %
+  world``. It is one ``all_to_all_single`` with one non-empty split each
+  way, a symmetric call on both backends (gloo's ``send`` / ``recv``
+  need not take a CUDA tensor, and no rank can wait on a ``recv`` its
+  peer has not posted). It is differentiable: its backward sends the
+  cotangent back the other way, so every rank must run the same shifts
+  in the same order in the forward and in the backward;
+- :func:`make_mesh_2d`, the (pipeline x data) grid: rank ``r`` sits at
+  ``(r // n_dp, r % n_dp)``, as the JAX package's row-major
+  ``reshape(n_pp, n_dp)`` places devices. Every rank creates every
+  column (``pp``) and row (``dp``) subgroup, in one order, and the plan
+  hands out one 1-D plan an axis (:meth:`MeshPlan.along`) whose rank and
+  world are this rank's position along that axis. The JAX function's
+  ICI-aware ``mesh_utils`` layout and its ``mesh.device_mesh_fallbacks``
+  counter have no counterpart: with one process a card the layout is the
+  rank order, so no fallback can happen.
 """
 
 from __future__ import annotations
 
 import datetime
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,7 +85,8 @@ DEFAULT_TIMEOUT_S = 300.0
 
 @dataclass(frozen=True)
 class MeshPlan:
-    """This rank's place on the 1-D mesh and its process group."""
+    """This rank's place on the mesh and its process group. A 2-D plan
+    (:func:`make_mesh_2d`) also holds one 1-D plan an axis, in ``axes``."""
 
     rank: int
     world: int
@@ -74,8 +95,25 @@ class MeshPlan:
     group: Any = None  # the torch.distributed ProcessGroup (None = default)
     axis: str = "dp"
     calls: Dict[str, int] = field(
-        default_factory=lambda: {"all_to_all": 0, "all_reduce": 0, "all_gather": 0, "broadcast": 0}
+        default_factory=lambda: {"all_to_all": 0, "all_reduce": 0, "all_gather": 0, "broadcast": 0, "shift": 0}
     )
+    axes: Tuple[Tuple[str, "MeshPlan"], ...] = ()  # (name, that axis's 1-D plan), outer axis first
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        """The mesh's axes: a 2-D plan's two, else this plan's one."""
+        return tuple(name for name, _ in self.axes) or (self.axis,)
+
+    def along(self, name: str) -> "MeshPlan":
+        """The 1-D plan of axis ``name``: this rank's position along it,
+        the axis's size and its subgroup. A 1-D plan is its own plan along
+        its axis."""
+        for n, sub in self.axes:
+            if n == name:
+                return sub
+        if not self.axes and name == self.axis:
+            return self
+        raise ValueError(f"{name!r} is not an axis of the mesh {self.axis_names}")
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` [world, ...] -> [world, ...]: block ``d`` of the result is
@@ -107,15 +145,54 @@ class MeshPlan:
 
     def broadcast(self, x: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank ``src``'s ``x`` on every rank, into a new tensor (the other
-        ranks' ``x`` gives only the shape and dtype)."""
+        ranks' ``x`` gives only the shape and dtype). ``src`` is a position
+        on this plan's axis; ``dist.broadcast`` takes a global rank, so a
+        subgroup's ``src`` is mapped to it."""
         y = x.clone().contiguous()
         self.calls["broadcast"] += 1
-        dist.broadcast(y, src=src, group=self.group)
+        root = src if self.group is None else dist.get_global_rank(self.group, src)
+        dist.broadcast(y, src=root, group=self.group)
         return y
+
+    def shift(self, x: torch.Tensor) -> torch.Tensor:
+        """Rank ``r``'s ``x`` [m, ...] on rank ``(r + 1) % world``: the
+        cyclic ``lax.ppermute`` of a pipeline's stage hop. Differentiable;
+        the backward is the inverse shift, one more call on every rank."""
+        return _Shift.apply(x, self)
 
     def reset_calls(self) -> None:
         for k in self.calls:
             self.calls[k] = 0
+        for _, sub in self.axes:
+            sub.reset_calls()
+
+
+def _rotate(plan: MeshPlan, x: torch.Tensor, step: int) -> torch.Tensor:
+    """Rank ``r``'s ``x`` on rank ``(r + step) % world``: one
+    ``all_to_all_single`` whose only non-empty input split goes to
+    ``r + step`` and whose only non-empty output split comes from ``r - step``."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    send, recv = [0] * plan.world, [0] * plan.world
+    send[(plan.rank + step) % plan.world] = x.shape[0]
+    recv[(plan.rank - step) % plan.world] = x.shape[0]
+    plan.calls["shift"] += 1
+    dist.all_to_all_single(out, x, output_split_sizes=recv, input_split_sizes=send, group=plan.group)
+    return out
+
+
+class _Shift(torch.autograd.Function):
+    """:meth:`MeshPlan.shift` with its gradient: the cotangent takes the
+    inverse permutation."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, plan: MeshPlan) -> torch.Tensor:
+        ctx.plan = plan
+        return _rotate(plan, x, 1)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return _rotate(ctx.plan, g, -1), None
 
 
 def _init_group(backend: str, rank: int, world: int, init_method: Optional[str], timeout_s: float) -> None:
@@ -196,6 +273,50 @@ def make_mesh(
         dev = resolve_device(device)
     _init_group(backend, rank, world, init_method, timeout_s)
     return MeshPlan(rank=rank, world=world, device=dev, backend=backend, group=None, axis=axis)
+
+
+def make_mesh_2d(
+    n_pp: int,
+    n_dp: int,
+    axes: Sequence[str] = ("pp", "dp"),
+    backend: str = "nccl",
+    device: Optional[torch.device | str] = None,
+    rank: Optional[int] = None,
+    world: Optional[int] = None,
+    init_method: Optional[str] = None,
+    timeout_s: float = DEFAULT_TIMEOUT_S,
+) -> MeshPlan:
+    """A 2-D (pipeline x data) mesh over the process group: pipeline
+    stages along ``axes[0]``, data-parallel replicas of each stage along
+    ``axes[1]``. Rank ``r`` sits at ``(r // n_dp, r % n_dp)``.
+
+    Joins the default group as :func:`make_mesh` does (the same
+    ``backend`` / ``device`` / ``rank`` / ``world`` rules), then creates
+    the ``n_dp`` column groups (one a dp position: the pipeline) and the
+    ``n_pp`` row groups (one a stage: its replicas) on every rank, in the
+    same order. The plan's ``axis`` is the dp axis, as the JAX package's;
+    :meth:`MeshPlan.along` gives each axis's 1-D plan."""
+    if n_pp < 1 or n_dp < 1:
+        raise ValueError(f"mesh needs n_pp >= 1 and n_dp >= 1, got ({n_pp}, {n_dp})")
+    if len(axes) != 2 or axes[0] == axes[1]:
+        raise ValueError(f"a 2-D mesh needs two distinct axis names, got {tuple(axes)}")
+    need = n_pp * n_dp
+    if world is not None and world != need:
+        raise ValueError(f"asked for {need} ranks ({n_pp} x {n_dp}), the world has {world}")
+    plan = make_mesh(backend, device=device, rank=rank, world=world, init_method=init_method,
+                     timeout_s=timeout_s, axis=axes[1])
+    if plan.world != need:
+        raise ValueError(f"asked for {need} ranks ({n_pp} x {n_dp}), the world has {plan.world}")
+    p, d = divmod(plan.rank, n_dp)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    # every rank creates every group, in this order: a rank that skipped a
+    # group it is not in would leave the others waiting in new_group
+    cols = [dist.new_group([q * n_dp + c for q in range(n_pp)], timeout=timeout) for c in range(n_dp)]
+    rows = [dist.new_group([q * n_dp + c for c in range(n_dp)], timeout=timeout) for q in range(n_pp)]
+    pp = MeshPlan(rank=p, world=n_pp, device=plan.device, backend=backend, group=cols[d], axis=axes[0])
+    dp = MeshPlan(rank=d, world=n_dp, device=plan.device, backend=backend, group=rows[p], axis=axes[1])
+    return MeshPlan(rank=plan.rank, world=need, device=plan.device, backend=backend, axis=axes[1],
+                    axes=((axes[0], pp), (axes[1], dp)))
 
 
 def destroy_mesh() -> None:

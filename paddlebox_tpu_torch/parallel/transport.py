@@ -263,7 +263,11 @@ class TcpTransport:
         self._server = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._server.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         host, port = self._endpoints[rank]
-        self._server.bind((host, port))
+        try:
+            self._server.bind((host, port))
+        except OSError:
+            self._close_sock(self._server)
+            raise
         # rebind with the OS-assigned port if 0 was requested
         self._endpoints[rank] = self._server.getsockname()
         self._server.listen(self.n_ranks * 4)

@@ -2,7 +2,8 @@
 environment dialects of ``tests/test_fleet.py`` (its ``JAX_*`` names mapped
 to torchrun's ``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR`` + ``MASTER_PORT``),
 each malformed variable named in its error; ``DistributedStrategy``'s
-translation; the ZeRO-1 chunks of a params tree bitwise the JAX package's
+translation and its pipeline flag; ``models/convert.py``'s pipeline state
+both ways; the ZeRO-1 chunks of a params tree bitwise the JAX package's
 ``_chunks`` (the same ravel order and padding), and ``make_mesh``'s
 refusals. No ranks are spawned: nothing here runs a collective.
 """
@@ -108,10 +109,91 @@ def test_strategy_translation_matches_jax():
         DistributedStrategy(a_sync=True, localsgd=True)
 
 
-@pytest.mark.parametrize("flag", ["pipeline"])
+@pytest.mark.parametrize("flag", ["pipeline", "pipeline_spec", "pipeline_dp_sharding"])
 def test_strategy_flags_not_ported_raise(flag):
-    with pytest.raises(NotImplementedError, match=f"strategy.{flag}.*ROADMAP"):
-        DistributedStrategy(**{flag: True}).apply(_cfg(), Adam(1e-3))
+    """The pipeline flag as both packages take it: ``apply()`` refuses it
+    with the same ``ValueError`` (pipeline training is another step
+    builder), ``pipeline_spec()`` gives equal specs, and the dp degree and
+    the ``pipeline + sharding`` guard agree."""
+    import optax
+
+    from paddlebox_tpu.fleet import DistributedStrategy as JStrategy
+    from paddlebox_tpu.table import ValueLayout as JLayout
+    from paddlebox_tpu.train import TrainStepConfig as JCfg
+
+    if flag == "pipeline":
+        jcfg = JCfg(num_slots=2, batch_size=4, layout=JLayout(embedx_dim=4))
+        for strat, cfg, opt in ((JStrategy, jcfg, optax.adam(1e-3)), (DistributedStrategy, _cfg(), Adam(1e-3))):
+            with pytest.raises(ValueError, match="pipeline=True selects a different step builder.*pipeline_spec"):
+                strat(pipeline=True).apply(cfg, opt)
+    elif flag == "pipeline_spec":
+        for kw in [{}, {"pipeline_configs": {"micro_batch": 6}}]:
+            for axis in ("pp", "stage"):
+                spec = DistributedStrategy(pipeline=True, **kw).pipeline_spec(axis)
+                jspec = JStrategy(pipeline=True, **kw).pipeline_spec(axis)
+                assert (spec.n_micro, spec.axis_name, spec.remat) == (jspec.n_micro, jspec.axis_name, jspec.remat)
+        for strat in (JStrategy, DistributedStrategy):
+            with pytest.raises(ValueError, match="strategy.pipeline is False"):
+                strat().pipeline_spec()
+    else:
+        for dp in (None, 1, 2, 4):
+            kw = {"pipeline": True, "pipeline_configs": {"micro_batch": 4, **({"dp_degree": dp} if dp else {})}}
+            assert DistributedStrategy(**kw).pipeline_dp_degree == JStrategy(**kw).pipeline_dp_degree
+            for strat in (JStrategy, DistributedStrategy):
+                if (dp or 1) < 2:
+                    with pytest.raises(ValueError, match="pipeline \\+ sharding needs a dp axis"):
+                        strat(sharding=True, **kw)
+                else:
+                    assert strat(sharding=True, **kw).pipeline_dp_degree == dp
+        for strat in (JStrategy, DistributedStrategy):
+            with pytest.raises(ValueError, match="pipeline composes with neither a_sync nor localsgd"):
+                strat(pipeline=True, localsgd=True)
+
+
+@pytest.mark.parametrize("zero", [False, True], ids=["adam", "zero1"])
+def test_convert_pipeline_state_round_trip(zero):
+    """A JAX pipeline state (stacked stages; ZeRO-1's [n_pp, n_dp] chunks)
+    carried to every rank's port state and stacked back equals the JAX
+    arrays, leaf for leaf."""
+    import optax
+
+    from paddlebox_tpu.fleet.zero import Zero1Optimizer as JZero
+    from paddlebox_tpu.parallel import hetero_mlp_stage_init as jhetero
+    from paddlebox_tpu.parallel import init_pipeline_state as jinit
+    from paddlebox_tpu.parallel.mesh import make_mesh_2d as jmesh2
+    from paddlebox_tpu_torch.models.convert import pipeline_stage_from_jax, pipeline_state_to_jax
+
+    n_pp, n_dp = 2, 2
+    stages, _ = jhetero(jax.random.PRNGKey(1), [[5, 7, 9], [9, 3]])
+    opt = JZero(optax.adam(1e-2), axis_name="dp", n_dev=n_dp) if zero else optax.adam(1e-2)
+    st = jinit(jmesh2(n_pp, n_dp), stages, opt, axis="pp", dp_axis="dp" if zero else None)
+    # random leaves in the JAX state's shapes, so no zero moment hides a swap
+    rng = np.random.default_rng(7)
+    fill = lambda a: (rng.integers(1, 9, size=np.shape(a)).astype(np.int32) if np.asarray(a).dtype == np.int32
+                      else rng.normal(size=np.shape(a)).astype(np.float32))
+    params = jax.tree.map(fill, jax.tree.map(np.asarray, st[0]))
+    adam = jax.tree.map(fill, jax.tree.map(np.asarray, st[1][0]))
+    ranks = [[pipeline_stage_from_jax(params, adam.count, adam.mu, adam.nu, p, chunk=d if zero else None)
+              for d in range(n_dp)] for p in range(n_pp)]
+    for p in range(n_pp):
+        for d in range(n_dp):
+            got, state = ranks[p][d]
+            assert sorted(got) == ["b", "g", "w"]
+            np.testing.assert_array_equal(got["w"].numpy(), params["w"][p])
+            if zero:
+                np.testing.assert_array_equal(state.nu["flat"].numpy(), adam.nu[p, d])
+                assert int(state.count) == int(adam.count[p, d])
+            else:
+                np.testing.assert_array_equal(state.mu["g"].numpy(), adam.mu["g"][p])
+    back = pipeline_state_to_jax([(ranks[p][0][0], [ranks[p][d][1] for d in range(n_dp)] if zero else ranks[p][0][1])
+                                  for p in range(n_pp)])
+    want = (params, adam.count, adam.mu, adam.nu)
+    for b, w in zip(back, want):
+        bl, wl = jax.tree.leaves(b), jax.tree.leaves(w)
+        assert len(bl) == len(wl)
+        for x, y in zip(bl, wl):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            np.testing.assert_array_equal(x, y)
 
 
 def _zoo_params():
