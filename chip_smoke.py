@@ -384,7 +384,22 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    atol 1e-7), the 2 x 2 world's first loss against the 2-rank world's
    (rtol 2e-5); a step's shifts and all-reduces are the tests' count, and
    no kernel launches. Each world's median ms a step and samples/s are
-   printed.
+   printed;
+20. sequence parallelism ("seqpar"): ``ring_attention`` and
+   ``ulysses_attention`` at a 7B-class decoder's attention widths (32
+   heads of 128, as Llama-2-7B's) over a global sequence of 8,192, B 1,
+   q, k and v drawn on the card from ``--seed + 20``; in phase 12's
+   worlds (the NCCL world of one rank a card, the gloo world of 2 on
+   cuda:0) and in phase 19's gloo world of 4 on cuda:0 taken as one 1-D
+   world after its pipeline, TF32 off. On every rank, against full
+   attention computed plainly on one device, query block by query block
+   in fp32: each function causal and not (rtol 2e-4, atol 2e-5), bf16
+   inputs (bf16 out, under 0.02 of fp32) and the causal grads of
+   sum(out) (rtol 5e-4, atol 5e-5); the later worlds' outputs against the
+   NCCL world's (rtol 2e-4, atol 2e-5); a forward and backward makes 2 (n
+   - 1) shifts (ring) or 4 all_to_alls (Ulysses) on every rank, and no
+   kernel launches. Each world's median ms of a causal fp32 forward and of
+   a forward + backward, and each rank's peak memory, are printed.
 
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -1030,20 +1045,21 @@ def main() -> int:
     boundary_counts = timed("9 boundary", boundary_phase, args, card, ck, lay, schema, train)
     join_counts, join_err = timed("10 join_update", join_update_phase, args, dev, card, ck, pull_push, lay)
     zoo_counts, dcn, zoo_err = timed("11 zoo", zoo_phase, args, dev, card, ck, lay)
-    mesh_counts, owner, join_owner, mesh_err, mesh18, mesh19 = timed("12-13 mesh", mesh_phases, args, dev, card, ck,
-                                                                     lay)
+    mesh_counts, owner, join_owner, mesh_err, mesh18, mesh19, mesh20 = timed("12-13 mesh", mesh_phases, args, dev,
+                                                                             card, ck, lay)
     supervised_counts, sup_err = timed("14 supervised_day", supervised_phase, args, dev, card, ck, lay, schema)
     multihost_counts, mh_owner, mh_err = timed("15 multihost", multihost_phase, args, dev, card, ck, lay)
     sh_counts, sh_owner, sh_err = timed("16 supervised_hosts", supervised_hosts_phase, args, dev, card, ck, lay)
     fleet_counts, fleet_shape, fleet_err = timed("17 serve_fleet", serve_fleet_phase, args, dev, card, ck, lay,
                                                  schema)
     lt_counts, lt_shapes, lt_err = timed("18 long_tail", long_tail_phase, args, dev, card, ck, pull_push, mesh18)
-    timed("19 pipeline", pipeline_phase, args, dev, card, mesh19)
+    _, seqpar_worlds = timed("19 pipeline", pipeline_phase, args, dev, card, mesh19, mesh20)
+    seqpar_counts = timed("20 seqpar", seqpar_phase, card, seqpar_worlds, mesh20[1])
     emit({"card": card, "phase_wall_s": walls, "script_s": time.perf_counter() - t_start})
 
     by_path = {"serve": serve_counts, **train["counts"], **published, "boundary": boundary_counts, **join_counts,
                **zoo_counts, **mesh_counts, **supervised_counts, **multihost_counts, **sh_counts, **fleet_counts,
-               **lt_counts}
+               **lt_counts, **seqpar_counts}
     emit({"kernels": [
         {
             "name": name,
@@ -1067,8 +1083,10 @@ def main() -> int:
             # batches at the base and at delta 1), then phase 18's extended
             # trainer (its four feeds), the replica cache's pull_cache_value,
             # the strategy's recompute and gradient_merge runs and the
-            # extended mesh in phase 12's worlds; serve_tier is phase 8's
-            # tiered serving
+            # extended mesh in phase 12's worlds, then phase 20's sequence
+            # parallelism in its three worlds (every rank's ring and
+            # Ulysses runs, none launching a kernel); serve_tier is phase
+            # 8's tiered serving
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": err,
@@ -3585,14 +3603,16 @@ MESH_TAGS = {"nccl": {"backend": "nccl", "ranks_per_card": 1},
              "gloo": {"backend": "gloo", "ranks_per_card": MESH_GLOO_RANKS}}
 
 
-def mesh_ranks(plan, spec12, spec13, spec18, spec19):
-    """Phases 12 and 13, phase 18's extended mesh and phase 19's pipeline
-    over the world, on one rank of a world, in one spawned process (the
-    process, its CUDA context and its collectives' set-up are paid once)."""
+def mesh_ranks(plan, spec12, spec13, spec18, spec19, spec20):
+    """Phases 12 and 13, phase 18's extended mesh, phase 19's pipeline and
+    phase 20's sequence parallelism over the world, on one rank of a
+    world, in one spawned process (the process, its CUDA context and its
+    collectives' set-up are paid once)."""
     mesh_rank(plan, spec12)
     mesh_join_rank(plan, spec13)
     mesh_expand_rank(plan, spec18)
     pipeline_rank(plan, spec19)
+    seqpar_rank(plan, spec20)
 
 
 def _read_ranks(out, world):
@@ -3608,22 +3628,24 @@ def _read_ranks(out, world):
 def mesh_phases(args, dev, card, ck, lay):
     """Phases 12 and 13 in the NCCL world (one rank a card) and the gloo
     world of two ranks on cuda:0, one spawn a world running both phases'
-    rank functions, phase 18's extended mesh and phase 19's pipeline.
-    Returns the launch counts by path, the kernels' numbers at phase 12's
-    and phase 13's owner shapes, their max abs error, phase 18's mesh
-    results and phase 19's worlds."""
+    rank functions, phase 18's extended mesh, phase 19's pipeline and
+    phase 20's sequence parallelism. Returns the launch counts by path,
+    the kernels' numbers at phase 12's and phase 13's owner shapes, their
+    max abs error, phase 18's mesh results, phase 19's worlds and phase
+    20's (its worlds and its reference)."""
     from paddlebox_tpu_torch.fleet.launch import spawn
 
     t_phase = time.perf_counter()
+    p20 = seqpar_prepare(args, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
         p12 = mesh_prepare(args, dev, lay, tmp)
         p13 = mesh_join_prepare(args, dev, lay, tmp)
         p18 = mesh_expand_prepare(args, dev, p12["files"][:LT_FILES])
-        worlds12, worlds13, worlds18, worlds19 = {}, {}, {}, {}
+        worlds12, worlds13, worlds18, worlds19, worlds20 = {}, {}, {}, {}, {}
         for name, backend, world, device, per_card in MESH_WORLDS:
             world = world or min(torch.cuda.device_count(), MESH_NCCL_MAX)
             outs = []
-            for phase in ("12", "13", "18", "19"):
+            for phase in ("12", "13", "18", "19", "20"):
                 outs.append(os.path.join(tmp, f"{name}-{phase}"))
                 os.makedirs(outs[-1])
             spec12 = {"files": p12["files"], "seed": args.seed + 8, "out": outs[0], "ranks_per_card": per_card}
@@ -3631,19 +3653,22 @@ def mesh_phases(args, dev, card, ck, lay):
                       "seed": args.seed + MESH_JOIN_SEED, "out": outs[1], "ranks_per_card": per_card}
             spec18 = {"files": p18["files"], "seed": args.seed + LT_SEED, "out": outs[2], "ranks_per_card": per_card}
             spec19 = {"kind": "pp", "seed": args.seed, "out": outs[3]}
+            # the NCCL world runs first: its outputs are the ones the others are held against
+            spec20 = seqpar_spec(p20, outs[4], write_base=name == "nccl")
             t0 = time.perf_counter()
             spawn(mesh_ranks, world, f"file://{tmp}/rdv-{name}", backend=backend, device=device,
-                  args=(spec12, spec13, spec18, spec19), timeout_s=MESH_TIMEOUT_S)
+                  args=(spec12, spec13, spec18, spec19, spec20), timeout_s=MESH_TIMEOUT_S)
             wall = time.perf_counter() - t0
             worlds12[name] = (_read_ranks(outs[0], world), wall)
             worlds13[name] = (_read_ranks(outs[1], world), wall)
             worlds18[name] = (_read_ranks(outs[2], world), wall)
             worlds19[name] = (_read_ranks(outs[3], world), wall)
+            worlds20[name] = (_read_ranks(outs[4], world), wall)
         counts, owner, err = mesh_report(args, dev, card, ck, lay, worlds12, p12)
         counts13, join_owner, err13 = mesh_join_report(args, dev, card, ck, lay, worlds13, p13)
         mesh18 = mesh_expand_report(card, worlds18, p18)
     print(f"phases 12-13 (mesh) in {time.perf_counter() - t_phase:.3f} s; {card}", flush=True)
-    return {**counts, **counts13}, owner, join_owner, max(err, err13), mesh18, worlds19
+    return {**counts, **counts13}, owner, join_owner, max(err, err13), mesh18, worlds19, (worlds20, p20)
 
 
 def mesh_prepare(args, dev, lay, tmp):
@@ -7417,22 +7442,31 @@ def pp_check_world(what, ranks, run, ref_losses, ref_layers):
     return loss_d, w_d
 
 
-def pipeline_phase(args, dev, card, worlds):
+def pipeline_phase(args, dev, card, worlds, seqpar):
     """Phase 19: the GPipe step at the width of DeepFM's dense tower, in
     phase 12's worlds (``worlds``: pp = the world) and in a new gloo world
     of pp 2 x dp 2 on cuda:0, plain Adam and ZeRO-1; each against the
-    unpadded tower on one device. Returns the phase's numbers."""
+    unpadded tower on one device. Phase 20 runs in the new world's four
+    ranks after it (``seqpar``: phase 20's worlds and reference). Returns
+    the phase's numbers and phase 20's worlds with the new one."""
     from paddlebox_tpu_torch.fleet.launch import spawn
 
     t_phase = time.perf_counter()
     x, t = pp_data(args.seed)
     ref_losses, ref_layers = pp_reference(args.seed, dev, x, t)
+    worlds20, p20 = seqpar
+    n4 = PP_2D[0] * PP_2D[1]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp:
-        spec = {"kind": "2d", "seed": args.seed, "out": tmp}
+        spec = {"kind": "2d", "seed": args.seed, "out": os.path.join(tmp, "19")}
+        spec20 = seqpar_spec(p20, os.path.join(tmp, "20"), write_base=False)
+        os.makedirs(spec["out"])
+        os.makedirs(spec20["out"])
         t0 = time.perf_counter()
-        spawn(pipeline_rank, PP_2D[0] * PP_2D[1], f"file://{tmp}/rdv", backend="gloo", device="cuda:0",
-              args=(spec,), timeout_s=PP_TIMEOUT_S)
-        worlds = {**worlds, "gloo_2x2": (_read_ranks(tmp, PP_2D[0] * PP_2D[1]), time.perf_counter() - t0)}
+        spawn(pipeline_seqpar_rank, n4, f"file://{tmp}/rdv", backend="gloo", device="cuda:0",
+              args=(spec, spec20), timeout_s=PP_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        worlds = {**worlds, "gloo_2x2": (_read_ranks(spec["out"], n4), wall)}
+        worlds20 = {**worlds20, "gloo_4": (_read_ranks(spec20["out"], n4), wall)}
     nums = {}
     for name, (ranks, wall) in worlds.items():
         n_pp = ranks[0]["n_pp"]
@@ -7481,7 +7515,243 @@ def pipeline_phase(args, dev, card, worlds):
           "worlds": nums, "zero_vs_adam_max_rel": zd, "first_loss_2x2_vs_pp2_rel": first_d,
           "reference_losses": ref_losses, "phase_s": phase_s})
     print(f"phase 19 (pipeline) in {phase_s:.3f} s, its pp worlds in phase 12's spawns; {card}", flush=True)
-    return nums
+    return nums, worlds20
+
+
+# ---- 20. sequence parallelism: ring and Ulysses attention over the process group
+
+SP_SEED = 20  # the phase's seed offset: q, k and v
+# a 7B-class decoder's attention widths (Llama-2-7B: 32 heads of 128) over 8,192 positions
+SP_B, SP_S, SP_H, SP_D = 1, 8192, 32, 128
+SP_QBLOCK = 1024  # the plain reference's query block
+SP_REPS = 3  # timed forwards, and forward + backward, a world
+# tests/test_ring_attention.py's bounds
+SP_FWD_RTOL, SP_FWD_ATOL = 2e-4, 2e-5
+SP_GRAD_RTOL, SP_GRAD_ATOL = 5e-4, 5e-5
+SP_BF16_MAX_ERR = 0.02
+SP_IMPLS = ("ring", "ulysses")
+SP_REF = ("out_nc", "out_c", "dq", "dk", "dv")  # fp32 full attention: outputs without and with the mask, causal grads
+
+
+def sp_want_calls(impl, n):
+    """The collectives of one forward and backward on every rank
+    (``tests/test_torch_ring_attention.py``'s count)."""
+    return {"shift": 2 * (n - 1), "all_to_all": 0} if impl == "ring" else {"shift": 0, "all_to_all": 4}
+
+
+def sp_inputs(dev, seed):
+    """q, k, v [SP_B, SP_S, SP_H, SP_D] fp32, drawn on ``dev`` from the seed
+    (every rank draws the same values and keeps its block)."""
+    g = torch.Generator(device=dev).manual_seed(seed + SP_SEED)
+    return [torch.randn((SP_B, SP_S, SP_H, SP_D), generator=g, device=dev) for _ in range(3)]
+
+
+def sp_plain(q, k, v, scale, allowed):
+    """Full attention of a query block in plain ops, fp32: softmax of the
+    scores, masked to -1e30 where ``allowed`` is False."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if allowed is not None:
+        s = torch.where(allowed, s, -1e30)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+
+
+def seqpar_prepare(args, dev):
+    """Phase 20's plain reference on one device, query block by query
+    block: the outputs without and with the mask and the causal grads of
+    sum(out), saved as ``.npy`` for the ranks; and empty files for the
+    NCCL world's outputs, which the other worlds are held against.
+    Returns the spec the ranks share."""
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_seqpar_")
+    q, k, v = sp_inputs(dev, args.seed)
+    kg, vg = k.clone().requires_grad_(True), v.clone().requires_grad_(True)
+    pos = torch.arange(SP_S, device=dev)
+    ref = {name: torch.empty_like(q) for name in ("out_nc", "out_c", "dq")}
+    for lo in range(0, SP_S, SP_QBLOCK):
+        hi = lo + SP_QBLOCK
+        with torch.no_grad():
+            ref["out_nc"][:, lo:hi] = sp_plain(q[:, lo:hi], k, v, SP_D ** -0.5, None)
+        qb = q[:, lo:hi].clone().requires_grad_(True)
+        ob = sp_plain(qb, kg, vg, SP_D ** -0.5, pos[lo:hi, None] >= pos[None, :])
+        ob.sum().backward()
+        ref["out_c"][:, lo:hi], ref["dq"][:, lo:hi] = ob.detach(), qb.grad
+    ref["dk"], ref["dv"] = kg.grad, vg.grad
+    paths = {name: os.path.join(tmp.name, f"{name}.npy") for name in SP_REF}
+    for name in SP_REF:
+        np.save(paths[name], ref[name].cpu().numpy())
+    base = {}
+    for impl in SP_IMPLS:
+        for causal in (False, True):
+            base[f"{impl}_{causal}"] = os.path.join(tmp.name, f"base_{impl}_{causal}.npy")
+            np.lib.format.open_memmap(base[f"{impl}_{causal}"], mode="w+", dtype=np.float32,
+                                      shape=(SP_B, SP_S, SP_H, SP_D)).flush()
+    del q, k, v, kg, vg, ref, qb, ob
+    torch.cuda.empty_cache()
+    return {"tmp": tmp, "seed": args.seed, "ref": paths, "base": base, "prepare_s": time.perf_counter() - t0}
+
+
+def seqpar_spec(prep, out, write_base):
+    """One world's spec: ``write_base`` for the NCCL world, whose outputs
+    the later worlds are held against."""
+    return {"seed": prep["seed"], "ref": prep["ref"], "base": prep["base"], "out": out, "write_base": write_base}
+
+
+def sp_check(what, got, want, rtol, atol):
+    """Max abs error of ``got`` against ``want``; raises past rtol / atol."""
+    d = (got.float() - want).abs()
+    err = float(d.max())
+    if bool((d > atol + rtol * want.abs()).any()):
+        raise AssertionError(f"seqpar {what}: off by up to {err}, past rtol {rtol} / atol {atol}")
+    return err
+
+
+def sp_ms(fn, dev):
+    """SP_REPS host-clock ms of ``fn``, each ended by a synchronize."""
+    ms = []
+    for _ in range(SP_REPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return ms
+
+
+def seqpar_rank(plan, spec):
+    """Phase 20 on one rank of a spawned world (the plan's own 1-D axis):
+    ring and Ulysses attention on this rank's block of the sequence,
+    causal and not, fp32 and bf16, and the causal grads of sum(out), each
+    against the plain reference's block; the NCCL world writes its
+    outputs, a later world is held against them. Writes the errors, the
+    collectives, the timings, the peak memory and the kernel launches to
+    ``spec["out"]``."""
+    from paddlebox_tpu_torch.ops import cuda_kernels as ck
+    from paddlebox_tpu_torch.parallel import ring_attention, ulysses_attention
+
+    t_rank = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, n, r = plan.device, plan.world, plan.rank
+    ck.reset_launch_counts()
+    lo, hi = r * SP_S // n, (r + 1) * SP_S // n
+    q, k, v = (x[:, lo:hi].contiguous() for x in sp_inputs(dev, spec["seed"]))
+    # after the first allocation on the card, which sets up its allocator
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def block(path):
+        return torch.from_numpy(np.array(np.load(path, mmap_mode="r")[:, lo:hi])).to(dev)
+
+    ref = {name: block(path) for name, path in spec["ref"].items()}
+    what = f"{plan.backend} world {n} rank {r}"
+    res = {"rank": r, "world": n, "backend": plan.backend, "err": {}, "calls": {},
+           "section_s": {"inputs_and_reference": time.perf_counter() - t_rank}}
+    arrs = {}
+    for impl, fn in (("ring", ring_attention), ("ulysses", ulysses_attention)):
+        t_impl = time.perf_counter()
+        for causal in (False, True):
+            with torch.no_grad():
+                out = fn(q, k, v, plan, causal=causal)
+            key = f"{impl}_{causal}"
+            res["err"][f"{key}_vs_full"] = sp_check(f"{what} {key}", out, ref["out_c" if causal else "out_nc"],
+                                                    SP_FWD_RTOL, SP_FWD_ATOL)
+            if spec["write_base"]:
+                mm = np.load(spec["base"][key], mmap_mode="r+")
+                mm[:, lo:hi] = out.cpu().numpy()
+                mm.flush()
+                del mm
+            else:
+                res["err"][f"{key}_vs_nccl_world"] = sp_check(f"{what} {key} against the NCCL world", out,
+                                                              block(spec["base"][key]), SP_FWD_RTOL, SP_FWD_ATOL)
+            del out
+        res["section_s"][f"{impl}_fp32_checks"] = time.perf_counter() - t_impl
+        t_impl = time.perf_counter()
+        with torch.no_grad():
+            ob = fn(q.bfloat16(), k.bfloat16(), v.bfloat16(), plan, causal=True)
+        if ob.dtype != torch.bfloat16:
+            raise AssertionError(f"seqpar {what} {impl}: bf16 inputs gave {ob.dtype}")
+        res["err"][f"{impl}_bf16_vs_full"] = err = float((ob.float() - ref["out_c"]).abs().max())
+        if err >= SP_BF16_MAX_ERR:
+            raise AssertionError(f"seqpar {what} {impl}: bf16 off fp32 full attention by {err}")
+        del ob
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        plan.reset_calls()
+        fn(*leaves, plan, causal=True).sum().backward()
+        res["calls"][impl] = {c: plan.calls[c] for c in ("shift", "all_to_all")}
+        if res["calls"][impl] != sp_want_calls(impl, n):
+            raise AssertionError(f"seqpar {what} {impl}: collectives {res['calls'][impl]}, want "
+                                 f"{sp_want_calls(impl, n)}")
+        for x, name in zip(leaves, ("dq", "dk", "dv")):
+            res["err"][f"{impl}_{name}"] = sp_check(f"{what} {impl} {name}", x.grad, ref[name], SP_GRAD_RTOL,
+                                                    SP_GRAD_ATOL)
+        del leaves
+        res["section_s"][f"{impl}_bf16_and_grad_checks"] = time.perf_counter() - t_impl
+        t_impl = time.perf_counter()
+
+        def fwd():
+            with torch.no_grad():
+                fn(q, k, v, plan, causal=True)
+
+        def fwd_bwd():
+            fn(*(x.detach().requires_grad_(True) for x in (q, k, v)), plan, causal=True).sum().backward()
+
+        arrs[f"{impl}_fwd_ms"], arrs[f"{impl}_step_ms"] = sp_ms(fwd, dev), sp_ms(fwd_bwd, dev)
+        res["section_s"][f"{impl}_timing"] = time.perf_counter() - t_impl
+    res["launches"] = dict(ck.launch_counts)
+    if any(res["launches"].values()):
+        raise AssertionError(f"seqpar {what}: launched kernels {res['launches']}")
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated(dev)
+    res["rank_s"] = time.perf_counter() - t_rank
+    np.savez(os.path.join(spec["out"], f"rank{r}.npz"), **arrs)
+    with open(os.path.join(spec["out"], f"rank{r}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def pipeline_seqpar_rank(plan, spec19, spec20):
+    """Phase 19's pp x dp world, then phase 20 over the same four ranks as
+    one 1-D world."""
+    pipeline_rank(plan, spec19)
+    seqpar_rank(plan, spec20)
+
+
+def seqpar_phase(card, worlds, prep):
+    """Phase 20: each world's ranks (run inside the spawns of phases 12-13
+    and 19) checked their blocks, collectives and launches and raised on a
+    failure; here the worlds' numbers are printed. Returns the kernels'
+    launches over every rank (0)."""
+    t0 = time.perf_counter()
+    nums, launches = {}, {"pull_rows_cuda": 0, "write_rows_cuda": 0}
+    for name, (ranks, wall) in worlds.items():
+        n = len(ranks)
+        for rk in ranks:
+            for kname, c in rk["launches"].items():
+                launches[kname] += c
+        err = {k: max(rk["err"][k] for rk in ranks) for k in ranks[0]["err"]}
+        ms = {f"{impl}_{kind}": float(np.median([max(rk[f"{impl}_{kind}"][i] for rk in ranks)
+                                                 for i in range(SP_REPS)]))
+              for impl in SP_IMPLS for kind in ("fwd_ms", "step_ms")}
+        nums[name] = {"world": n, "backend": ranks[0]["backend"], "max_abs_err": err, "median_ms": ms,
+                      "collectives": ranks[0]["calls"],
+                      "max_memory_allocated_gb": [rk["max_memory_allocated"] / 1e9 for rk in ranks],
+                      "rank_s": max(rk["rank_s"] for rk in ranks),
+                      "section_s_rank0": ranks[0]["section_s"], "spawn_wall_s": wall}
+        mem = ", ".join(f"{m:.2f}" for m in nums[name]["max_memory_allocated_gb"])
+        print(f"seqpar {name} world {n}: ring and Ulysses at B {SP_B}, S {SP_S}, H {SP_H}, D {SP_D}, causal and not, "
+              f"fp32 within rtol {SP_FWD_RTOL} / atol {SP_FWD_ATOL} of full attention, bf16 under {SP_BF16_MAX_ERR}, "
+              f"causal grads within rtol {SP_GRAD_RTOL} / atol {SP_GRAD_ATOL}, collectives "
+              f"{ranks[0]['calls']}, 0 kernel launches; median ms causal fp32: ring fwd {ms['ring_fwd_ms']:.3f}, "
+              f"fwd+bwd {ms['ring_step_ms']:.3f}, ulysses fwd {ms['ulysses_fwd_ms']:.3f}, fwd+bwd "
+              f"{ms['ulysses_step_ms']:.3f}; max_memory_allocated {mem} GB a rank; {card}", flush=True)
+    prep["tmp"].cleanup()
+    report_s = time.perf_counter() - t0
+    phase_s = prep["prepare_s"] + sum(w["rank_s"] for w in nums.values()) + report_s
+    emit({"card": card, "phase": "seqpar", "shape": {"B": SP_B, "S": SP_S, "H": SP_H, "D": SP_D},
+          "reps": SP_REPS, "worlds": nums, "prepare_s": prep["prepare_s"], "report_s": report_s,
+          "phase_s": phase_s, "launches": launches})
+    ranks_s = ", ".join(f"{k} {w['rank_s']:.3f}" for k, w in nums.items())
+    print(f"phase 20 (seqpar) in {phase_s:.3f} s: the reference {prep['prepare_s']:.3f} s, the ranks {ranks_s} s "
+          f"inside the spawns of phases 12-13 and 19; {card}", flush=True)
+    return {"seqpar": launches}
 
 
 if __name__ == "__main__":

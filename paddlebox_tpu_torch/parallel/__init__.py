@@ -8,8 +8,11 @@ mesh's XLA collectives; the pass table is sharded over the ranks. The host
 plane over several hosts is ``transport`` (``TcpTransport``,
 ``TcpShuffleRouter``) and ``membership`` (``OwnershipMap``). ``pipeline``
 is the GPipe schedule over a ``pp`` axis (``make_mesh(..., axis="pp")``,
-or ``make_mesh_2d`` for pipeline x data). Ring and Ulysses attention are
-not ported yet.
+or ``make_mesh_2d`` for pipeline x data). ``ring_attention`` is sequence
+parallelism: ring attention (the (k, v) blocks rotate by
+``MeshPlan.shift``) and Ulysses attention (two tiled all_to_alls around
+exact local attention) over a sequence sharded on one axis, with their
+gradients.
 """
 
 from paddlebox_tpu_torch.parallel.mesh import (
@@ -32,6 +35,7 @@ from paddlebox_tpu_torch.parallel.pipeline import (
     make_pipeline_train_step,
     pipeline_forward,
 )
+from paddlebox_tpu_torch.parallel.ring_attention import ring_attention, ulysses_attention
 from paddlebox_tpu_torch.parallel.sharded_pullpush import sharded_pull, sharded_push, sharded_serve_pull
 
 __all__ = [
@@ -54,4 +58,6 @@ __all__ = [
     "pipeline_forward",
     "make_pipeline_train_step",
     "init_pipeline_state",
+    "ring_attention",
+    "ulysses_attention",
 ]

@@ -23,7 +23,12 @@ in the port calls ``torch.distributed`` for data:
   leading axis;
 - :meth:`MeshPlan.broadcast`, one rank's tensor on every rank, bit for
   bit (async dense hands rank 0's table params to every rank with it);
-- :meth:`MeshPlan.shift`, the pipeline's stage hop (below).
+- :meth:`MeshPlan.shift`, the pipeline's stage hop (below), which
+  ring attention's (k, v) rotation also rides;
+- :meth:`MeshPlan.tiled_all_to_all`, ``lax.all_to_all`` with a split and
+  a concat dim (``tiled=True``): Ulysses attention's re-partition of the
+  heads and the sequence. It is one :meth:`MeshPlan.all_to_all`, and
+  differentiable: its backward is the inverse all_to_all.
 
 The backend is an explicit argument. ``nccl`` runs one rank a card,
 rank ``r`` on ``cuda:r``, and refuses a world larger than the visible
@@ -160,6 +165,17 @@ class MeshPlan:
         the backward is the inverse shift, one more call on every rank."""
         return _Shift.apply(x, self)
 
+    def tiled_all_to_all(self, x: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:
+        """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)``:
+        dim ``split_dim`` is cut into ``world`` equal blocks, block ``d``
+        goes to rank ``d``, and the blocks received are concatenated
+        along ``concat_dim`` in rank order. One :meth:`all_to_all` (one
+        count); differentiable, the backward is the inverse all_to_all
+        (the two dims swapped), one more call on every rank."""
+        if x.shape[split_dim] % self.world:
+            raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not split into {self.world} blocks")
+        return _TiledAllToAll.apply(x, self, split_dim, concat_dim)
+
     def reset_calls(self) -> None:
         for k in self.calls:
             self.calls[k] = 0
@@ -193,6 +209,31 @@ class _Shift(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g: torch.Tensor):
         return _rotate(ctx.plan, g, -1), None
+
+
+def _tiled_all_to_all(plan: MeshPlan, x: torch.Tensor, split_dim: int, concat_dim: int) -> torch.Tensor:
+    """The blocks of ``split_dim`` moved to a leading [world] axis, one
+    :meth:`MeshPlan.all_to_all`, then the received blocks laid along
+    ``concat_dim`` in rank order."""
+    split_dim, concat_dim = split_dim % x.dim(), concat_dim % x.dim()
+    blocks = x.unflatten(split_dim, (plan.world, -1)).movedim(split_dim, 0)
+    got = plan.all_to_all(blocks)  # got[d]: rank d's block for this rank
+    return got.movedim(0, concat_dim).flatten(concat_dim, concat_dim + 1)
+
+
+class _TiledAllToAll(torch.autograd.Function):
+    """:meth:`MeshPlan.tiled_all_to_all` with its gradient: the cotangent
+    takes the inverse all_to_all."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, plan: MeshPlan, split_dim: int, concat_dim: int) -> torch.Tensor:
+        ctx.plan, ctx.dims = plan, (split_dim, concat_dim)
+        return _tiled_all_to_all(plan, x, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        split_dim, concat_dim = ctx.dims
+        return _tiled_all_to_all(ctx.plan, g, concat_dim, split_dim), None, None, None
 
 
 def _init_group(backend: str, rank: int, world: int, init_method: Optional[str], timeout_s: float) -> None:
