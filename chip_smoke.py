@@ -279,7 +279,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    ``stream.cut_publish`` fault crashes cut 2 with its spool durable, the
    stack restarts from disk and replays it; after 4 cuts the table and
    dense state are bitwise an uninterrupted run over the same spools.
-   Every training step launches 2 gathers and 1 writeback. Printed: the
+   Every training step launches 2 gathers and 1 writeback. Every
+   supervisor enables ``<its checkpoint root>/compile_cache`` ("auto");
+   this process loaded both kernels in phase 2, so the phase's cache
+   requests and nvcc runs are printed (none expected). Printed: the
    day's samples/s supervised and bare, a retry's seconds, ``save_base``
    / ``save_delta`` s, the span counts, each slot's shuffled AUC, and the
    stream's ``serve.freshness_s`` p50 and p99, records a cut and backlog
@@ -321,7 +324,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    revert each, both epochs 1, and every pass's table, dense state, AUC
    tables and AUC and the chain's arrays bitwise the clean day's). 2
    gathers + 1 writeback a step on every host, the reverted attempt's
-   counted; both kernels bitwise at the owner's ids. Beside the spawn, in
+   counted; both kernels bitwise at the owner's ids; each host's
+   supervisor enables ``<rank root>/compile_cache`` before its first
+   launch, so its libraries come through the cache, copied from the
+   package's ``_build/`` (its stats printed; an nvcc run there fails the
+   phase). Beside the spawn, in
    threads of this process and without the card, the JAX package's two
    elastic schedules through the port's supervisor over a real
    ``HostSparseTable``, ``DistributedWorkingSet`` and ``TcpTransport``
@@ -399,7 +406,24 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    NCCL world's (rtol 2e-4, atol 2e-5); a forward and backward makes 2 (n
    - 1) shifts (ring) or 4 all_to_alls (Ulysses) on every rank, and no
    kernel launches. Each world's median ms of a causal fp32 forward and of
-   a forward + backward, and each rank's peak memory, are printed.
+   a forward + backward, and each rank's peak memory, are printed;
+21. the compile cache ("compile_cache") over the kernels' nvcc builds:
+   four fresh processes, each started in a fresh copy of the package (no
+   ``_build/``), each a ``PassSupervisor`` over a ``CheckpointManager`` and
+   one supervised pass at bench.py's width (DeepFM, 39 slots, embedx 16,
+   hidden (512, 256, 128), batch 4096) of CC_FILES of bench.py's files
+   from ``--seed + 21`` (cut from 16; 2 steps) on the Python tier, so
+   that g++ builds nothing into the copy either. Under "auto" a cold
+   process on a fresh checkpoint root (cache requests 2, misses 2, hits 0,
+   nvcc run twice, 2 entries in ``<root>/compile_cache``), then a warm one
+   on the same root (hits 2, misses 0, no nvcc, its ``_build/`` absent);
+   the same pair with an explicit ``compile_cache_dir`` on fresh roots
+   (nothing under ``<root>/compile_cache``); the two cold processes at
+   once, then the two warm. Each: 2 gathers + 1 writeback a step, table,
+   params, Adam state and losses bitwise the cold "auto" process's, both
+   kernels bitwise at phase 7's training shape. Printed: the stats, the
+   nvcc seconds, the first step's time (the kernels' build or load in it)
+   and the later steps', cold and warm.
 
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -417,6 +441,7 @@ import faulthandler
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1055,11 +1080,12 @@ def main() -> int:
     lt_counts, lt_shapes, lt_err = timed("18 long_tail", long_tail_phase, args, dev, card, ck, pull_push, mesh18)
     _, seqpar_worlds = timed("19 pipeline", pipeline_phase, args, dev, card, mesh19, mesh20)
     seqpar_counts = timed("20 seqpar", seqpar_phase, card, seqpar_worlds, mesh20[1])
+    cc_counts, cc_err = timed("21 compile_cache", compile_cache_phase, args, card)
     emit({"card": card, "phase_wall_s": walls, "script_s": time.perf_counter() - t_start})
 
     by_path = {"serve": serve_counts, **train["counts"], **published, "boundary": boundary_counts, **join_counts,
                **zoo_counts, **mesh_counts, **supervised_counts, **multihost_counts, **sh_counts, **fleet_counts,
-               **lt_counts, **seqpar_counts}
+               **lt_counts, **seqpar_counts, **cc_counts}
     emit({"kernels": [
         {
             "name": name,
@@ -1085,8 +1111,10 @@ def main() -> int:
             # the strategy's recompute and gradient_merge runs and the
             # extended mesh in phase 12's worlds, then phase 20's sequence
             # parallelism in its three worlds (every rank's ring and
-            # Ulysses runs, none launching a kernel); serve_tier is phase
-            # 8's tiered serving
+            # Ulysses runs, none launching a kernel), then phase 21's four
+            # fresh processes (a supervised pass each, cold and warm, under
+            # "auto" and an explicit cache); serve_tier is phase 8's tiered
+            # serving
             "launches": sum(c[name] for c in by_path.values()),
             "launches_by_path": {p: c[name] for p, c in by_path.items()},
             "max_abs_err": err,
@@ -1123,9 +1151,10 @@ def main() -> int:
         }
         for name, source, replaces, key, err in (
             ("pull_rows_cuda", "paddlebox_tpu_torch/ops/csrc/gather_rows.cu", GATHER_REPLACES, "gather",
-             max(max_err, train["gather_err"], join_err, zoo_err, mesh_err, sup_err, mh_err, sh_err, fleet_err, lt_err)),
+             max(max_err, train["gather_err"], join_err, zoo_err, mesh_err, sup_err, mh_err, sh_err, fleet_err, lt_err,
+                 cc_err)),
             ("write_rows_cuda", "paddlebox_tpu_torch/ops/csrc/write_rows.cu", WRITE_REPLACES, "write",
-             max(write_err, train["write_err"], join_err, zoo_err, mesh_err, sup_err, mh_err, sh_err, lt_err)),
+             max(write_err, train["write_err"], join_err, zoo_err, mesh_err, sup_err, mh_err, sh_err, lt_err, cc_err)),
         )
     ]})
     print(card, flush=True)
@@ -3495,7 +3524,7 @@ def mesh_rank(plan, spec):
         raise AssertionError(f"mesh {tag} ZeRO-1 params differ from step mode's by {zd} > {MESH_PARAMS_ATOL}")
     res.update(kstep_losses=kl.tolist(), zero_losses=zl.tolist(), zero_vs_step_params_max_abs=zd)
 
-    # the known cost of kstep with check_nan (ROADMAP Queue 1 item 4.5): its
+    # the known cost of kstep with check_nan (ROADMAP Queue 3 item 1): its
     # dense average runs every step; ms a step on the resident feed (the
     # resident pass shared) against kstep alone, and the pass's all-reduces
     kms = {}
@@ -4404,7 +4433,7 @@ def same_chain(root_a, root_b, lay, opt, seed, what):
         out = set()
         for d, dirs, names in os.walk(root):
             rel = os.path.relpath(d, root)
-            if rel.split(os.sep)[0] in ("obs", "quarantine"):
+            if rel.split(os.sep)[0] in ("obs", "quarantine", "compile_cache"):
                 continue
             out |= {os.path.join(rel, n) for n in names}
         return out
@@ -4895,10 +4924,12 @@ def supervised_phase(args, dev, card, ck, lay, schema):
     kernels' max abs error at its paths' shapes."""
     from paddlebox_tpu_torch.obs.flight_recorder import FLIGHT_RECORDER
     from paddlebox_tpu_torch.obs.metrics_writer import read_series
+    from paddlebox_tpu_torch.utils import compilecache
     from paddlebox_tpu_torch.utils import faultinject as fault
 
     t_phase = time.perf_counter()
     nums, by_path = {}, {}
+    cc0, runs0 = compilecache.stats(), len(ck.nvcc_runs())
     with tempfile.TemporaryDirectory(prefix="chip_smoke_supervised_") as tmp, flags(fs_open_backoff_s=0.0):
         rng = np.random.default_rng(args.seed + 14)
         day_files, _ = write_bench_files(tmp, rng, SUP_PASSES * SUP_FILES + 2, "day14")
@@ -5016,6 +5047,14 @@ def supervised_phase(args, dev, card, ck, lay, schema):
         by_path["stream"], nums["stream"], err = stream_check(args, lay, schema, tmp, chunks, ck, card)
         errs.append(err)
         nums["stream_s"] = time.perf_counter() - t0
+        # every supervisor enabled <its root>/compile_cache ("auto"); both
+        # kernels were loaded before the phase, so none was built or copied
+        cc = compilecache.stats()
+        nums["compile_cache"] = {**{k: cc[k] - cc0[k] for k in ("hits", "misses", "requests")},
+                                 "nvcc_runs": len(ck.nvcc_runs()) - runs0, "last_dir": cc["dir"]}
+    compilecache.disable()
+    print(f"supervised day: each supervisor enabled <its checkpoint root>/compile_cache ('auto'); over the phase "
+          f"{nums['compile_cache']}; {card}", flush=True)
     nums["phase_s"] = time.perf_counter() - t_phase
     emit({"card": card, "phase": "supervised_day", **nums})
     print(f"phase 14 (supervised day, ingest, observability, AUC runner, stream): {nums['phase_s']:.3f} s; {card}",
@@ -5846,6 +5885,7 @@ def supervised_hosts_rank(plan, spec):
     closes in a ``finally``."""
     from paddlebox_tpu_torch.ops import cuda_kernels as ck
     from paddlebox_tpu_torch.table import SparseOptimizerConfig, ValueLayout
+    from paddlebox_tpu_torch.utils import compilecache
 
     r, dev = plan.rank, plan.device
     ctx = _mh_context(plan, spec)
@@ -5860,6 +5900,9 @@ def supervised_hosts_rank(plan, spec):
 
     try:
         res["clean"], _ = _host_day(plan, spec, ctx, "clean", before_last_end=owner_ids)
+        # the supervisor enabled <rank root>/compile_cache before this
+        # process's first kernel launch: its libraries came through it
+        res["compile_cache"] = {**compilecache.stats(), "nvcc_runs": ck.nvcc_runs()}
         res["kernel_err"] = _owner_check(ck, held["shard"], held["owner"], f"supervised hosts rank {r}")
         res["owner_R"] = held["shard"].shape[0]
         arrays.update({f"owner_{k}": v.cpu().numpy() for k, v in held.pop("owner").items()})
@@ -6248,6 +6291,7 @@ def supervised_hosts_phase(args, dev, card, ck, lay):
     the host plane. Returns (launch counts by path, the kernels at the owner's
     shape, the max abs error)."""
     from paddlebox_tpu_torch.fleet.launch import spawn
+    from paddlebox_tpu_torch.utils import compilecache
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(args.seed + SH_SEED)
@@ -6314,6 +6358,13 @@ def supervised_hosts_phase(args, dev, card, ck, lay):
                 "incidents_host": [[i[:3] for i in rk[d]["incidents"]] for rk in ranks],
             }
         nums["chain_files_compared"] = [rk["fault_chain_files"] for rk in ranks]
+        nums["compile_cache_host"] = [rk["compile_cache"] for rk in ranks]
+        if any(rk["compile_cache"]["nvcc_runs"] for rk in ranks):
+            raise AssertionError(f"supervised hosts: a host ran nvcc: {nums['compile_cache_host']}")
+        print("supervised hosts: each host's supervisor enabled <rank root>/compile_cache ('auto'); "
+              + "; ".join(f"host {r}: requests {c['requests']}, misses {c['misses']}, hits {c['hits']}, entries "
+                          f"{c['entries']}, nvcc runs 0"
+                          for r, c in enumerate(nums["compile_cache_host"])) + f"; {card}", flush=True)
         print(f"supervised hosts: clean {nums['clean']['samples_per_s_global']:.0f} samples/s over both hosts, "
               f"faulted {nums['fault']['samples_per_s_global']:.0f}; the faulted attempt (its steps, the verdict "
               f"round and the revert) {nums['fault']['failed_attempt_s_host']} s a host; verdict rounds "
@@ -6324,6 +6375,8 @@ def supervised_hosts_phase(args, dev, card, ck, lay):
         err = max(rk["kernel_err"] for rk in ranks)
         nums["elastic"] = elastic["nums"]
         emit({"card": card, "phase": "supervised_hosts", **nums, "launches": counts})
+    # the elastic schedules' supervisors enabled their roots' caches here
+    compilecache.disable()
     print(f"phase 16 (supervised_hosts) in {time.perf_counter() - t_phase:.3f} s; {card}", flush=True)
     return counts, owner, err
 
@@ -7752,6 +7805,209 @@ def seqpar_phase(card, worlds, prep):
     print(f"phase 20 (seqpar) in {phase_s:.3f} s: the reference {prep['prepare_s']:.3f} s, the ranks {ranks_s} s "
           f"inside the spawns of phases 12-13 and 19; {card}", flush=True)
     return {"seqpar": launches}
+
+
+# ---- 21. the compile cache: fresh copies of the package, cold and warm -----
+
+CC_FILES = 1  # the pass's part files, bench.py's 16 cut for the phase's time: 2 steps
+CC_DATE = "20261021"
+CC_SEED = 21
+CC_R, CC_U = 2_514_944, 122_880  # phase 7's training shape: the pass table's rows, a step's gather ids
+CC_TIMEOUT_S = 300.0
+CC_MODES = ("auto", "explicit")
+# a fresh process started in a fresh copy: '' (its working directory)
+# leads sys.path, so it imports the copy's package and this script's copy
+CC_CHILD = "import sys, chip_smoke; sys.exit(chip_smoke.compile_cache_child(sys.argv[1]))"
+
+
+def _fresh_copy(dst):
+    """The package and this script as a checkout holds them: no ``_build/``
+    and no bytecode. The pass runs on the Python tier, so the copy needs no
+    native sources and g++ builds nothing into its ``_build/``."""
+    shutil.copytree(os.path.join(REPO, "paddlebox_tpu_torch"), os.path.join(dst, "paddlebox_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), dst)
+
+
+def compile_cache_child(spec_path) -> int:
+    """Phase 21 in one fresh process, from its fresh copy of the package:
+    ``compile_cache_dir`` as the spec says, a PassSupervisor over a
+    CheckpointManager at the spec's root (which enables the cache before
+    any kernel is built), one supervised pass of the spec's files at
+    bench.py's width on the Python tier, each step timed to the card's
+    end; then both kernels bitwise against their plain versions at phase
+    7's training shape. Writes its record and its state's arrays to the
+    spec's ``out``."""
+    with open(spec_path) as f:
+        spec = json.load(f)
+    import paddlebox_tpu_torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    pkg = os.path.dirname(os.path.abspath(paddlebox_tpu_torch.__file__))
+    if pkg != os.path.join(here, "paddlebox_tpu_torch"):
+        raise AssertionError(f"the child imported {pkg}, not its copy's package")
+    from paddlebox_tpu_torch import config
+    from paddlebox_tpu_torch.ops import cuda_kernels as ck
+    from paddlebox_tpu_torch.table import ValueLayout
+    from paddlebox_tpu_torch.utils import compilecache
+
+    dev = torch.device("cuda")
+    config.set_flag("compile_cache_dir", spec["cache_flag"])
+    config.set_flag("enable_native_parser", False)
+    lay = ValueLayout(embedx_dim=EMBEDX_DIM)
+    t0 = time.perf_counter()
+    s = sup_stack(SimpleNamespace(seed=spec["seed"]), lay, bench_schema(), spec["root"])
+    if s.table.native or compilecache.enabled_dir() != spec["cache_dir"]:
+        raise AssertionError(f"native table {s.table.native}, cache {compilecache.enabled_dir()} (want "
+                             f"{spec['cache_dir']})")
+    step, step_s, losses = s.tr._step, [], []
+
+    def timed_step(state, feed):
+        t1 = time.perf_counter()
+        state, m = step(state, feed)
+        losses.append(float(m["loss"]))  # waits for the step on the card
+        step_s.append(time.perf_counter() - t1)
+        return state, m
+
+    s.tr._step = timed_step
+    ck.reset_launch_counts()
+    t1 = time.perf_counter()
+    outs = s.sup.run_day(CC_DATE, [spec["files"]])
+    rec = {"stack_s": t1 - t0, "pass_s": time.perf_counter() - t1, "launches": dict(ck.launch_counts),
+           "steps": len(step_s), "step_s": step_s, "losses": losses, "incidents": len(s.sup.incidents),
+           "feed": s.tr.last_feed, "batches": outs[0]["batches"], "stats": compilecache.stats(),
+           "nvcc_runs": ck.nvcc_runs(), "pkg": pkg}
+    build = os.path.join(here, "paddlebox_tpu_torch", "_build")
+    rec["own_build"] = sorted(os.listdir(build)) if os.path.isdir(build) else None
+    g = torch.Generator(device=dev).manual_seed(spec["seed"])
+    table = torch.randn((CC_R, lay.width), device=dev, generator=g)
+    rows = torch.randint(0, CC_R, (CC_U,), device=dev, generator=g, dtype=torch.int32)
+    uniq = torch.randperm(CC_R, device=dev, generator=g)[:CC_U].to(torch.int32)
+    new_rows = torch.randn((CC_U, lay.width), device=dev, generator=g)
+    what = f"R={CC_R} U={CC_U} W={lay.width} ({spec['name']})"
+    rec["kernel_err"] = max(check_gather(ck, table, rows, what), check_write(ck, table, uniq, new_rows, what))
+    keys = np.sort(s.table.keys())
+    arrays = {"keys": keys, "rows": s.table.pull_or_create(keys), "losses": np.asarray(losses)}
+    for k, v in s.tr.params.items():
+        arrays[f"param/{k}"] = v.cpu().numpy()
+        arrays[f"mu/{k}"] = s.tr.opt_state.mu[k].cpu().numpy()
+        arrays[f"nu/{k}"] = s.tr.opt_state.nu[k].cpu().numpy()
+    arrays["count"] = s.tr.opt_state.count.cpu().numpy()
+    np.savez(os.path.join(spec["out"], "state.npz"), **arrays)
+    with open(os.path.join(spec["out"], "rec.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _run_children(specs):
+    """Each spec's child at once, each in its copy; waits for all, and
+    kills every one still running when one fails or outlives
+    CC_TIMEOUT_S. Returns each child's record and state by name."""
+    env = dict(os.environ, PBOX_NATIVE_TABLE="0")
+    procs = {}
+    try:
+        for spec in specs:
+            path = os.path.join(spec["out"], "spec.json")
+            with open(path, "w") as f:
+                json.dump(spec, f)
+            with open(os.path.join(spec["out"], "log.txt"), "w") as log:
+                procs[spec["name"]] = subprocess.Popen([sys.executable, "-c", CC_CHILD, path], cwd=spec["copy"],
+                                                       env=env, stdout=log, stderr=subprocess.STDOUT)
+        deadline = time.monotonic() + CC_TIMEOUT_S
+        for spec in specs:
+            rc = procs[spec["name"]].wait(timeout=max(1.0, deadline - time.monotonic()))
+            if rc != 0:
+                with open(os.path.join(spec["out"], "log.txt")) as f:
+                    tail = f.read()[-4000:]
+                raise AssertionError(f"compile cache child {spec['name']} exited {rc}:\n{tail}")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = {}
+    for spec in specs:
+        with open(os.path.join(spec["out"], "rec.json")) as f:
+            rec = json.load(f)
+        with np.load(os.path.join(spec["out"], "state.npz")) as z:
+            out[spec["name"]] = (rec, {k: z[k] for k in z.files})
+    return out
+
+
+def compile_cache_phase(args, card):
+    """Phase 21: the compile cache over the kernels' nvcc builds, in fresh
+    processes from fresh copies of the package (each ``_build/`` empty).
+    Under "auto" a cold process with a fresh checkpoint root, then a warm
+    one on the same root; with an explicit directory a cold and a warm
+    process on fresh roots sharing it; the two cold ones at once, then the
+    two warm ones. Returns the launch counts by path and the kernels' max
+    abs error."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(args.seed + CC_SEED)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_compile_cache_") as tmp:
+        files, _ = write_bench_files(tmp, rng, CC_FILES, "cc21")
+        explicit = os.path.join(tmp, "explicit-cache")
+        runs = {}
+        for state in ("cold", "warm"):
+            specs = []
+            for mode in CC_MODES:
+                name = f"{mode}_{state}"
+                root = os.path.join(tmp, "auto-root" if mode == "auto" else f"{name}-root")
+                spec = {"name": name, "seed": args.seed, "files": files, "root": root,
+                        "cache_flag": "auto" if mode == "auto" else explicit,
+                        "cache_dir": os.path.join(root, "compile_cache") if mode == "auto" else explicit,
+                        "copy": os.path.join(tmp, f"copy-{name}"), "out": os.path.join(tmp, f"out-{name}")}
+                _fresh_copy(spec["copy"])
+                os.makedirs(spec["out"])
+                specs.append(spec)
+            t0 = time.perf_counter()
+            got = _run_children(specs)
+            for spec in specs:
+                rec = got[spec["name"]][0]
+                rec["wall_s"] = time.perf_counter() - t0
+                rec["entries_dir"] = sorted(n for n in os.listdir(spec["cache_dir"]) if n.endswith(".so"))
+                rec["auto_dir_exists"] = os.path.isdir(os.path.join(spec["root"], "compile_cache"))
+            runs.update(got)
+    counts, nums, errs = {}, {}, []
+    ref_rec, ref = runs["auto_cold"]
+    for name, (rec, arrays) in runs.items():
+        cold = name.endswith("cold")
+        st = rec["stats"]
+        want = {"hits": 0, "misses": 2} if cold else {"hits": 2, "misses": 0}
+        built = sorted(src for src, _ in rec["nvcc_runs"])
+        checks = {
+            "stats": {k: st[k] for k in want} == want and st["requests"] == 2,
+            "nvcc": built == (["gather_rows.cu", "write_rows.cu"] if cold else []),
+            "entries": st["entries"] == 2 and len(rec["entries_dir"]) == 2,
+            "own _build/ empty": rec["own_build"] in (None, []),
+            "auto dir only under auto": rec["auto_dir_exists"] == name.startswith("auto"),
+            "launches": rec["launches"] == {"pull_rows_cuda": 2 * rec["steps"], "write_rows_cuda": rec["steps"]},
+            "steps": rec["steps"] == CC_FILES * RECORDS_PER_FILE // BATCH == rec["batches"],
+            "no incident": rec["incidents"] == 0,
+            "bitwise the cold auto process": arrays.keys() == ref.keys()
+            and all(np.array_equal(arrays[k], ref[k]) for k in ref),
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"compile cache {name}: failed {[k for k, v in checks.items() if not v]}: "
+                                 f"stats {st}, nvcc {rec['nvcc_runs']}, entries {rec['entries_dir']}, own _build/ "
+                                 f"{rec['own_build']}, launches {rec['launches']} for {rec['steps']} steps")
+        counts[f"compile_cache_{name}"] = rec["launches"]
+        errs.append(rec["kernel_err"])
+        nums[name] = {"stats": st, "nvcc_runs": rec["nvcc_runs"], "first_step_s": rec["step_s"][0],
+                      "later_step_s": rec["step_s"][1:], "stack_s": rec["stack_s"], "pass_s": rec["pass_s"],
+                      "wall_s": rec["wall_s"], "feed": rec["feed"], "launches": rec["launches"]}
+        nvcc = ", ".join(f"{src} {t:.3f} s" for src, t in rec["nvcc_runs"]) or "none"
+        print(f"compile cache {name}: a fresh process from a fresh copy, {rec['steps']} supervised steps on the "
+              f"{rec['feed']} feed; requests {st['requests']}, misses {st['misses']}, hits {st['hits']}, entries "
+              f"{st['entries']}; nvcc runs: {nvcc}; its own _build/ {rec['own_build'] or 'absent'}; first step "
+              f"{rec['step_s'][0]:.3f} s, later steps {[round(t, 4) for t in rec['step_s'][1:]]} s; the pass "
+              f"{rec['pass_s']:.3f} s; launches {rec['launches']}; table, params, Adam state and losses bitwise the "
+              f"cold auto process's; both kernels bitwise at R {CC_R}, U {CC_U}; {card}", flush=True)
+    nums["phase_s"] = time.perf_counter() - t_phase
+    emit({"card": card, "phase": "compile_cache", "files": CC_FILES, "records": CC_FILES * RECORDS_PER_FILE,
+          **nums, "launches": counts})
+    print(f"phase 21 (compile cache) in {nums['phase_s']:.3f} s; {card}", flush=True)
+    return counts, max(errs)
 
 
 if __name__ == "__main__":

@@ -184,16 +184,6 @@ define_flag(
     "miss it (~tens of host MB per distinct shape set; measured flat RSS "
     "at fixed shapes over a 14-pass soak)",
 )
-define_flag("use_pallas_sparse", False, "Pallas prefetch-DMA kernels for sparse pull/push on TPU")
-define_flag(
-    "kernel_plan_path",
-    "auto",
-    "kernel-plan artifact routing pallas-vs-native per (op, backend, "
-    "shape bucket) — 'auto' uses the committed tools/kernel_plan.json when "
-    "present, 'off' forces the builtin defaults (which honor "
-    "use_pallas_sparse), anything else is an explicit plan file path "
-    "(see ops/kernel_plan.py; regenerate with tools/tune_kernels.py)",
-)
 
 # --- host transport (parallel/transport.py) ---
 define_flag(

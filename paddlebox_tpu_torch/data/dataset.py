@@ -412,8 +412,8 @@ class BoxPSDataset:
         # then a temp dir); a PassSupervisor with a checkpoint sets
         # <checkpoint root>/quarantine
         self.quarantine_dir = quarantine_dir
-        self._dead_letter_seq = 0  # written by the one load in flight
-        self._loading_qlog: Optional[QuarantineLog] = None  # the load in flight's
+        self._dead_letter_seq = 0  # synchronized-by: load-thread exclusivity (one load/preload in flight)
+        self._loading_qlog: Optional[QuarantineLog] = None  # synchronized-by: load-thread exclusivity
         self._stats_lock = threading.Lock()
         self._loading_stats = PassStats()  # guarded-by: _stats_lock
         self._auc_runner = None  # the pass's AucRunner, built by slots_shuffle
@@ -446,11 +446,14 @@ class BoxPSDataset:
         # (store, order, records, ws, stats) loaded but not yet begun, and
         # its staged prefetch {src, keys, rows, epoch}: written by the load
         # (or preload) thread, read after wait_preload_done joins it
-        self._staged = None
-        self._boundary_prefetch = None
-        self._guard = None  # the armed PassGuard of the open pass, if any
+        self._staged = None  # synchronized-by: preload join handoff (wait_preload_done)
+        self._boundary_prefetch = None  # synchronized-by: preload join handoff (wait_preload_done)
+        # the armed PassGuard of the open pass, if any: the end-pass worker
+        # clears it, and the main thread reads it only after joining that
+        # worker (wait_end_pass) or before starting it
+        self._guard = None  # synchronized-by: end-pass worker join (wait_end_pass)
         self._preload_thread: Optional[threading.Thread] = None
-        self._preload_exc: Optional[BaseException] = None  # handed over by the join
+        self._preload_exc: Optional[BaseException] = None  # synchronized-by: preload join handoff (wait_preload_done)
         self._end_pass_fut: Optional[Future] = None
         self._end_pass_thread: Optional[threading.Thread] = None
         self._end_pass_result: dict = {}
@@ -460,7 +463,10 @@ class BoxPSDataset:
         self._carrier: Optional[TableCarrier] = None
         self._prev_boundary_carrier: Optional[TableCarrier] = None
         self._eager_thread: Optional[threading.Thread] = None
-        self._eager_flush_error: Optional[BaseException] = None
+        # the carrier flush's failure, stored on its thread and taken at a
+        # boundary, which need not have joined that thread
+        self._eager_lock = threading.Lock()
+        self._eager_flush_error: Optional[BaseException] = None  # guarded-by: _eager_lock
         # stage seconds hidden behind training, added on the load thread and
         # read at wait_end_pass into boundary.overlap_hidden_s
         self._stage_lock = threading.Lock()
@@ -1034,7 +1040,8 @@ class BoxPSDataset:
         try:
             self.table.drain_pending()
         except Exception as e:  # raised by _raise_pending_flush_error
-            self._eager_flush_error = e
+            with self._eager_lock:
+                self._eager_flush_error = e
 
     def _raise_pending_flush_error(self) -> None:
         # join the drain first, so its failure surfaces at this boundary
@@ -1042,7 +1049,8 @@ class BoxPSDataset:
         if t is not None:
             t.join()
         self._eager_thread = None
-        err, self._eager_flush_error = self._eager_flush_error, None
+        with self._eager_lock:
+            err, self._eager_flush_error = self._eager_flush_error, None
         if err is not None:
             raise RuntimeError(
                 "background carrier flush failed: the carried values stay owed "
@@ -1418,7 +1426,8 @@ class BoxPSDataset:
             STAT_OBSERVE("boundary.overlap_hidden_s", hidden + stage_hidden)
         # a stored eager-flush failure raises here too: a run's last pass
         # has no next begin_pass to raise it
-        err, self._eager_flush_error = self._eager_flush_error, None
+        with self._eager_lock:
+            err, self._eager_flush_error = self._eager_flush_error, None
         if err is not None:
             raise RuntimeError(
                 "background carrier flush failed: the carried values stay owed "

@@ -10,6 +10,7 @@ strictly in job order; ``depth`` bounds host memory.
 
 from __future__ import annotations
 
+import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Iterable, Iterator, Optional, TypeVar
@@ -20,6 +21,32 @@ from paddlebox_tpu_torch.utils.monitor import STAT_ADD
 
 T = TypeVar("T")
 R = TypeVar("R")
+
+# the occupancy gauge over every live prefetch window in the process: the
+# jobs running now, and the most that ever ran at once. The high-water mark
+# is the tuning signal for feed_pipeline_workers/depth: a mark pinned at
+# the workers means the step waits on the pack
+_gauge_lock = threading.Lock()
+_inflight = 0  # guarded-by: _gauge_lock
+_inflight_hwm = 0  # guarded-by: _gauge_lock
+
+
+def prefetch_inflight() -> int:
+    """Jobs running now, across every prefetch window."""
+    with _gauge_lock:
+        return _inflight
+
+
+def prefetch_inflight_hwm(reset: bool = False) -> int:
+    """The most jobs that ran at once so far; ``reset`` restarts the mark
+    from the jobs running now."""
+    global _inflight_hwm
+    with _gauge_lock:
+        hwm = _inflight_hwm
+        if reset:
+            _inflight_hwm = _inflight
+        return hwm
+
 
 config.define_flag("feed_pipeline_workers", 3, "background packer thread count")
 config.define_flag("feed_pipeline_depth", 6, "max batches packed ahead of compute")
@@ -48,8 +75,16 @@ def prefetch(
         retries = config.get_flag("feed_pipeline_retries")
 
     def run(job: T) -> R:
-        _fault_fire("pipeline.prefetch_job")
-        return fn(job)
+        global _inflight, _inflight_hwm
+        with _gauge_lock:
+            _inflight += 1
+            _inflight_hwm = max(_inflight_hwm, _inflight)
+        try:
+            _fault_fire("pipeline.prefetch_job")
+            return fn(job)
+        finally:
+            with _gauge_lock:
+                _inflight -= 1
 
     it = iter(jobs)
     ex = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="prefetch")

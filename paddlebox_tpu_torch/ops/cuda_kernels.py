@@ -2,10 +2,11 @@
 
 The counterpart of the JAX package's ``ops/pallas_kernels.py``. Each kernel
 lives in ``ops/csrc/*.cu`` with a plain C launcher, is compiled with
-``nvcc`` for ``sm_90a`` on first use into ``paddlebox_tpu_torch/_build/``,
-and is loaded with ``ctypes`` (no PyTorch headers, so the build takes
-seconds). Beside each kernel sits its plain PyTorch version, which the CPU
-path and the tests use.
+``nvcc`` for ``sm_90a`` on first use into ``paddlebox_tpu_torch/_build/``
+(or into the compile cache, ``utils/compilecache.py``, when one is
+enabled), and is loaded with ``ctypes`` (no PyTorch headers, so the build
+takes seconds). Beside each kernel sits its plain PyTorch version, which
+the CPU path and the tests use.
 
 Kernels:
 
@@ -26,16 +27,23 @@ through the kernel. A failed build or launch raises; nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
+import pathlib
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
+
+from paddlebox_tpu_torch.utils import compilecache
+from paddlebox_tpu_torch.utils.monitor import STAT_ADD
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "ops", "csrc")
@@ -56,6 +64,10 @@ launch_counts: Dict[str, int] = {"pull_rows_cuda": 0, "write_rows_cuda": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
+_toolkit_lock = threading.Lock()
+_toolkit_ids: Dict[str, str] = {}  # guarded-by: _toolkit_lock
+_runs_lock = threading.Lock()
+_nvcc_runs: List[Tuple[str, float]] = []  # guarded-by: _runs_lock
 
 
 def reset_launch_counts() -> None:
@@ -69,34 +81,63 @@ def _nvcc() -> str:
     if not os.path.exists(found):
         raise RuntimeError(
             "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
-            "the CUDA kernels cannot be built"
+            "the CUDA kernels cannot be keyed, so none is built or loaded"
         )
     return found
 
 
-def _build(source: str) -> Tuple[str, str]:
-    """Compile ``ops/csrc/<source>`` to a shared library; return its path
-    and what ptxas reported on each kernel ("" when the library was built
-    before).
+def _toolkit_id(nvcc: str) -> str:
+    """``nvcc --version`` of this toolkit, read once a process."""
+    with _toolkit_lock:
+        out = _toolkit_ids.get(nvcc)
+        if out is None:
+            proc = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{nvcc} --version failed (rc {proc.returncode}): {proc.stderr}")
+            out = _toolkit_ids[nvcc] = proc.stdout
+        return out
 
-    The library's name carries a hash of the source, the headers beside it
-    and the flags, so an edited source never loads a stale build. It is
-    compiled to a temporary path and renamed into place, so a concurrent
-    loader sees the old file or the new one, never half of one."""
-    src = os.path.join(_CSRC, source)
+
+def library_name(source: str) -> str:
+    """``lib<stem>-<key>.so``: the key hashes the source, the headers
+    beside it, the flags and the toolkit's ``nvcc --version``, so an edited
+    file or another toolkit never loads a stale build. The key is the same
+    in ``_build/`` and in the compile cache, so a miss can fill the cache
+    from ``_build/``; loading a built library therefore needs ``nvcc`` too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h.update(_toolkit_id(_nvcc()).encode())
     for name in [source] + sorted(n for n in os.listdir(_CSRC) if n.endswith(".cuh")):
-        with open(os.path.join(_CSRC, name), "rb") as f:
-            h.update(f.read())
-    stem = os.path.splitext(source)[0]
-    lib = os.path.join(BUILD_DIR, f"lib{stem}-{h.hexdigest()[:16]}.so")
-    if os.path.exists(lib):
-        return lib, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+        h.update(pathlib.Path(_CSRC, name).read_bytes())
+    return f"lib{os.path.splitext(source)[0]}-{h.hexdigest()[:16]}.so"
+
+
+def nvcc_runs() -> List[Tuple[str, float]]:
+    """(source, seconds) of every nvcc build this process ran."""
+    with _runs_lock:
+        return list(_nvcc_runs)
+
+
+@contextlib.contextmanager
+def _locked(path: str):
+    """An exclusive ``flock`` on ``path + ".lock"``, across processes and
+    threads alike (each holder opens its own descriptor)."""
+    fd = os.open(path + ".lock", os.O_RDWR | os.O_CREAT, 0o644)
+    try:
+        fcntl.flock(fd, fcntl.LOCK_EX)
+        yield
+    finally:
+        os.close(fd)
+
+
+def _nvcc_build(source: str, lib: str) -> str:
+    """Compile ``ops/csrc/<source>`` to ``lib``; return what ptxas reported
+    on each kernel. It is compiled to a temporary path and renamed into
+    place, so a concurrent loader sees no file or the whole one."""
     tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, source)],
             capture_output=True,
             text=True,
             timeout=600,
@@ -110,10 +151,53 @@ def _build(source: str) -> Tuple[str, str]:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    report = "\n".join(
+    with _runs_lock:
+        _nvcc_runs.append((source, time.perf_counter() - t0))
+    return "\n".join(
         l.strip() for l in proc.stderr.splitlines() if l.startswith("ptxas info") or "spill" in l
     )
-    return lib, report
+
+
+def _build(source: str) -> Tuple[str, str]:
+    """The shared library of ``ops/csrc/<source>``: its path, and what
+    ptxas reported on each kernel ("" when nvcc did not run).
+
+    Without a compile cache (``utils/compilecache.py``) the library lives
+    in ``_build/``. With one, each call is a request: a hit loads the
+    keyed library from the cache; a miss copies it from ``_build/`` when it
+    is there, else runs nvcc into the cache, and ``_build/`` is left as it
+    was. A build holds a file lock on its library's path, so ranks sharing
+    a directory run one nvcc, not several."""
+    name = library_name(source)
+    cache = compilecache.enabled_dir()
+    if cache is None:
+        lib = os.path.join(BUILD_DIR, name)
+        if os.path.exists(lib):
+            return lib, ""
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        with _locked(lib):
+            return lib, "" if os.path.exists(lib) else _nvcc_build(source, lib)
+    STAT_ADD("compile_cache.requests")
+    lib = os.path.join(cache, name)
+    if os.path.exists(lib):
+        STAT_ADD("compile_cache.hits")
+        return lib, ""
+    STAT_ADD("compile_cache.misses")
+    os.makedirs(cache, exist_ok=True)
+    with _locked(lib):
+        if os.path.exists(lib):  # another rank filled it meanwhile
+            return lib, ""
+        local = os.path.join(BUILD_DIR, name)
+        if not os.path.exists(local):
+            return lib, _nvcc_build(source, lib)
+        tmp = f"{lib}.{os.getpid()}.{threading.get_ident()}.tmp"
+        try:
+            shutil.copyfile(local, tmp)
+            os.replace(tmp, lib)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return lib, ""
 
 
 # the launch geometry of both kernels, the last arguments before the stream

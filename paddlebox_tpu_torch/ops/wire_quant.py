@@ -139,12 +139,6 @@ def _encode(arr: torch.Tensor, layout, mode: str) -> Dict[str, torch.Tensor]:
     }
 
 
-def _count(prefix: str, n: int, layout, mode: str) -> None:
-    STAT_ADD(f"wire.{prefix}_rows_total", n)
-    STAT_ADD(f"wire.{prefix}_bytes_total", row_wire_nbytes(n, layout, mode))
-    STAT_ADD(f"wire.{prefix}_fp32_bytes_total", row_wire_nbytes(n, layout, "fp32"))
-
-
 def _side_stream(device: torch.device) -> "torch.cuda.Stream":
     with _side_lock:
         s = _side_streams.get(device)
@@ -166,7 +160,10 @@ def fetch_rows_start(arr: torch.Tensor, layout, mode: str) -> dict:
     tensors themselves, so the caller must not write to ``arr`` before the
     finish."""
     mode = _check(mode)
-    _count("fetch", arr.shape[0], layout, mode)
+    # the bytes on the wire, at the choke point every boundary fetch takes
+    STAT_ADD("wire.fetch_rows_total", arr.shape[0])
+    STAT_ADD("wire.fetch_bytes_total", row_wire_nbytes(arr.shape[0], layout, mode))
+    STAT_ADD("wire.fetch_fp32_bytes_total", row_wire_nbytes(arr.shape[0], layout, "fp32"))
     parts = _encode(arr, layout, mode)
     if not arr.is_cuda:
         return {"mode": mode, "host": parts, "done": None}
@@ -215,7 +212,10 @@ def send_rows(arr: np.ndarray, layout, mode: str, device) -> torch.Tensor:
     the casts run on the host, only the wire's payload is copied, and the
     device rebuilds the rows."""
     mode = _check(mode)
-    _count("send", arr.shape[0], layout, mode)
+    # the fetch's twin, for every upload
+    STAT_ADD("wire.send_rows_total", arr.shape[0])
+    STAT_ADD("wire.send_bytes_total", row_wire_nbytes(arr.shape[0], layout, mode))
+    STAT_ADD("wire.send_fp32_bytes_total", row_wire_nbytes(arr.shape[0], layout, "fp32"))
     host = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
     if mode == "fp32":
         return host.to(device, copy=True)

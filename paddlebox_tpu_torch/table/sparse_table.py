@@ -224,7 +224,7 @@ _SPILL_POLICY_CODES = {"fifo": 0, "freq": 1}
 class _Shard:
     """One lock-protected hash shard of the host store."""
 
-    __slots__ = ("index", "values", "lock", "touched", "width")
+    __slots__ = ("index", "values", "lock", "touched")
 
     def __init__(self, width: int):
         self.index: Dict[int, int] = {}  # guarded-by: lock
@@ -233,16 +233,18 @@ class _Shard:
         # keys pushed since the last delta save; a set, as in the JAX
         # package, so a delta lists its rows in the same order
         self.touched: set = set()  # guarded-by: lock
-        self.width = width
 
-    def _grow(self, need: int) -> None:
-        cap = len(self.values)
-        if need <= cap:
-            return
-        new_cap = max(1024, cap * 2, need)
-        nv = np.zeros((new_cap, self.width), dtype=np.float32)
-        nv[:cap] = self.values
-        self.values = nv
+
+def _grown(values: np.ndarray, need: int) -> np.ndarray:
+    """A shard's values with room for ``need`` rows: ``values`` itself, or a
+    copy at least twice as long. The caller holds the shard's lock and
+    stores the result as the shard's values."""
+    cap = len(values)
+    if need <= cap:
+        return values
+    nv = np.zeros((max(1024, cap * 2, need), values.shape[1]), dtype=np.float32)
+    nv[:cap] = values
+    return nv
 
 
 class HostSparseTable:
@@ -357,7 +359,10 @@ class HostSparseTable:
 
     @property
     def mem_rows(self) -> int:
-        return self._native.mem_rows if self._native else self._size
+        if self._native:
+            return self._native.mem_rows
+        with self._size_lock:
+            return self._size
 
     @property
     def disk_rows(self) -> int:
@@ -380,12 +385,14 @@ class HostSparseTable:
         code = _SPILL_POLICY_CODES.get(policy)
         if code is None:
             raise ValueError(f"unknown spill_policy {policy!r} (expected 'freq' or 'fifo')")
-        for site, op in (("spill.io", "spill_cold"), ("spill.stage_flush", "stage_flush")):
-            try:
-                _fault_fire(site)
-            except InjectedFault as e:
-                STAT_ADD("table.spill_errors", 1)
-                raise SpillIOError(op, -2, str(e)) from e
+        op = "spill_cold"
+        try:
+            _fault_fire("spill.io")
+            op = "stage_flush"  # the double-buffered stage writer's handoff
+            _fault_fire("spill.stage_flush")
+        except InjectedFault as e:
+            STAT_ADD("table.spill_errors", 1)
+            raise SpillIOError(op, -2, str(e)) from e
         n = self._native.spill_cold(
             max_mem_rows,
             policy=code,
@@ -475,7 +482,8 @@ class HostSparseTable:
     def __len__(self) -> int:
         if self._native is not None:
             return len(self._native)
-        return self._size
+        with self._size_lock:
+            return self._size
 
     def keys(self) -> np.ndarray:
         """All keys currently stored (memory and disk tiers), unsorted."""
@@ -523,7 +531,7 @@ class HostSparseTable:
                 miss = np.nonzero(rows < 0)[0]
                 if len(miss):
                     base = len(idx)
-                    shard._grow(base + len(miss))
+                    shard.values = _grown(shard.values, base + len(miss))
                     init = self._init_rows(len(miss))
                     new_rows = base + np.arange(len(miss))
                     for mj, j in zip(new_rows, miss):
@@ -592,7 +600,7 @@ class HostSparseTable:
                 miss = np.nonzero(trows < 0)[0]
                 if len(miss):
                     base = len(idx)
-                    shard._grow(base + len(miss))
+                    shard.values = _grown(shard.values, base + len(miss))
                     new_rows = base + np.arange(len(miss))
                     for mj, j in zip(new_rows, miss):
                         idx[klist[j]] = int(mj)
@@ -838,17 +846,17 @@ class HostSparseTable:
             meta = json.load(f)
         if meta["n_shards"] != self.n_shards:
             raise ValueError("shard count mismatch on load")
-        file_epoch = int(meta.get("decay_epoch", self.decay_epochs))
-        if meta.get("kind", "base") == "base":
-            self.decay_epochs = file_epoch
-        elif file_epoch > self.decay_epochs:
-            if len(self):
-                # a Python float, as the JAX package computes it
-                d = float(self.opt.show_clk_decay) ** (file_epoch - self.decay_epochs)
-                if d < 1.0:
-                    with self._maintenance_lock:  # threshold 0: decay, no drops
+        with self._maintenance_lock:
+            file_epoch = int(meta.get("decay_epoch", self.decay_epochs))
+            if meta.get("kind", "base") == "base":
+                self.decay_epochs = file_epoch
+            elif file_epoch > self.decay_epochs:
+                if len(self):
+                    # a Python float, as the JAX package computes it
+                    d = float(self.opt.show_clk_decay) ** (file_epoch - self.decay_epochs)
+                    if d < 1.0:  # threshold 0: decay, no drops
                         self._decay_and_shrink_locked(d, 0.0)
-            self.decay_epochs = file_epoch
+                self.decay_epochs = file_epoch
         for s in range(self.n_shards):
             data = np.load(os.path.join(path, f"shard-{s:05d}.npz"))
             keys, vals = data["keys"], data["values"]

@@ -164,6 +164,7 @@ def _manifest_crc(snap_dir: str) -> Optional[int]:
     try:
         return _file_crc32(mpath)
     # absence probe: None is the answer (no manifest, legacy snapshot)
+    # pbox-lint: disable=EXC007
     except OSError:
         return None
 
@@ -180,6 +181,7 @@ def read_watermark(root: str) -> Optional[Dict[str, Any]]:
             return json.load(f)
     # absent-or-torn watermark reads as None by design: the atomic
     # publish means a reader never has to distinguish the two
+    # pbox-lint: disable=EXC007
     except (OSError, ValueError):
         return None
 
@@ -278,6 +280,7 @@ class CheckpointManager:
         try:
             with open(path) as f:
                 return json.load(f)
+        # pbox-lint: disable=EXC007 — same contract as read_watermark
         except (OSError, ValueError):
             return None  # a torn cursor reads as absent, never as garbage
 

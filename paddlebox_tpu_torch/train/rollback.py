@@ -36,9 +36,12 @@ class PassGuard:
     def __init__(self, table, trainer: Optional[Any] = None):
         self.table = table
         self.trainer = trainer
-        self._keys: Optional[np.ndarray] = None
-        self._vals: Optional[np.ndarray] = None
-        self._dense: Optional[tuple] = None  # (params, optimizer state) on the host
+        # the end-pass worker confirms; the main thread begins and reverts
+        # only after joining that worker
+        self._keys: Optional[np.ndarray] = None  # synchronized-by: end-pass join handoff (wait_end_pass)
+        self._vals: Optional[np.ndarray] = None  # synchronized-by: end-pass join handoff (wait_end_pass)
+        # (params, optimizer state) on the host
+        self._dense: Optional[tuple] = None  # synchronized-by: end-pass join handoff (wait_end_pass)
 
     @property
     def armed(self) -> bool:

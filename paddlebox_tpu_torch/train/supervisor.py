@@ -63,9 +63,12 @@ cannot place (``_check_hosts``); the elastic day runs on the host plane,
 as the JAX package's elastic tests and chaos probe run it.
 
 The supervisor brings the device up through ``utils/backendguard.py``
-when the trainer is on CUDA (it raises when the card never comes up). The
-port compiles nothing at run time, so ``compile_cache_dir`` "auto" and
-"off" do nothing.
+when the trainer is on CUDA (it raises when the card never comes up), then
+points the compile cache (``utils/compilecache.py``) at the
+``compile_cache_dir`` flag resolved against the checkpoint root: "auto"
+is ``<ckpt_root>/compile_cache``, so the CUDA kernel libraries a process
+has not loaded yet are built or copied there once and loaded from there
+by every later process of the job.
 """
 
 from __future__ import annotations
@@ -86,19 +89,33 @@ from paddlebox_tpu_torch.obs.metrics_writer import MetricsWriter
 from paddlebox_tpu_torch.parallel import membership as _membership
 from paddlebox_tpu_torch.parallel.transport import PeerDeadError
 from paddlebox_tpu_torch.train.checkpoint import MembershipEpochError, rank_root
+from paddlebox_tpu_torch.utils import compilecache
 from paddlebox_tpu_torch.utils.faultinject import InjectedFault
 from paddlebox_tpu_torch.utils.faultinject import fire as _fault_fire
 from paddlebox_tpu_torch.utils.monitor import STAT_ADD, STAT_OBSERVE, STAT_SET
 from paddlebox_tpu_torch.utils.trace import PROFILER
 
-# the incident vocabulary (each kind counted as supervisor_<kind>), and the
-# kinds that lose a pass (or the day): each flushes the flight recorder
-# into an incident bundle
-_INCIDENT_KINDS = (
-    "load_error", "prefetch_error", "data_poisoned", "ckpt_save_error", "peer_abort", "train_error",
-    "escalate_resume", "gave_up", "gate_nan", "gate_auc", "rank_death", "migrate", "migrate_abort",
-    "rank_join", "join_abort",
-)
+# the incident vocabulary, each kind counted as supervisor_<kind> (a
+# literal a kind, so the metric family stays enumerable), and the kinds
+# that lose a pass (or the day): each flushes the flight recorder into an
+# incident bundle
+_INCIDENT_COUNTERS: Dict[str, Callable[[], None]] = {
+    "load_error": lambda: STAT_ADD("supervisor_load_error"),
+    "prefetch_error": lambda: STAT_ADD("supervisor_prefetch_error"),
+    "data_poisoned": lambda: STAT_ADD("supervisor_data_poisoned"),
+    "ckpt_save_error": lambda: STAT_ADD("supervisor_ckpt_save_error"),
+    "peer_abort": lambda: STAT_ADD("supervisor_peer_abort"),
+    "train_error": lambda: STAT_ADD("supervisor_train_error"),
+    "escalate_resume": lambda: STAT_ADD("supervisor_escalate_resume"),
+    "gave_up": lambda: STAT_ADD("supervisor_gave_up"),
+    "gate_nan": lambda: STAT_ADD("supervisor_gate_nan"),
+    "gate_auc": lambda: STAT_ADD("supervisor_gate_auc"),
+    "rank_death": lambda: STAT_ADD("supervisor_rank_death"),
+    "migrate": lambda: STAT_ADD("supervisor_migrate"),
+    "migrate_abort": lambda: STAT_ADD("supervisor_migrate_abort"),
+    "rank_join": lambda: STAT_ADD("supervisor_rank_join"),
+    "join_abort": lambda: STAT_ADD("supervisor_join_abort"),
+}
 _FATAL_INCIDENT_KINDS = ("data_poisoned", "peer_abort", "gave_up")
 
 # the join protocol's control tags: the announce is an un-epoched knock
@@ -120,13 +137,6 @@ config.define_flag(
     "admission thresholds (DataPoisonedError, never retried): 'fail' "
     "raises, 'skip_pass' drops the pass and continues the day, 'degrade' "
     "trains over the pass with the quarantined records dropped",
-)
-config.define_flag(
-    "compile_cache_dir",
-    "auto",
-    "the JAX package's persistent compile cache; the port compiles nothing "
-    "at run time (its kernels build once into _build/), so 'auto' and 'off' "
-    "do nothing and a directory is refused",
 )
 
 
@@ -272,7 +282,7 @@ class Incident:
 
     pass_seq: int
     date: Optional[str]
-    kind: str  # one of _INCIDENT_KINDS
+    kind: str  # one of _INCIDENT_COUNTERS
     action: str  # retry | revert_retry | resume | raise | skip | degrade | deferred | commit
     attempt: int
     detail: str = ""
@@ -325,12 +335,6 @@ class PassSupervisor:
                     f"transport rank {transport.rank} of {transport.n_ranks} != mesh rank {plan.rank} "
                     f"of {plan.world}: the verdict exchange must span the mesh's ranks, in its order"
                 )
-        cache = str(config.get_flag("compile_cache_dir"))
-        if cache not in ("auto", "off", ""):
-            raise NotImplementedError(
-                f"compile_cache_dir={cache!r}: the port compiles nothing at run time, and a "
-                "persistent cache of its own is ROADMAP Queue 1 item 6"
-            )
         self.ds = dataset
         self.tr = trainer
         self.table = dataset.table
@@ -390,6 +394,14 @@ class PassSupervisor:
             from paddlebox_tpu_torch.utils import backendguard
 
             self.backend_verdict = backendguard.ensure_backend(device)
+        # then the compile cache: "auto" resolves under the durable
+        # checkpoint root, next to the checkpoints it warms
+        cache_dir = compilecache.resolve_dir(
+            str(config.get_flag("compile_cache_dir")),
+            ckpt_root=checkpoint.root if checkpoint is not None else None,
+        )
+        if cache_dir is not None:
+            compilecache.enable(cache_dir)
         # the telemetry plane lives under the checkpoint root (obs/), so a
         # postmortem travels with the artifacts it explains
         self.metrics: Optional[MetricsWriter] = None
@@ -415,7 +427,7 @@ class PassSupervisor:
         inc = Incident(pass_seq=self._pass_seq, date=self._date, kind=kind, action=action, attempt=attempt, detail=detail)
         self.incidents.append(inc)
         STAT_ADD("supervisor_incidents")
-        STAT_ADD(f"supervisor_{kind}" if kind in _INCIDENT_KINDS else "supervisor_other")
+        _INCIDENT_COUNTERS.get(kind, lambda: STAT_ADD("supervisor_other"))()
         PROFILER.instant(f"supervisor:{kind}", inc.as_dict())
         if kind in _FATAL_INCIDENT_KINDS and action != "degrade":
             # the pass is lost: the last spans, the stats and this incident
@@ -1064,6 +1076,10 @@ class PassSupervisor:
                 continue
             try:
                 tp.send(dst, _JOIN_ANNOUNCE_TAG, b"")
+            # a knock bouncing off a dead or not-yet-up peer is the normal
+            # case: the announcer knocks again every ~250 ms, and the
+            # survivors' scan intersects what arrived
+            # pbox-lint: disable=EXC007
             except (ConnectionError, OSError):
                 continue
 

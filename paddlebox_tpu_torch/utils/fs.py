@@ -258,7 +258,7 @@ def fs_open_write(path: str, converter: Optional[str] = None):
         return _PipeStream(f"{converter} > '{path}'")
     if path.endswith(".gz"):
         return gzip.open(path, "wt")
-    return open(path, "w")
+    return open(path, "w")  # pbox-lint: disable=IO004  (the wrapper itself)
 
 
 @contextmanager

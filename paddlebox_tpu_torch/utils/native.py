@@ -91,6 +91,8 @@ def build() -> Tuple[str, float]:
     if os.path.exists(lib):
         return lib, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
+    # the build's flock file, not data: nothing is written to it
+    # pbox-lint: disable=IO004
     with open(os.path.join(BUILD_DIR, ".libpbx_host.lock"), "w") as lk:
         fcntl.flock(lk, fcntl.LOCK_EX)
         if os.path.exists(lib):  # another process built it meanwhile

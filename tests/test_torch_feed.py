@@ -12,6 +12,7 @@ the same keys in the same flat order whatever the order.
 """
 
 import contextlib
+import os
 import threading
 import time
 
@@ -197,6 +198,59 @@ def test_prefetch_retries_a_failed_job_in_place_then_surfaces_a_persistent_one()
             out.append(v)
     assert out == [0, 1, 2, 3, 4]  # job 3 healed by its retry, in order
     assert STAT_GET("pipeline_prefetch_retries") - before == 2
+
+
+def test_prefetch_occupancy_gauge_matches_the_jax_package():
+    """The same jobs, workers and depth through both packages' prefetch:
+    the first ``workers`` jobs block until all of them run at once, so the
+    high-water mark reaches ``workers`` and never passes it; a reset while
+    they run restarts the mark from them, one after the window from 0."""
+    from paddlebox_tpu.data import pipeline as jpipeline
+    from paddlebox_tpu_torch.data import pipeline as tpipeline
+
+    workers, depth = 3, 6
+    got = {}
+    for name, mod in (("jax", jpipeline), ("torch", tpipeline)):
+        seen, at_barrier = [], []
+        barrier = threading.Barrier(
+            workers, action=lambda: at_barrier.append((mod.prefetch_inflight(), mod.prefetch_inflight_hwm(True))),
+            timeout=30,
+        )
+
+        def fn(j):
+            if j < workers:
+                barrier.wait()
+            seen.append(mod.prefetch_inflight())
+            return j
+
+        mod.prefetch_inflight_hwm(reset=True)
+        out = list(mod.prefetch(range(12), fn, workers=workers, depth=depth))
+        hwm = mod.prefetch_inflight_hwm(reset=True)
+        after = (mod.prefetch_inflight(), mod.prefetch_inflight_hwm())
+        one = list(mod.prefetch(range(4), lambda j: j, workers=1, depth=2))
+        got[name] = (out, at_barrier, max(seen) <= workers, hwm, after, one, mod.prefetch_inflight_hwm())
+    assert got["torch"] == got["jax"]
+    assert got["torch"] == (list(range(12)), [(workers, workers)], True, workers, (0, 0), list(range(4)), 1)
+
+
+def test_prefetch_occupancy_gauge_loses_no_update_under_many_workers():
+    """More workers than cores and a short switch interval: a lost update
+    of the gauge would leave jobs counted in flight after the window."""
+    import sys
+
+    from paddlebox_tpu_torch.data import pipeline as tpipeline
+
+    workers = 4 * (os.cpu_count() or 1) + 4
+    prev = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        tpipeline.prefetch_inflight_hwm(reset=True)
+        assert list(prefetch(range(3000), lambda j: j + 1, workers=workers, depth=2 * workers)) == list(
+            range(1, 3001))
+    finally:
+        sys.setswitchinterval(prev)
+    assert tpipeline.prefetch_inflight() == 0
+    assert 1 <= tpipeline.prefetch_inflight_hwm() <= workers
 
 
 # ---- the three feeds of train_pass -------------------------------------------

@@ -52,7 +52,7 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
               "utils.line_reader", "data.data_generator", "data.quarantine", "metrics.auc_runner",
               "utils.backendguard", "train.supervisor", "train.stream", "ops.host_codec",
               "parallel.transport", "parallel.membership", "table.dist_ws", "data.record_store",
-              "serve.fleet", "parallel.pipeline", "parallel.ring_attention"):
+              "serve.fleet", "parallel.pipeline", "parallel.ring_attention", "utils.compilecache"):
         assert f"paddlebox_tpu_torch.{m}" in walked
 
 

@@ -33,6 +33,7 @@ import paddlebox_tpu_torch.data as tdata
 import paddlebox_tpu_torch.table as ttable
 import paddlebox_tpu_torch.train as ttrain
 import paddlebox_tpu_torch.utils.faultinject as tfault
+from paddlebox_tpu_torch.utils import compilecache as tcompilecache
 from tests.test_torch_mesh_step import JTower, Tower
 
 torch.set_num_threads(2)
@@ -425,9 +426,8 @@ def test_refusals_name_their_roadmap_item(tmp_path):
     """The supervisor over several ranks is ported: a transport of several
     ranks makes a coordinator, a mesh trainer needs its rank's transport
     (ValueError naming why), and ``join_day`` needs elastic mode and a
-    coordinator. An explicit compile-cache directory still raises
-    NotImplementedError naming ROADMAP Queue 1 item 6. A CPU trainer needs
-    no backend probe."""
+    coordinator. An explicit compile-cache directory is enabled; "off"
+    enables nothing. A CPU trainer needs no backend probe."""
     st = _sup("torch", tmp_path, "ref")
     assert st.sup.backend_verdict is None
     sup_cls = ttrain.PassSupervisor
@@ -444,12 +444,16 @@ def test_refusals_name_their_roadmap_item(tmp_path):
     prev = tconfig.get_flag("compile_cache_dir")
     try:
         tconfig.set_flag("compile_cache_dir", str(tmp_path / "cc"))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-            sup_cls(st.ds, st.tr)
+        tcompilecache.disable()
+        sup_cls(st.ds, st.tr)
+        assert tcompilecache.enabled_dir() == str(tmp_path / "cc")
+        tcompilecache.disable()
         tconfig.set_flag("compile_cache_dir", "off")
         sup_cls(st.ds, st.tr)
+        assert tcompilecache.enabled_dir() is None
     finally:
         tconfig.set_flag("compile_cache_dir", prev)
+        tcompilecache.disable()
     # the dataset over several hosts is ported: a striped dataset with
     # neither a router nor a transport, or a transport that is not its
     # rank of its nranks, is a misuse
