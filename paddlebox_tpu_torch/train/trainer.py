@@ -128,13 +128,27 @@ Every rank passes the same options. On a mesh:
   the step's globally reduced gradients. Replicated tables would drift:
   each applies its pushes on its own thread.
 
-Spans (``utils/trace.py``, the JAX trainer's names): ``pack+upload`` on
-the packer feed's workers (when the profiler is enabled), ``feed_wait``
-and ``train_step_dispatch`` per batch of a host feed, ``resident_prepare``
+Spans (``utils/trace.py``; they also enter a recording ``torch.profiler``
+trace). The JAX trainer's names: ``pack+upload`` on the packer feed's
+workers (when the profiler is enabled), ``feed_wait`` and
+``train_step_dispatch`` per batch of a host feed, ``resident_prepare``
 and ``superstep_dispatch`` on the resident feeds, and, only under
-``profile``, ``device_step`` / ``device_superstep``, the one span that
-waits for the device. The fault site ``step.device`` fires before every
-dispatch.
+``profile``, ``device_step`` / ``device_superstep``. The port's own tile
+a call's edges: ``train_pass.open`` (the state, the first AUC read, the
+feed's choice), ``resident_prepare``'s children on the flat resident feed
+(``resident.batch_indices``, ``resident.ensure_pads``,
+``resident.index_partition``) and on both (``resident.superstep_build``),
+and ``train_pass.close`` (the pass-end bookkeeping, two ``auc_compute``,
+the reads). Category ``sync`` holds one span a blocking wait or device
+read, and nothing else: ``device_step`` / ``device_superstep`` under
+``profile``; else ``sync.superstep`` (a step ahead past
+``max_inflight_steps``, or a superstep ahead) and ``sync.drain`` (the
+call's last step, after its last yield); ``sync.auc_tables`` (one a
+table, two at each end of a call), ``sync.losses`` and ``sync.nan_flags``
+(at the close, and a batch's flag where a consumer needs it). A sync span
+is recorded on the CPU too, where it waits on nothing, so a call's count
+is the same on every device. The fault site ``step.device`` fires before
+every dispatch.
 
 Over several hosts (the dataset's ``transport`` spans more than one rank)
 the port runs one process a card, so a host is one mesh rank: its
@@ -463,6 +477,18 @@ class CTRTrainer:
         ev.record(torch.cuda.current_stream(self.device))
         return ev
 
+    @staticmethod
+    def _wait(ev: Optional[torch.cuda.Event], span: str, tm: Dict[str, float]) -> None:
+        """Wait for the work before ``ev`` inside the ``sync`` span
+        ``span``: one span a blocking wait, recorded on the CPU too (where
+        ``ev`` is None and nothing waits), so a call's count of them is
+        the same on every device."""
+        t0 = time.perf_counter()
+        with PROFILER.record_event(span, "sync"):
+            if ev is not None:
+                ev.synchronize()
+        tm["device_step_s"] += time.perf_counter() - t0
+
     # ---- feeds -------------------------------------------------------------
     # Each feed yields (device batch, registry inputs). The registry's
     # inputs (cmatch, rank, ins_weight) are gathered only when a registry
@@ -710,12 +736,15 @@ class CTRTrainer:
         inflight: deque = deque()
         it = iter(iterator)
         i = 0
+        ev = None
         while True:
             t0 = time.perf_counter()
             try:
                 with PROFILER.record_event("feed_wait", "pass"):
                     feed, aux = next(it)
             except StopIteration:
+                if i and not profile:
+                    self._wait(ev, "sync.drain", tm)  # see the resident stepper's
                 return
             finally:
                 tm["feed_wait_s"] += time.perf_counter() - t0
@@ -730,18 +759,12 @@ class CTRTrainer:
                 ev = self._mark()
             tm["step_dispatch_s"] += time.perf_counter() - t0
             if profile:
-                # the only wait inside a span: asked for by profile
-                t0 = time.perf_counter()
-                with PROFILER.record_event("device_step", "device"):
-                    if ev is not None:
-                        ev.synchronize()
-                tm["device_step_s"] += time.perf_counter() - t0
-            elif ev is not None and max_inflight:
+                # every step waits: asked for by profile
+                self._wait(ev, "device_step", tm)
+            elif max_inflight:
                 inflight.append(ev)
                 if len(inflight) > max_inflight:
-                    t0 = time.perf_counter()
-                    inflight.popleft().synchronize()
-                    tm["device_step_s"] += time.perf_counter() - t0
+                    self._wait(inflight.popleft(), "sync.superstep", tm)
             yield i, m, aux
             i += 1
 
@@ -882,11 +905,15 @@ class CTRTrainer:
                 feed_dev, rows_dev, w_dev = pv_feed.positions, pv_feed.global_idx, pv_feed.global_ins_weight
             else:
                 rp = self._get_resident(dataset)
-                blocks = [np.asarray(b, dtype=np.int32) for b in dataset.batch_indices(n_batches)]
-                self._ensure_pads(rp, blocks)
-                feed_dev = rows_dev = self._index_partition(rp, blocks)
+                with PROFILER.record_event("resident.batch_indices", "pass"):
+                    blocks = [np.asarray(b, dtype=np.int32) for b in dataset.batch_indices(n_batches)]
+                with PROFILER.record_event("resident.ensure_pads", "pass"):
+                    self._ensure_pads(rp, blocks)
+                with PROFILER.record_event("resident.index_partition", "pass"):
+                    feed_dev = rows_dev = self._index_partition(rp, blocks)
                 n = len(blocks)
-            sstep = self._resident_superstep(rp, eval_mode, pv_feed)
+            with PROFILER.record_event("resident.superstep_build", "pass"):
+                sstep = self._resident_superstep(rp, eval_mode, pv_feed)
             logkeys = None
             if self.metric_registry is not None and dataset.store.ins_id_off is not None:
                 logkeys = rp.logkey_columns()
@@ -899,6 +926,7 @@ class CTRTrainer:
         try:
             inflight: deque = deque()
             i = 0
+            ev = None
             for c0 in range(0, n, K):
                 k = min(K, n - c0)
                 ids_fut = None
@@ -913,17 +941,11 @@ class CTRTrainer:
                     ev = self._mark()
                 tm["step_dispatch_s"] += time.perf_counter() - t0
                 if profile:
-                    t0 = time.perf_counter()
-                    with PROFILER.record_event("device_superstep", "device"):
-                        if ev is not None:
-                            ev.synchronize()
-                    tm["device_step_s"] += time.perf_counter() - t0
-                elif ev is not None:
+                    self._wait(ev, "device_superstep", tm)
+                else:
                     inflight.append(ev)
                     if len(inflight) > 1:  # one superstep ahead
-                        t0 = time.perf_counter()
-                        inflight.popleft().synchronize()
-                        tm["device_step_s"] += time.perf_counter() - t0
+                        self._wait(inflight.popleft(), "sync.superstep", tm)
                 chunk_ids = ids_fut.result() if ids_fut is not None else None
                 for j in range(k):
                     aux = {}
@@ -937,6 +959,11 @@ class CTRTrainer:
                         aux["ins_ids"] = chunk_ids[j]
                     yield i, {key: v[j] for key, v in mstack.items()}, aux
                     i += 1
+            if n and not profile:
+                # the wait on the last superstep, after its last yield: the
+                # card's tail of the queue lands here, not in the host work
+                # of train_pass.close (whose first read would wait for it)
+                self._wait(ev, "sync.drain", tm)
         finally:
             if ids_ex is not None:
                 ids_ex.shutdown(wait=False)
@@ -1118,40 +1145,41 @@ class CTRTrainer:
         # the join phase serves pv-merged batches with rank_offset and ghost
         # weights, the update phase flat ones (data_feed.cc:2165-2198)
         use_pv = dataset.pv_merged and dataset.current_phase == 1
-        self._check_replicas(dataset)
-        self._multi_pass = self._multi(dataset)
-        state = self._make_state(dataset.device_table, ws_key=dataset.ws)
-        tm = dict.fromkeys(_PROFILE_KEYS, 0.0)
-        # AUC buckets accumulate across train_pass calls within one pass:
-        # this call reports the delta (on a mesh, of the ranks' sum)
-        auc0 = self._auc_host(state.auc)
-        losses: list = []
-        skip_flags: list = []
-        holder = {"state": state}
-        eval_mode = self._eval_active
-        is_async = self.cfg.dense_sync_mode == "async" and not eval_mode
-        if is_async and self._lead and set(self.async_dense.pull_dense()) != set(state.params):
-            raise ValueError("the AsyncDenseTable's params are not the model's")
-        step_fn = self._step_fn(eval_mode)
-        if self._use_resident(dataset, use_pv, is_async):
-            feed = "resident_pv" if use_pv else "resident"
-            stepper = self._resident_stepper(dataset, n_batches, holder, eval_mode, profile, tm, use_pv)
-        else:
-            if use_pv and dataset.store is not None:
-                feed = "pv_packer"
-                it = self._pv_plan_feed_iter(dataset, self._pv_locked_plan(dataset), n_batches)
-            elif use_pv:
-                feed = "pv_records"
-                it = self._pv_feed_iter(dataset, n_batches)
-            elif dataset.store is not None:
-                feed = "packer"
-                it = self._fast_feed_iter(dataset, n_batches)
+        with PROFILER.record_event("train_pass.open", "pass"):
+            self._check_replicas(dataset)
+            self._multi_pass = self._multi(dataset)
+            state = self._make_state(dataset.device_table, ws_key=dataset.ws)
+            tm = dict.fromkeys(_PROFILE_KEYS, 0.0)
+            # AUC buckets accumulate across train_pass calls within one pass:
+            # this call reports the delta (on a mesh, of the ranks' sum)
+            auc0 = self._auc_host(state.auc)
+            losses: list = []
+            skip_flags: list = []
+            holder = {"state": state}
+            eval_mode = self._eval_active
+            is_async = self.cfg.dense_sync_mode == "async" and not eval_mode
+            if is_async and self._lead and set(self.async_dense.pull_dense()) != set(state.params):
+                raise ValueError("the AsyncDenseTable's params are not the model's")
+            step_fn = self._step_fn(eval_mode)
+            if self._use_resident(dataset, use_pv, is_async):
+                feed = "resident_pv" if use_pv else "resident"
+                stepper = self._resident_stepper(dataset, n_batches, holder, eval_mode, profile, tm, use_pv)
             else:
-                feed = "slow"
-                tm.update(dict.fromkeys(_SLOW_FEED_KEYS, 0.0))
-                it = self._slow_feed_iter(dataset, n_batches, profile, tm)
-            stepper = self._classic_stepper(it, holder, step_fn, profile, tm, is_async)
-        self.last_feed = feed
+                if use_pv and dataset.store is not None:
+                    feed = "pv_packer"
+                    it = self._pv_plan_feed_iter(dataset, self._pv_locked_plan(dataset), n_batches)
+                elif use_pv:
+                    feed = "pv_records"
+                    it = self._pv_feed_iter(dataset, n_batches)
+                elif dataset.store is not None:
+                    feed = "packer"
+                    it = self._fast_feed_iter(dataset, n_batches)
+                else:
+                    feed = "slow"
+                    tm.update(dict.fromkeys(_SLOW_FEED_KEYS, 0.0))
+                    it = self._slow_feed_iter(dataset, n_batches, profile, tm)
+                stepper = self._classic_stepper(it, holder, step_fn, profile, tm, is_async)
+            self.last_feed = feed
         try:
             for i, m, aux in stepper:
                 t0 = time.perf_counter()
@@ -1162,34 +1190,42 @@ class CTRTrainer:
             # the last returned state so a retry sees what was trained
             self._state = holder["state"]
             raise
-        state = holder["state"]
-        if is_async:
-            # the host table owns the dense params: take its latest view
-            self.params = self._async_params(state.params)
-            self.opt_state = state.opt_state  # untouched in async mode
-        elif self.plan is None:
-            # an eval pass returns params and optimizer state as they came
-            self.params, self.opt_state = state.params, state.opt_state
-        else:
-            state = self._mesh_pass_end(state, eval_mode)
-        self._state = state
-        if self.dump_pool is not None and self.dump_params_at_end and self._lead:
-            self._dump_params()
+        with PROFILER.record_event("train_pass.close", "pass"):
+            state = holder["state"]
+            if is_async:
+                # the host table owns the dense params: take its latest view
+                self.params = self._async_params(state.params)
+                self.opt_state = state.opt_state  # untouched in async mode
+            elif self.plan is None:
+                # an eval pass returns params and optimizer state as they came
+                self.params, self.opt_state = state.params, state.opt_state
+            else:
+                state = self._mesh_pass_end(state, eval_mode)
+            self._state = state
+            if self.dump_pool is not None and self.dump_params_at_end and self._lead:
+                self._dump_params()
 
-        cum = self._auc_host(state.auc)
-        out = auc_compute(AucState(pos=cum.pos - auc0.pos, neg=cum.neg - auc0.neg))
-        cum_out = auc_compute(cum)
-        out["auc_cumulative"] = cum_out["auc"]
-        out["saturated"] = cum_out["saturated"]
-        if losses and skip_flags:
-            lv = torch.stack(losses).cpu()
-            bad = torch.stack(skip_flags).cpu() > 0
-            kept = max(int((~bad).sum()), 1)
-            out["loss"] = float(torch.where(bad, 0.0, lv).sum()) / kept
-            out["nan_batches"] = float(bad.sum())
-        else:
-            out["loss"] = float(torch.stack(losses).mean()) if losses else float("nan")
-            out["nan_batches"] = 0.0
+            cum = self._auc_host(state.auc)
+            with PROFILER.record_event("auc_compute", "pass"):
+                out = auc_compute(AucState(pos=cum.pos - auc0.pos, neg=cum.neg - auc0.neg))
+            with PROFILER.record_event("auc_compute", "pass"):
+                cum_out = auc_compute(cum)
+            out["auc_cumulative"] = cum_out["auc"]
+            out["saturated"] = cum_out["saturated"]
+            if losses and skip_flags:
+                with PROFILER.record_event("sync.losses", "sync"):
+                    lv = torch.stack(losses).cpu()
+                with PROFILER.record_event("sync.nan_flags", "sync"):
+                    bad = torch.stack(skip_flags).cpu() > 0
+                kept = max(int((~bad).sum()), 1)
+                out["loss"] = float(torch.where(bad, 0.0, lv).sum()) / kept
+                out["nan_batches"] = float(bad.sum())
+            else:
+                out["loss"] = float("nan")
+                if losses:
+                    with PROFILER.record_event("sync.losses", "sync"):
+                        out["loss"] = float(torch.stack(losses).mean())
+                out["nan_batches"] = 0.0
         out["batches"] = float(len(losses))
         if profile:
             out["profile"] = tm
@@ -1246,7 +1282,11 @@ class CTRTrainer:
         """The AUC bucket tables on the host: the ranks' sum on a mesh."""
         if self.plan is not None:
             auc = auc_psum(auc, self.plan)
-        return AucState(pos=auc.pos.cpu().clone(), neg=auc.neg.cpu().clone())
+        with PROFILER.record_event("sync.auc_tables", "sync"):
+            pos = auc.pos.cpu().clone()
+        with PROFILER.record_event("sync.auc_tables", "sync"):
+            neg = auc.neg.cpu().clone()
+        return AucState(pos=pos, neg=neg)
 
     def _mesh_pass_end(self, state: TrainState, eval_mode: bool) -> TrainState:
         """The dense side of a mesh pass, kept for the next pass. kstep
@@ -1281,7 +1321,8 @@ class CTRTrainer:
         is_async = "gparams" in m  # an async training step's
         skipped = 0
         if "nan_skipped" in m and (is_async or reg is not None or self.dump_pool is not None):
-            skipped = int(m["nan_skipped"])
+            with PROFILER.record_event("sync.nan_flags", "sync"):
+                skipped = int(m["nan_skipped"])
         if is_async and not skipped and self._lead:
             self.async_dense.push_dense(m["gparams"])  # PushDense
         if self.plan is not None and not skipped and (reg is not None or self.dump_pool is not None):

@@ -16,12 +16,24 @@ upload, dispatch, the pass boundary) and writes ``chrome://tracing`` JSON;
 - every span and instant also feeds the always-on flight recorder
   (``obs/flight_recorder.py``), tracing enabled or not;
 - spans recorded inside an ``obs.trace_context.trace_span`` carry
-  trace_id/span_id args.
+  trace_id/span_id args;
+- while a ``torch.profiler`` session records (``device_trace``, or any
+  ``torch.profiler.profile``), every span also enters
+  ``torch.profiler.record_function`` under its name, enabled or not, so
+  it lands in that trace as a ``user_annotation`` beside the kernels.
 
-A span costs two ``perf_counter_ns`` reads and a ring append: it never
-waits for the device. Code that wants device time inside a span (the
-trainer's ``device_step`` under ``profile``) synchronizes the stream
-itself.
+Two clocks: the ring and the flight recorder stamp
+``time.perf_counter_ns()`` (monotonic, microseconds in the export); a
+``torch.profiler`` trace stamps its own events, these spans' annotations
+included, on its own clock (Unix time less its ``baseTimeNanoseconds``).
+Lay a span over the kernels in the profiler's trace, never the ring's
+export over it.
+
+A span costs two ``perf_counter_ns`` reads and a ring append (with no
+profiler recording, one more attribute read): it never waits for the
+device. Code that wants device time inside a span (the trainer's
+``device_step`` under ``profile``, its ``sync.*`` spans) synchronizes
+the stream itself.
 """
 
 from __future__ import annotations
@@ -32,6 +44,9 @@ import time
 from collections import deque
 from contextlib import contextmanager
 from typing import Deque, Dict, List, Optional
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
 
 from paddlebox_tpu_torch import config
 from paddlebox_tpu_torch.obs.flight_recorder import FLIGHT_RECORDER
@@ -114,12 +129,19 @@ class Profiler:
     @contextmanager
     def record_event(self, name: str, category: str = "host"):
         """Scoped annotation (platform::RecordEvent parity). Always feeds
-        the flight recorder; appends to the trace only when enabled."""
+        the flight recorder; appends to the trace only when enabled; enters
+        a recording ``torch.profiler`` trace either way."""
+        mark = None
+        if _autograd_profiler._is_profiler_enabled:
+            mark = torch.profiler.record_function(name)
+            mark.__enter__()
         t0 = time.perf_counter_ns()
         try:
             yield
         finally:
             t1 = time.perf_counter_ns()
+            if mark is not None:
+                mark.__exit__(None, None, None)
             args = _trace_args()
             FLIGHT_RECORDER.note_span(
                 name, category, t0 / 1e3, (t1 - t0) / 1e3, args)
@@ -227,8 +249,6 @@ def device_trace(log_dir: Optional[str] = None, device=None):
         yield None
         return
     import os
-
-    import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU]
     dev = torch.device(device) if device is not None else None
