@@ -5,6 +5,14 @@ Port of the JAX package's ``models/layers.py``. Parameters are fp32
 weight and bias cast to bf16 for the matmul and the bias add, ReLU in
 bf16) and returns fp32 — the JAX package's precision recipe. The matmuls
 stay ``torch.matmul``: the JAX package leaves them to XLA as well.
+
+On a CUDA input whose rows in the compute dtype are no whole number of
+16-byte units (bf16: a width not a multiple of 8), an MLP layer's product
+runs on operands widened with zero columns to the next such width. cuBLAS
+takes its aligned sm90 kernels for the forward and both gradients there,
+where an unaligned K falls back to sm75 ``align1`` kernels at a fraction
+of the speed. The sums gain only zeros, and the parameters and their
+gradients keep their shapes.
 """
 
 from __future__ import annotations
@@ -51,16 +59,59 @@ def mlp_init(in_dim: int, hidden: Sequence[int], generator: torch.Generator) -> 
     )
 
 
+# MLP products run on K-padded operands since the process started (one a
+# layer that pads), like ops/cuda_kernels.launch_counts
+padded_products = 0
+
+
+def aligned_width(k: int, dtype: torch.dtype) -> int:
+    """``k`` rounded up to a whole number of 16-byte units of ``dtype``."""
+    unit = 16 // dtype.itemsize
+    return -(-k // unit) * unit
+
+
+class CastPadK(torch.autograd.Function):
+    """``CastPadK.apply(t, dtype, k_pad)``: ``t.to(dtype)`` written into a
+    buffer ``k_pad`` wide in its last dim, the columns past ``t``'s width
+    zero, in one pass over ``t``. The backward casts the gradient's first
+    columns back to ``t``'s dtype, so it comes back at ``t``'s shape."""
+
+    @staticmethod
+    def forward(ctx, t: torch.Tensor, dtype: torch.dtype, k_pad: int) -> torch.Tensor:
+        k = t.shape[-1]
+        ctx.k, ctx.src_dtype = k, t.dtype
+        out = t.new_empty((*t.shape[:-1], k_pad), dtype=dtype)
+        out[..., k:].zero_()
+        out[..., :k].copy_(t)
+        return out
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        return g[..., : ctx.k].to(ctx.src_dtype).contiguous(), None, None
+
+
 def mlp_apply(
     layers: nn.ModuleList,
     x: torch.Tensor,
     final_activation: bool = False,
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """ReLU MLP; activations in bf16, params fp32, fp32 out."""
-    h = x.to(compute_dtype)
+    """ReLU MLP; activations in bf16, params fp32, fp32 out. On a CUDA input,
+    a layer whose input width is unaligned in ``compute_dtype`` runs its
+    product with K padded (module docstring); every other layer, and every
+    call on the CPU, casts and multiplies as the JAX package does."""
+    global padded_products
+    h = x
     for i, lin in enumerate(layers):
-        h = torch.matmul(h, lin.weight.to(compute_dtype).t()) + lin.bias.to(compute_dtype)
+        k = h.shape[-1]
+        k_pad = aligned_width(k, compute_dtype) if h.is_cuda else k
+        if k_pad != k:
+            h = CastPadK.apply(h, compute_dtype, k_pad)
+            w = CastPadK.apply(lin.weight, compute_dtype, k_pad)
+            padded_products += 1
+        else:
+            h, w = h.to(compute_dtype), lin.weight.to(compute_dtype)
+        h = torch.matmul(h, w.t()) + lin.bias.to(compute_dtype)
         if i < len(layers) - 1 or final_activation:
             h = torch.relu(h)
     return h.to(torch.float32)

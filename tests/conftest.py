@@ -41,3 +41,4 @@ def pytest_configure(config):
         "markers", "chaos: fault-injected robustness schedules (fast ones run in tier-1)"
     )
     config.addinivalue_line("markers", "slow: excluded from the tier-1 suite")
+    config.addinivalue_line("markers", "card: needs a CUDA card; skipped without one")
