@@ -7,8 +7,9 @@ bf16) and returns fp32 — the JAX package's precision recipe. The matmuls
 stay ``torch.matmul``: the JAX package leaves them to XLA as well.
 
 On a CUDA input whose rows in the compute dtype are no whole number of
-16-byte units (bf16: a width not a multiple of 8), an MLP layer's product
-runs on operands widened with zero columns to the next such width. cuBLAS
+16-byte units (bf16: a width not a multiple of 8), a tower's product
+(:func:`product`: an MLP layer's, a DLRM cross layer's) runs on operands
+widened with zero columns to the next such width. cuBLAS
 takes its aligned sm90 kernels for the forward and both gradients there,
 where an unaligned K falls back to sm75 ``align1`` kernels at a fraction
 of the speed. The sums gain only zeros, and the parameters and their
@@ -25,18 +26,20 @@ from torch import nn
 
 
 def linear_init(
-    in_dim: int, out_dim: int, generator: torch.Generator, scale: str = "xavier"
+    in_dim: int, out_dim: int, generator: torch.Generator, scale: str = "xavier", bias: bool = True
 ) -> nn.Linear:
     """fp32 ``nn.Linear`` with N(0, s^2) weights drawn from ``generator``
-    (s = sqrt(2 / (in + out)) for "xavier", else 0.01) and zero bias."""
+    (s = sqrt(2 / (in + out)) for "xavier", else 0.01) and a zero bias
+    (none without ``bias``)."""
     # skip_init: the default init would draw from the global generator
-    lin = nn.utils.skip_init(nn.Linear, in_dim, out_dim, dtype=torch.float32, device="cpu")
+    lin = nn.utils.skip_init(nn.Linear, in_dim, out_dim, bias=bias, dtype=torch.float32, device="cpu")
     s = math.sqrt(2.0 / (in_dim + out_dim)) if scale == "xavier" else 0.01
     with torch.no_grad():
         lin.weight.copy_(
             torch.randn((out_dim, in_dim), generator=generator, dtype=torch.float32) * s
         )
-        lin.bias.zero_()
+        if bias:
+            lin.bias.zero_()
     return lin
 
 
@@ -90,28 +93,34 @@ class CastPadK(torch.autograd.Function):
         return g[..., : ctx.k].to(ctx.src_dtype).contiguous(), None, None
 
 
+def product(x: torch.Tensor, weight: torch.Tensor, compute_dtype: torch.dtype) -> torch.Tensor:
+    """``x @ weight.T`` on operands cast to ``compute_dtype``, out in that
+    dtype. On a CUDA input whose width is unaligned in ``compute_dtype``
+    both operands are K-padded (module docstring); every other product, and
+    every one on the CPU, casts and multiplies as the JAX package does."""
+    global padded_products
+    k = x.shape[-1]
+    k_pad = aligned_width(k, compute_dtype) if x.is_cuda else k
+    if k_pad != k:
+        x = CastPadK.apply(x, compute_dtype, k_pad)
+        w = CastPadK.apply(weight, compute_dtype, k_pad)
+        padded_products += 1
+    else:
+        x, w = x.to(compute_dtype), weight.to(compute_dtype)
+    return torch.matmul(x, w.t())
+
+
 def mlp_apply(
     layers: nn.ModuleList,
     x: torch.Tensor,
     final_activation: bool = False,
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
-    """ReLU MLP; activations in bf16, params fp32, fp32 out. On a CUDA input,
-    a layer whose input width is unaligned in ``compute_dtype`` runs its
-    product with K padded (module docstring); every other layer, and every
-    call on the CPU, casts and multiplies as the JAX package does."""
-    global padded_products
+    """ReLU MLP; activations in bf16, params fp32, fp32 out; each layer's
+    product is :func:`product`'s."""
     h = x
     for i, lin in enumerate(layers):
-        k = h.shape[-1]
-        k_pad = aligned_width(k, compute_dtype) if h.is_cuda else k
-        if k_pad != k:
-            h = CastPadK.apply(h, compute_dtype, k_pad)
-            w = CastPadK.apply(lin.weight, compute_dtype, k_pad)
-            padded_products += 1
-        else:
-            h, w = h.to(compute_dtype), lin.weight.to(compute_dtype)
-        h = torch.matmul(h, w.t()) + lin.bias.to(compute_dtype)
+        h = product(h, lin.weight, compute_dtype) + lin.bias.to(compute_dtype)
         if i < len(layers) - 1 or final_activation:
             h = torch.relu(h)
     return h.to(torch.float32)

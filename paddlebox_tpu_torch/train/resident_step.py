@@ -61,7 +61,7 @@ for one device (``ResidentPvFeed(multi_host=True)``).
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -82,6 +82,12 @@ config.define_flag(
     "minibatches per dispatched superstep; higher amortizes the dispatch, "
     "lower returns metrics sooner",
 )
+
+
+# keys the resident steps dispatched on one device have pooled since the
+# process started, counted on the host from the pass's key counts (no
+# device read); like models/layers.padded_products
+pooled_keys = 0
 
 
 class ResidentPass:
@@ -163,6 +169,7 @@ class ResidentPass:
         self.L_pad = 0
         self.U_pad = 0
         self.K_pad = 0  # the mesh's request-bucket size (ensure_sharded)
+        self.block_keys: List[int] = []  # keys of each block of the last ``ensure``
         # unique-row count per index block, keyed by the block's bytes (a
         # hash collision would freeze U_pad too small)
         self._uniq_cache: Dict[bytes, int] = {}
@@ -183,9 +190,10 @@ class ResidentPass:
     def ensure(self, batch_indices) -> None:
         """Freeze/grow L_pad and U_pad to cover every batch of the
         partition: exact per-batch key and unique-row counts, cached per
-        index block. Uncached blocks go through one native sweep
-        (``pbx_block_stats``) when ``enable_native_parser`` is on and the
-        blocks are of one length, else numpy."""
+        index block; the key counts stay in ``block_keys``, in order.
+        Uncached blocks go through one native sweep (``pbx_block_stats``)
+        when ``enable_native_parser`` is on and the blocks are of one
+        length, else numpy."""
         blocks = [np.asarray(idx) for idx in batch_indices]
         fps = [b.tobytes() for b in blocks]
         pending, seen = [], set()
@@ -200,13 +208,19 @@ class ResidentPass:
             )
             for (fp, _), U in zip(pending, uniq):
                 self._uniq_cache[fp] = max(int(U), 1)
-        max_L, max_U = 1, 1
-        for b, fp in zip(blocks, fps):
-            max_L = max(max_L, int(self._key_counts[b].sum()))
-            max_U = max(max_U, self._uniq_cache[fp])
+        self.block_keys = [int(self._key_counts[b].sum()) for b in blocks]
+        max_L = max([1, *self.block_keys])
+        max_U = max([1, *(self._uniq_cache[fp] for fp in fps)])
         self.L_pad = max(self.L_pad, _round_bucket(max_L, self.bucket))
         # +1 keeps a slot for the invalid tail even at the unique maximum
         self.U_pad = max(self.U_pad, _round_bucket(max_U + 1, self.bucket))
+
+
+def count_pooled(rp: ResidentPass, first: int, n: int) -> None:
+    """Add the keys of blocks ``first .. first + n`` of the partition
+    ``rp.ensure`` saw last to :data:`pooled_keys`."""
+    global pooled_keys
+    pooled_keys += sum(rp.block_keys[first : first + n])
 
 
 def _batch_offsets(rp: ResidentPass, idx: torch.Tensor) -> torch.Tensor:

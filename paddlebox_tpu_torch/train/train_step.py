@@ -41,6 +41,7 @@ from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm, segment_sum, 
 from paddlebox_tpu_torch.table.optimizers import SparseOptimizerConfig
 from paddlebox_tpu_torch.table.value_layout import ValueLayout
 from paddlebox_tpu_torch.train.dense_opt import Adam, tree_map
+from paddlebox_tpu_torch.utils.trace import span_with_backward
 
 
 class TrainState(NamedTuple):
@@ -105,6 +106,8 @@ def local_forward(
     rank_offset: Optional[torch.Tensor] = None,  # [b, 2R+1] join-phase pv matrix
 ):
     """Forward body: seqpool+CVM -> model -> BCE. Returns (loss, preds).
+    The seqpool runs under the span ``seqpool``, its backward under
+    ``seqpool.bwd``.
 
     With ``ins_weight`` the loss is the weighted sum over ``loss_denom``
     (default: the weight sum, at least 1), else the mean. With
@@ -120,13 +123,17 @@ def local_forward(
         pooled = sum_pool(flat[:, -E:], segments, cfg.num_slots, cfg.batch_size)  # [S, b, E]
         extra = extra + (pooled.permute(1, 0, 2),)
         flat = flat[:, :-E]
-    slot_feats = fused_seqpool_cvm(
+    slot_feats = span_with_backward(
+        "seqpool",
+        lambda records: fused_seqpool_cvm(
+            records,
+            segments,
+            num_slots=cfg.num_slots,
+            batch_size=cfg.batch_size,
+            use_cvm=cfg.use_cvm,
+            clk_filter=cfg.clk_filter,
+        ),
         flat,
-        segments,
-        num_slots=cfg.num_slots,
-        batch_size=cfg.batch_size,
-        use_cvm=cfg.use_cvm,
-        clk_filter=cfg.clk_filter,
     )
     logits = model_apply(params, slot_feats, dense, *extra)
     if ins_weight is None:

@@ -210,6 +210,7 @@ from paddlebox_tpu_torch.parallel.mesh import MeshPlan
 from paddlebox_tpu_torch.train.resident_step import (
     ResidentPass,
     ResidentPvFeed,
+    count_pooled,
     ensure_sharded,
     make_resident_mesh_superstep,
     make_resident_pv_mesh_superstep,
@@ -939,6 +940,8 @@ class CTRTrainer:
                 with PROFILER.record_event("superstep_dispatch", "pass"):
                     holder["state"], mstack = sstep(holder["state"], feed_dev[c0 : c0 + k])
                     ev = self._mark()
+                if self.plan is None:
+                    count_pooled(rp, c0, k)
                 tm["step_dispatch_s"] += time.perf_counter() - t0
                 if profile:
                     self._wait(ev, "device_superstep", tm)

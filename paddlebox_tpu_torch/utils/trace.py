@@ -20,7 +20,10 @@ upload, dispatch, the pass boundary) and writes ``chrome://tracing`` JSON;
 - while a ``torch.profiler`` session records (``device_trace``, or any
   ``torch.profiler.profile``), every span also enters
   ``torch.profiler.record_function`` under its name, enabled or not, so
-  it lands in that trace as a ``user_annotation`` beside the kernels.
+  it lands in that trace as a ``user_annotation`` beside the kernels;
+- ``span_with_backward`` spans a differentiable op's forward and, in one
+  autograd node, its backward (``<name>.bwd``), so a device trace can
+  give the kernels of either to the op.
 
 Two clocks: the ring and the flight recorder stamp
 ``time.perf_counter_ns()`` (monotonic, microseconds in the export); a
@@ -235,6 +238,39 @@ PROFILER = Profiler()
 
 def record_event(name: str, category: str = "host"):
     return PROFILER.record_event(name, category)
+
+
+class _BackwardSpan(torch.autograd.Function):
+    """One autograd node around ``fn``: the forward builds ``fn``'s graph
+    on detached copies of the inputs and keeps it; the backward runs that
+    graph under its own span, so every kernel of ``fn``'s backward is
+    launched inside it. The gradients are the graph's own."""
+
+    @staticmethod
+    def forward(ctx, name, fn, *inputs):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(t.requires_grad) for t in inputs]
+            out = fn(*leaves)
+        ctx.name, ctx.leaves, ctx.out = name, leaves, out
+        return out.detach()
+
+    @staticmethod
+    def backward(ctx, grad):
+        need = [t for t in ctx.leaves if t.requires_grad]
+        with PROFILER.record_event(ctx.name, "model"):
+            got = iter(torch.autograd.grad(ctx.out, need, grad, allow_unused=True))
+        grads = [next(got) if t.requires_grad else None for t in ctx.leaves]
+        ctx.leaves = ctx.out = None
+        return (None, None, *grads)
+
+
+def span_with_backward(name: str, fn, *inputs: torch.Tensor) -> torch.Tensor:
+    """``fn(*inputs)`` (one tensor out) under the span ``name``, and its
+    backward, when autograd will run one, under ``name + ".bwd"``."""
+    with PROFILER.record_event(name, "model"):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+            return _BackwardSpan.apply(name + ".bwd", fn, *inputs)
+        return fn(*inputs)
 
 
 @contextmanager

@@ -261,15 +261,16 @@ def test_profiled_pass_records_the_jax_span_names_and_counts(tmp_path, resident)
             m.set_flag(n, v)
     # every JAX span name, with its count, is in the port's trace
     assert {k: got["torch"][k] for k in got["jax"]} == dict(got["jax"])
-    # the port's extra names are its call-edge and sync spans, and no others
+    # the port's extra names are its call-edge, sync and seqpool spans, and no others
     extra = {k: v for k, v in got["torch"].items() if k not in got["jax"]}
-    want = {"train_pass.open": 1, "train_pass.close": 1, "auc_compute": 2, "sync.auc_tables": 4, "sync.losses": 1}
+    steps = 64 // B
+    want = {"train_pass.open": 1, "train_pass.close": 1, "auc_compute": 2, "sync.auc_tables": 4, "sync.losses": 1,
+            "seqpool": steps, "seqpool.bwd": steps}
     if resident:
         want.update(dict.fromkeys(
             ("resident.batch_indices", "resident.ensure_pads", "resident.index_partition",
              "resident.superstep_build"), 1))
     assert extra == want
-    steps = 64 // B
     if resident:
         assert got["torch"]["superstep_dispatch"] == got["torch"]["device_superstep"] == steps
         assert got["torch"]["resident_prepare"] == 1
