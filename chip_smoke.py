@@ -3,7 +3,9 @@
 
 Run from the repository root on a machine with a CUDA card:
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--phase merge]
+
+``--phase merge`` runs phases 1-3 and 22 alone.
 
 Phases (any failure exits non-zero; nothing is caught and swallowed):
 
@@ -423,7 +425,18 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    params, Adam state and losses bitwise the cold "auto" process's, both
    kernels bitwise at phase 7's training shape. Printed: the stats, the
    nvcc seconds, the first step's time (the kernels' build or load in it)
-   and the later steps', cold and warm.
+   and the later steps', cold and warm;
+22. the push merge ("merge"): ``merge_rows_cuda`` at the step shape of
+   each benchmark cell (``deepfm-criteo.steady``, ``widedeep-criteo.steady``,
+   ``dlrm-dcnv2-criteo1tb.multihot``): one batch of the cell's traffic
+   from ``--seed + 22`` (``bench_port``'s generators), flattened
+   slot-major, deduplicated and padded as the resident feed pads it, with
+   random gradients; bitwise against ``merge_rows_ref`` on the card, then
+   the median of ``TIMING_REPS`` CUDA-event timings, L2 flushed and warm,
+   of the kernel, the plain version, the former merge (with its sort) and
+   ``torch.segment_reduce`` over the pre-sorted [L, PW + 2] rows, beside
+   the byte bound, the rows' sector floor, the heavy rows' count and the
+   light and heavy passes' device time under ``torch.profiler``.
 
 Every number is printed beside the card's name and power limit; then the
 ``kernels`` line, the nvidia-smi line, and last ``{"ok": true, "device":
@@ -471,6 +484,7 @@ TIER_REQUESTS = 150  # cut from 300 for the script's time
 TIER_SERVE_BATCH = 256
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published HBM3 rate
 TIMING_REPS = 30
+KERNEL_NAMES = ("pull_rows_cuda", "write_rows_cuda", "merge_rows_cuda")  # the wrappers' launch counts
 # phase 8: the training day's publish, follow and resume
 PUB_DATE = "20261017"
 DAY_FILES = 4  # part files of the second and third days (bench.py's generator)
@@ -480,6 +494,7 @@ DAY_STEPS = 16  # resident steps of the second and third passes: two epochs of 4
 PRED_ATOL = 2e-2
 GATHER_REPLACES = "paddlebox_tpu/ops/pallas_kernels.py:75"
 WRITE_REPLACES = "paddlebox_tpu/ops/pallas_kernels.py:114"
+MERGE_REPLACES = "none: the JAX package leaves the push merge to XLA; the original's PushMergeCopy"
 # the training path (bench.py's shape)
 N_FILES = 16
 RECORDS_PER_FILE = 8192  # 131072 records = 32 batches per epoch
@@ -981,6 +996,8 @@ def dir_bytes(root) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phase", choices=("all", "merge"), default="all",
+                    help="merge: phases 1-3 and 22 only (the kernels' build and checks, the push merge)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1039,6 +1056,12 @@ def main() -> int:
     edge_err = check_tile_edges(ck, dev, g)
     check_big_table(ck, dev, g)
     max_err, write_err = max(max_err, edge_err), max(write_err, edge_err)
+    if args.phase == "merge":
+        merge_phase(args, dev, card, ck)
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     # ---- 6-8. the training day, then its publish, follow and resume; the
     # serving path (phases 4 and 5) runs on phase 8's follower at the
@@ -1081,12 +1104,13 @@ def main() -> int:
     _, seqpar_worlds = timed("19 pipeline", pipeline_phase, args, dev, card, mesh19, mesh20)
     seqpar_counts = timed("20 seqpar", seqpar_phase, card, seqpar_worlds, mesh20[1])
     cc_counts, cc_err = timed("21 compile_cache", compile_cache_phase, args, card)
+    merge_nums, merge_counts = timed("22 merge", merge_phase, args, dev, card, ck)
     emit({"card": card, "phase_wall_s": walls, "script_s": time.perf_counter() - t_start})
 
     by_path = {"serve": serve_counts, **train["counts"], **published, "boundary": boundary_counts, **join_counts,
                **zoo_counts, **mesh_counts, **supervised_counts, **multihost_counts, **sh_counts, **fleet_counts,
-               **lt_counts, **seqpar_counts, **cc_counts}
-    emit({"kernels": [
+               **lt_counts, **seqpar_counts, **cc_counts, "merge": merge_counts}
+    kernels = [
         {
             "name": name,
             "route": "cuda",
@@ -1156,7 +1180,21 @@ def main() -> int:
             ("write_rows_cuda", "paddlebox_tpu_torch/ops/csrc/write_rows.cu", WRITE_REPLACES, "write",
              max(write_err, train["write_err"], join_err, zoo_err, mesh_err, sup_err, mh_err, sh_err, lt_err, cc_err)),
         )
-    ]})
+    ]
+    # the push merge replaces no TPU kernel; every path above checks its
+    # count, phase 22 its bits and times at the three cells' step shapes
+    kernels.append({
+        "name": "merge_rows_cuda",
+        "route": "cuda",
+        "source": "paddlebox_tpu_torch/ops/csrc/merge_rows.cu",
+        "replaces": MERGE_REPLACES,
+        "launches": sum(c["merge_rows_cuda"] for c in by_path.values()),
+        "launches_by_path": {p: c["merge_rows_cuda"] for p, c in by_path.items()},
+        "max_abs_err": 0.0,
+        "bound_by": "bytes",
+        "cells": merge_nums,
+    })
+    emit({"kernels": kernels})
     print(card, flush=True)
     emit({
         "ok": True,
@@ -1945,12 +1983,12 @@ def tier_phase(args, card, ck, root, lay, opt, cfg, scorer, schema, plain_fol, k
         raise AssertionError(f"{n_batches} batches for {len(reqs)} requests (and a warm-up) on {len(setups)} servers")
 
     want = per["tier off"]
-    if want["launches"] != {"pull_rows_cuda": len(reqs), "write_rows_cuda": 0}:
+    if want["launches"] != want_launches(len(reqs), 0):
         raise AssertionError(f"tier off: launches {want['launches']} for {len(reqs)} batches")
     if want["stats"]["serve.device_tier_hits"] or want["stats"]["serve.device_tier_misses"]:
         raise AssertionError(f"tier off: the tier counters moved {want['stats']}")
     n_absent = want["stats"]["serve.key_misses"]
-    counts = {"pull_rows_cuda": 0, "write_rows_cuda": 0}
+    counts = want_launches(0, 0)
     shapes, err = {}, 0.0
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     nums = {"requests": len(reqs), "request_records": [int(sizes.min()), int(sizes.max()), float(sizes.mean())],
@@ -1970,7 +2008,7 @@ def tier_phase(args, card, ck, root, lay, opt, cfg, scorer, schema, plain_fol, k
             raise AssertionError(f"tier {name}: hits {hits}, tier misses {misses}, key misses {n_absent}: "
                                  "the tier must hit, and miss every absent key")
         c = got["launches"]
-        if c != {"pull_rows_cuda": len(reqs) * (1 + tier.n_shards), "write_rows_cuda": 0}:
+        if c != want_launches(len(reqs) * (1 + tier.n_shards), 0):
             raise AssertionError(f"tier {name}: launches {c} for {len(reqs)} batches over {tier.n_shards} shards")
         for k in counts:
             counts[k] += c[k]
@@ -2604,7 +2642,7 @@ def join_update_phase(args, dev, card, ck, pull_push, lay):
                 raise AssertionError(f"join epoch {i}: {o['batches']} batches (want {n_b}), ins_num {o['ins_num']} "
                                      f"(want memory_data_size() {n_rec}), loss {o['loss']}")
         n_train = (1 + JOIN_TIMED_EPOCHS) * n_b
-        want = {"pull_rows_cuda": 2 * n_train + n_b, "write_rows_cuda": n_train}
+        want = want_launches(2 * n_train + n_b, n_train)
         if counts["join"] != want:
             raise AssertionError(f"join path launches {counts['join']}, want {want} (2 gathers and 1 writeback a "
                                  "training step, 1 gather an eval step)")
@@ -2675,7 +2713,7 @@ def join_update_phase(args, dev, card, ck, pull_push, lay):
         if utr.last_feed != "resident" or uout["batches"] != n_u or not np.isfinite(uout["loss"]):
             raise AssertionError(f"update phase: feed {utr.last_feed}, {uout['batches']} batches (want {n_u}), "
                                  f"loss {uout['loss']}")
-        if counts["update"] != {"pull_rows_cuda": 2 * n_u, "write_rows_cuda": n_u}:
+        if counts["update"] != want_launches(2 * n_u, n_u):
             raise AssertionError(f"update path launches {counts['update']} for {n_u} steps")
         if not torch.equal(jtr.trained_table_device(), trained[0]):
             raise AssertionError("the update pass wrote the join trainer's table")
@@ -3069,7 +3107,7 @@ def dump_phase(args, lay, sparse_opt, ds, ck, card, tmp):
         raise AssertionError(f"dump: {len(field)} field lines (want {n_b} x {BATCH}) or preds unlike the steps'")
     if params != names:
         raise AssertionError(f"dump: param lines {params}, want one a leaf {names}")
-    if counts != {"pull_rows_cuda": 2 * n_b, "write_rows_cuda": n_b}:
+    if counts != want_launches(2 * n_b, n_b):
         raise AssertionError(f"dump pass launches {counts} for {n_b} steps")
     nums = {**secs, "overhead_s": secs["dump_s"] - secs["plain_s"], "field_lines": len(field),
             "param_lines": len(params), "bytes": os.path.getsize(os.path.join(tmp, "dump", "part-00000"))}
@@ -3108,7 +3146,7 @@ def box_phase(args, lay, sparse_opt, files, ck, dev, card, tmp):
     counts = dict(ck.launch_counts)
     if not same_device_state(device_state(tr), trained) or int(tr.opt_state.count) != n_b:
         raise AssertionError("façade: the eval pass under box.set_test_mode() changed the state")
-    if counts != {"pull_rows_cuda": 3 * n_b, "write_rows_cuda": n_b} or tr.last_feed != "resident":
+    if counts != want_launches(3 * n_b, n_b) or tr.last_feed != "resident":
         raise AssertionError(f"façade: launches {counts} for {n_b} training and {n_b} eval steps, feed {tr.last_feed}")
     metric = box.get_metric("auc")  # reads and resets
     if metric["ins_num"] != 2 * n_rec or not (np.isfinite(out["loss"]) and np.isfinite(eout["loss"])):
@@ -3756,7 +3794,7 @@ def mesh_report(args, dev, card, ck, lay, worlds, prep):
             raise AssertionError(f"mesh nccl: a resident superstep made {r0['superstep_host_syncs']} host syncs: "
                                  f"{r0['superstep_sync_sites']}")
         counts[f"mesh_{name}"] = {k: sum(r["counts"][p][k] for r in ranks for p in r["counts"])
-                                  for k in ("pull_rows_cuda", "write_rows_cuda")}
+                                  for k in KERNEL_NAMES}
         step_ms = r0["resident_wall_s"] / MESH_TIMED * 1e3
         emit({
             "card": card, "phase": "mesh", **tag[name], "world": world, "spawn_wall_s": wall,
@@ -3956,7 +3994,7 @@ def mesh_join_rank(plan, spec):
             fail(f"join epoch {i}: {o['batches']} batches (want {n_b}), ins_num {o['ins_num']} (want {n_rec}), "
                  f"loss {o['loss']}")
     n_train = (1 + JOIN_TIMED_EPOCHS) * n_b
-    want = {"pull_rows_cuda": 2 * n_train + n_b, "write_rows_cuda": n_train}
+    want = want_launches(2 * n_train + n_b, n_train)
     if counts["join"] != want:
         fail(f"launches {counts['join']}, want {want}")
     if not same_device_state(device_state(jtr), trained):
@@ -4055,7 +4093,7 @@ def mesh_join_rank(plan, spec):
     counts["update"] = dict(ck.launch_counts)
     if utr.last_feed != "resident" or uout["batches"] != n_u or not np.isfinite(uout["loss"]):
         fail(f"update: feed {utr.last_feed}, {uout['batches']} batches (want {n_u}), loss {uout['loss']}")
-    if counts["update"] != {"pull_rows_cuda": 2 * n_u, "write_rows_cuda": n_u}:
+    if counts["update"] != want_launches(2 * n_u, n_u):
         fail(f"update launches {counts['update']} for {n_u} steps")
     if counted(reg, "update_auc") != BATCH * n_u:
         fail(f"the update metric counted {counted(reg, 'update_auc')}, want {BATCH * n_u}")
@@ -4271,9 +4309,9 @@ def mesh_join_report(args, dev, card, ck, lay, worlds, prep):
                                       keys_all, losses, keys, rows)
         for path in ("join", "update"):
             counts[f"mesh_{path}_{name}"] = {k: sum(r["counts"][path][k] for r in ranks)
-                                             for k in ("pull_rows_cuda", "write_rows_cuda")}
+                                             for k in ck.launch_counts}
         for path in ("boundary", "async", "dump"):
-            c = counts.setdefault(f"mesh_{path}", {"pull_rows_cuda": 0, "write_rows_cuda": 0})
+            c = counts.setdefault(f"mesh_{path}", want_launches(0, 0))
             for k in c:
                 c[k] += sum(r["counts"][path][k] for r in ranks)
         n_train = (1 + JOIN_TIMED_EPOCHS) * r0["pv_batches"]
@@ -4616,6 +4654,13 @@ def bare_day(args, lay, schema, root, passes):
     return s, wall
 
 
+def want_launches(pull: int, write: int, merge=None) -> dict:
+    """The launch counts a path should show: ``pull`` gathers, ``write``
+    writebacks and ``merge`` push merges, by default one a writeback (a
+    training step on the card merges once and writes back once)."""
+    return {"pull_rows_cuda": pull, "write_rows_cuda": write, "merge_rows_cuda": write if merge is None else merge}
+
+
 def kernel_events(prof, kernel: str) -> int:
     """Launches of ``kernel`` among the profiler's device events."""
     return sum(e.count for e in prof.key_averages() if kernel in e.key)
@@ -4684,8 +4729,9 @@ def observability(args, lay, schema, tmp, passes, quarantined, card, ck):
     finally:
         PROFILER.disable()
     events = {"pull_rows_cuda": kernel_events(prof, "gather_rows_kernel"),
-              "write_rows_cuda": kernel_events(prof, "write_rows_kernel")}
-    if events != counts or counts != {"pull_rows_cuda": 4, "write_rows_cuda": 2}:
+              "write_rows_cuda": kernel_events(prof, "write_rows_kernel"),
+              "merge_rows_cuda": kernel_events(prof, "merge_light_kernel")}
+    if events != counts or counts != want_launches(4, 2):
         raise AssertionError(f"device_trace over 2 steps names the kernels {events} times, launch_counts says {counts}")
     trace_path = os.path.join(tmp, "supervised-trace.json")
     n_events = PROFILER.export_chrome_trace(trace_path)
@@ -4741,7 +4787,7 @@ def auc_runner_check(args, s, schema, files, ck, card):
     finally:
         s.tr.set_test_mode(False)
     ds.end_pass(None, shrink=False)
-    if counts != {"pull_rows_cuda": steps, "write_rows_cuda": 0} or not all(np.isfinite(list(aucs.values()))):
+    if counts != want_launches(steps, 0) or not all(np.isfinite(list(aucs.values()))):
         raise AssertionError(f"AUC runner: launches {counts} for {steps} eval steps (want 1 gather each), "
                              f"aucs {aucs}")
     print(f"AUC runner: eval AUC unshuffled {aucs['unshuffled']:.5f}; "
@@ -4878,7 +4924,7 @@ def stream_check(args, lay, schema, tmp, chunks, ck, card):
     counts = dict(ck.launch_counts)
     if fol_err:
         raise fol_err[0]
-    if counts != {"pull_rows_cuda": 2 * steps[0], "write_rows_cuda": steps[0]}:
+    if counts != want_launches(2 * steps[0], steps[0]):
         raise AssertionError(f"stream: launches {counts} for {steps[0]} steps: want 2 gathers and 1 writeback a step")
     poll()
     v = fol.version()
@@ -4947,7 +4993,7 @@ def supervised_phase(args, dev, card, ck, lay, schema):
         clean, outs_c, wall_c, counts_c, probe, clock = supervised_day(
             args, lay, schema, os.path.join(tmp, "ckpt-clean"), passes, ck)
         steps_c = sum(int(o["batches"]) for o in outs_c)
-        if clean.sup.incidents or counts_c != {"pull_rows_cuda": 2 * steps_c, "write_rows_cuda": steps_c} \
+        if clean.sup.incidents or counts_c != want_launches(2 * steps_c, steps_c) \
                 or steps_c != SUP_PASSES * SUP_FILES * RECORDS_PER_FILE // BATCH:
             raise AssertionError(f"clean supervised day: incidents {clean.sup.incidents}, launches {counts_c} for "
                                  f"{steps_c} steps")
@@ -4970,7 +5016,7 @@ def supervised_phase(args, dev, card, ck, lay, schema):
                 != [1, 1, 1]:
             raise AssertionError(f"faulted day: incidents {incidents}, want {want}")
         steps_f = steps_c + (5 - 1) // SUP_K * SUP_K  # what the failed attempt trained before its revert
-        if counts_f != {"pull_rows_cuda": 2 * steps_f, "write_rows_cuda": steps_f}:
+        if counts_f != want_launches(2 * steps_f, steps_f):
             raise AssertionError(f"faulted day: launches {counts_f} for {steps_f} steps")
         same_stack(faulted, clean, "the faulted supervised day against the clean one")
         n_files = same_chain(clean.cm.root, faulted.cm.root, lay, clean.opt, args.seed, "the published chains")
@@ -5634,16 +5680,16 @@ def multihost_phase(args, dev, card, ck, lay):
                 "allreduce_tags": tags, "resident_losses": ranks[0]["resident_losses"],
             }
             counts[f"multihost_{name}"] = {kn: sum(rk["resident"]["counts"][kn] for rk in ranks)
-                                            for kn in ("pull_rows_cuda", "write_rows_cuda")}
+                                            for kn in KERNEL_NAMES}
             print(f"multihost {name}: {len(ranks)} host processes on cuda:0, each its own TcpTransport; keys "
                   f"disjoint, their union the {n_ref} referenced keys, every host's rows the single-process working "
                   f"set's exactly; all-reduced counts alike on every host ({len(tags)} tags); {k} resident steps "
                   f"a host at {nums[name]['samples_per_s_global']:.0f} samples/s; {card}", flush=True)
         for path in ("packer", "zero", "shuffle", "join", "update"):
             counts[f"multihost_{path}"] = {kn: sum(rk[path]["counts"][kn] for rk in two)
-                                          for kn in ("pull_rows_cuda", "write_rows_cuda")}
+                                          for kn in KERNEL_NAMES}
         counts["multihost_carried"] = {kn: sum(rk["carried"][p]["counts"][kn] for rk in two for p in ("pass1", "pass2"))
-                                       for kn in ("pull_rows_cuda", "write_rows_cuda")}
+                                       for kn in KERNEL_NAMES}
 
         # the lockstep: the shuffle's short host wraps, the join day's ghosts
         sb = [rk["shuffle_batches"] for rk in two]
@@ -6340,7 +6386,7 @@ def supervised_hosts_phase(args, dev, card, ck, lay):
         ranks = _read_ranks(out, 2)
         _check_host_days(ranks)
         counts = {f"supervised_hosts_{d}": {k: sum(rk[d]["counts"][k] for rk in ranks)
-                                            for k in ("pull_rows_cuda", "write_rows_cuda")}
+                                            for k in KERNEL_NAMES}
                   for d in ("clean", "fault", "poison")}
         nums = {"write_files_s": write_s, "spawn_wall_s": spawn_s}
         for d in ("clean", "fault", "poison"):
@@ -6901,7 +6947,7 @@ def mesh_expand_report(card, worlds, prep):
         tab_d, loss_d = _mesh_compare(f"expand mesh {tag} vs one device", ranks[0]["losses"], rows, keys,
                                       ref_losses, ref_keys, ref_rows)
         counts[f"expand_mesh_{name}"] = {k: sum(rk["counts"][k] for rk in ranks)
-                                         for k in ("pull_rows_cuda", "write_rows_cuda")}
+                                         for k in KERNEL_NAMES}
         nums[name] = {"world": len(ranks), "W": ranks[0]["W"], "owner_R": ranks[0]["owner_R"],
                       "owner_U": ranks[0]["owner_U"], "losses": ranks[0]["losses"],
                       "samples_per_s_all": BATCH * LT_STEPS / max(rk["wall_s"] for rk in ranks),
@@ -7063,7 +7109,7 @@ def replica_cache_check(args, dev, card, ck):
     got = pull_cache_value(dev_cache, ids_t)  # the main path
     torch.cuda.synchronize()
     counts = dict(ck.launch_counts)
-    if counts != {"pull_rows_cuda": 1, "write_rows_cuda": 0}:
+    if counts != want_launches(1, 0):
         raise AssertionError(f"pull_cache_value launched {counts}, want one pull_rows_cuda")
     rows = cache_row_ids(ids_t, R)
     plain = pull_cache_value_ref(dev_cache, rows).reshape(got.shape)
@@ -7773,7 +7819,7 @@ def seqpar_phase(card, worlds, prep):
     failure; here the worlds' numbers are printed. Returns the kernels'
     launches over every rank (0)."""
     t0 = time.perf_counter()
-    nums, launches = {}, {"pull_rows_cuda": 0, "write_rows_cuda": 0}
+    nums, launches = {}, dict.fromkeys(KERNEL_NAMES, 0)
     for name, (ranks, wall) in worlds.items():
         n = len(ranks)
         for rk in ranks:
@@ -7973,15 +8019,16 @@ def compile_cache_phase(args, card):
     for name, (rec, arrays) in runs.items():
         cold = name.endswith("cold")
         st = rec["stats"]
-        want = {"hits": 0, "misses": 2} if cold else {"hits": 2, "misses": 0}
+        n_src = len(ck._LAUNCHERS)  # a supervised pass loads every kernel
+        want = {"hits": 0, "misses": n_src} if cold else {"hits": n_src, "misses": 0}
         built = sorted(src for src, _ in rec["nvcc_runs"])
         checks = {
-            "stats": {k: st[k] for k in want} == want and st["requests"] == 2,
-            "nvcc": built == (["gather_rows.cu", "write_rows.cu"] if cold else []),
-            "entries": st["entries"] == 2 and len(rec["entries_dir"]) == 2,
+            "stats": {k: st[k] for k in want} == want and st["requests"] == n_src,
+            "nvcc": built == (sorted(ck._LAUNCHERS) if cold else []),
+            "entries": st["entries"] == n_src and len(rec["entries_dir"]) == n_src,
             "own _build/ empty": rec["own_build"] in (None, []),
             "auto dir only under auto": rec["auto_dir_exists"] == name.startswith("auto"),
-            "launches": rec["launches"] == {"pull_rows_cuda": 2 * rec["steps"], "write_rows_cuda": rec["steps"]},
+            "launches": rec["launches"] == want_launches(2 * rec["steps"], rec["steps"]),
             "steps": rec["steps"] == CC_FILES * RECORDS_PER_FILE // BATCH == rec["batches"],
             "no incident": rec["incidents"] == 0,
             "bitwise the cold auto process": arrays.keys() == ref.keys()
@@ -8008,6 +8055,129 @@ def compile_cache_phase(args, card):
           **nums, "launches": counts})
     print(f"phase 21 (compile cache) in {nums['phase_s']:.3f} s; {card}", flush=True)
     return counts, max(errs)
+
+
+MERGE_CELLS = ("deepfm-criteo.steady", "widedeep-criteo.steady", "dlrm-dcnv2-criteo1tb.multihot")
+MERGE_BUCKET = 2048  # batch_bucket_rounding: L_pad and U_pad as the resident feed pads them
+
+
+def merge_inputs(cell: str, seed: int):
+    """One step's merge inputs at a benchmark cell's shape, in numpy: the
+    cell's key draw for one batch (``bench_port``'s traffic), flattened
+    slot-major as the resident builder lays the keys out, deduplicated
+    (``inverse``), padded to the feed's buckets with pad keys on the trash
+    segment and the ``U_pad - 1`` slot. Returns (S, B, PW, inverse int32,
+    segments int32, U_pad)."""
+    from bench_port.core import manifest, multihot, traffic
+    from paddlebox_tpu_torch.table import ValueLayout
+
+    bench = manifest.load_benchmark()
+    wl = manifest.workload(bench, cell)
+    cfg, mix = manifest.config(bench, wl["config"]), manifest.traffic(wl["traffic"])
+    rng = np.random.default_rng(seed)
+    S, B = cfg["num_slots"], mix["batch"]
+    if mix["loop"] == "multihot":
+        sizes = np.asarray(cfg["multi_hot_sizes"])
+        keys = multihot.make_pass(rng, B, cfg, mix).keys
+        col_slot = np.repeat(np.arange(S), sizes)
+        flat = np.concatenate([keys[:, col_slot == s].reshape(-1) for s in range(S)])
+        seg = np.concatenate([np.repeat(s * B + np.arange(B), sizes[s]) for s in range(S)])
+    else:
+        keys = traffic.make_pass(rng, B, S, cfg.get("dense_dim", 0), cfg["key_space"], mix).keys
+        flat = keys.T.reshape(-1)
+        seg = (np.arange(S)[:, None] * B + np.arange(B)[None, :]).reshape(-1)
+    uniq, inv = np.unique(flat, return_inverse=True)
+    L, U = len(flat), len(uniq)
+    L_pad = max(MERGE_BUCKET, -(-L // MERGE_BUCKET) * MERGE_BUCKET)
+    U_pad = max(MERGE_BUCKET, -(-(U + 1) // MERGE_BUCKET) * MERGE_BUCKET)
+    inv = np.concatenate([inv, np.full(L_pad - L, U_pad - 1)]).astype(np.int32)
+    seg = np.concatenate([seg, np.full(L_pad - L, S * B)]).astype(np.int32)
+    return S, B, ValueLayout(embedx_dim=cfg["embedx_dim"]).pull_width, inv, seg, U_pad
+
+
+def merge_phase(args, dev, card, ck):
+    """Phase 22: the push merge (``merge_rows_cuda``) at each benchmark
+    cell's step shape, one batch of its traffic drawn from ``--seed + 22``:
+    bitwise against its plain version on the card, then the median device
+    ms of ``TIMING_REPS`` calls, L2 flushed (cold) and warm, of the kernel,
+    the plain version (``merge_rows_ref`` given the order), the former
+    merge (the plain version after ``argsort`` of ``inverse``) and the
+    library yardstick (``torch.segment_reduce`` over the pre-sorted [L,
+    PW + 2] rows), beside the byte bound and the rows' sector floor, and the
+    light and heavy passes' device time under ``torch.profiler``. Returns
+    (numbers by cell, launches)."""
+    from paddlebox_tpu_torch.ops.seqpool_cvm import segment_sum
+
+    t_phase = time.perf_counter()
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > the 50 MB L2
+    nums = {}
+    ck.reset_launch_counts()
+    for cell in MERGE_CELLS:
+        S, B, PW, inv, seg, U_pad = merge_inputs(cell, args.seed + 22)
+        L = len(inv)
+        counts = np.bincount(inv, minlength=U_pad)
+        heavy = counts > ck.MERGE_HEAVY_MIN
+        g = torch.Generator(device=dev).manual_seed(args.seed + 22)
+        gflat = torch.randn((L, PW), device=dev, generator=g)
+        labels = (torch.rand((B,), device=dev, generator=g) < 0.2).float()
+        inverse = torch.from_numpy(inv).to(dev)
+        segments = torch.from_numpy(seg).to(dev)
+        order, offsets = ck.merge_order(inverse, U_pad)
+        margs = (gflat, order, offsets, segments, labels, S, B)
+        got, want = ck.merge_rows_cuda(*margs), ck.merge_rows_ref(*margs)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("guniq", "show", "clk"), got, want):
+            if not torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)):
+                raise AssertionError(f"merge {cell}: {name} differs from the plain merge")
+        del got, want
+        valid = (segments < S * B).float()
+        lab = labels[(segments % B).long()] * valid
+        ext_sorted = torch.cat([gflat, valid[:, None], lab[:, None]], dim=1)[order]
+        lengths = (offsets[1:] - offsets[:-1]).long()
+
+        fns = {
+            "kernel": lambda: ck.merge_rows_cuda(*margs),
+            "plain": lambda: ck.merge_rows_ref(*margs),
+            "former": lambda: segment_sum(torch.cat([gflat * valid[:, None], valid[:, None], lab[:, None]], dim=1),
+                                          inverse, U_pad),
+            "library": lambda: torch.segment_reduce(ext_sorted, "sum", lengths=lengths, axis=0, unsafe=True),
+        }
+        med, med_warm = time_fns(fns, flush)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            ck.merge_rows_cuda(*margs)
+            torch.cuda.synchronize()
+        split = {}
+        for e in prof.key_averages():
+            for part in ("merge_light_kernel", "merge_heavy_kernel"):
+                if part in e.key:
+                    t_us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+                    split[part] = split.get(part, 0.0) + t_us / 1e3
+        row_bytes = PW * 4
+        starts = np.arange(L, dtype=np.int64) * row_bytes
+        row_sectors = int((((starts + row_bytes - 1) // 32) - (starts // 32) + 1).sum()) * 32
+        side = L * (8 + 4) + (U_pad + 1) * 4 + U_pad * (PW + 2) * 4
+        bound_ms = (L * row_bytes + side) / HBM_BYTES_PER_S * 1e3
+        floor_ms = (row_sectors + side) / HBM_BYTES_PER_S * 1e3
+        nums[cell] = {
+            "L": L, "U_pad": U_pad, "U": int((counts[:-1] > 0).sum()), "PW": PW, "geometry": ck.merge_geometry(PW)._asdict(),
+            "heavy_rows": int(heavy.sum()), "heavy_keys": int(counts[heavy].sum()), "longest_run": int(counts.max()),
+            "ms": med["kernel"], "warm_ms": med_warm["kernel"], "plain_ms": med["plain"],
+            "plain_warm_ms": med_warm["plain"], "former_ms": med["former"], "library_ms": med["library"],
+            "library_warm_ms": med_warm["library"], "bound_ms": bound_ms, "bound_by": "bytes",
+            "sector_floor_ms": floor_ms, "bound_share": bound_ms / med["kernel"], "profiled_ms": split,
+        }
+        print(f"merge {cell}: L {L}, U_pad {U_pad}, PW {PW}, heavy rows {int(heavy.sum())} holding "
+              f"{int(counts[heavy].sum())} keys (longest {int(counts.max())}); bitwise the plain merge; kernel "
+              f"{med['kernel']:.4f} ms cold / {med_warm['kernel']:.4f} warm (light {split.get('merge_light_kernel', 0):.4f},"
+              f" heavy {split.get('merge_heavy_kernel', 0):.4f}), plain {med['plain']:.4f}, former {med['former']:.4f},"
+              f" segment_reduce {med['library']:.4f}; byte bound {bound_ms:.4f} ms ({bound_ms / med['kernel']:.1%}), "
+              f"sector floor {floor_ms:.4f}; {card}", flush=True)
+        del gflat, ext_sorted, margs, fns, order, offsets
+        torch.cuda.empty_cache()
+    launches = dict(ck.launch_counts)
+    emit({"card": card, "phase": "merge", "cells": nums, "launches": launches,
+          "phase_s": time.perf_counter() - t_phase})
+    return nums, launches
 
 
 if __name__ == "__main__":

@@ -14,8 +14,13 @@ Kernels:
   ``pull_rows_pallas``. Plain version :func:`pull_rows_ref`.
 - :func:`write_rows_cuda` — in-place row set ``table[rows] = new_rows``;
   replaces ``write_rows_pallas``. Plain version :func:`write_rows_ref`.
+- :func:`merge_rows_cuda` — the push merge: each unique row's sums of its
+  keys' scaled gradients, show and clk, in merge order, straight from the
+  per-key gradients; replaces no TPU kernel (the JAX package leaves the
+  merge to XLA), the analog of the original's ``PushMergeCopy``. Plain
+  version :func:`merge_rows_ref`; :func:`merge_order` gives the order.
 
-Both kernels are tiled the same way (``ops/csrc/row_tile.cuh``: a block
+The gather and the writeback are tiled the same way (``ops/csrc/row_tile.cuh``: a block
 per tile of rows, the tile's row ids staged in shared memory once, the
 tile moved with ``cp.async``); :func:`tile_geometry` computes their launch
 geometry.
@@ -38,7 +43,7 @@ import subprocess
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -60,7 +65,7 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset_launch_counts()
-launch_counts: Dict[str, int] = {"pull_rows_cuda": 0, "write_rows_cuda": 0}
+launch_counts: Dict[str, int] = {"pull_rows_cuda": 0, "write_rows_cuda": 0, "merge_rows_cuda": 0}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}  # guarded-by: _lock
@@ -238,6 +243,37 @@ _LAUNCHERS = {
             ctypes.c_longlong,  # U
             ctypes.c_void_p,  # new_rows
             *_GEOMETRY_ARGTYPES,
+        ],
+    ),
+    "merge_rows.cu": (
+        "pbx_merge_rows_f32",
+        [
+            ctypes.c_void_p,  # gflat
+            ctypes.c_void_p,  # order (int64)
+            ctypes.c_void_p,  # offsets (int32)
+            ctypes.c_void_p,  # segments (int32)
+            ctypes.c_void_p,  # labels
+            ctypes.c_void_p,  # ins_weight or NULL
+            ctypes.c_void_p,  # slot_lr or NULL
+            ctypes.c_float,  # grad_div
+            ctypes.c_int,  # has_div
+            ctypes.c_longlong,  # U
+            ctypes.c_int,  # W
+            ctypes.c_int,  # S
+            ctypes.c_int,  # b
+            ctypes.c_void_p,  # out [U, W + 2]
+            ctypes.c_void_p,  # heavy (scratch, int64 [U * min_slabs + L / slab_keys + 1])
+            ctypes.c_void_p,  # counters (scratch, int32 [2])
+            ctypes.c_int,  # group
+            ctypes.c_int,  # cols
+            ctypes.c_int,  # slabs
+            ctypes.c_int,  # heavy_min
+            ctypes.c_int,  # slab_keys
+            ctypes.c_int,  # min_slabs
+            ctypes.c_int,  # max_slabs
+            ctypes.c_int,  # stage_floats
+            ctypes.c_int,  # heavy_grid
+            ctypes.c_void_p,  # cudaStream_t
         ],
     ),
 }
@@ -446,3 +482,184 @@ def write_rows_cuda(
         raise RuntimeError(f"write_rows_cuda launch failed: cudaError {rc}")
     launch_counts["write_rows_cuda"] += 1
     return table
+
+
+# ---- push merge ---------------------------------------------------------------
+
+MERGE_BLOCK_COLS = 256  # a heavy item's columns at most: one a thread of the block
+MERGE_MAX_SLABS = 31  # heavy items a row at most
+MERGE_MAX_WIDTH = MERGE_BLOCK_COLS * MERGE_MAX_SLABS
+MERGE_HEAVY_MIN = 32  # a row of more keys gets a whole block (the heavy pass)
+MERGE_STAGE_FLOATS = 3840  # a heavy chunk's rows: 15 KB of floats, so 3 blocks fit an SM
+MERGE_SLAB_KEYS = 2048  # a heavy row takes a column slab (a block) for each this many keys...
+MERGE_MIN_SLAB_COLS = 16  # ...of at least this many columns
+
+
+class MergeGeometry(NamedTuple):
+    group: int  # G, lanes a group: a power of two up to 32
+    cols: int  # NC, columns a lane in the light pass: ceil(W / G), at most 8
+    slabs: int  # column slabs of G * NC along grid y
+    heavy_min: int  # rows of more keys go to the heavy pass
+    slab_keys: int  # a heavy row is split into a column slab for each slab_keys keys,
+    min_slabs: int  # at least min_slabs (of MERGE_BLOCK_COLS columns at most)
+    max_slabs: int  # and at most max_slabs
+    stage_floats: int  # floats of a heavy chunk's rows: 128 keys at most, fewer as wide
+
+
+def merge_geometry(W: int) -> MergeGeometry:
+    """Launch geometry of the merge for rows of W columns: G the smallest
+    power of two that covers W, capped at a warp (16 at W = 13, 32 at 35
+    and 131)."""
+    if not 1 <= W <= MERGE_MAX_WIDTH:
+        raise ValueError(f"merge_rows_cuda takes rows of 1 to {MERGE_MAX_WIDTH} columns, got {W}")
+    group = min(32, 1 << (W - 1).bit_length())
+    cols = min(8, -(-W // group))
+    min_slabs = -(-W // MERGE_BLOCK_COLS)
+    return MergeGeometry(
+        group=group,
+        cols=cols,
+        slabs=-(-W // (group * cols)),
+        heavy_min=MERGE_HEAVY_MIN,
+        slab_keys=MERGE_SLAB_KEYS,
+        min_slabs=min_slabs,
+        max_slabs=max(min_slabs, min(MERGE_MAX_SLABS, W // MERGE_MIN_SLAB_COLS)),
+        stage_floats=MERGE_STAGE_FLOATS,
+    )
+
+
+def merge_order(inverse: torch.Tensor, num_segments: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(order int64 [L], offsets int32 [num_segments + 1]) of ``inverse``,
+    whose ids lie in [0, num_segments): the keys in stable order of their
+    id, and where each id's run starts in that order (``offsets[-1]`` is
+    L)."""
+    order = torch.argsort(inverse, stable=True)
+    bounds = torch.arange(num_segments + 1, dtype=inverse.dtype, device=inverse.device)
+    return order, torch.searchsorted(inverse[order], bounds, out_int32=True)
+
+
+def merge_rows_ref(
+    gflat: torch.Tensor,
+    order: torch.Tensor,
+    offsets: torch.Tensor,
+    segments: torch.Tensor,
+    labels: torch.Tensor,
+    num_slots: int,
+    batch_size: int,
+    ins_weight: Optional[torch.Tensor] = None,
+    slot_lr: Optional[torch.Tensor] = None,
+    grad_div: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the push merge: (guniq [U, W], show [U], clk [U]).
+
+    Scales each key's gradient row (``/ grad_div`` by a tensor divisor: a
+    scalar one may multiply by its reciprocal; ``* slot_lr[slot]``;
+    ``* pad_mask``), appends its ``valid`` (the pad mask times its
+    instance's weight) and ``label * valid``, gathers the [L, W + 2] rows
+    into ``order`` and sums each run of ``offsets`` with a lengths-based
+    ``segment_reduce``, in key order."""
+    S, b = num_slots, batch_size
+    if grad_div != 1.0:
+        gflat = torch.div(gflat, torch.full((), grad_div, dtype=gflat.dtype, device=gflat.device))
+    if slot_lr is not None:
+        slot_of_key = torch.clamp(segments // b, max=S - 1).long()
+        gflat = gflat * slot_lr[slot_of_key][:, None]
+    pad_mask = (segments < S * b).to(torch.float32)  # [L] 0 on pad keys
+    ins_of_key = (segments % b).long()
+    valid = pad_mask if ins_weight is None else pad_mask * ins_weight[ins_of_key]
+    gflat = gflat * pad_mask[:, None]
+    ext = torch.cat([gflat, valid[:, None], (labels[ins_of_key] * valid)[:, None]], dim=1)
+    lengths = (offsets[1:] - offsets[:-1]).long()
+    # the lengths sum to L by construction: unsafe=True skips the check
+    summed = torch.segment_reduce(ext[order], "sum", lengths=lengths, axis=0, unsafe=True)
+    return summed[:, :-2], summed[:, -2], summed[:, -1]
+
+
+def merge_rows_cuda(
+    gflat: torch.Tensor,
+    order: torch.Tensor,
+    offsets: torch.Tensor,
+    segments: torch.Tensor,
+    labels: torch.Tensor,
+    num_slots: int,
+    batch_size: int,
+    ins_weight: Optional[torch.Tensor] = None,
+    slot_lr: Optional[torch.Tensor] = None,
+    grad_div: float = 1.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The push merge on the GPU: :func:`merge_rows_ref`'s result, bit for
+    bit and in its layout (views of one [U, W + 2] array), with no [L, ...]
+    array built.
+
+    ``gflat`` is an f32 [L, W] CUDA tensor (1 <= W <= MERGE_MAX_WIDTH), ``order`` an
+    int64 [L] permutation, ``offsets`` int32 [U + 1], ``segments`` [L]
+    (cast to int32), ``labels``, ``ins_weight`` f32 [b] and ``slot_lr`` f32
+    [num_slots], all on its device. Launches on the current stream and
+    does not synchronise."""
+    if not gflat.is_cuda:
+        raise ValueError(f"merge_rows_cuda needs CUDA tensors, got gflat on {gflat.device}")
+    if gflat.dtype != torch.float32 or gflat.dim() != 2:
+        raise ValueError(f"gflat must be a 2-D float32 tensor, got {gflat.dtype} shape {tuple(gflat.shape)}")
+    L, W = gflat.shape
+    b = batch_size
+    geo = merge_geometry(W)
+    dev = gflat.device
+    opt = {"ins_weight": ins_weight, "slot_lr": slot_lr}
+    for name, t, dtype, n in (
+        ("order", order, torch.int64, L),
+        ("segments", segments, segments.dtype, L),
+        ("labels", labels, torch.float32, b),
+        *((k, v, torch.float32, b if k == "ins_weight" else num_slots) for k, v in opt.items() if v is not None),
+    ):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != (n,):
+            raise ValueError(
+                f"{name} must be {dtype} [{n}] on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    if offsets.device != dev or offsets.dtype != torch.int32 or offsets.dim() != 1 or offsets.shape[0] < 1:
+        raise ValueError(f"offsets must be int32 [U + 1] on {dev}, got {offsets.dtype} {tuple(offsets.shape)}")
+    U = offsets.shape[0] - 1
+    # laid out as merge_rows_ref's reduction, so what reads the views reads
+    # the same strides (a row reduction over them keeps its order)
+    out = torch.empty((U, W + 2), dtype=torch.float32, device=dev)
+    if U == 0:
+        return out[:, :-2], out[:, -2], out[:, -1]
+    gflat, order, offsets, labels = (t.contiguous() for t in (gflat, order, offsets, labels))
+    segments = segments.to(torch.int32).contiguous()
+    ins_weight, slot_lr = (None if t is None else t.contiguous() for t in (ins_weight, slot_lr))
+    heavy = torch.empty((U * geo.min_slabs + L // geo.slab_keys + 1,), dtype=torch.int64, device=dev)
+    counters = torch.empty((2,), dtype=torch.int32, device=dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    fn = load_library("merge_rows.cu").pbx_merge_rows_f32
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = fn(
+            gflat.data_ptr(),
+            order.data_ptr(),
+            offsets.data_ptr(),
+            segments.data_ptr(),
+            labels.data_ptr(),
+            None if ins_weight is None else ins_weight.data_ptr(),
+            None if slot_lr is None else slot_lr.data_ptr(),
+            float(grad_div),
+            int(grad_div != 1.0),
+            U,
+            W,
+            num_slots,
+            b,
+            out.data_ptr(),
+            heavy.data_ptr(),
+            counters.data_ptr(),
+            geo.group,
+            geo.cols,
+            geo.slabs,
+            geo.heavy_min,
+            geo.slab_keys,
+            geo.min_slabs,
+            geo.max_slabs,
+            geo.stage_floats,
+            3 * n_sm,  # heavy blocks: 73 KB of shared memory each
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"merge_rows_cuda launch failed: cudaError {rc}")
+    launch_counts["merge_rows_cuda"] += 1
+    return out[:, :-2], out[:, -2], out[:, -1]

@@ -31,9 +31,10 @@ row-resolved key stream lives on the device for the pass:
 The arrays a batch gets are those ``BatchPacker.pack`` ships from the host
 (slot-major flat order, pads -> padding row / ``U_pad - 1`` / the ``S*B``
 trash segment) but for the order of the unique rows: sorted here, first
-occurrence there. The step's merge sorts by ``inverse`` stably, so each
-row's gradient sums the same keys in the same flat order either way, and
-the trained state is the same bits.
+occurrence there. The step's merge takes the keys in stable order of
+``inverse`` (here the builder's own sort, ``merge_order``), so each row's
+gradient sums the same keys in the same flat order either way, and the
+trained state is the same bits.
 
 On a single-host mesh (:func:`ensure_sharded`,
 :func:`build_mesh_device_batch`, :func:`make_resident_mesh_superstep`)
@@ -262,7 +263,10 @@ def build_device_batch(
     and its cumsum number them. ``uniq_rows`` is a scatter of each first
     occurrence to its number, every other position going to the ``U_pad -
     1`` slot with the padding row, so all writes to one index carry the
-    same value; ``inverse`` is a scatter over ``perm``, a permutation."""
+    same value; ``inverse`` is a scatter over ``perm``, a permutation.
+    ``merge_order`` is ``perm`` and ``merge_offsets`` [U_pad + 1] int32
+    where each unique row's keys start in it: the push merge's order, so
+    the step sorts nothing a second time."""
     S, B = cfg.num_slots, cfg.batch_size
     L_pad, U_pad = rp.L_pad, rp.U_pad
     idx = idx.long()
@@ -282,11 +286,16 @@ def build_device_batch(
         0, torch.where(first, segid, U_pad - 1).long(), torch.where(first, sorted_rows, rp.pad_row)
     )
     inverse = torch.empty((L_pad,), dtype=torch.int32, device=idx.device).scatter_(0, perm, segid)
+    # perm is argsort(inverse, stable=True): it lists the keys by segid, and
+    # each segid's keys in flat order; the push merge sums in that order
+    bounds = torch.arange(U_pad + 1, dtype=torch.int32, device=idx.device)
     batch = {
         "uniq_rows": uniq_rows,
         "inverse": inverse,
         "segments": segments,
         "labels": rp.labels.index_select(0, idx),
+        "merge_order": perm,
+        "merge_offsets": torch.searchsorted(segid, bounds, out_int32=True),
     }
     if rp.dense is not None:
         batch["dense"] = rp.dense.index_select(0, idx)

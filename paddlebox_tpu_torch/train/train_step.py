@@ -14,8 +14,9 @@ segment ids and padding.
 
 Every reduction on the training path has a fixed order, so a step gives
 the same bits on every run on the card: the per-row gradient merge is a
-stable sort by row then a lengths-based ``segment_reduce``, the seqpool is
-one too, the no-dedup push is a sorted ``index_put_(accumulate=True)``, and
+stable sort by row then each row's keys summed in that order (the
+``merge_rows_cuda`` kernel, or its plain segment reduction), the seqpool is
+a lengths-based ``segment_reduce``, the no-dedup push is a sorted ``index_put_(accumulate=True)``, and
 the gradient with respect to the pulled records is taken at ``flat`` (a
 leaf), so the ``index_select`` by ``inverse`` never runs backward through
 float atomics. The push writes ``state.table`` in place where the JAX
@@ -37,11 +38,12 @@ from paddlebox_tpu_torch.ops.pull_push import (
     pull_sparse_rows_extended,
     push_sparse_rows,
 )
-from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm, segment_sum, sum_pool
+from paddlebox_tpu_torch.ops.cuda_kernels import merge_order, merge_rows_cuda, merge_rows_ref
+from paddlebox_tpu_torch.ops.seqpool_cvm import fused_seqpool_cvm, sum_pool
 from paddlebox_tpu_torch.table.optimizers import SparseOptimizerConfig
 from paddlebox_tpu_torch.table.value_layout import ValueLayout
 from paddlebox_tpu_torch.train.dense_opt import Adam, tree_map
-from paddlebox_tpu_torch.utils.trace import span_with_backward
+from paddlebox_tpu_torch.utils.trace import record_event, span_with_backward
 
 
 class TrainState(NamedTuple):
@@ -189,29 +191,29 @@ def scale_and_merge_grads(
     num_segments: int,
     ins_weight: Optional[torch.Tensor] = None,  # [b] ghosts -> 0 show/clk
     grad_div: float = 1.0,
+    order: Optional[torch.Tensor] = None,  # [L] argsort(inverse, stable=True)
+    offsets: Optional[torch.Tensor] = None,  # [num_segments + 1] int32 run starts
 ):
-    """Push-side merge: slot-lr scale, pad mask, per-position sums.
+    """Push-side merge: slot-lr scale, pad mask, per-position sums, under
+    the span ``push_merge``.
 
     Returns (merged grads, show counts, clk counts), each [num_segments, ...].
     ``grad_div`` rescales a rank's local-mean grads to the global mean on a
-    mesh (a tensor divisor: a scalar one may multiply by its reciprocal)."""
-    S, b = cfg.num_slots, cfg.batch_size
-    if grad_div != 1.0:
-        gflat = torch.div(gflat, torch.full((), grad_div, dtype=gflat.dtype, device=gflat.device))
-    if cfg.slot_lr is not None:
-        slot_of_key = torch.clamp(segments // b, max=S - 1).long()
-        lr_tab = torch.tensor(cfg.slot_lr, dtype=torch.float32, device=gflat.device)
-        gflat = gflat * lr_tab[slot_of_key][:, None]
-    pad_mask = (segments < S * b).to(torch.float32)  # [L] 0 on pad keys
-    ins_of_key = (segments % b).long()
-    valid = pad_mask if ins_weight is None else pad_mask * ins_weight[ins_of_key]
-    gflat = gflat * pad_mask[:, None]
-    # one segment reduction for grads + show + clk (PushMergeCopy parity)
-    ext = torch.cat(
-        [gflat, valid[:, None], (labels[ins_of_key] * valid)[:, None]], dim=1
-    )
-    summed = segment_sum(ext, inverse, num_segments)
-    return summed[:, :-2], summed[:, -2], summed[:, -1]
+    mesh. A feed that has already sorted ``inverse`` (the resident batch
+    builder) passes its ``order`` and ``offsets``; else they are computed
+    here (``merge_order``). CUDA tensors go through ``merge_rows_cuda``,
+    CPU tensors through its plain version, with the same bits."""
+    with record_event("push_merge", "model"):
+        if order is None:
+            order, offsets = merge_order(inverse, num_segments)
+        slot_lr = None
+        if cfg.slot_lr is not None:
+            slot_lr = torch.tensor(cfg.slot_lr, dtype=torch.float32, device=gflat.device)
+        merge = merge_rows_cuda if gflat.is_cuda else merge_rows_ref
+        return merge(
+            gflat, order, offsets, segments, labels, cfg.num_slots, cfg.batch_size,
+            ins_weight=ins_weight, slot_lr=slot_lr, grad_div=grad_div,
+        )
 
 
 def adjusted_loss_weight(
@@ -368,9 +370,11 @@ def make_train_step(
             gflat = torch.where(finite, gflat, zero)
 
         # sparse push: slot-lr scaling at flat resolution, then grads merge
-        # per unique row (PushMergeCopy parity)
+        # per unique row (PushMergeCopy parity), in the feed's order where
+        # it sorted the keys already
         guniq, show_counts, clk_counts = scale_and_merge_grads(
-            cfg, gflat, segments, inverse, labels, num_segments=U, ins_weight=ins_weight
+            cfg, gflat, segments, inverse, labels, num_segments=U, ins_weight=ins_weight,
+            order=batch.get("merge_order"), offsets=batch.get("merge_offsets"),
         )
         if finite is not None:
             # a zeroed push is an exact identity on the table; where, not

@@ -12,7 +12,7 @@ reference's multi-hot trainer: the losses and preds, the pass's table rows
 move a weight by about lr times its gradient's sign, so a param whose
 gradient rounding can flip is held to 2 lr a step (see
 ``test_torch_zoo.py``); the rest agree within 1e-5. The spans of the model
-and the shared seqpool come once a step, and the ``pooled_keys`` counter
+and the shared seqpool and push merge come once a step, and the ``pooled_keys`` counter
 counts the batches' keys.
 """
 
@@ -211,6 +211,6 @@ def test_two_train_pass_steps_match_the_multihot_reference(tmp_path, fp32_tower)
 def test_model_and_seqpool_spans_and_the_pooled_keys(tmp_path):
     steps = 2
     prog, _, _, _, batches = _train(tmp_path, steps=steps, spans=True)
-    for name in ("dlrm.bottom", "dlrm.cross", "dlrm.cross.bwd", "dlrm.top", "seqpool", "seqpool.bwd"):
+    for name in ("dlrm.bottom", "dlrm.cross", "dlrm.cross.bwd", "dlrm.top", "seqpool", "seqpool.bwd", "push_merge"):
         assert prog["spans"][name] == steps, name
     assert prog["pooled_keys"] == sum(int(np.count_nonzero(b["keys"])) for b in batches)

@@ -88,7 +88,7 @@ def test_writeback_kernel_refuses_bad_inputs():
             torch.zeros((4, 3)), torch.zeros(2, dtype=torch.int32), torch.zeros((2, 3))
         )
     assert ck.launch_counts["write_rows_cuda"] == before
-    assert set(ck.launch_counts) == {"pull_rows_cuda", "write_rows_cuda"}
+    assert set(ck.launch_counts) == {"pull_rows_cuda", "write_rows_cuda", "merge_rows_cuda"}
 
 
 def _tile_edges(widths=(1, 4, 21, 128)):

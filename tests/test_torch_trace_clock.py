@@ -211,8 +211,10 @@ def test_no_profiler_enters_no_record_function(pass_files, monkeypatch, ring):
     assert entered == []
     assert bool(ring_events) == ring
     _call(pass_files, ring=ring, profiler=True)
-    # and the shared step's seqpool spans, forward and backward, a step each
-    assert collections.Counter(entered) == collections.Counter({**TENTPOLE, "seqpool": 4, "seqpool.bwd": 4})
+    # and the shared step's seqpool spans, forward and backward, and its
+    # push merge, a step each
+    assert collections.Counter(entered) == collections.Counter({**TENTPOLE, "seqpool": 4, "seqpool.bwd": 4,
+                                                                "push_merge": 4})
 
 
 def _layer_reading(spans, steps):
