@@ -2298,7 +2298,7 @@ def bench_boundary_run(args, cfg, lay, schema, files1, files2, pipelined, ck):
     counts = dict(ck.launch_counts)
     nums["wire_drain"] = wire_delta(wire1)
     nums["dropped"] = ended["dropped"]
-    if min(counts.values()) == 0:
+    if not (counts["pull_rows_cuda"] and counts["write_rows_cuda"]):  # a boundary merges no gradients
         raise AssertionError(f"a kernel of the boundary never launched: {counts}")
     # the boundary's other gathers against the plain version at their
     # shapes (these launches are not the path's): the departing rows and
@@ -3438,9 +3438,8 @@ def mesh_rank(plan, spec):
 
     # the host syncs of one resident mesh superstep: the sync debug mode's
     # warnings from Python and those written by threads without it
-    rp = tr._resident_cache[2]
-    sstep = tr._resident_superstep(rp, False)
-    idx_dev = tr._idx_cache[2][:RESIDENT_K]
+    sstep = tr.resident.steps[False, False]  # (pv, eval_mode): built by the passes above
+    idx_dev = tr.resident.index[:RESIDENT_K]
     plan.reset_calls()
     state = tr._state
     holder = {}
@@ -3489,7 +3488,7 @@ def mesh_rank(plan, spec):
         prof = tr.train_pass(ds, n_batches=MESH_PACKER, profile=True)["profile"]
         res["packer_profile_ms"] = {k: v / MESH_PACKER * 1e3 for k, v in prof.items()}
         res["packer_coll_ms"] = meter.secs / MESH_PACKER * 1e3
-        packer = tr._packer_cache[2]
+        packer = tr._get_packer(ds)
         idx = list(ds.batch_indices(MESH_PACKER))
         t0 = time.perf_counter()
         for b in idx:
@@ -3568,7 +3567,7 @@ def mesh_rank(plan, spec):
     kms = {}
     for name, extra in (("kstep", {}), ("kstep_check_nan", {"check_nan": True})):
         kt = trainer(cfg_=dataclasses.replace(cfg, dense_sync_mode="kstep", param_sync_step=2, **extra))
-        kt._resident_cache = tr._resident_cache
+        kt.resident = tr.resident.share()
         kt.train_pass(ds, n_batches=RESIDENT_K)  # warm
         torch.cuda.synchronize(dev)
         plan.reset_calls()
@@ -3959,7 +3958,7 @@ def mesh_join_rank(plan, spec):
                        metric_registry=registry)
         t.init_params()
         if share is not None:
-            t._resident_cache, t._pv_feed_cache = share._resident_cache, share._pv_feed_cache
+            t.resident = share.resident.share()
         return t
 
     # ---- the main path: prepare, a warm-up epoch, two timed epochs and an
@@ -4055,7 +4054,7 @@ def mesh_join_rank(plan, spec):
 
     # the owner's ids of the first join batch (the pv packer's frozen K),
     # and both kernels bitwise there
-    db = packer_tr._packer_cache[2].pack_sharded(pvp.idx[0], n)
+    db = packer_tr._get_packer(ds).pack_sharded(pvp.idx[0], n)
     del packer_tr
     shard = jtr.trained_table_device()
     recv = torch.from_numpy(np.ascontiguousarray(db.req_ranks[:, r, :].reshape(-1))).to(dev)
@@ -4152,7 +4151,7 @@ def mesh_join_rank(plan, spec):
     dtr = CTRTrainer(jtr.model, upd_cfg, dense_opt=Adam(1e-3), plan=plan, dump_pool=pool)
     dtr.params = {k: v.clone() for k, v in jtr.params.items()}
     dtr.opt_state = dtr.dense_opt.init(dtr.params)
-    dtr._resident_cache = utr._resident_cache
+    dtr.resident = utr.resident.share()
     sync()
     ck.reset_launch_counts()
     dtr.train_pass(ds, n_batches=MESH_OPTION_STEPS)
@@ -4602,11 +4601,11 @@ def resident_path_check(ck, tr, what, write=True):
     table. Returns the max abs error."""
     from paddlebox_tpu_torch.train import build_device_batch
 
-    res, part = tr._resident_cache, tr._idx_cache
-    if tr.last_feed != "resident" or res is None or part is None or part[0] is not res[2]:
+    res = tr.resident
+    if tr.last_feed != "resident" or res is None or res.index is None:
         raise AssertionError(f"{what}: the last pass left no resident pass to take the kernels' ids from "
                              f"(feed {tr.last_feed})")
-    rows = build_device_batch(res[2], tr.cfg, part[2][0])["uniq_rows"]
+    rows = build_device_batch(res.rp, tr.cfg, res.index[0])["uniq_rows"]
     tab = tr.trained_table_device().clone()
     what = f"{what} R={tab.shape[0]} W={tab.shape[1]} U={rows.shape[0]} int32"
     errs = [check_gather(ck, tab, rows, what)]
@@ -5368,11 +5367,11 @@ def multihost_rank(plan, spec):
         out, losses, res["resident"] = _mh_pass(plan, meter, "resident", lambda: _steps(tr, ds, MH_TIMED), MH_TIMED)
         if tr.last_feed != "resident":
             raise AssertionError(f"multihost rank {r}: the main pass took the {tr.last_feed} feed")
-        rp = tr._resident_cache[2]
+        rp = tr.resident.rp
         res.update(resident_loss=out["loss"], auc=out["auc"], L_pad=rp.L_pad, K_pad=rp.K_pad,
                    resident_losses=losses.tolist())
         shard = tr._state.table
-        owner = _owner_ids(plan, rp, tr.cfg, tr._idx_cache[2][0], shard, dev)
+        owner = _owner_ids(plan, rp, tr.cfg, tr.resident.index[0], shard, dev)
         res["kernel_err"] = _owner_check(ck, shard, owner, f"multihost 2 hosts rank {r}")
         res["owner_R"] = shard.shape[0]
         arrays.update({f"owner_{k}": v.cpu().numpy() for k, v in owner.items()})
@@ -5383,7 +5382,7 @@ def multihost_rank(plan, spec):
             _, _, res["packer"] = _mh_pass(plan, meter, "packer", lambda: _steps(tr, ds, MH_PACKER), MH_PACKER)
             if tr.last_feed != "packer":
                 raise AssertionError(f"multihost rank {r}: the packer pass took the {tr.last_feed} feed")
-            packer = tr._packer_cache[2]
+            packer = tr._get_packer(ds)
             idx = list(ds.batch_indices(MH_PACKER))
             t0 = time.perf_counter()
             for blk in idx:
@@ -5551,10 +5550,10 @@ def multihost_four_rank(plan, spec):
         out, losses, res["resident"] = _mh_pass(plan, meter, "resident", lambda: _steps(tr, ds, MH_FOUR), MH_FOUR)
         if tr.last_feed != "resident":
             raise AssertionError(f"multihost four rank {r}: the {tr.last_feed} feed")
-        rp = tr._resident_cache[2]
+        rp = tr.resident.rp
         res.update(resident_losses=losses.tolist(), auc=out["auc"], L_pad=rp.L_pad, K_pad=rp.K_pad)
         shard = tr._state.table
-        owner = _owner_ids(plan, rp, tr.cfg, tr._idx_cache[2][0], shard, dev)
+        owner = _owner_ids(plan, rp, tr.cfg, tr.resident.index[0], shard, dev)
         res["kernel_err"] = _owner_check(ck, shard, owner, f"multihost 4 hosts rank {r}")
         res["owner_R"] = shard.shape[0]
         arrays.update({f"owner_{k}": v.cpu().numpy() for k, v in owner.items()})
@@ -5942,7 +5941,7 @@ def supervised_hosts_rank(plan, spec):
         # this host's request buckets all-to-all'd: a collective, at the
         # same point of the day on every host
         held["shard"] = tr._state.table
-        held["owner"] = _owner_ids(plan, tr._resident_cache[2], tr.cfg, tr._idx_cache[2][0], held["shard"], dev)
+        held["owner"] = _owner_ids(plan, tr.resident.rp, tr.cfg, tr.resident.index[0], held["shard"], dev)
 
     try:
         res["clean"], _ = _host_day(plan, spec, ctx, "clean", before_last_end=owner_ids)
@@ -7027,8 +7026,8 @@ def expand_trainer_check(args, dev, card, ck, pull_push, ds):
             plain_counts = dict(ck.launch_counts)
     finally:
         pull_push.pull_rows_cuda, pull_push.write_rows_cuda = saved
-    if any(plain_counts.values()):
-        raise AssertionError(f"the plain twin launched kernels: {plain_counts}")
+    if plain_counts["pull_rows_cuda"] or plain_counts["write_rows_cuda"]:  # its push merge stays on the card
+        raise AssertionError(f"the plain twin launched the gather or the writeback: {plain_counts}")
     runs["packer, plain gather and writeback"] = (*lt_state(twin), torch.stack(tl).cpu())
     ref = runs["expand_resident"]
     for name, got in runs.items():
@@ -7048,10 +7047,8 @@ def expand_trainer_check(args, dev, card, ck, pull_push, ds):
                              f"{int(touched.sum())} touched")
     # the host syncs of one resident superstep, on the resident run's trainer
     tr = trainers["expand_resident"]
-    rp = tr._resident_cache[2]
-    with flags(resident_scan_batches=LT_K):
-        sstep = tr._resident_superstep(rp, False)
-    idx_dev = tr._idx_cache[2][:LT_K]
+    sstep = tr.resident.steps[False, False]  # (pv, eval_mode): built by its pass
+    idx_dev = tr.resident.index[:LT_K]
     state = tr._state
     n_syncs, sites = host_syncs(lambda: sstep(state, idx_dev))
     if n_syncs:
@@ -7232,8 +7229,8 @@ def strategy_check(args, dev, card, ck, ds, tr):
     model = DeepFM(NUM_SLOTS, lay.pull_width, lay.embedx_dim, hidden=HIDDEN,
                    generator=torch.Generator().manual_seed(seed)).to(dev)
     plain_apply = lambda p, x, d: functional_call(model, p, (x, d))
-    rp = tr._resident_cache[2]
-    idx = tr._idx_cache[2][:LT_STEPS]
+    rp = tr.resident.rp
+    idx = tr.resident.index[:LT_STEPS]
     table0 = ds.device_table.reshape(-1, lay.width).copy()
     params0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
     opt0 = Adam(1e-3).init(params0)
@@ -7300,10 +7297,8 @@ def strategy_check(args, dev, card, ck, ds, tr):
             counts["strategy_gradient_merge"] = c = dict(ck.launch_counts)
             if c["pull_rows_cuda"] != 2 * GM_STEPS or c["write_rows_cuda"] != GM_STEPS:
                 raise AssertionError(f"gradient_merge: launches {c} for {GM_STEPS} steps")
-            rpm = t._resident_cache[2]
-            with flags(resident_scan_batches=LT_K):
-                sstep = t._resident_superstep(rpm, False)
-            state, idx_m = t._state, t._idx_cache[2][:LT_K]
+            sstep = t.resident.steps[False, False]  # (pv, eval_mode): built by its passes
+            state, idx_m = t._state, t.resident.index[:LT_K]
             gm_syncs, gm_sites = host_syncs(lambda: sstep(state, idx_m))
             if gm_syncs:
                 raise AssertionError(f"gradient_merge: a resident superstep made {gm_syncs} host syncs: {gm_sites}")
@@ -7336,9 +7331,9 @@ def long_tail_phase(args, dev, card, ck, pull_push, mesh18):
         ds = lt_dataset(args.seed + LT_SEED, files)
     counts, nums, tr = expand_trainer_check(args, dev, card, ck, pull_push, ds)
     # both kernels at the extended training shape: a resident batch's rows
-    rp = tr._resident_cache[2]
+    rp = tr.resident.rp
     tab = torch.from_numpy(ds.device_table.reshape(-1, lay.width).copy()).to(dev)
-    rows = build_device_batch(rp, tr.cfg, tr._idx_cache[2][0])["uniq_rows"]
+    rows = build_device_batch(rp, tr.cfg, tr.resident.index[0])["uniq_rows"]
     n_uniq = int((rows != rp.pad_row).sum())
     shapes = {}
     shapes["pull_rows_cuda"], gerr = kernel_shape_row(ck, dev, card, tab, rows, "expand_train", n_uniq, False)
@@ -7988,6 +7983,8 @@ def compile_cache_phase(args, card):
     process on fresh roots sharing it; the two cold ones at once, then the
     two warm ones. Returns the launch counts by path and the kernels' max
     abs error."""
+    from paddlebox_tpu_torch.ops import cuda_kernels as ck
+
     t_phase = time.perf_counter()
     rng = np.random.default_rng(args.seed + CC_SEED)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_compile_cache_") as tmp:

@@ -376,9 +376,9 @@ define_flag(
     60.0,
     "time budget per streaming micro-pass: the StreamSupervisor collects "
     "tailed records for this long, then cuts them into one pass and "
-    "publishes a delta through the normal watermark path (the minute-level "
-    "cadence of ROADMAP item 2; the freshness SLO is roughly this plus "
-    "train+publish+poll time)",
+    "publishes a delta through the normal watermark path (a minute-level "
+    "cadence; the freshness SLO is roughly this plus train+publish+poll "
+    "time)",
     validator=_validate_positive,
 )
 define_flag(

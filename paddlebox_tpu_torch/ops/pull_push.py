@@ -72,6 +72,17 @@ def embedx_active_mask(
     return (show >= embedx_threshold)[:, None]
 
 
+def _pull_gated(table: torch.Tensor, rows: torch.Tensor, layout: ValueLayout, embedx_threshold: float, scale):
+    """(gathered rows [U, width], pull records [U, pull_width]): the gather,
+    the embedx gate and the scale that both pulls share."""
+    picked = gather_rows(table, rows)  # [U, width]
+    cvm_block = picked[:, : layout.cvm_offset]
+    embedx = picked[:, layout.embedx_col : layout.embedx_col + layout.embedx_dim]
+    active = embedx_active_mask(layout, picked[:, layout.SHOW], embedx_threshold)
+    embedx = torch.where(active, embedx * scale, torch.zeros((), dtype=embedx.dtype, device=embedx.device))
+    return picked, torch.cat([cvm_block, embedx], dim=1)
+
+
 def pull_sparse_rows(
     table: torch.Tensor,  # [rows, width] f32
     rows: torch.Tensor,  # int32 [U] (deduped, padded with the padding row)
@@ -85,13 +96,7 @@ def pull_sparse_rows(
     show count has not reached the activation threshold or, on VARIABLE
     layouts, per column as the graded dims unlock.
     """
-    picked = gather_rows(table, rows)  # [U, width]
-    cvm_block = picked[:, : layout.cvm_offset]
-    embedx = picked[:, layout.embedx_col : layout.embedx_col + layout.embedx_dim]
-    active = embedx_active_mask(layout, picked[:, layout.SHOW], embedx_threshold)
-    embedx = torch.where(active, embedx * scale, torch.zeros((), dtype=embedx.dtype, device=embedx.device))
-    return torch.cat([cvm_block, embedx], dim=1)
-
+    return _pull_gated(table, rows, layout, embedx_threshold, scale)[1]
 
 
 def pull_sparse_rows_extended(
@@ -107,16 +112,12 @@ def pull_sparse_rows_extended(
     is gated by row (an independent second embedding)."""
     if layout.expand_dim == 0:
         raise ValueError("layout has no expand block (expand_embed_dim == 0)")
-    picked = gather_rows(table, rows)
-    zero = torch.zeros((), dtype=picked.dtype, device=picked.device)
-    show = picked[:, layout.SHOW]
-    active = embedx_active_mask(layout, show, embedx_threshold)
-    row_active = (show >= embedx_threshold)[:, None]
-    embedx = picked[:, layout.embedx_col : layout.embedx_col + layout.embedx_dim]
-    embedx = torch.where(active, embedx * scale, zero)
+    picked, pulled = _pull_gated(table, rows, layout, embedx_threshold, scale)
+    row_active = (picked[:, layout.SHOW] >= embedx_threshold)[:, None]
     expand = picked[:, layout.expand_col : layout.expand_col + layout.expand_dim]
-    expand = torch.where(row_active, expand * scale, zero)
-    return torch.cat([picked[:, : layout.cvm_offset], embedx], dim=1), expand
+    zero = torch.zeros((), dtype=picked.dtype, device=picked.device)
+    return pulled, torch.where(row_active, expand * scale, zero)
+
 
 def push_sparse_rows(
     table: torch.Tensor,  # [rows, width] f32, updated in place

@@ -2,14 +2,12 @@ from paddlebox_tpu_torch.train.dense_opt import Adam, AdamState, MultiSteps, Mul
 from paddlebox_tpu_torch.train.async_dense import AsyncDenseTable
 from paddlebox_tpu_torch.train.train_step import TrainState, TrainStepConfig, make_train_step
 from paddlebox_tpu_torch.train.resident_step import (
+    ResidentFeed,
     ResidentPass,
     ResidentPvFeed,
     build_device_batch,
     build_mesh_device_batch,
     ensure_sharded,
-    make_resident_mesh_superstep,
-    make_resident_pv_mesh_superstep,
-    make_resident_pv_superstep,
     make_resident_superstep,
 )
 from paddlebox_tpu_torch.train.sharded_step import (
@@ -49,11 +47,9 @@ __all__ = [
     "build_device_batch",
     "make_resident_superstep",
     "ResidentPvFeed",
-    "make_resident_pv_superstep",
+    "ResidentFeed",
     "ensure_sharded",
     "build_mesh_device_batch",
-    "make_resident_mesh_superstep",
-    "make_resident_pv_mesh_superstep",
     "init_sharded_train_state",
     "make_local_mesh_step",
     "make_sharded_train_step",

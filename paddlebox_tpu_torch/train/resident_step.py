@@ -19,14 +19,17 @@ row-resolved key stream lives on the device for the pass:
   and ``U_pad``, and nothing in it reads a value back to the host: no
   ``.item()``, no ``nonzero``, no boolean-mask indexing, no
   ``torch.unique``.
-- **Superstep** (:func:`make_resident_superstep`): K batches per call, a
-  plain loop over the ported ``make_train_step`` (or its eval step) where
-  the JAX package runs ``lax.scan``; the metrics come back stacked along a
-  leading K axis.
-- **Join phase** (:class:`ResidentPvFeed`,
-  :func:`make_resident_pv_superstep`): the pass's ``PvPlan`` (record
-  indices, rank matrices, ghost weights) is uploaded once, and a dispatch
-  takes a [K] slice of a device-resident ``arange`` of batch positions.
+- **Superstep** (:func:`make_resident_superstep`, the one factory): K
+  batches per call, a plain loop over the ported ``make_train_step`` (or
+  its eval step) where the JAX package runs ``lax.scan``; the metrics come
+  back stacked along a leading K axis.
+- **Join phase** (:class:`ResidentPvFeed`, the superstep's ``pv_feed=``):
+  the pass's ``PvPlan`` (record indices, rank matrices, ghost weights) is
+  uploaded once, and a dispatch takes a [K] slice of a device-resident
+  ``arange`` of batch positions.
+- **Pass scope** (:class:`ResidentFeed`): one holder per (store, working
+  set) keeps the ``ResidentPass``, the index partition it uploaded, the
+  join phase's feed and the supersteps built over them.
 
 The arrays a batch gets are those ``BatchPacker.pack`` ships from the host
 (slot-major flat order, pads -> padding row / ``U_pad - 1`` / the ``S*B``
@@ -37,15 +40,13 @@ gradient sums the same keys in the same flat order either way, and the
 trained state is the same bits.
 
 On a single-host mesh (:func:`ensure_sharded`,
-:func:`build_mesh_device_batch`, :func:`make_resident_mesh_superstep`)
-every rank holds the same resident arrays (its dataset is a replica) and
+:func:`build_mesh_device_batch`, the superstep's ``plan=``) every rank holds the same resident arrays (its dataset is a replica) and
 builds its own route buckets on its card from its slice of each global
 batch, then runs the same per-rank body as the host-packed mesh feeds
 (``train/sharded_step.py``). The join phase's mesh tier
-(``ResidentPvFeed(plan, device, mesh_plan=)``,
-:func:`make_resident_pv_mesh_superstep`) uploads only this rank's block of
-a plan built for ``n_devices = world`` and builds the rank's batch from it
-the same way.
+(``ResidentPvFeed(plan, device, mesh_plan=)``) uploads only this rank's
+block of a plan built for ``n_devices = world`` and builds the rank's
+batch from it the same way.
 
 Over several hosts (a ``ResidentPass`` built with ``plan=`` and a
 ``transport=`` of more than one rank: ``per_device``) every rank holds a
@@ -235,21 +236,35 @@ def _batch_offsets(rp: ResidentPass, idx: torch.Tensor) -> torch.Tensor:
     return rp.base.index_select(0, idx)[:, None] + torch.cat([zero, cum], dim=1)
 
 
-def _ragged_rows(rows_res: torch.Tensor, off_b: torch.Tensor, S: int, B: int, L_pad: int, pad_value: int):
-    """Batch offsets -> (rows_flat, segments, valid), each [L_pad], in
-    slot-major flat order; invalid tail positions hold ``pad_value`` and
-    the trash segment ``S*B``."""
+def _dedup_rows(rp: ResidentPass, cfg: TrainStepConfig, idx: torch.Tensor):
+    """The dedup under both batch builders, in fixed shapes: [B] record
+    indices (int64) -> ``(segments, sorted_rows, perm, real, first, seq)``,
+    each [rp.L_pad].
+
+    A ragged gather by cumsum + searchsorted lays the batch's rows out in
+    slot-major flat order, the invalid tail keyed ``rp.n_table_rows`` (past
+    every row) in the trash segment ``S*B``; a stable sort orders them
+    (``perm``), ``real`` marks the valid ones, ``first`` each row's first
+    occurrence and ``seq`` numbers those from 0 by a cumsum (int32)."""
+    S, B, inf = cfg.num_slots, cfg.batch_size, rp.n_table_rows
+    off_b = _batch_offsets(rp, idx)
     lens_flat = (off_b[:, 1:] - off_b[:, :-1]).T.reshape(-1)  # [S*B] slot-major
     starts_flat = off_b[:, :-1].T.reshape(-1)
     cum = torch.cumsum(lens_flat, dim=0, dtype=torch.int32)
-    pos = torch.arange(L_pad, dtype=torch.int32, device=off_b.device)
+    pos = torch.arange(rp.L_pad, dtype=torch.int32, device=idx.device)
     seg_c = torch.clamp(torch.searchsorted(cum, pos, right=True, out_int32=True), max=S * B - 1)
     within = pos - (cum.index_select(0, seg_c) - lens_flat.index_select(0, seg_c))
-    src = torch.clamp(starts_flat.index_select(0, seg_c) + within, 0, rows_res.shape[0] - 1)
+    src = torch.clamp(starts_flat.index_select(0, seg_c) + within, 0, rp.rows.shape[0] - 1)
     valid = pos < cum[-1]
-    rows_flat = torch.where(valid, rows_res.index_select(0, src), pad_value)
+    rows_flat = torch.where(valid, rp.rows.index_select(0, src), inf)
     segments = torch.where(valid, seg_c, S * B)  # seg_c IS slot*B + ins
-    return rows_flat, segments, valid
+    sorted_rows, perm = torch.sort(rows_flat, stable=True)
+    real = sorted_rows < inf
+    first = torch.cat(
+        [torch.ones((1,), dtype=torch.bool, device=idx.device), sorted_rows[1:] != sorted_rows[:-1]]
+    ) & real
+    seq = torch.cumsum(first.to(torch.int32), dim=0, dtype=torch.int32) - 1
+    return segments, sorted_rows, perm, real, first, seq
 
 
 def build_device_batch(
@@ -258,28 +273,17 @@ def build_device_batch(
     """[B] record indices on the device -> the step's batch dict, built on
     the device with shapes fixed by ``rp.L_pad`` and ``rp.U_pad``.
 
-    The unique rows are the valid rows sorted (stable ``torch.sort``, the
-    invalid ones keyed ``n_table_rows`` as +inf); a first-occurrence flag
-    and its cumsum number them. ``uniq_rows`` is a scatter of each first
-    occurrence to its number, every other position going to the ``U_pad -
-    1`` slot with the padding row, so all writes to one index carry the
-    same value; ``inverse`` is a scatter over ``perm``, a permutation.
-    ``merge_order`` is ``perm`` and ``merge_offsets`` [U_pad + 1] int32
-    where each unique row's keys start in it: the push merge's order, so
-    the step sorts nothing a second time."""
-    S, B = cfg.num_slots, cfg.batch_size
+    The unique rows are numbered by :func:`_dedup_rows`. ``uniq_rows`` is a
+    scatter of each first occurrence to its number, every other position
+    going to the ``U_pad - 1`` slot with the padding row, so all writes to
+    one index carry the same value; ``inverse`` is a scatter over ``perm``,
+    a permutation. ``merge_order`` is ``perm`` and ``merge_offsets``
+    [U_pad + 1] int32 where each unique row's keys start in it: the push
+    merge's order, so the step sorts nothing a second time."""
     L_pad, U_pad = rp.L_pad, rp.U_pad
     idx = idx.long()
-    off_b = _batch_offsets(rp, idx)
-    rows_flat, segments, valid = _ragged_rows(rp.rows, off_b, S, B, L_pad, rp.pad_row)
-    sort_keys = torch.where(valid, rows_flat, rp.n_table_rows)
-    sorted_rows, perm = torch.sort(sort_keys, stable=True)
-    real = sorted_rows < rp.n_table_rows
-    first = torch.cat(
-        [torch.ones((1,), dtype=torch.bool, device=idx.device), sorted_rows[1:] != sorted_rows[:-1]]
-    ) & real
-    segid = torch.clamp(torch.cumsum(first.to(torch.int32), dim=0, dtype=torch.int32) - 1, max=U_pad - 1)
-    segid = torch.where(real, segid, U_pad - 1)
+    segments, sorted_rows, perm, real, first, seq = _dedup_rows(rp, cfg, idx)
+    segid = torch.where(real, torch.clamp(seq, max=U_pad - 1), U_pad - 1)
     # U_pad > the most unique rows of any batch, so no first occurrence
     # lands on U_pad - 1
     uniq_rows = torch.full((U_pad,), rp.pad_row, dtype=torch.int32, device=idx.device).scatter_(
@@ -300,32 +304,6 @@ def build_device_batch(
     if rp.dense is not None:
         batch["dense"] = rp.dense.index_select(0, idx)
     return batch
-
-
-def make_resident_superstep(
-    model_apply: Callable,
-    dense_opt,
-    cfg: TrainStepConfig,
-    rp: ResidentPass,
-    eval_mode: bool = False,
-) -> Callable:
-    """Build ``superstep(state, idx_block [K, B]) -> (state, metrics)``.
-
-    One call runs K full train steps (``eval_mode``: eval steps) in order,
-    each on a batch built on the device; every metric comes back stacked
-    along a leading K axis. The per-step body is the classic
-    ``make_train_step``: only the batch assembly is resident."""
-    raw_step = make_train_step(model_apply, cfg, dense_opt, eval_mode=eval_mode)
-
-    def superstep(state, idx_block: torch.Tensor):
-        ms = []
-        for j in range(idx_block.shape[0]):
-            state, m = raw_step(state, build_device_batch(rp, cfg, idx_block[j]))
-            ms.append(m)
-        return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
-
-    return superstep
-
 
 
 # ---- mesh (single-host) resident tier --------------------------------------
@@ -388,19 +366,11 @@ def build_mesh_device_batch(
     shard-major (shard*cap + rank), so the sort by row groups them by
     owner; a first-occurrence scan numbers each shard's unique rows; pads
     ride in slot K-1 of shard 0, whose request is the padding row."""
-    S, b = cfg.num_slots, cfg.batch_size
     L_pad, K = rp.L_pad, rp.K_pad
     idx = idx.long()
     dev = idx.device
-    INF = ns * cap  # the invalid tail's row, sorted last
-    off_b = _batch_offsets(rp, idx)
-    rows_flat, segments, _ = _ragged_rows(rp.rows, off_b, S, b, L_pad, INF)
-    sorted_rows, perm = torch.sort(rows_flat, stable=True)
-    real = sorted_rows < INF
-    first = torch.cat(
-        [torch.ones((1,), dtype=torch.bool, device=dev), sorted_rows[1:] != sorted_rows[:-1]]
-    ) & real
-    uniq_seq = torch.cumsum(first.to(torch.int32), dim=0, dtype=torch.int32) - 1
+    # rp.n_table_rows (ns * cap) keys the invalid tail, sorted last
+    segments, sorted_rows, perm, real, first, uniq_seq = _dedup_rows(rp, cfg, idx)
     shard = torch.where(real, sorted_rows // cap, 0)
     # unique rows a shard: an integer scatter-add, the same in any order
     cnts = torch.zeros((ns,), dtype=torch.int32, device=dev).scatter_add_(
@@ -426,39 +396,6 @@ def build_mesh_device_batch(
         out["dense"] = rp.dense.index_select(0, idx)
     return out
 
-
-def make_resident_mesh_superstep(
-    model_apply: Callable,
-    dense_opt,
-    cfg: TrainStepConfig,
-    rp: ResidentPass,
-    plan,
-    eval_mode: bool = False,
-) -> Callable:
-    """``superstep(state, idx_block [K, B]) -> (state, metrics)`` on a
-    single-host mesh: ``idx_block`` holds K GLOBAL batches (B = world * b
-    record indices, record ``i`` to rank ``i // b``); this rank builds its
-    batch from its block and runs the mesh step body
-    (``make_local_mesh_step``: the host-packed feeds' numerics). Metrics
-    come back stacked along a leading K axis. Over several hosts
-    (``rp.per_device``) ``idx_block`` holds this host's own batches, [K, b]."""
-    from paddlebox_tpu_torch.train.sharded_step import make_local_mesh_step
-
-    local_step = make_local_mesh_step(model_apply, dense_opt, cfg, plan, eval_mode)
-    ns, cap = rp.ws.n_mesh_shards, rp.ws.capacity
-    b = cfg.batch_size
-    blk = 0 if rp.per_device else plan.rank
-    lo, hi = blk * b, (blk + 1) * b
-
-    def superstep(state, idx_block: torch.Tensor):
-        ms = []
-        for k in range(idx_block.shape[0]):
-            batch = build_mesh_device_batch(rp, cfg, idx_block[k, lo:hi], ns, cap)
-            state, m = local_step(state, batch)
-            ms.append(m)
-        return state, {key: torch.stack([m[key] for m in ms]) for key in ms[0]}
-
-    return superstep
 
 # ---- resident pv (join-phase) tier -----------------------------------------
 
@@ -514,68 +451,119 @@ class ResidentPvFeed:
         self.positions = torch.arange(self.n_batches, dtype=torch.int64, device=device)
 
 
-def make_resident_pv_superstep(
+def make_resident_superstep(
     model_apply: Callable,
     dense_opt,
     cfg: TrainStepConfig,
     rp: ResidentPass,
-    feed: ResidentPvFeed,
     eval_mode: bool = False,
+    *,
+    plan=None,
+    pv_feed: Optional[ResidentPvFeed] = None,
 ) -> Callable:
-    """``superstep(state, pos_block [K]) -> (state, metrics)``: the pv
-    analog of :func:`make_resident_superstep`. The K batches' record
-    indices, rank matrices and weights are one ``index_select`` each of the
-    resident plan; batch assembly is ``build_device_batch`` (ghosts are
+    """Build ``superstep(state, block) -> (state, metrics)``.
+
+    One call runs K full train steps (``eval_mode``: eval steps) in order,
+    each on a batch built on the device; every metric comes back stacked
+    along a leading K axis. ``block`` is [K, B] record indices, or with a
+    ``pv_feed`` [K] positions into the resident plan, whose indices, rank
+    matrices and weights are one ``index_select`` each a call (ghosts are
     ordinary repeated records whose weight 0 adds no loss, no show/clk and
-    no AUC, as on the host-packed pv feeds)."""
-    raw_step = make_train_step(model_apply, cfg, dense_opt, eval_mode=eval_mode)
+    no AUC, as on the host-packed pv feeds).
 
-    def superstep(state, pos_block: torch.Tensor):
-        idx = feed.idx.index_select(0, pos_block)
-        ro = feed.rank_offset.index_select(0, pos_block)
-        w = feed.ins_weight.index_select(0, pos_block)
+    Without a mesh ``plan`` the step is the classic ``make_train_step`` on
+    :func:`build_device_batch`: only the batch assembly is resident. With
+    one (a single-host mesh) it is the host-packed mesh feeds' per-rank
+    body (``make_local_mesh_step``) on :func:`build_mesh_device_batch`:
+    ``block`` holds K GLOBAL batches (B = world * b record indices, record
+    ``i`` to rank ``i // b``) and this rank builds its batch from its
+    block. A pv feed, and a pass over several hosts (``rp.per_device``),
+    hold the rank's own [b] already."""
+    if plan is None:
+        step = make_train_step(model_apply, cfg, dense_opt, eval_mode=eval_mode)
+
+        def build(idx):
+            return build_device_batch(rp, cfg, idx)
+
+        own = slice(None)
+    else:
+        from paddlebox_tpu_torch.train.sharded_step import make_local_mesh_step
+
+        step = make_local_mesh_step(model_apply, dense_opt, cfg, plan, eval_mode)
+        ns, cap = rp.ws.n_mesh_shards, rp.ws.capacity
+
+        def build(idx):
+            return build_mesh_device_batch(rp, cfg, idx, ns, cap)
+
+        b = cfg.batch_size
+        blk = 0 if pv_feed is not None or rp.per_device else plan.rank
+        own = slice(blk * b, (blk + 1) * b)
+
+    def superstep(state, block: torch.Tensor):
+        idx = block
+        if pv_feed is not None:
+            idx = pv_feed.idx.index_select(0, block)
+            ro = pv_feed.rank_offset.index_select(0, block)
+            w = pv_feed.ins_weight.index_select(0, block)
         ms = []
-        for j in range(pos_block.shape[0]):
-            batch = build_device_batch(rp, cfg, idx[j])
-            batch["ins_weight"] = w[j]
-            batch["rank_offset"] = ro[j]
-            state, m = raw_step(state, batch)
+        for k in range(block.shape[0]):
+            batch = build(idx[k, own])
+            if pv_feed is not None:
+                batch["ins_weight"] = w[k]
+                batch["rank_offset"] = ro[k]
+            state, m = step(state, batch)
             ms.append(m)
-        return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+        return state, {key: torch.stack([m[key] for m in ms]) for key in ms[0]}
 
     return superstep
 
 
-def make_resident_pv_mesh_superstep(
-    model_apply: Callable,
-    dense_opt,
-    cfg: TrainStepConfig,
-    rp: ResidentPass,
-    feed: ResidentPvFeed,
-    plan,
-    eval_mode: bool = False,
-) -> Callable:
-    """``superstep(state, pos_block [K]) -> (state, metrics)`` on a
-    single-host mesh: the pv analog of :func:`make_resident_mesh_superstep`.
-    ``feed`` holds this rank's blocks of the plan; each batch is
-    ``build_mesh_device_batch`` of the rank's [b] record indices, with its
-    ghost weights and rank matrix, run through the mesh step body."""
-    from paddlebox_tpu_torch.train.sharded_step import make_local_mesh_step
+class ResidentFeed:
+    """The resident feed's pass-scoped device state, for one (store,
+    working set).
 
-    local_step = make_local_mesh_step(model_apply, dense_opt, cfg, plan, eval_mode)
-    ns, cap = rp.ws.n_mesh_shards, rp.ws.capacity
+    ``rp`` is its :class:`ResidentPass`; ``index`` the index partition
+    uploaded last ([n, B] int32 on ``rp.device``, see
+    :meth:`index_partition`); ``pv_feed`` the :class:`ResidentPvFeed` of
+    the join phase's current plan (:meth:`load_pv`); ``steps`` the
+    supersteps built over them, one per ``(pv, eval_mode)``, so a pass
+    that alternates training and eval builds each once. A trainer keeps
+    one and drops it before building the next, so two passes' arrays never
+    sit on the device together."""
 
-    def superstep(state, pos_block: torch.Tensor):
-        idx = feed.idx.index_select(0, pos_block)
-        ro = feed.rank_offset.index_select(0, pos_block)
-        w = feed.ins_weight.index_select(0, pos_block)
-        ms = []
-        for j in range(pos_block.shape[0]):
-            batch = build_mesh_device_batch(rp, cfg, idx[j], ns, cap)
-            batch["ins_weight"] = w[j]
-            batch["rank_offset"] = ro[j]
-            state, m = local_step(state, batch)
-            ms.append(m)
-        return state, {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
+    def __init__(self, rp: ResidentPass):
+        self.rp = rp
+        self.index: Optional[torch.Tensor] = None
+        self._index_host: Optional[np.ndarray] = None
+        self._pv_plan = None
+        self.pv_feed: Optional[ResidentPvFeed] = None
+        self.steps: Dict[tuple, Callable] = {}
 
-    return superstep
+    def share(self) -> "ResidentFeed":
+        """A holder over the same device arrays with no supersteps, for
+        another trainer: a superstep closes over its trainer's model,
+        optimizer and config."""
+        other = ResidentFeed(self.rp)
+        other.index, other._index_host = self.index, self._index_host
+        other._pv_plan, other.pv_feed = self._pv_plan, self.pv_feed
+        return other
+
+    def index_partition(self, blocks: List[np.ndarray]) -> None:
+        """Put the partition's record indices on the device as ``index``,
+        uploaded once: a later partition that is a prefix of the uploaded
+        one (a warm-up slice of the timed partition) reuses its rows."""
+        host = np.stack(blocks).astype(np.int32) if blocks else np.zeros((0, 0), np.int32)
+        old = self._index_host
+        if old is None or len(host) > len(old) or not np.array_equal(old[: len(host)], host):
+            self.index = torch.from_numpy(host).to(self.rp.device)
+            self._index_host = host
+
+    def load_pv(self, plan, mesh_plan) -> None:
+        """Put the join phase's ``PvPlan`` on the device as ``pv_feed``,
+        once a plan. A new plan's arrays replace the old ones, which go
+        first, and so do the supersteps built over them."""
+        if plan is not self._pv_plan:
+            self._pv_plan = self.pv_feed = None
+            self.steps = {key: ss for key, ss in self.steps.items() if not key[0]}
+            self.pv_feed = ResidentPvFeed(plan, self.rp.device, mesh_plan=mesh_plan, multi_host=self.rp.per_device)
+            self._pv_plan = plan

@@ -89,13 +89,12 @@ shard of the pass table with the mesh step (``train/sharded_step.py``):
     ... the same pass loop; end_pass(trainer.trained_table())
 
 The feeds are chosen as on one device and named alike: "resident"
-(each rank builds its route buckets on its card,
-``make_resident_mesh_superstep``), "packer" (``BatchPacker.pack_sharded``
+(each rank builds its route buckets on its card:
+``make_resident_superstep`` with the plan), "packer" (``BatchPacker.pack_sharded``
 of the global batch at the bucket K ``freeze_shapes`` froze for the pass
 on every rank alike, the rank's block kept) and "slow"
 (``pack_batch_sharded``); in the join phase "resident_pv" (the rank's
-block of a ``PvPlan`` built for ``n_devices = world``,
-``make_resident_pv_mesh_superstep``), "pv_packer" (``pack_sharded`` of the
+block of a ``PvPlan`` built for ``n_devices = world``), "pv_packer" (``pack_sharded`` of the
 plan's global batches, the rank's block of their ``ins_weight`` and
 ``rank_offset`` kept) and "pv_records" (``pv_batches(n_devices=world)``
 through ``pack_batch_sharded``). A single host needs no lockstep: the
@@ -191,6 +190,7 @@ import os
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -208,13 +208,10 @@ from paddlebox_tpu_torch.train.dense_opt import Adam, MultiStepsState, tree_map
 from paddlebox_tpu_torch.metrics.registry import MetricRegistry
 from paddlebox_tpu_torch.parallel.mesh import MeshPlan
 from paddlebox_tpu_torch.train.resident_step import (
+    ResidentFeed,
     ResidentPass,
-    ResidentPvFeed,
     count_pooled,
     ensure_sharded,
-    make_resident_mesh_superstep,
-    make_resident_pv_mesh_superstep,
-    make_resident_pv_superstep,
     make_resident_superstep,
 )
 from paddlebox_tpu_torch.train.sharded_step import (
@@ -246,6 +243,10 @@ _SLOW_FEED_KEYS = ("build_batch_s", "pack_batch_s", "h2d_s")
 
 def _clone_opt_state(st: Any) -> Any:
     return tree_map(torch.clone, st)
+
+
+def _no_span(name: str, category: str):
+    return nullcontext()
 
 
 class CTRTrainer:
@@ -318,11 +319,9 @@ class CTRTrainer:
         self._state: Optional[TrainState] = None
         self._state_ws = None
         self._packer_cache = None  # (store, ws, BatchPacker)
-        self._resident_cache = None  # (store, ws, ResidentPass)
-        # (pv, eval_mode) -> (ResidentPass, ResidentPvFeed or None, superstep)
-        self._sstep_cache: Dict[tuple, tuple] = {}
-        self._idx_cache = None  # (ResidentPass, host [n, B] int32, device copy)
-        self._pv_feed_cache = None  # (PvPlan, ResidentPass, ResidentPvFeed)
+        # the resident feed's pass-scoped state: its ResidentPass, index
+        # partition, pv plan and supersteps (None until a resident pass)
+        self.resident: Optional[ResidentFeed] = None
         # SetTestMode (box_wrapper.cc:623): the next train_pass calls run
         # the eval step until cleared
         self.test_mode = False
@@ -391,8 +390,7 @@ class CTRTrainer:
         if self._packer_cache is not None:
             self._packer_cache[2].close()
         self._state = self._state_ws = None
-        self._packer_cache = self._resident_cache = self._idx_cache = self._pv_feed_cache = None
-        self._sstep_cache = {}
+        self._packer_cache = self.resident = None
 
     def save_dense(self, path: str) -> None:
         """Dense checkpoint (boxps_trainer.cc:123-131 parity) in the JAX
@@ -799,19 +797,17 @@ class CTRTrainer:
             return self._pv_locked_plan(dataset) is not None
         return not self.cfg.model_takes_rank_offset
 
-    def _get_resident(self, dataset: BoxPSDataset) -> ResidentPass:
-        """Pass-scoped ResidentPass, rebuilt when the store or working set
-        changes. The previous pass's device arrays are released first, so
-        two passes' arrays never sit on the device together."""
-        c = self._resident_cache
-        if c is not None and c[0] is dataset.store and c[1] is dataset.ws:
-            return c[2]
+    def _get_resident(self, dataset: BoxPSDataset) -> ResidentFeed:
+        """The pass-scoped ResidentFeed, rebuilt when the store or working
+        set changes. The previous pass's device arrays are released first,
+        so two passes' arrays never sit on the device together."""
+        res = self.resident
+        if res is not None and res.rp.store is dataset.store and res.rp.ws is dataset.ws:
+            return res
         # a rebuild over the same store keeps the unique-row counts of its
         # index blocks: distinct keys map to distinct rows in any working set
-        prev_uniq = c[2]._uniq_cache if c is not None and c[0] is dataset.store else None
-        c = None  # a live reference would keep the old arrays on the device
-        self._resident_cache = self._idx_cache = self._pv_feed_cache = None
-        self._sstep_cache = {}
+        prev_uniq = res.rp._uniq_cache if res is not None and res.rp.store is dataset.store else None
+        res = self.resident = None  # a live reference would keep the old arrays on the device
         rp = ResidentPass(
             dataset.store, dataset.ws, dataset.schema, self.device, dense_slot=self.dense_slot,
             dense_dim=self.dense_dim, bucket=self.pack_bucket, plan=self.plan,
@@ -819,71 +815,42 @@ class CTRTrainer:
         )
         if prev_uniq:
             rp._uniq_cache.update(prev_uniq)
-        self._resident_cache = (dataset.store, dataset.ws, rp)
-        return rp
+        self.resident = ResidentFeed(rp)
+        return self.resident
 
-    def _pv_resident_prepare(self, dataset: BoxPSDataset, parts: Optional[Dict[str, float]] = None):
-        """(ResidentPass, PvPlan, ResidentPvFeed) of the resident join
-        phase: build the plan, grow the resident pads over its batches
-        (ghosts repeat records: they add keys, no unique rows) and upload
-        its arrays once a pass. With ``parts`` each stage's seconds land
-        there."""
+    def _resident_prepare(self, dataset: BoxPSDataset, use_pv: bool, n_batches, traced: bool):
+        """The resident prepare of prepare_pass and train_pass: the pass's
+        ResidentFeed, the batches' record indices (the join phase: its
+        plan's), the pads grown over them and their upload, the index
+        partition or the plan. Returns (ResidentFeed, the host record
+        indices [n, B], each stage's seconds under its
+        ``last_prepare_parts`` name). ``traced`` puts the flat tier's
+        stages in spans."""
+        span = PROFILER.record_event if traced else _no_span
         t = [time.perf_counter()]
-        rp = self._get_resident(dataset)
+        res = self._get_resident(dataset)
         t.append(time.perf_counter())
-        plan = self._pv_locked_plan(dataset)
-        t.append(time.perf_counter())
-        self._ensure_pads(rp, plan.idx)
-        t.append(time.perf_counter())
-        c = self._pv_feed_cache
-        if c is None or c[0] is not plan or c[1] is not rp:
-            self._pv_feed_cache = None  # the old plan's arrays go first
-            feed = ResidentPvFeed(plan, self.device, mesh_plan=self.plan, multi_host=rp.per_device)
-            self._pv_feed_cache = (plan, rp, feed)
-        t.append(time.perf_counter())
-        if parts is not None:
+        if use_pv:
             names = ("resident_upload_s", "pv_plan_s", "pad_stats_s", "pv_upload_s")
-            parts.update({k: b - a for k, a, b in zip(names, t, t[1:])})
-        return rp, plan, self._pv_feed_cache[2]
-
-    def _resident_superstep(self, rp: ResidentPass, eval_mode: bool, pv_feed: Optional[ResidentPvFeed] = None):
-        """The superstep of (flat or pv, train or eval), cached side by
-        side, so a pass that alternates training and eval builds each
-        once."""
-        key = (pv_feed is not None, eval_mode)
-        c = self._sstep_cache.get(key)
-        if c is None or c[0] is not rp or c[1] is not pv_feed:
-            if pv_feed is None and self.plan is not None:
-                ss = make_resident_mesh_superstep(
-                    self._model_apply, self.dense_opt, self.cfg, rp, self.plan, eval_mode=eval_mode
-                )
-            elif pv_feed is None:
-                ss = make_resident_superstep(self._model_apply, self.dense_opt, self.cfg, rp, eval_mode=eval_mode)
-            elif self.plan is not None:
-                ss = make_resident_pv_mesh_superstep(
-                    self._model_apply, self.dense_opt, self.cfg, rp, pv_feed, self.plan, eval_mode=eval_mode
-                )
-            else:
-                ss = make_resident_pv_superstep(
-                    self._model_apply, self.dense_opt, self.cfg, rp, pv_feed, eval_mode=eval_mode
-                )
-            c = self._sstep_cache[key] = (rp, pv_feed, ss)
-        return c[2]
-
-    def _index_partition(self, rp: ResidentPass, blocks: List[np.ndarray]) -> torch.Tensor:
-        """The partition's record indices on the device, [n, B] int32,
-        uploaded once: a later partition that is a prefix of the uploaded
-        one (a warm-up slice of the timed partition) reuses its rows."""
-        host = np.stack(blocks).astype(np.int32) if blocks else np.zeros((0, 0), np.int32)
-        c = self._idx_cache
-        if (
-            c is not None and c[0] is rp and len(host) <= len(c[1])
-            and np.array_equal(c[1][: len(host)], host)
-        ):
-            return c[2][: len(host)]
-        dev = torch.from_numpy(host).to(self.device)
-        self._idx_cache = (rp, host, dev)
-        return dev
+            plan = self._pv_locked_plan(dataset)
+            host_idx = plan.idx
+            t.append(time.perf_counter())
+            # ghosts repeat records: they add keys, no unique rows
+            self._ensure_pads(res.rp, host_idx)
+            t.append(time.perf_counter())
+            res.load_pv(plan, self.plan)
+        else:
+            names = ("resident_upload_s", "batch_indices_s", "pad_stats_s", "index_partition_s")
+            with span("resident.batch_indices", "pass"):
+                host_idx = [np.asarray(b, dtype=np.int32) for b in dataset.batch_indices(n_batches)]
+            t.append(time.perf_counter())
+            with span("resident.ensure_pads", "pass"):
+                self._ensure_pads(res.rp, host_idx)
+            t.append(time.perf_counter())
+            with span("resident.index_partition", "pass"):
+                res.index_partition(host_idx)
+        t.append(time.perf_counter())
+        return res, host_idx, {k: b - a for k, a, b in zip(names, t, t[1:])}
 
     def _resident_stepper(self, dataset: BoxPSDataset, n_batches, holder, eval_mode, profile, tm, use_pv):
         """Superstep dispatch: K batches a call. The flat tier's feed is a
@@ -896,29 +863,26 @@ class CTRTrainer:
         ``profile`` every dispatch is one batch and waits for the device
         (per-batch attribution, as the JAX package does)."""
         t0 = time.perf_counter()
-        pv_feed = w_dev = None
         with PROFILER.record_event("resident_prepare", "pass"):
+            res, host_idx, _ = self._resident_prepare(dataset, use_pv, n_batches, True)
+            n = len(host_idx) if n_batches is None else min(len(host_idx), n_batches)
+            pv_feed = w_dev = None
+            feed_dev = rows_dev = res.index
             if use_pv:
-                rp, plan, pv_feed = self._pv_resident_prepare(dataset)
-                n = plan.n_batches if n_batches is None else min(plan.n_batches, n_batches)
+                pv_feed = res.pv_feed
                 # the registry reads the global batch (on a mesh, beside the
                 # rank's blocks the step reads)
                 feed_dev, rows_dev, w_dev = pv_feed.positions, pv_feed.global_idx, pv_feed.global_ins_weight
-            else:
-                rp = self._get_resident(dataset)
-                with PROFILER.record_event("resident.batch_indices", "pass"):
-                    blocks = [np.asarray(b, dtype=np.int32) for b in dataset.batch_indices(n_batches)]
-                with PROFILER.record_event("resident.ensure_pads", "pass"):
-                    self._ensure_pads(rp, blocks)
-                with PROFILER.record_event("resident.index_partition", "pass"):
-                    feed_dev = rows_dev = self._index_partition(rp, blocks)
-                n = len(blocks)
             with PROFILER.record_event("resident.superstep_build", "pass"):
-                sstep = self._resident_superstep(rp, eval_mode, pv_feed)
+                sstep = res.steps.get((use_pv, eval_mode))
+                if sstep is None:
+                    sstep = res.steps[use_pv, eval_mode] = make_resident_superstep(
+                        self._model_apply, self.dense_opt, self.cfg, res.rp, eval_mode, plan=self.plan,
+                        pv_feed=pv_feed,
+                    )
             logkeys = None
             if self.metric_registry is not None and dataset.store.ins_id_off is not None:
-                logkeys = rp.logkey_columns()
-        host_idx = plan.idx if use_pv else blocks
+                logkeys = res.rp.logkey_columns()
         tm["feed_wait_s"] += time.perf_counter() - t0
         K = 1 if profile else max(1, int(config.get_flag("resident_scan_batches")))
         # a dump's instance ids are built off the dispatch thread: one
@@ -941,7 +905,7 @@ class CTRTrainer:
                     holder["state"], mstack = sstep(holder["state"], feed_dev[c0 : c0 + k])
                     ev = self._mark()
                 if self.plan is None:
-                    count_pooled(rp, c0, k)
+                    count_pooled(res.rp, c0, k)
                 tm["step_dispatch_s"] += time.perf_counter() - t0
                 if profile:
                     self._wait(ev, "device_superstep", tm)
@@ -984,25 +948,9 @@ class CTRTrainer:
                 return
             use_pv = dataset.pv_merged and dataset.current_phase == 1
             is_async = self.cfg.dense_sync_mode == "async" and not self._eval_active
-            if use_pv:
-                if self._use_resident(dataset, True, is_async):
-                    parts: Dict[str, float] = {}
-                    self._pv_resident_prepare(dataset, parts)
-                    self.last_prepare_parts = parts
-                return
-            if self._use_resident(dataset, False, is_async):
-                t = [time.perf_counter()]
-                rp = self._get_resident(dataset)
-                t.append(time.perf_counter())
-                blocks = [np.asarray(b, dtype=np.int32) for b in dataset.batch_indices(n_batches)]
-                t.append(time.perf_counter())
-                self._ensure_pads(rp, blocks)
-                t.append(time.perf_counter())
-                self._index_partition(rp, blocks)
-                t.append(time.perf_counter())
-                names = ("resident_upload_s", "batch_indices_s", "pad_stats_s", "index_partition_s")
-                self.last_prepare_parts = {k: b - a for k, a, b in zip(names, t, t[1:])}
-            else:
+            if self._use_resident(dataset, use_pv, is_async):
+                self.last_prepare_parts = self._resident_prepare(dataset, use_pv, n_batches, False)[2]
+            elif not use_pv:  # the join phase's packer freezes at feed time
                 self._get_packer(dataset).freeze_shapes(
                     dataset.batch_indices(n_batches), n_devices=self._n_pack(dataset),
                     transport=self._lockstep(dataset),

@@ -592,7 +592,7 @@ def test_revert_and_end_pass_delta_match_jax(parser_tier, tmp_path):
     assert_same_dense(tr, jtr)
     for got, want in zip(jax_leaves(jtr), random_dense(jtr, 1)[0]):
         np.testing.assert_array_equal(got, want)
-    assert tr._state is None and tr._resident_cache is None
+    assert tr._state is None and tr.resident is None
 
     # the retrain saves its delta and confirms the guard
     dev = _begin_both(dss, days[1], trainers, enable_revert=True)
@@ -691,7 +691,7 @@ def test_revert_restores_table_and_dense_and_retrain_equals_fresh(tmp_path):
     ds.revert_pass()
     np.testing.assert_array_equal(table.pull_or_create(pre_keys), pre_rows)
     assert _same_dense_leaves(_dense(tr), pre_dense)
-    assert tr._state is None and tr._resident_cache is None  # nothing stale on the device
+    assert tr._state is None and tr.resident is None  # nothing stale on the device
     ds.begin_pass(round_to=64)
     tr.train_pass(ds)
     ds.end_pass(tr.trained_table())

@@ -347,10 +347,10 @@ def test_prepare_pass_uploads_the_index_partition_once(tmp_path, native_store):
                         cfg, dense_opt=Adam(1e-2), device="cpu")
         tr.prepare_pass(ds, n_batches=8)
         assert tr.last_prepare_s > 0
-        rp, host, dev = tr._idx_cache
+        rp, dev = tr.resident.rp, tr.resident.index
         assert dev.shape == (8, B) and dev.dtype == torch.int32
         L_pad, U_pad = rp.L_pad, rp.U_pad
         tr.train_pass(ds, n_batches=6)
-        assert tr._idx_cache[2] is dev  # no second upload
+        assert tr.resident.index is dev  # no second upload
         assert (rp.L_pad, rp.U_pad) == (L_pad, U_pad)
         assert torch.equal(tr._state.table, plain[2].table)

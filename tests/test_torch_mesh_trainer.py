@@ -148,7 +148,7 @@ def rank_main(plan, d: str, files, other_files) -> None:
     # three prefetch threads pack at a bucket that lets K vary by batch
     _set_flags(config, dict(FEEDS["packer"], feed_pipeline_workers=3))
     tr, ds, _, out = _port_pass(plan, files, pack_bucket=THREADS_BUCKET)
-    packer = tr._packer_cache[2]
+    packer = tr._get_packer(ds)
     needs = []
     for idx in ds.batch_indices():
         b = len(idx) // plan.world

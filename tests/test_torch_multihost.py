@@ -359,7 +359,7 @@ def _pv_mode(plan, tp, res, files, local_batch, feed):
     res[f"{prefix}:join_feed"] = np.array(join_tr.last_feed)
     # the join plan this host trained (its lockstep count cached), by
     # (search id, rank): a record's identity in every package's store
-    pvp = ds.pv_plan(1, min_batches=join_tr._pv_minb_cache[2])
+    pvp = join_tr._pv_locked_plan(ds)
     st = ds.store
     res.update({f"{prefix}:plan_sid": st.search_ids[pvp.idx], f"{prefix}:plan_rank": st.rank[pvp.idx],
                 f"{prefix}:plan_ro": pvp.rank_offset, f"{prefix}:plan_w": pvp.ins_weight})

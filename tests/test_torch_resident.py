@@ -34,7 +34,7 @@ from paddlebox_tpu.train.resident_step import ResidentPass as JResidentPass
 from paddlebox_tpu.train.resident_step import build_device_batch as jbuild_device_batch
 from paddlebox_tpu.utils import native as jnative
 from paddlebox_tpu_torch import config
-from paddlebox_tpu_torch.data import BoxPSDataset, SlotInfo, SlotSchema
+from paddlebox_tpu_torch.data import BoxPSDataset, PvPlan, SlotInfo, SlotSchema
 from paddlebox_tpu_torch.data.record_store import _ragged_indices
 from paddlebox_tpu_torch.metrics import auc_init
 from paddlebox_tpu_torch.models import DeepFM, deepfm_params_from_jax
@@ -43,6 +43,7 @@ from paddlebox_tpu_torch.train import (
     Adam,
     CTRTrainer,
     ResidentPass,
+    ResidentPvFeed,
     TrainState,
     TrainStepConfig,
     build_device_batch,
@@ -170,7 +171,11 @@ def test_ensure_freezes_the_jax_pads(native_sweep):
         config.set_flag("enable_native_parser", before)
 
 
-def test_superstep_stacks_metrics_along_k():
+@pytest.mark.parametrize("pv", [False, True], ids=["flat", "pv"])
+def test_superstep_stacks_metrics_along_k(pv):
+    """The one superstep factory on one device, on record indices or, with
+    a pv feed, on positions into the resident plan: here the same batches
+    in reverse, weight 1 each, so the losses are the flat tier's."""
     rp, _ = _passes(None)
     B, K = 8, 3
     idx = torch.arange(K * B, dtype=torch.int32).reshape(K, B)
@@ -180,12 +185,23 @@ def test_superstep_stacks_metrics_along_k():
     model = DeepFM(S, lay.pull_width, D, hidden=(8,), generator=torch.Generator().manual_seed(0))
     params = {k: v.detach().clone() for k, v in model.state_dict().items()}
     opt = Adam(1e-3)
-    sstep = make_resident_superstep(lambda p, x, d: functional_call(model, p, (x, d)), opt, cfg, rp)
-    st = TrainState(
-        table=torch.zeros((rp.n_table_rows, lay.width)), params=params, opt_state=opt.init(params),
-        auc=auc_init(100, device="cpu"), step=torch.zeros((), dtype=torch.int32),
-    )
-    st, m = sstep(st, idx)
+    apply = lambda p, x, d: functional_call(model, p, (x, d))  # noqa: E731
+
+    def run(sstep, block):
+        st = TrainState(
+            table=torch.zeros((rp.n_table_rows, lay.width)), params=dict(params), opt_state=opt.init(params),
+            auc=auc_init(100, device="cpu"), step=torch.zeros((), dtype=torch.int32),
+        )
+        return sstep(st, block)
+
+    st, m = run(make_resident_superstep(apply, opt, cfg, rp), idx)
+    if pv:
+        plan = PvPlan(idx=idx.numpy()[::-1].copy(), rank_offset=np.zeros((K, B, 3), np.int32),
+                      ins_weight=np.ones((K, B), np.float32), n_devices=1)
+        flat_loss = m["loss"]
+        st, m = run(make_resident_superstep(apply, opt, cfg, rp, pv_feed=ResidentPvFeed(plan, torch.device("cpu"))),
+                    torch.arange(K - 1, -1, -1))
+        torch.testing.assert_close(m["loss"], flat_loss)
     assert m["loss"].shape == (K,) and bool(torch.isfinite(m["loss"]).all())
     assert int(st.step) == K and int(st.opt_state.count) == K
 
@@ -249,7 +265,7 @@ def test_one_resident_pass_matches_jax(tmp_path, monkeypatch):
     )
     tr.prepare_pass(ds)
     out = tr.train_pass(ds, profile=True)
-    assert tr._resident_cache is not None and table.native
+    assert tr.resident is not None and table.native
     assert set(out["profile"]) == {"feed_wait_s", "step_dispatch_s", "device_step_s", "host_metrics_s"}
     ended = ds.end_pass(tr.trained_table())
 
@@ -280,14 +296,14 @@ def test_resident_rebuild_over_the_same_store_keeps_the_unique_counts(tmp_path, 
     tr = CTRTrainer(DeepFM(S, lay.pull_width, D, hidden=HIDDEN, generator=torch.Generator().manual_seed(0)),
                     cfg, device="cpu")
     tr.prepare_pass(ds)
-    old = tr._resident_cache[2]
+    old = tr.resident.rp
     ws = PassWorkingSet()
     ws.add_keys(ds.store.u64_values)
     ws.finalize(table, round_to=64)
     ds.ws = ws
-    new = tr._get_resident(ds)  # before any sweep of its own
+    new = tr._get_resident(ds).rp  # before any sweep of its own
     assert new is not old and new.ws is ws
     assert new._uniq_cache == old._uniq_cache and len(new._uniq_cache) == ds.num_batches()
     tr.prepare_pass(ds)
-    assert tr._resident_cache[2] is new
+    assert tr.resident.rp is new
     assert (new.L_pad, new.U_pad) == (old.L_pad, old.U_pad)
